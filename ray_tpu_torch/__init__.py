@@ -1,0 +1,12 @@
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu for NVIDIA Hopper GPUs.
+
+It imports torch, numpy and the standard library, never jax and nothing of
+the ray_tpu package. Entry points run on CUDA unless the caller passes
+device="cpu". Ported so far: the LLM serving path (serve.llm over
+models.transformer, with the flash-attention forward as a CUDA kernel in
+ops).
+"""
+
+from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError
+
+__all__ = ["BackpressureError", "KVPoolExhaustedError", "RayTpuError"]
