@@ -5,13 +5,20 @@
 Phases, each printing its own line, any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel from ray_tpu_torch/ops/csrc/;
-  3. kernel: each kernel against its plain PyTorch version on the card, with
-     its time, the plain version's, one PyTorch library call's and the bound;
+  3. kernel: each kernel (flash forward, and the backward's dq and dk/dv)
+     against its plain PyTorch version on the card, with its time, the plain
+     version's, one PyTorch library call's and the bound;
   4. paged: PagedLM prefill+decode against the port's full forward, Llama-2-7B
      width, 2 layers, float32: greedy tokens must be equal;
   5. serve: InferenceEngine over PagedLM at full Llama-2-7B width in bf16
      (random weights from a seed) answers 8 requests; the flash kernel's
-     launch count on that path is checked.
+     launch count on that path is checked;
+  6. train-parity: 3 AdamW steps at Llama-2-7B width, 2 layers, float32,
+     through the kernels and through plain autograd from the same params:
+     the first step's gradients and every step's loss must agree;
+  7. train: 6 AdamW steps of Llama-2-7B at full width, 8 layers, bf16, on a
+     2 x 2048-token batch: a finite, falling loss, step time, tokens/s, MFU,
+     peak memory, and each kernel's launch count on that path.
 Then one JSON line with every kernel's numbers, and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -51,17 +58,30 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
-def flash_bound_ms(b, s, h, h_kv, d, dtype_name, causal):
-    """Least time for one flash forward: the larger of its FLOPs (QK^T and PV
-    over the unmasked pairs) over the peak for its type and its bytes (q, k,
-    v read once, o and lse written once) over HBM bandwidth."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 2 * 2 * b * h * pairs * d
-    es = 2 if dtype_name == "bfloat16" else 4
-    nbytes = es * (2 * b * s * h * d + 2 * b * s * h_kv * d) + 4 * b * h * s
+def _bound_ms(flops, nbytes, dtype_name):
+    """The larger of FLOPs over the peak for their type and bytes over HBM
+    bandwidth, and which of the two it is."""
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bound_ms(kernel, b, s, h, h_kv, d, dtype_name, causal):
+    """Least time for one flash kernel on the unmasked (q, k) pairs, each
+    input read once and each output written once:
+      fwd: QK^T, PV; reads q, k, v, writes o and lse (fp32);
+      dq:  QK^T, dO.V^T, dS.K; reads q, do, k, v, lse, delta, writes dq;
+      dkv: QK^T, dO.V^T, P^T.dO, dS^T.Q; reads q, do, k, v, lse, delta,
+           writes dk and dv."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    es = 2 if dtype_name == "bfloat16" else 4
+    q_size, kv_size, row = b * s * h * d, b * s * h_kv * d, b * h * s
+    products, nbytes = {
+        "fwd": (2, es * (2 * q_size + 2 * kv_size) + 4 * row),
+        "dq": (3, es * (3 * q_size + 2 * kv_size) + 8 * row),
+        "dkv": (4, es * (2 * q_size + 4 * kv_size) + 8 * row),
+    }[kernel]
+    return _bound_ms(products * 2 * b * h * pairs * d, nbytes, dtype_name)
 
 
 def phase_device():
@@ -93,20 +113,20 @@ def phase_build():
     print(f"[build] kernels {names} built in {dt:.1f} s", flush=True)
 
 
-def phase_kernel():
+def _check_fwd():
     """Flash forward kernel against reference_attention_with_lse on the card."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.flash_attention import flash_fwd, reference_attention_with_lse
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     tol = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}  # (o, lse)
     # (b, s, h, h_kv, d, dtype, causal); s=1024 is the serve phase's largest
-    # prefill bucket, the shape reported in the JSON line.
+    # prefill bucket, the shape reported in the JSON line; b=2, s=2048 is the
+    # train phase's.
     cases = [(1, s, 32, 32, 128, torch.bfloat16, True) for s in (16, 128, 512, 1024, 2048)]
-    cases += [(2, 256, 8, 2, 128, torch.bfloat16, True), (1, 300, 8, 8, 64, torch.float32, False),
+    cases += [(2, 2048, 32, 32, 128, torch.bfloat16, True),
+              (2, 256, 8, 2, 128, torch.bfloat16, True), (1, 300, 8, 8, 64, torch.float32, False),
               (1, 40, 4, 2, 16, torch.float32, True)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = None
@@ -128,7 +148,7 @@ def phase_kernel():
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=h != h_kv))
-        bound, by = flash_bound_ms(b, s, h, h_kv, d, name, causal)
+        bound, by = flash_bound_ms("fwd", b, s, h, h_kv, d, name, causal)
         print(f"[kernel] flash_fwd b={b} s={s} h={h} h_kv={h_kv} d={d} {name} causal={causal}: "
               f"err o {err_o:.3g} (tol {tol[name][0]}) lse {err_l:.3g} (tol {tol[name][1]}); "
               f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
@@ -144,6 +164,137 @@ def phase_kernel():
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             }
     return report
+
+
+# The backward kernels' check: each entry of dq, dk and dv is held to
+# tol x (|ref| + rms(ref)), ref the plain version's result. That is relative
+# where an entry is large, with a floor at the tensor's typical magnitude
+# where it is near 0: a causal row's dq shrinks as its row grows, and row 0's
+# is 0 up to rounding. bf16: 2**-6 (four bf16 ulps); at the train shape a
+# correct kernel reads at most 0.0075 (the outputs round to bf16, and a P or
+# dS near a rounding boundary rounds one ulp apart), one 64-row tile of one
+# head scaled by 0.9 reads 0.06-0.08. fp32: 1e-4, where the readings are at
+# most 6e-6 (sums in another order).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+
+
+def bwd_err(got, want) -> float:
+    """max over entries of |got - want| / (|want| + rms(want))."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
+
+
+def _planted_faults(t):
+    """Wrong versions of a [b, s, h, d] gradient that the check must refuse:
+    every row past the first 64-row tile halved, and one 64-row tile of one
+    head scaled by 0.9."""
+    halved, tile = t.clone(), t.clone()
+    halved[:, 64:] *= 0.5
+    tile[:, 1024:1088, 5] *= 0.9
+    return {"x0.5 past row 64": halved, "x0.9 on rows 1024-1087 of head 5": tile}
+
+
+def _check_bwd():
+    """The backward kernels (flash_bwd_dq, flash_bwd_dkv) against their plain
+    versions on the card; times at the train phase's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    bf, f32 = torch.bfloat16, torch.float32
+    # (b, s, h, h_kv, d, dtype, causal): the train phase's shape first (the
+    # one reported) and again in fp32, then every head_dim in both dtypes,
+    # causal or not, GQA and MQA, and lengths that are not a multiple of the
+    # 64-row tile.
+    cases = [(2, 2048, 32, 32, 128, bf, True), (2, 2048, 32, 32, 128, f32, True),
+             (1, 1000, 8, 4, 128, bf, False), (1, 256, 4, 2, 128, f32, True),
+             (1, 300, 8, 8, 64, bf, False), (1, 200, 8, 2, 64, f32, True),
+             (1, 96, 4, 4, 32, bf, True), (1, 130, 2, 2, 32, f32, False),
+             (1, 40, 4, 2, 16, bf, True), (2, 128, 4, 1, 16, f32, False)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for b, s, h, h_kv, d, dt, causal in cases:
+        q, k, v, do = (torch.randn((b, s, hh, d), generator=gen, device="cuda").to(dt)
+                       for hh in (h, h_kv, h_kv, h))
+        scale = d ** -0.5
+        o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, lse, do, delta)
+        kw = dict(causal=causal, scale=scale)
+        got = {"dq": (fa.flash_bwd_dq(*args, **kw),), "dkv": fa.flash_bwd_dkv(*args, **kw)}
+        torch.cuda.synchronize()
+        want = {"dq": (fa.reference_flash_bwd_dq(*args, **kw),),
+                "dkv": fa.reference_flash_bwd_dkv(*args, **kw)}
+        name = str(dt).replace("torch.", "")
+        tol = BWD_TOL[name]
+        where = f"b={b} s={s} h={h} h_kv={h_kv} d={d} {name} causal={causal}"
+        errs, planted = {}, {}
+        for kern in ("dq", "dkv"):
+            for label, g, w in zip(("dq",) if kern == "dq" else ("dk", "dv"), got[kern],
+                                   want[kern]):
+                err = bwd_err(g, w)
+                errs[label] = (err, (g.float() - w.float()).abs().max().item())
+                if not (math.isfinite(err) and err <= tol):
+                    _fail(f"flash_bwd {label} disagrees with its plain version at {where}: "
+                          f"{err:.3g} (tol {tol})")
+                if s >= 1088 and h > 5:
+                    for fault, bad in _planted_faults(g).items():
+                        planted[f"{label} {fault}"] = bwd_err(bad, w)
+        print(f"[kernel] flash_bwd {where}: max |err| / (|ref| + rms(ref)) "
+              + "; ".join(f"{lb} {e:.3g} (max abs {a:.3g})" for lb, (e, a) in errs.items())
+              + f"; tol {tol}", flush=True)
+        if planted:
+            print(f"[kernel] flash_bwd {where}: planted faults read "
+                  + "; ".join(f"{f} {e:.3g}" for f, e in planted.items()), flush=True)
+            if min(planted.values()) <= tol:
+                _fail(f"the backward check passes a planted fault at {where}: {planted}")
+        if rows:
+            continue
+        # The train phase's shape: times. SDPA's backward (its fwd+bwd less
+        # its fwd) computes dq, dk and dv together: one number for both rows.
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                                  enable_gqa=h != h_kv)
+
+        lib_ms = (_time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), iters=10)
+                  - _time_ms(sdpa, iters=10))
+        for kern, fn, plain in (("dq", fa.flash_bwd_dq, fa.reference_flash_bwd_dq),
+                                ("dkv", fa.flash_bwd_dkv, fa.reference_flash_bwd_dkv)):
+            ms = _time_ms(lambda: fn(*args, **kw), iters=10)
+            plain_ms = _time_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+            bound, by = flash_bound_ms(kern, b, s, h, h_kv, d, name, causal)
+            labels = ("dq",) if kern == "dq" else ("dk", "dv")
+            print(f"[kernel] flash_bwd_{kern} b={b} s={s} h={h} h_kv={h_kv} d={d} {name} "
+                  f"causal={causal}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+                  f"(SDPA backward: dq, dk and dv together) bound_ms {bound:.4f} ({by})",
+                  flush=True)
+            rows[kern] = {
+                "name": f"flash_bwd_{kern}", "route": "cuda",
+                "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                "replaces": ("ray_tpu/ops/flash_attention.py:104" if kern == "dq"
+                             else "ray_tpu/ops/flash_attention.py:133"),
+                "launches": None, "max_abs_err": max(errs[lb][1] for lb in labels), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            }
+    return rows
+
+
+def phase_kernel():
+    """Every kernel against its plain version on the card; returns the JSON
+    rows of flash_fwd (serve shape), flash_bwd_dq and flash_bwd_dkv (train
+    shape), launches still to fill in."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fwd_row = _check_fwd()
+    bwd_rows = _check_bwd()
+    torch.cuda.empty_cache()
+    return fwd_row, bwd_rows["dq"], bwd_rows["dkv"]
 
 
 def phase_paged():
@@ -197,15 +348,36 @@ def _timed(fn, log):
     return wrapper
 
 
-def _print_profile(prof, wall_s):
-    """Device time by kernel over the serve window, and the device's busy
-    share of that window (one stream, so kernel times do not overlap)."""
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+# CUPTI's overhead records (host-side waits such as a full launch queue),
+# which the profiler lists beside kernels: they are not device work.
+_CUPTI_OVERHEAD = {"Unknown", "Buffer Flush", "Instrumentation", "Resource",
+                   "Runtime Triggered Module Loading", "Lazy Function Loading",
+                   "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"}
+
+
+def _print_profile(prof, wall_s, phase):
+    """Device time by kernel over a phase's traced window, and the device's
+    busy share of that window (one stream, so kernel times do not overlap).
+    Only kernels count: the profiler also credits each CPU op of the tracing
+    thread, and each user annotation such as Optimizer.step, with the
+    kernels it launched."""
+    import torch
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in _CUPTI_OVERHEAD
+            and not e.is_user_annotation and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
-    print(f"[profile] device busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+    print(f"[profile {phase}] device busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
           f"({100 * busy_us / 1e3 / (wall_s * 1e3):.1f}%)", flush=True)
+    groups = {"flash kernels": ("flash_",), "cuBLAS": ("nvjet", "gemm", "gemv", "cutlass")}
+    sums = dict.fromkeys([*groups, "other"], 0.0)
+    for e in rows:
+        group = next((g for g, marks in groups.items() if any(m in e.key for m in marks)), "other")
+        sums[group] += e.self_device_time_total / 1e3
+    print(f"[profile {phase}] by kind: " + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sums.items()),
+          flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}",
+        print(f"[profile {phase}] {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}",
               flush=True)
 
 
@@ -220,7 +392,6 @@ def phase_serve(profile: bool = False):
     import torch
 
     from ray_tpu_torch.models.transformer import llama2_7b
-    from ray_tpu_torch.ops.flash_attention import flash_fwd
     from ray_tpu_torch.serve.llm import EngineConfig, InferenceEngine, PagedLM
 
     t0 = time.perf_counter()
@@ -262,7 +433,7 @@ def phase_serve(profile: bool = False):
                 if profile else contextlib.nullcontext())
         with prof:
             t_window = time.perf_counter()
-            flash_fwd.launches = 0
+            _zero_launch_counts()
             t_submit = {}
             for i in range(7):
                 t_submit[i] = time.perf_counter()
@@ -277,14 +448,14 @@ def phase_serve(profile: bool = False):
             for i, d in enumerate(done):
                 if not d.wait(timeout=max(1.0, deadline - time.monotonic())):
                     _fail(f"request {i} did not finish")
-            launches = flash_fwd.launches
+            launches = _launch_counts()["flash_fwd"]
             torch.cuda.synchronize()
             t_window = time.perf_counter() - t_window
         stats = eng.stats()
     finally:
         eng.close()
     if profile:
-        _print_profile(prof, t_window)
+        _print_profile(prof, t_window, "serve")
     ttft, first_tok, last_tok, n_decode = [], [], [], 0
     for i, evs in enumerate(events):
         out = [v for _, ev, v in evs if ev == "tok"]
@@ -319,6 +490,145 @@ def phase_serve(profile: bool = False):
     return launches
 
 
+def _launch_counts():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd.launches, "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _zero_launch_counts():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+
+
+def _named_leaves(tree, prefix=""):
+    """[(path, tensor)] of a param tree, e.g. ("blocks/attn/wq", t)."""
+    if isinstance(tree, dict):
+        return [leaf for key, sub in tree.items()
+                for leaf in _named_leaves(sub, f"{prefix}{key}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def phase_train_parity():
+    """3 AdamW steps at Llama-2-7B width, 2 layers, float32 with TF32 off,
+    b=1, s=256, through the kernels (attn_impl="full") and through plain
+    autograd over attention_reference ("naive"), from the same params and
+    tokens. The first step's gradient of every leaf agrees within 1e-5 of
+    that leaf's norm (readings at most 2.6e-6: fp32 sums in another order);
+    Adam's updates hide a gradient off by a factor, so the losses alone do
+    not show one. Losses agree within 5e-5 relative at every step: Adam
+    carries the gradients' rounding into the next steps."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rtol, grad_rtol, n_layers, n_steps = 5e-5, 1e-5, 2, 3
+    tokens = torch.randint(0, 32000, (1, 256), generator=torch.Generator().manual_seed(3))
+    losses, launches, grads = {}, {}, {}
+    for impl in ("full", "naive"):
+        cfg = tfm.llama2_7b(n_layers=n_layers, dtype=torch.float32, attn_impl=impl)
+        init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
+        params, opt = init(torch.Generator(device="cuda").manual_seed(2))
+        _zero_launch_counts()
+        losses[impl] = [step(params, opt, tokens).item()]
+        # step leaves each leaf's gradient in .grad until the next step
+        grads[impl] = {name: t.grad.clone() for name, t in _named_leaves(params)}
+        losses[impl] += [step(params, opt, tokens).item() for _ in range(n_steps - 1)]
+        launches[impl] = _launch_counts()
+        del params, opt
+        torch.cuda.empty_cache()
+    grad_diff = {name: ((g - grads["naive"][name]).norm() / grads["naive"][name].norm()).item()
+                 for name, g in grads["full"].items()}
+    del grads
+    torch.cuda.empty_cache()
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses["full"], losses["naive"]))
+    print(f"[train-parity] llama2_7b width, 2 layers, fp32, b=1 s=256, adamw(1e-4), remat dots: "
+          f"losses kernels {[round(x, 6) for x in losses['full']]} plain "
+          f"{[round(x, 6) for x in losses['naive']]}; max rel diff {diff:.3g} (tol {rtol}); "
+          f"launches kernels {launches['full']} plain {launches['naive']}", flush=True)
+    print("[train-parity] first-step gradient, |kernels - plain| / |plain| per leaf: "
+          + ", ".join(f"{n} {e:.3g}" for n, e in grad_diff.items()) + f" (tol {grad_rtol})",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses["full"] + losses["naive"]) or diff > rtol:
+        _fail("train-parity: the kernels' losses disagree with plain autograd")
+    if not all(e <= grad_rtol for e in grad_diff.values()):
+        _fail("train-parity: the kernels' first-step gradients disagree with plain autograd")
+    # remat runs each layer's forward (its flash kernel too) again in the backward.
+    want = {"flash_fwd": 2 * n_layers * n_steps, "flash_bwd_dq": n_layers * n_steps,
+            "flash_bwd_dkv": n_layers * n_steps}
+    if launches["full"] != want or any(launches["naive"].values()):
+        _fail(f"train-parity launches {launches}, want {want} through the kernels")
+
+
+def phase_train(profile: bool = False):
+    """6 AdamW steps of llama2_7b(n_layers=8) in bf16, remat "dots", on one
+    fixed batch of 2 x 2048 random tokens; returns each kernel's launches."""
+    import gc
+    import statistics
+
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.llama2_7b(n_layers=8, dtype=torch.bfloat16)
+    b, s, n_steps = 2, 2048, 6
+    init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
+    gc.collect()  # what earlier phases left in reference cycles
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, opt = init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    n_params = tfm.param_count(params)
+    print(f"[train] llama2_7b width, {cfg.n_layers} layers ({n_params / 1e9:.3f} B params), bf16, "
+          f"random weights from seed 0 on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(n_steps):
+        t = time.perf_counter()
+        losses.append(step(params, opt, tokens).item())  # .item() waits for the device
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(step_ms[1:])
+    tok_s = b * s / (p50 / 1e3)
+    mfu = tfm.flops_per_token(cfg, s) * tok_s / PEAK_FLOPS["bfloat16"]
+    print(f"[train] {n_steps} steps of adamw(1e-4) on {b} x {s} tokens, remat dots: losses "
+          f"{[round(x, 4) for x in losses]}; step ms {[round(t, 1) for t in step_ms]}, p50 over "
+          f"steps 2-{n_steps} {p50:.1f}; {tok_s:.0f} tokens/s; MFU {100 * mfu:.2f}% (against "
+          f"the H100 bf16 dense peak, 989 TFLOP/s); max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB held before the phase); launches {launches}", flush=True)
+    if profile:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t = time.perf_counter()
+            step(params, opt, tokens).item()
+            wall = time.perf_counter() - t
+        _print_profile(prof, wall, "train")
+    del params, opt
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        _fail(f"train: the loss did not fall: {losses}")
+    for kern in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[kern] < cfg.n_layers * n_steps:
+            _fail(f"train: {kern} launched {launches[kern]} times, want >= "
+                  f"{cfg.n_layers} x {n_steps}")
+    # remat runs each layer's forward, the flash kernel included, again in the backward.
+    if launches["flash_fwd"] < 2 * cfg.n_layers * n_steps:
+        _fail(f"train: flash_fwd launched {launches['flash_fwd']} times, want >= "
+              f"2 x {cfg.n_layers} x {n_steps}")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -326,15 +636,20 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phase with torch.profiler and print device time by kernel")
+                    help="trace the serve phase and one more train step with torch.profiler "
+                         "and print device time by kernel")
     args = ap.parse_args()
 
     name = phase_device()
     phase_build()
-    flash_row = phase_kernel()
+    fwd_row, dq_row, dkv_row = phase_kernel()
     phase_paged()
-    flash_row["launches"] = phase_serve(profile=args.profile)
-    print(json.dumps({"kernels": [flash_row]}), flush=True)
+    fwd_row["launches"] = phase_serve(profile=args.profile)
+    phase_train_parity()
+    train_launches = phase_train(profile=args.profile)
+    dq_row["launches"] = train_launches["flash_bwd_dq"]
+    dkv_row["launches"] = train_launches["flash_bwd_dkv"]
+    print(json.dumps({"kernels": [fwd_row, dq_row, dkv_row]}), flush=True)
     import torch
 
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,7 +8,9 @@ weights are [d_in, d_out]. Attention takes [b, s, h, d]; the paged KV pool is
 
 Where JAX scans over the stacked layers (and returns the updated pool as a
 scan output), the port runs a Python loop over layers and writes the KV pool
-in place.
+in place. Training (`next_token_loss`, `build_train_step`) runs each layer
+under `torch.utils.checkpoint` as JAX's `jax.checkpoint` does, and updates
+params in place where JAX's step is pure and donates its buffers.
 
 Mixed precision follows the JAX package: norms and RoPE compute in fp32 and
 cast back; projections cast q/k/v to cfg.dtype; logits are fp32. A bf16
@@ -20,11 +22,14 @@ elementwise op; in float32 the two are the same computation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..ops.flash_attention import attention_reference, flash_attention
 
@@ -44,6 +49,10 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "full"  # "full" (flash kernel) | "naive"
+    # Per-layer recompute in the backward, while grad is enabled: "dots"
+    # keeps matmul outputs and recomputes the rest; None recomputes all.
+    remat: bool = True
+    remat_policy: Optional[str] = "dots"
     tie_embeddings: bool = False
     # GPT-J switches: "gelu" MLP has no gate projection; parallel_block sums
     # attention and MLP computed from one pre-norm into the residual.
@@ -87,7 +96,7 @@ def tiny(**overrides) -> TransformerConfig:
     """Test-sized config."""
     return TransformerConfig(
         vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        d_ff=128, max_seq_len=128,
+        d_ff=128, max_seq_len=128, remat=False,
     ).replace(**overrides)
 
 
@@ -144,6 +153,17 @@ def map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tree's tensors in key order (map_tree's order)."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def param_count(params: Params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def _layer_params(params: Params, i: int) -> Params:
@@ -274,14 +294,49 @@ def _head(params: Params) -> torch.Tensor:
     return params["embed"]["embedding"].T if head is None else head
 
 
+# Matrix products with no batch dimension: what
+# jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims keeps. A
+# [b, s, d] @ [d, k] projection reaches aten as mm; attention's batched
+# products (bmm) and the flash kernels are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(policy: Optional[str]) -> Callable:
+    """_layer under torch.utils.checkpoint with the JAX package's policy."""
+    if policy in ("attn", "hot"):
+        raise NotImplementedError(
+            f"remat_policy={policy!r} needs named save points (checkpoint_name); not "
+            "ported yet (ROADMAP Queue 1, item 2)"
+        )
+    if policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif policy is None:
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+
+    def layer(*args):
+        # The layer draws no random numbers, so no RNG state is stashed.
+        return checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+
+    return layer
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens [batch, seq] -> final-norm hidden states [batch, seq, d]."""
+    """tokens [batch, seq] -> final-norm hidden states [batch, seq, d].
+    With cfg.remat and grad enabled, each layer recomputes in the backward."""
     s = tokens.shape[1]
     emb = params["embed"]["embedding"]
     cos, sin = rope_tables(cfg, s, emb.device)
     x = emb[tokens.long()]
+    layer = _remat_layer(cfg.remat_policy) if cfg.remat and torch.is_grad_enabled() else _layer
     for i in range(cfg.n_layers):
-        x = _layer(x, _layer_params(params, i), cfg, cos, sin)
+        x = layer(x, _layer_params(params, i), cfg, cos, sin)
     return _norm(x, params["final_norm"]["scale"], cfg)
 
 
@@ -289,6 +344,103 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> tor
     """tokens [batch, seq] int -> logits [batch, seq, vocab] float32."""
     x = forward_hidden(params, tokens, cfg)
     return torch.matmul(x, _head(params)).float()
+
+
+# ------------------------------------------------------------------ train
+
+
+def next_token_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal LM loss: mean cross-entropy of token t+1 given tokens <= t.
+
+    As in the JAX package, the forward runs at full length and the last
+    position is masked (not sliced off); `mask` [batch, seq] marks valid
+    target tokens.
+    """
+    logits = forward(params, tokens, cfg)
+    targets = torch.roll(tokens.long(), -1, dims=1)
+    nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
+    nll = nll.view(targets.shape)
+    s = tokens.shape[1]
+    m = (torch.arange(s, device=nll.device) < s - 1).to(nll.dtype).expand_as(nll)
+    if mask is not None:
+        m = m * torch.roll(mask, -1, dims=1).to(nll.dtype)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> Callable[[List[torch.Tensor]], torch.optim.Optimizer]:
+    """The counterpart of `optax.adamw` with optax's defaults (weight decay
+    1e-4, where torch's default is 1e-2): a factory that builds
+    `torch.optim.AdamW` over a list of params. Its state (exp_avg,
+    exp_avg_sq) is in the param dtype, as optax's mu_dtype=None keeps it."""
+
+    def make(params: List[torch.Tensor]) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(
+            params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay, amsgrad=False,
+            maximize=False, foreach=None, capturable=False, differentiable=False, fused=None,
+        )
+
+    return make
+
+
+def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
+                     zero_axis: Optional[str] = None):
+    """The single-device train step (fwd + bwd + optimizer), the counterpart
+    of the JAX package's `build_train_step(cfg, tx, mesh)` without ZeRO.
+
+    Returns `(init_state, step)`:
+      init_state(generator) -> (params, optimizer): params from
+        `init_params` on `device` (CUDA unless the caller passes "cpu"),
+        every leaf requiring grad, and `make_optimizer(leaves)`, e.g.
+        `adamw(1e-4)`;
+      step(params, optimizer, tokens) -> loss: one step on tokens
+        [batch, seq]. It updates params and optimizer state IN PLACE and
+        returns the loss before the update (a 0-d tensor), where the JAX
+        step is pure and donates its inputs.
+    """
+    if zero_axis is not None:
+        raise NotImplementedError(
+            "zero_axis: the ZeRO-sharded update waits for the port's torch.distributed "
+            "layer (ROADMAP Queue 1, item 4)"
+        )
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+
+    def init_state(generator: torch.Generator):
+        params = init_params(cfg, generator, device=dev)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        return params, make_optimizer(leaves)
+
+    def step(params: Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor):
+        optimizer.zero_grad(set_to_none=True)
+        loss = next_token_loss(params, tokens.to(dev), cfg)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return init_state, step
+
+
+def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
+    """Approximate training FLOPs per token (6N + attention) for MFU, as the
+    JAX package counts them: attention causally, at seq/2 visible positions
+    on average, 12 * n_layers * d_model * seq/2 for fwd + bwd."""
+    n_params = (
+        cfg.vocab_size * cfg.d_model
+        + cfg.n_layers
+        * (
+            2 * cfg.d_model * cfg.n_heads * cfg.head_dim
+            + 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim
+            + 3 * cfg.d_model * cfg.d_ff
+        )
+        + (0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab_size)
+    )
+    attn = 12 * cfg.n_layers * cfg.d_model * (seq_len / 2)
+    return 6.0 * n_params + attn
 
 
 # ------------------------------------------------------------ paged decode

@@ -45,6 +45,70 @@ def test_flash_fwd_matches_plain_version(cuda, dtype, tol_o, tol_lse, s, h, h_kv
     assert (lse - lse_ref).abs().max().item() <= tol_lse
 
 
+# Backward tolerances: each entry is held to tol x (|ref| + rms(ref)), ref
+# the plain version's gradient, so the check is relative where an entry is
+# large and floored at the tensor's typical magnitude where it is near 0.
+# fp32 sums in another order; in bf16 the outputs round to bf16 and a P or
+# dS near a rounding boundary rounds one ulp apart: 2**-6 is four bf16 ulps.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _bwd_err(got, want):
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,h_kv,d,causal", [(16, 4, 4, 128, True), (200, 8, 2, 64, True),
+                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True)])
+def test_flash_bwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
+    q, k, v, do = (torch.randn((2, s, hh, d), generator=cuda, device="cuda").to(dtype)
+                   for hh in (h, h_kv, h_kv, h))
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd(q, k, v, causal=causal, scale=scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    before = _launch_counts()
+    got = tfa.flash_bwd(q, k, v, o, lse, do, delta, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (0, 1, 1)
+    want = tfa.reference_flash_bwd(q, k, v, o, lse, do, delta, causal=causal, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype, name
+        assert _bwd_err(g, w) <= BWD_TOL[dtype], (name, _bwd_err(g, w))
+
+
+def _launch_counts():
+    return tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One fp32 AdamW step of the tiny model through the kernels against the
+    same step on the CPU (the plain versions), from the same params. Each
+    leaf's gradient: 1e-5 of its norm (fp32 sums in another order); Adam's
+    update would hide a gradient off by a factor. Params: 1e-4 absolute at
+    lr 1e-3, since Adam moves an entry whose gradient is near fp32 noise by a
+    visible share of lr."""
+    from ray_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny(attn_impl="full", dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
+    init, cpu_step = tfm.build_train_step(cfg, tfm.adamw(1e-3), device="cpu")
+    _, gpu_step = tfm.build_train_step(cfg, tfm.adamw(1e-3), device="cuda")
+    cpu_params, cpu_opt = init(torch.Generator().manual_seed(0))
+    gpu_params = tfm.map_tree(lambda t: t.detach().cuda().requires_grad_(), cpu_params)
+    gpu_opt = tfm.adamw(1e-3)(tfm.tree_leaves(gpu_params))
+    cpu_loss = cpu_step(cpu_params, cpu_opt, tokens).item()
+    before = _launch_counts()
+    gpu_loss = gpu_step(gpu_params, gpu_opt, tokens).item()
+    launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+    assert launched == (cfg.n_layers,) * 3  # tiny() has no remat: one forward per layer
+    assert abs(gpu_loss - cpu_loss) < 1e-5
+    for want, got in zip(tfm.tree_leaves(cpu_params), tfm.tree_leaves(gpu_params)):
+        assert (got.grad.cpu() - want.grad).norm() <= 1e-5 * want.grad.norm()
+    for want, got in zip(tfm.tree_leaves(cpu_params), tfm.tree_leaves(gpu_params)):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-4, rtol=0)
+
+
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
     x = torch.randn((1, 16, 2, 24), generator=cuda, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):

@@ -154,7 +154,8 @@ def test_presets_match_jax():
         j, t = getattr(jtfm, name)(), getattr(ttfm, name)()
         for field in ("vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_ff",
                       "rope_theta", "norm_eps", "mlp_act", "parallel_block", "rotary_dim",
-                      "norm_type", "rope_style", "tie_embeddings", "head_dim"):
+                      "norm_type", "rope_style", "tie_embeddings", "head_dim", "remat",
+                      "remat_policy"):
             assert getattr(j, field) == getattr(t, field), (name, field)
 
 
