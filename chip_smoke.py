@@ -4,10 +4,13 @@
 
 Phases, each printing its own line, any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds every kernel from ray_tpu_torch/ops/csrc/;
+  2. build: nvcc builds every kernel from ray_tpu_torch/ops/csrc/ and prints
+     each kernel's registers and spills as ptxas reports them;
   3. kernel: each kernel (flash forward, and the backward's dq and dk/dv)
      against its plain PyTorch version on the card, with its time, the plain
-     version's, one PyTorch library call's and the bound;
+     version's, one PyTorch library call's and the bound; at the train shape
+     in bf16 the backward must also repeat bit for bit, and one pass through
+     flash_attention(...).backward must give the same gradients;
   4. paged: PagedLM prefill+decode against the port's full forward, Llama-2-7B
      width, 2 layers, float32: greedy tokens must be equal;
   5. serve: InferenceEngine over PagedLM at full Llama-2-7B width in bf16
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +103,26 @@ def phase_device():
     return name
 
 
+def ptxas_kernels(report: str):
+    """[(kernel, registers, spill bytes)] from nvcc's -Xptxas -v report, each
+    kernel named from its mangled name as `name<type, head_dim>` where the
+    name carries template arguments."""
+    rows, name, spill = [], None, 0
+    for ln in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            # a length-prefixed identifier, then I<type>?Li<head_dim>E
+            if t := re.search(r"\d(flash_[A-Za-z_]+?)I(13__nv_bfloat16|f)?Li(\d+)E", name):
+                dtype = {"13__nv_bfloat16": "bf16, ", "f": "f32, "}.get(t.group(2), "")
+                name = f"{t.group(1)}<{dtype}{t.group(3)}>"
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
 
@@ -108,8 +132,10 @@ def phase_build():
     dt = time.perf_counter() - t0
     for n in names:
         _build.load(n)
-        regs = [ln.strip() for ln in _build.ptxas_reports.get(n, "").splitlines() if "registers" in ln]
-        print(f"[build] {n}.cu ptxas: {' | '.join(regs) or 'cached'}", flush=True)
+        kernels = ptxas_kernels(_build.ptxas_reports.get(n, ""))
+        print(f"[build] {n}.cu ptxas: " + (" | ".join(
+            f"{k} {regs} regs {spill} B spilled" for k, regs, spill in kernels) or "cached"),
+            flush=True)
     print(f"[build] kernels {names} built in {dt:.1f} s", flush=True)
 
 
@@ -170,11 +196,12 @@ def _check_fwd():
 # tol x (|ref| + rms(ref)), ref the plain version's result. That is relative
 # where an entry is large, with a floor at the tensor's typical magnitude
 # where it is near 0: a causal row's dq shrinks as its row grows, and row 0's
-# is 0 up to rounding. bf16: 2**-6 (four bf16 ulps); at the train shape a
-# correct kernel reads at most 0.0075 (the outputs round to bf16, and a P or
-# dS near a rounding boundary rounds one ulp apart), one 64-row tile of one
-# head scaled by 0.9 reads 0.06-0.08. fp32: 1e-4, where the readings are at
-# most 6e-6 (sums in another order).
+# is 0 up to rounding. bf16: 2**-6 (four bf16 ulps); at the train shape the
+# tensor-core kernels read at most 0.0113 over three seeds (the outputs round
+# to bf16, and a P or dS near a rounding boundary rounds one ulp apart; the
+# plain version itself reads up to 0.0112 against a float64 one), one 64-row
+# tile of one head scaled by 0.9 reads 0.06-0.08. fp32: 1e-4, where the
+# readings are at most 6e-6 (sums in another order).
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 
 
@@ -251,8 +278,19 @@ def _check_bwd():
                 _fail(f"the backward check passes a planted fault at {where}: {planted}")
         if rows:
             continue
-        # The train phase's shape: times. SDPA's backward (its fwd+bwd less
-        # its fwd) computes dq, dk and dv together: one number for both rows.
+        # The train phase's shape: no atomics, so a second launch repeats the
+        # first bit for bit; the autograd path reaches the same kernels.
+        again = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip((*got["dq"], *got["dkv"]), again)]
+        print(f"[kernel] flash_bwd {where}: a second launch equals the first bit for bit: "
+              f"dq {same[0]}, dk {same[1]}, dv {same[2]}", flush=True)
+        if not all(same):
+            _fail(f"flash_bwd is not deterministic at {where}")
+        del again
+        _check_autograd_bwd(q, k, v, do, want, causal, scale, tol, where)
+        # Times. SDPA's backward (its fwd+bwd less its fwd) computes dq, dk
+        # and dv together: one number for both rows, and for the pair.
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         dot = do.transpose(1, 2)
 
@@ -280,7 +318,36 @@ def _check_bwd():
                 "launches": None, "max_abs_err": max(errs[lb][1] for lb in labels), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             }
+        pair_ms = _time_ms(lambda: (fa.flash_bwd_dq(*args, **kw), fa.flash_bwd_dkv(*args, **kw)),
+                           iters=10)
+        print(f"[kernel] flash_bwd pair (dq + dkv) b={b} s={s} h={h} h_kv={h_kv} d={d} {name} "
+              f"causal={causal}: ms {pair_ms:.4f}; SDPA backward {lib_ms:.4f} ms; ratio "
+              f"{pair_ms / lib_ms:.2f}", flush=True)
     return rows
+
+
+def _check_autograd_bwd(q, k, v, do, want, causal, scale, tol, where):
+    """One pass through flash_attention(...).backward(do): q, k and v's .grad
+    against the plain versions' gradients `want`, entry by entry, and one
+    launch of each backward kernel."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = _launch_counts()
+    fa.flash_attention(*leaves, causal=causal, scale=scale).backward(do)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launch_counts().items()}
+    errs = {label: bwd_err(x.grad, w)
+            for label, x, w in zip(("dq", "dk", "dv"), leaves, (*want["dq"], *want["dkv"]))}
+    print(f"[kernel] flash_attention(...).backward {where}: max |err| / (|ref| + rms(ref)) "
+          + "; ".join(f"{lb} {e:.3g}" for lb, e in errs.items())
+          + f"; tol {tol}; launches {launched}", flush=True)
+    if not all(math.isfinite(e) and e <= tol for e in errs.values()):
+        _fail(f"the autograd backward disagrees with the plain versions at {where}: {errs}")
+    if launched != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+        _fail(f"the autograd backward launched {launched}, want one of each kernel")
 
 
 def phase_kernel():

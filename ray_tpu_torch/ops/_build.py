@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library under `ray_tpu_torch/_build/`, loaded with
 ctypes. Nothing includes PyTorch's headers, so a build takes seconds. The
 build runs on first use, never at import, and is skipped when a library
-built from the same source bytes already exists.
+built from the same source bytes (the `.cu` and the shared `csrc/*.cuh`
+headers) already exists.
 """
 
 from __future__ import annotations
@@ -44,8 +45,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, keyed by the bytes of `csrc/<name>.cu` and of every
+    `csrc/*.cuh` header (by name), so an edited header rebuilds its users."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> None:

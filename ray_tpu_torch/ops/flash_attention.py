@@ -3,7 +3,8 @@
 On a CUDA tensor `flash_attention` and `flash_attention_with_lse` launch the
 hand-written Hopper kernels: `csrc/flash_fwd.cu` (the port of the Pallas
 `_fwd_kernel`) forward, and `csrc/flash_bwd.cu` (`_dq_kernel` and
-`_dkv_kernel`) backward, through one `torch.autograd.Function` that takes
+`_dkv_kernel`; tensor cores in bfloat16, FMAs in float32) backward,
+through one `torch.autograd.Function` that takes
 the place of JAX's `_flash` and `_flash_lse` custom_vjps. On a CPU tensor
 each kernel's plain PyTorch version runs instead. Layouts are the JAX
 package's: q/k/v are [batch, seq, heads, head_dim]; lse and the backward's
@@ -177,6 +178,13 @@ def _check_row_stats(q, **stats) -> None:
                              f"tensor on {q.device}; got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
+def _check_aligned(*tensors) -> None:
+    """The bfloat16 backward kernels copy rows 16 bytes at a time."""
+    if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bfloat16 flash backward kernels need q, k, v and do at "
+                         "16-byte-aligned addresses")
+
+
 def _launch(source: str, symbol: str, tensors, dims, dtype, scale: float, causal: bool) -> None:
     """Calls `symbol` of csrc/<source>.cu: its tensor pointers, then
     (B, S, H, HKV, D, dtype, scale, causal, stream), on the current stream."""
@@ -216,12 +224,13 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float) -> Tuple[torch.Tensor, tor
 
 def flash_bwd_dq(q, k, v, lse, do, delta, *, causal: bool, scale: float) -> torch.Tensor:
     """dq [b, s, h, d] in q's dtype: launches csrc/flash_bwd.cu's dq kernel
-    on CUDA tensors (counted in `flash_bwd_dq.launches`), else runs
-    `reference_flash_bwd_dq`."""
+    (tensor cores for bfloat16, FMAs for float32) on CUDA tensors, counted in
+    `flash_bwd_dq.launches`; else runs `reference_flash_bwd_dq`."""
     if q.device.type == "cpu":
         return reference_flash_bwd_dq(q, k, v, lse, do, delta, causal=causal, scale=scale)
     dims = _check_kernel_inputs(q, k, v, do=do)
     _check_row_stats(q, lse=lse, delta=delta)
+    _check_aligned(q, k, v, do)
     dq = torch.empty_like(q)
     flash_bwd_dq.launches += 1
     _launch("flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq), dims, q.dtype, scale,
@@ -232,12 +241,14 @@ def flash_bwd_dq(q, k, v, lse, do, delta, *, causal: bool, scale: float) -> torc
 def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [b, s, h_kv, d] in k's dtype: launches csrc/flash_bwd.cu's
-    dk/dv kernel on CUDA tensors (counted in `flash_bwd_dkv.launches`), else
-    runs `reference_flash_bwd_dkv`."""
+    dk/dv kernel (tensor cores for bfloat16, FMAs for float32) on CUDA
+    tensors, counted in `flash_bwd_dkv.launches`; else runs
+    `reference_flash_bwd_dkv`."""
     if q.device.type == "cpu":
         return reference_flash_bwd_dkv(q, k, v, lse, do, delta, causal=causal, scale=scale)
     dims = _check_kernel_inputs(q, k, v, do=do)
     _check_row_stats(q, lse=lse, delta=delta)
+    _check_aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     flash_bwd_dkv.launches += 1
     _launch("flash_bwd", "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), dims, q.dtype,

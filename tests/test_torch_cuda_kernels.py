@@ -48,8 +48,9 @@ def test_flash_fwd_matches_plain_version(cuda, dtype, tol_o, tol_lse, s, h, h_kv
 # Backward tolerances: each entry is held to tol x (|ref| + rms(ref)), ref
 # the plain version's gradient, so the check is relative where an entry is
 # large and floored at the tensor's typical magnitude where it is near 0.
-# fp32 sums in another order; in bf16 the outputs round to bf16 and a P or
-# dS near a rounding boundary rounds one ulp apart: 2**-6 is four bf16 ulps.
+# fp32 (FMA kernels) sums in another order; bf16 (tensor-core kernels) sums
+# in another order too, the outputs round to bf16, and a P or dS near a
+# rounding boundary rounds one ulp apart: 2**-6 is four bf16 ulps.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
 
@@ -58,15 +59,20 @@ def _bwd_err(got, want):
     return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
 
 
+def _bwd_inputs(gen, b, s, h, h_kv, d, dtype, causal):
+    q, k, v, do = (torch.randn((b, s, hh, d), generator=gen, device="cuda").to(dtype)
+                   for hh in (h, h_kv, h_kv, h))
+    o, lse = tfa.flash_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, o, lse, do, delta
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,h,h_kv,d,causal", [(16, 4, 4, 128, True), (200, 8, 2, 64, True),
                                                 (96, 4, 1, 16, False), (130, 2, 2, 32, True)])
 def test_flash_bwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
-    q, k, v, do = (torch.randn((2, s, hh, d), generator=cuda, device="cuda").to(dtype)
-                   for hh in (h, h_kv, h_kv, h))
+    q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 2, s, h, h_kv, d, dtype, causal)
     scale = d ** -0.5
-    o, lse = tfa.flash_fwd(q, k, v, causal=causal, scale=scale)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     before = _launch_counts()
     got = tfa.flash_bwd(q, k, v, o, lse, do, delta, causal=causal, scale=scale)
     torch.cuda.synchronize()
@@ -75,6 +81,39 @@ def test_flash_bwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype == dtype, name
         assert _bwd_err(g, w) <= BWD_TOL[dtype], (name, _bwd_err(g, w))
+
+
+# bf16, the tensor-core route: several 64-row tiles with a ragged last one,
+# GQA with 4 query heads per kv head, every head dim.
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s,causal", [(130, True), (300, False), (1000, True)])
+def test_flash_bwd_bf16_over_ragged_tiles_matches_plain_version(cuda, s, causal, d):
+    q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 2, s, 8, 2, d, torch.bfloat16, causal)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    got = tfa.flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    want = tfa.reference_flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _bwd_err(g, w) <= BWD_TOL[torch.bfloat16], (name, _bwd_err(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """One owner per output tile, no atomics: two launches agree bit for bit."""
+    q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 2, 1000, 8, 2, 128, dtype, True)
+    kw = dict(causal=True, scale=128 ** -0.5)
+    first = tfa.flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    second = tfa.flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_bf16_raises_on_misaligned_inputs(cuda):
+    q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 1, 64, 2, 2, 64, torch.bfloat16, True)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    shifted = flat[1:].view(q.shape).copy_(q)  # contiguous, 2 bytes past the alignment
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_bwd_dq(shifted, k, v, lse, do, delta, causal=True, scale=0.125)
 
 
 def _launch_counts():

@@ -4,9 +4,10 @@ The same seeded numpy inputs and cotangents go through `jax.vjp` of the JAX
 flash attention (its Pallas backward kernels in interpret mode on the CPU,
 at `highest` matmul precision) and through the port's autograd on the CPU,
 which runs the backward kernels' plain versions. float32; dq, dk and dv agree
-within 2e-5 max-abs, the forward's tolerance. The CUDA kernels themselves are
-held against the plain versions on the card (tests/test_torch_cuda_kernels.py
-and chip_smoke.py).
+within 2e-5 max-abs, the forward's tolerance. In bfloat16 the plain versions
+are held against the Pallas kernels entry by entry, as the card holds the
+CUDA kernels against the plain versions (tests/test_torch_cuda_kernels.py and
+chip_smoke.py).
 """
 
 import importlib
@@ -145,6 +146,47 @@ def test_reference_flash_bwd_matches_jax_kernels(causal, kv_heads):
     assert _maxdiff(from_bh(jdq, h), tdq) < TOL
     assert _maxdiff(from_bh(jdk, h_kv), tdk) < TOL
     assert _maxdiff(from_bh(jdv, h_kv), tdv) < TOL
+
+
+def _entry_err(got, want):
+    """max over entries of |got - want| / (|want| + rms(want)): the measure
+    the card's backward checks use (chip_smoke.py `bwd_err`)."""
+    g, w = (np.asarray(x, dtype=np.float32) for x in (got, want))
+    return float(np.max(np.abs(g - w) / (np.abs(w) + np.sqrt(np.mean(w * w)))))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv_heads", [None, 2], ids=["mha", "gqa"])
+def test_reference_flash_bwd_matches_jax_kernels_in_bf16(causal, kv_heads):
+    """bfloat16: the plain versions round where the Pallas kernels cast (dS to
+    k's and q's dtype, P to dO's, the outputs to bf16), so the CUDA kernels,
+    held against the plain versions on the card, compute what the TPU's do.
+    Each entry within 2**-6 x (|ref| + rms(ref)), the card's bf16 tolerance:
+    sums in another order put an output one bf16 ulp apart."""
+    b, s, h, d = 1, 192, 4, 64
+    q, k, v, do = (jnp.asarray(a, jnp.bfloat16)
+                   for a in _inputs(b=b, s=s, h=h, d=d, kv_heads=kv_heads, seed=5))
+    h_kv = k.shape[2]
+    scale = d ** -0.5
+    o, lse = jfa.flash_attention_with_lse(q, k, v, causal=causal, scale=scale, block_q=64,
+                                          block_k=64)
+    delta = (do.astype(jnp.float32) * o.astype(jnp.float32)).sum(-1).transpose(0, 2, 1)
+    jdq, jdk, jdv = jfa._flash_bwd_impl(
+        causal, scale, 64, 64, True, (h, h_kv), _bh(q), _bh(k), _bh(v), _bh(o),
+        lse.reshape(b * h, s, 1), _bh(do), delta.reshape(b * h, s, 1),
+    )
+
+    def to_torch(x):
+        x = torch.from_numpy(np.array(jnp.asarray(x, jnp.float32)))
+        return x.to(torch.bfloat16) if x.dim() == 4 else x
+
+    t = [to_torch(a) for a in (q, k, v, o, lse, do, delta)]
+    got = tfa.reference_flash_bwd(*t, causal=causal, scale=scale)
+    for name, jg, hh, tg in zip(("dq", "dk", "dv"), (jdq, jdk, jdv), (h, h_kv, h_kv), got):
+        assert tg.dtype == torch.bfloat16, name
+        want = np.asarray(jg.astype(jnp.float32)).reshape(b, hh, s, d).transpose(0, 2, 1, 3)
+        err = _entry_err(tg.float().numpy(), want)
+        assert err <= 2 ** -6, (name, err)
 
 
 def test_non_contiguous_upstream_gradient_is_taken():

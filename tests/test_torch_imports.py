@@ -1,6 +1,7 @@
-"""The port stands alone: ray_tpu_torch and chip_smoke.py import neither jax
-nor anything of the ray_tpu package, and chip_smoke.py refuses to run
-without a CUDA device or without the rest of the repository."""
+"""The port stands alone: ray_tpu_torch and the chip scripts import neither
+jax nor anything of the ray_tpu package, the chip scripts refuse to run
+without a CUDA device, and chip_smoke.py without the rest of the
+repository."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_bwd_accuracy.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -64,6 +66,16 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result():
     out = _run_smoke(ROOT, ROOT / "chip_smoke.py")
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_bwd_accuracy_fails_without_cuda_and_prints_no_result():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal on a machine without a CUDA device")
+    out = _run_smoke(ROOT, ROOT / "chip_bwd_accuracy.py")
+    assert out.returncode != 0
+    assert "[seed" not in out.stdout
 
 
 def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
