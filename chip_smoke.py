@@ -7,10 +7,12 @@ Phases, each printing its own line, any failure exits non-zero:
   2. build: nvcc builds every kernel from ray_tpu_torch/ops/csrc/ and prints
      each kernel's registers and spills as ptxas reports them;
   3. kernel: each kernel (flash forward, and the backward's dq and dk/dv)
-     against its plain PyTorch version on the card, with its time, the plain
-     version's, one PyTorch library call's and the bound; at the train shape
-     in bf16 the backward must also repeat bit for bit, and one pass through
-     flash_attention(...).backward must give the same gradients;
+     against its plain PyTorch version on the card, bf16 outputs entry by
+     entry, with its time, the plain version's, one PyTorch library call's
+     and the bound; at the train shape in bf16 each check must refuse two
+     planted faults, each kernel must repeat bit for bit, and one pass
+     through flash_attention_with_lse (forward) and
+     flash_attention(...).backward must give the same results;
   4. paged: PagedLM prefill+decode against the port's full forward, Llama-2-7B
      width, 2 layers, float32: greedy tokens must be equal;
   5. serve: InferenceEngine over PagedLM at full Llama-2-7B width in bf16
@@ -139,14 +141,49 @@ def phase_build():
     print(f"[build] kernels {names} built in {dt:.1f} s", flush=True)
 
 
+# Per-entry checks: each entry of a kernel's output is held to
+# tol x (|ref| + rms(ref)), ref the plain version's result. That is relative
+# where an entry is large, with a floor at the tensor's typical magnitude
+# where it is near 0: a causal row's dq shrinks as its row grows, and row 0's
+# is 0 up to rounding. bf16: 2**-6 (four bf16 ulps). Backward: at the train
+# shape the tensor-core kernels read at most 0.0113 over three seeds (the
+# outputs round to bf16, and a P or dS near a rounding boundary rounds one
+# ulp apart; the plain version itself reads up to 0.0112 against a float64
+# one), one 64-row tile of one head scaled by 0.9 reads 0.06-0.08. fp32: 1e-4,
+# where the readings are at most 6e-6 (sums in another order). The bf16
+# forward's o is held the same way to 2**-6, its lse (fp32, the log of a sum
+# of unrounded P) to 1e-3 absolute; the fp32 forward keeps max |err| 1e-4 for
+# both.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+FWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -6, 1e-3)}  # (o, lse)
+
+
+def entry_err(got, want) -> float:
+    """max over entries of |got - want| / (|want| + rms(want))."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
+
+
+def _planted_faults(t):
+    """Wrong versions of a [b, s, h, d] kernel output that the check must
+    refuse: every row past the first 64-row tile halved, and one 64-row tile
+    of one head scaled by 0.9."""
+    halved, tile = t.clone(), t.clone()
+    halved[:, 64:] *= 0.5
+    tile[:, 1024:1088, 5] *= 0.9
+    return {"x0.5 past row 64": halved, "x0.9 on rows 1024-1087 of head 5": tile}
+
+
 def _check_fwd():
-    """Flash forward kernel against reference_attention_with_lse on the card."""
+    """The flash forward kernel against reference_flash_fwd (the plain
+    version, rounding P where the Pallas kernel does) on the card; at the
+    train shape in bf16 also planted faults, determinism and the autograd
+    path."""
     import torch
     import torch.nn.functional as F
 
-    from ray_tpu_torch.ops.flash_attention import flash_fwd, reference_attention_with_lse
+    from ray_tpu_torch.ops import flash_attention as fa
 
-    tol = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}  # (o, lse)
     # (b, s, h, h_kv, d, dtype, causal); s=1024 is the serve phase's largest
     # prefill bucket, the shape reported in the JSON line; b=2, s=2048 is the
     # train phase's.
@@ -160,65 +197,75 @@ def _check_fwd():
         q = torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=torch.float32).to(dt)
         k = torch.randn((b, s, h_kv, d), generator=gen, device="cuda", dtype=torch.float32).to(dt)
         v = torch.randn((b, s, h_kv, d), generator=gen, device="cuda", dtype=torch.float32).to(dt)
-        scale = d ** -0.5
-        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+        kw = dict(causal=causal, scale=d ** -0.5)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        kr, vr = k.repeat_interleave(h // h_kv, 2), v.repeat_interleave(h // h_kv, 2)
-        o_ref, lse_ref = reference_attention_with_lse(q, kr, vr, causal=causal, scale=scale)
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
+        o_ref, lse_ref = fa.reference_flash_fwd(q, k, v, **kw)
         name = str(dt).replace("torch.", "")
-        ok = math.isfinite(err_o) and err_o <= tol[name][0] and err_l <= tol[name][1]
-        ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal, scale=scale))
-        plain_ms = _time_ms(lambda: reference_attention_with_lse(q, kr, vr, causal=causal, scale=scale), iters=5)
+        where = f"b={b} s={s} h={h} h_kv={h_kv} d={d} {name} causal={causal}"
+        max_abs = (o.float() - o_ref.float()).abs().max().item()
+        bf16 = dt == torch.bfloat16
+        err_o = entry_err(o, o_ref) if bf16 else max_abs
+        err_l = (lse - lse_ref).abs().max().item()
+        tol_o, tol_l = FWD_TOL[name]
+        ok = math.isfinite(err_o) and err_o <= tol_o and err_l <= tol_l
+        ms = _time_ms(lambda: fa.flash_fwd(q, k, v, **kw))
+        plain_ms = _time_ms(lambda: fa.reference_flash_fwd(q, k, v, **kw), iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=h != h_kv))
+            qt, kt, vt, is_causal=causal, scale=kw["scale"], enable_gqa=h != h_kv))
         bound, by = flash_bound_ms("fwd", b, s, h, h_kv, d, name, causal)
-        print(f"[kernel] flash_fwd b={b} s={s} h={h} h_kv={h_kv} d={d} {name} causal={causal}: "
-              f"err o {err_o:.3g} (tol {tol[name][0]}) lse {err_l:.3g} (tol {tol[name][1]}); "
-              f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-              f"bound_ms {bound:.4f} ({by})", flush=True)
+        measure = "max |err| / (|ref| + rms(ref))" if bf16 else "max |err|"
+        print(f"[kernel] flash_fwd {where}: o {measure} {err_o:.3g} (max abs {max_abs:.3g}; "
+              f"tol {tol_o:.3g}) lse max |err| {err_l:.3g} (tol {tol_l}); ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bound:.4f} ({by})",
+              flush=True)
         if not ok:
-            _fail(f"flash_fwd disagrees with its plain version at s={s} d={d} {name}")
+            _fail(f"flash_fwd disagrees with its plain version at {where}")
+        if (b, s, h, d, dt, causal) == (2, 2048, 32, 128, torch.bfloat16, True):
+            _check_fwd_train_shape(q, k, v, o, lse, o_ref, kw, where)
+            print(f"[kernel] flash_fwd at the train shape {where}: ms {ms:.4f}; SDPA forward "
+                  f"{lib_ms:.4f} ms; ratio {ms / lib_ms:.2f}", flush=True)
         if (b, s, h, d, dt, causal) == (1, 1024, 32, 128, torch.bfloat16, True):
             report = {
                 "name": "flash_fwd", "route": "cuda",
                 "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                 "replaces": "ray_tpu/ops/flash_attention.py:64",
-                "launches": None, "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
+                "launches": None, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             }
     return report
 
 
-# The backward kernels' check: each entry of dq, dk and dv is held to
-# tol x (|ref| + rms(ref)), ref the plain version's result. That is relative
-# where an entry is large, with a floor at the tensor's typical magnitude
-# where it is near 0: a causal row's dq shrinks as its row grows, and row 0's
-# is 0 up to rounding. bf16: 2**-6 (four bf16 ulps); at the train shape the
-# tensor-core kernels read at most 0.0113 over three seeds (the outputs round
-# to bf16, and a P or dS near a rounding boundary rounds one ulp apart; the
-# plain version itself reads up to 0.0112 against a float64 one), one 64-row
-# tile of one head scaled by 0.9 reads 0.06-0.08. fp32: 1e-4, where the
-# readings are at most 6e-6 (sums in another order).
-BWD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+def _check_fwd_train_shape(q, k, v, o, lse, o_ref, kw, where):
+    """At the train shape in bf16: both planted faults in o are refused, a
+    second launch repeats the first bit for bit, and one pass through
+    flash_attention_with_lse (the autograd path) launches the kernel once and
+    returns the same o and lse."""
+    import torch
 
+    from ray_tpu_torch.ops import flash_attention as fa
 
-def bwd_err(got, want) -> float:
-    """max over entries of |got - want| / (|want| + rms(want))."""
-    g, w = got.float(), want.float()
-    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
-
-
-def _planted_faults(t):
-    """Wrong versions of a [b, s, h, d] gradient that the check must refuse:
-    every row past the first 64-row tile halved, and one 64-row tile of one
-    head scaled by 0.9."""
-    halved, tile = t.clone(), t.clone()
-    halved[:, 64:] *= 0.5
-    tile[:, 1024:1088, 5] *= 0.9
-    return {"x0.5 past row 64": halved, "x0.9 on rows 1024-1087 of head 5": tile}
+    tol = FWD_TOL["bfloat16"][0]
+    planted = {f: entry_err(bad, o_ref) for f, bad in _planted_faults(o).items()}
+    print(f"[kernel] flash_fwd {where}: planted faults in o read "
+          + "; ".join(f"{f} {e:.3g}" for f, e in planted.items()) + f"; tol {tol:.3g}", flush=True)
+    if min(planted.values()) <= tol:
+        _fail(f"the forward check passes a planted fault at {where}: {planted}")
+    o2, lse2 = fa.flash_fwd(q, k, v, **kw)
+    before = _launch_counts()
+    o3, lse3 = fa.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launch_counts().items()}
+    same = {"second launch": torch.equal(o, o2) and torch.equal(lse, lse2),
+            "flash_attention_with_lse": torch.equal(o, o3) and torch.equal(lse, lse3)}
+    print(f"[kernel] flash_fwd {where}: o and lse equal the first launch's bit for bit: "
+          + ", ".join(f"{n} {ok}" for n, ok in same.items()) + f"; launches {launched}",
+          flush=True)
+    if not all(same.values()):
+        _fail(f"flash_fwd is not deterministic, or the autograd path differs, at {where}")
+    if launched != {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        _fail(f"flash_attention_with_lse launched {launched}, want one flash_fwd")
 
 
 def _check_bwd():
@@ -260,14 +307,14 @@ def _check_bwd():
         for kern in ("dq", "dkv"):
             for label, g, w in zip(("dq",) if kern == "dq" else ("dk", "dv"), got[kern],
                                    want[kern]):
-                err = bwd_err(g, w)
+                err = entry_err(g, w)
                 errs[label] = (err, (g.float() - w.float()).abs().max().item())
                 if not (math.isfinite(err) and err <= tol):
                     _fail(f"flash_bwd {label} disagrees with its plain version at {where}: "
                           f"{err:.3g} (tol {tol})")
                 if s >= 1088 and h > 5:
                     for fault, bad in _planted_faults(g).items():
-                        planted[f"{label} {fault}"] = bwd_err(bad, w)
+                        planted[f"{label} {fault}"] = entry_err(bad, w)
         print(f"[kernel] flash_bwd {where}: max |err| / (|ref| + rms(ref)) "
               + "; ".join(f"{lb} {e:.3g} (max abs {a:.3g})" for lb, (e, a) in errs.items())
               + f"; tol {tol}", flush=True)
@@ -339,7 +386,7 @@ def _check_autograd_bwd(q, k, v, do, want, causal, scale, tol, where):
     fa.flash_attention(*leaves, causal=causal, scale=scale).backward(do)
     torch.cuda.synchronize()
     launched = {n: c - before[n] for n, c in _launch_counts().items()}
-    errs = {label: bwd_err(x.grad, w)
+    errs = {label: entry_err(x.grad, w)
             for label, x, w in zip(("dq", "dk", "dv"), leaves, (*want["dq"], *want["dkv"]))}
     print(f"[kernel] flash_attention(...).backward {where}: max |err| / (|ref| + rms(ref)) "
           + "; ".join(f"{lb} {e:.3g}" for lb, e in errs.items())

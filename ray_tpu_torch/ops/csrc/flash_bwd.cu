@@ -43,8 +43,9 @@
 //        through ldmatrix.trans.
 // Nothing is staged through shared memory between the products. Each score
 // is summed over the head dim as two chains of mma and the chains added in
-// fp32 (scores_16x32): one chain of 8 drifts far enough from an fp32 sum to
-// put P and dS across a bf16 rounding boundary from the plain version's.
+// fp32 (scores_16x32, mma_bf16.cuh): one chain of 8 drifts far enough from an
+// fp32 sum to put P and dS across a bf16 rounding boundary from the plain
+// version's.
 // Tiles stay bf16 in shared memory, rows padded by 16 bytes so that the 8
 // rows one ldmatrix phase reads fall in 8 distinct bank groups. They load by
 // 16-byte cp.async, double-buffered: dq prefetches the next K/V tile, dkv the
@@ -384,12 +385,6 @@ constexpr int TC_NT = 32 * TC_WARPS;
 static_assert(BQ == 16 * TC_WARPS, "each warp owns 16 rows of the output tile");
 constexpr int PASS = 32;  // score columns per pass (scores_16x32)
 
-// A shared tile: 64 rows of D bf16, padded by 8 elements (16 bytes).
-template <int D>
-__host__ __device__ constexpr int tc_ld() {
-  return D + 8;
-}
-
 template <int D>
 constexpr size_t tc_tile_bytes() {
   return size_t(BQ) * tc_ld<D>() * sizeof(bf16);
@@ -403,49 +398,6 @@ constexpr size_t dq_mma_smem_bytes() {
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
   return 6 * tc_tile_bytes<D>() + 4 * size_t(BQ) * sizeof(float);
-}
-
-// acc += the 16-deep step kd of scores_16x32 below.
-template <int LD>
-__device__ __forceinline__ void score_step(float (&acc)[4][4], const bf16* a, const bf16* b,
-                                           int kd) {
-  uint32_t af[4];
-  ldmatrix_x4(af, a + kd * 16);
-#pragma unroll
-  for (int np = 0; np < 2; ++np) {
-    uint32_t bf[4];
-    ldmatrix_x4(bf, b + np * 16 * LD + kd * 16);
-    mma_16816(acc[2 * np], af, bf[0], bf[1]);
-    mma_16816(acc[2 * np + 1], af, bf[2], bf[3]);
-  }
-}
-
-// The warp's 16 x 32 score tile c = A.B^T over the head dim: `a` is this
-// lane's A-fragment address in a row-major [16 rows][D] tile, `b` its n-major
-// B-fragment address in a row-major [32 rows][D] tile (rows padded to LD).
-// The tensor cores truncate where an fp32 add rounds, so a chain of 8
-// products drifts; the two halves of the head dim are summed as separate
-// chains and added in fp32, which keeps P and dS on the side of a bf16
-// rounding boundary the plain version puts them (PERF.md).
-template <int D, int LD>
-__device__ __forceinline__ void scores_16x32(float (&c)[4][4], const bf16* a, const bf16* b) {
-  constexpr int KD = D / 16;
-  constexpr int HALF = (KD + 1) / 2;
-  float hi[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = hi[n][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < HALF; ++kd) score_step<LD>(c, a, b, kd);
-#pragma unroll
-  for (int kd = HALF; kd < KD; ++kd) score_step<LD>(hi, a, b, kd);
-  if constexpr (KD > 1) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[n][e] += hi[n][e];
-  }
 }
 
 // Grid (b*h, nq); block y takes q tile nq-1-y, so the heaviest causal tiles

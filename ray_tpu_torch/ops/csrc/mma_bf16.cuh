@@ -1,6 +1,7 @@
 // Tensor-core building blocks for bf16 kernels on Hopper (sm_90a), shared by
 // the flash kernels: 16-byte cp.async tile loads with zero fill, ldmatrix
-// (plain and transposed) and mma.sync m16n8k16 with fp32 accumulators.
+// (plain and transposed), mma.sync m16n8k16 with fp32 accumulators, and the
+// two-chain 16 x 32 score tile (scores_16x32) every flash kernel starts from.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16" for .bf16), with lane = 32-thread
 // lane, g = lane / 4 and t = lane % 4:
@@ -21,6 +22,14 @@
 namespace mma_bf16 {
 
 typedef __nv_bfloat16 bf16;
+
+// The row of a shared bf16 tile of head dim D: padded by 8 elements (16
+// bytes), so the 8 rows one ldmatrix phase reads fall in 8 distinct bank
+// groups.
+template <int D>
+__host__ __device__ constexpr int tc_ld() {
+  return D + 8;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -60,14 +69,17 @@ __device__ __forceinline__ void cp_async_tile(bf16* dst, const bf16* src, long s
                                               int S) {
   constexpr int CHUNKS = D / 8;
   static_assert(D % 8 == 0 && LD % 8 == 0, "rows are copied in 16-byte chunks");
-  static_assert(ROWS * CHUNKS % NTHREADS == 0, "every thread copies as many chunks");
-#pragma unroll
-  for (int i = 0; i < ROWS * CHUNKS / NTHREADS; ++i) {
-    const int e = threadIdx.x + i * NTHREADS;
+  auto copy = [&](int e) {  // chunk e: row e / CHUNKS, 8 columns from (e % CHUNKS) * 8
     const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
     const int pos = r0 + r;
     const bool in = pos < S;
     cp_async_16(dst + r * LD + c, src + long(in ? pos : 0) * stride + c, in);
+  };
+  if constexpr (ROWS * CHUNKS % NTHREADS == 0) {  // every thread copies as many chunks
+#pragma unroll
+    for (int i = 0; i < ROWS * CHUNKS / NTHREADS; ++i) copy(threadIdx.x + i * NTHREADS);
+  } else {
+    for (int e = threadIdx.x; e < ROWS * CHUNKS; e += NTHREADS) copy(e);
   }
 }
 
@@ -135,6 +147,49 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// acc += the 16-deep step kd of scores_16x32 below.
+template <int LD>
+__device__ __forceinline__ void score_step(float (&acc)[4][4], const bf16* a, const bf16* b,
+                                           int kd) {
+  uint32_t af[4];
+  ldmatrix_x4(af, a + kd * 16);
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    uint32_t bf[4];
+    ldmatrix_x4(bf, b + np * 16 * LD + kd * 16);
+    mma_16816(acc[2 * np], af, bf[0], bf[1]);
+    mma_16816(acc[2 * np + 1], af, bf[2], bf[3]);
+  }
+}
+
+// The warp's 16 x 32 score tile c = A.B^T over the head dim: `a` is this
+// lane's A-fragment address in a row-major [16 rows][D] tile, `b` its n-major
+// B-fragment address in a row-major [32 rows][D] tile (rows padded to LD).
+// The tensor cores truncate where an fp32 add rounds, so a chain of 8
+// products drifts; the two halves of the head dim are summed as separate
+// chains and added in fp32, which keeps P and dS on the side of a bf16
+// rounding boundary the plain version puts them (PERF.md).
+template <int D, int LD>
+__device__ __forceinline__ void scores_16x32(float (&c)[4][4], const bf16* a, const bf16* b) {
+  constexpr int KD = D / 16;
+  constexpr int HALF = (KD + 1) / 2;
+  float hi[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = hi[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < HALF; ++kd) score_step<LD>(c, a, b, kd);
+#pragma unroll
+  for (int kd = HALF; kd < KD; ++kd) score_step<LD>(hi, a, b, kd);
+  if constexpr (KD > 1) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += hi[n][e];
+  }
 }
 
 }  // namespace mma_bf16

@@ -3,8 +3,8 @@
 On a CUDA tensor `flash_attention` and `flash_attention_with_lse` launch the
 hand-written Hopper kernels: `csrc/flash_fwd.cu` (the port of the Pallas
 `_fwd_kernel`) forward, and `csrc/flash_bwd.cu` (`_dq_kernel` and
-`_dkv_kernel`; tensor cores in bfloat16, FMAs in float32) backward,
-through one `torch.autograd.Function` that takes
+`_dkv_kernel`) backward, each on the tensor cores in bfloat16 and on FMAs in
+float32, through one `torch.autograd.Function` that takes
 the place of JAX's `_flash` and `_flash_lse` custom_vjps. On a CPU tensor
 each kernel's plain PyTorch version runs instead. Layouts are the JAX
 package's: q/k/v are [batch, seq, heads, head_dim]; lse and the backward's
@@ -58,8 +58,9 @@ def _mask_causal(s):
 
 
 def reference_attention_with_lse(q, k, v, *, causal: bool, scale: float):
-    """Unfused (o, lse) pair, lse [b, h, s_q] fp32: the plain version of the
-    flash kernel. k/v carry as many heads as q."""
+    """Unfused (o, lse) pair, lse [b, h, s_q] fp32, as the JAX package's
+    unfused fallback computes it (P/l rounded to v's dtype): for inputs the
+    kernels do not take. k/v carry as many heads as q."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         s = _mask_causal(s)
@@ -77,6 +78,42 @@ def _expand_kv(q, k, v):
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     return k, v
+
+
+def reference_flash_fwd(q, k, v, *, causal: bool, scale: float, block_k: int = 64):
+    """Plain version of the forward kernel (`_fwd_kernel`): (o [b, s, h, d],
+    lse [b, h, s] fp32), k/v with h_kv heads. The online softmax runs over
+    `block_k`-key blocks as the Pallas kernel's does (flash_attention.py:80-101):
+    with m the running max, P = exp(S*scale - m) is summed into l in fp32
+    unrounded and rounded to v's dtype only for P.V (:91-92), and o = acc /
+    max(l, 1e-30) at the end (:100). So P rounds where the kernels round it,
+    which the unfused `reference_attention_with_lse` (P/l rounded) does not."""
+    kr, vr = _expand_kv(q, k, v)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, kr, vr))  # [b, h, s, d]
+    b, h, s, d = qf.shape
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    pos = torch.arange(s, device=q.device)
+    for k0 in range(0, s, block_k):
+        k1 = min(k0 + block_k, s)
+        # Causal rows before k0 see no key of this block: for them the block
+        # leaves m, l and acc exactly as they are, so it skips them.
+        r0 = k0 if causal else 0
+        sc = qf[:, :, r0:] @ kf[:, :, k0:k1].transpose(-1, -2) * scale
+        if causal:
+            sc = torch.where(pos[r0:, None] >= pos[None, k0:k1], sc, torch.full_like(sc, NEG_INF))
+        m_prev = m[..., r0:]
+        m_new = torch.maximum(m_prev, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m_prev - m_new)
+        l[..., r0:] = l[..., r0:] * alpha + p.sum(dim=-1)
+        acc[..., r0:, :] = (acc[..., r0:, :] * alpha[..., None]
+                            + p.to(v.dtype).float() @ vf[:, :, k0:k1])
+        m[..., r0:] = m_new
+    l = l.clamp_min(1e-30)
+    o = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    return o, m + torch.log(l)
 
 
 def _reference_probs(q, kr, vr, lse, do, delta, causal: bool, scale: float):
@@ -179,10 +216,11 @@ def _check_row_stats(q, **stats) -> None:
 
 
 def _check_aligned(*tensors) -> None:
-    """The bfloat16 backward kernels copy rows 16 bytes at a time."""
+    """The bfloat16 kernels, forward and backward, copy rows 16 bytes at a
+    time."""
     if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bfloat16 flash backward kernels need q, k, v and do at "
-                         "16-byte-aligned addresses")
+        raise ValueError("the bfloat16 flash kernels (forward and backward) need their "
+                         "inputs (q, k, v; do for the backward) at 16-byte-aligned addresses")
 
 
 def _launch(source: str, symbol: str, tensors, dims, dtype, scale: float, causal: bool) -> None:
@@ -207,13 +245,14 @@ def _launch(source: str, symbol: str, tensors, dims, dtype, scale: float, causal
 def flash_fwd(q, k, v, *, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """One flash forward: (o [b, s, h, d], lse [b, h, s] fp32).
 
-    A CUDA tensor launches csrc/flash_fwd.cu (and counts the launch in
-    `flash_fwd.launches`); a CPU tensor runs `reference_attention_with_lse`.
+    A CUDA tensor launches csrc/flash_fwd.cu (tensor cores for bfloat16,
+    FMAs for float32), counted in `flash_fwd.launches`; a CPU tensor runs
+    `reference_flash_fwd`.
     """
     if q.device.type == "cpu":
-        k, v = _expand_kv(q, k, v)
-        return reference_attention_with_lse(q, k, v, causal=causal, scale=scale)
+        return reference_flash_fwd(q, k, v, causal=causal, scale=scale)
     b, s, h, h_kv, d = _check_kernel_inputs(q, k, v)
+    _check_aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     flash_fwd.launches += 1

@@ -25,24 +25,67 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-@pytest.mark.parametrize("dtype,tol_o,tol_lse", [(torch.float32, 1e-4, 1e-4),
-                                                 (torch.bfloat16, 2e-2, 1e-2)])
-@pytest.mark.parametrize("s,h,h_kv,d,causal", [(16, 4, 4, 128, True), (200, 8, 2, 64, True),
-                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True)])
-def test_flash_fwd_matches_plain_version(cuda, dtype, tol_o, tol_lse, s, h, h_kv, d, causal):
-    q, k, v = (torch.randn((2, s, hh, d), generator=cuda, device="cuda").to(dtype)
+def _entry_err(got, want):
+    """max over entries of |got - want| / (|want| + rms(want))."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
+
+
+# Forward: the kernel against reference_flash_fwd, which rounds P where the
+# Pallas kernel does. fp32 (FMA kernel): max |err| 1e-4 for o and lse. bf16
+# (tensor-core kernel): each entry of o within 2**-6 x (|ref| + rms(ref)),
+# since sums in another order put an output or a P one bf16 ulp apart, and
+# lse (fp32, the log of a sum of unrounded P) within 1e-3.
+FWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -6, 1e-3)}
+
+
+def _check_fwd(gen, b, s, h, h_kv, d, dtype, causal):
+    q, k, v = (torch.randn((b, s, hh, d), generator=gen, device="cuda").to(dtype)
                for hh in (h, h_kv, h_kv))
+    kw = dict(causal=causal, scale=d ** -0.5)
     before = tfa.flash_fwd.launches
-    o, lse = tfa.flash_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    o, lse = tfa.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert tfa.flash_fwd.launches == before + 1
-    rep = h // h_kv
-    o_ref, lse_ref = tfa.reference_attention_with_lse(
-        q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2), causal=causal,
-        scale=d ** -0.5,
-    )
-    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    o_ref, lse_ref = tfa.reference_flash_fwd(q, k, v, **kw)
+    assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    tol_o, tol_lse = FWD_TOL[dtype]
+    err_o = (_entry_err(o, o_ref) if dtype == torch.bfloat16
+             else (o - o_ref).abs().max().item())
+    assert err_o <= tol_o, err_o
     assert (lse - lse_ref).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,h_kv,d,causal", [(16, 4, 4, 128, True), (200, 8, 2, 64, True),
+                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True)])
+def test_flash_fwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
+    _check_fwd(cuda, 2, s, h, h_kv, d, dtype, causal)
+
+
+# bf16, the tensor-core route: several 64-row tiles with a ragged last one,
+# GQA with 4 query heads per kv head, every head dim.
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s,causal", [(130, True), (300, False), (1000, True)])
+def test_flash_fwd_bf16_over_ragged_tiles_matches_plain_version(cuda, s, causal, d):
+    _check_fwd(cuda, 2, s, 8, 2, d, torch.bfloat16, causal)
+
+
+def test_flash_fwd_is_deterministic(cuda):
+    q, k, v = (torch.randn((2, 1000, hh, 128), generator=cuda, device="cuda").bfloat16()
+               for hh in (8, 2, 2))
+    first = tfa.flash_fwd(q, k, v, causal=True, scale=128 ** -0.5)
+    second = tfa.flash_fwd(q, k, v, causal=True, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_fwd_bf16_raises_on_misaligned_inputs(cuda):
+    q = torch.randn((1, 64, 2, 64), generator=cuda, device="cuda").bfloat16()
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    shifted = flat[1:].view(q.shape).copy_(q)  # contiguous, 2 bytes past the alignment
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_fwd(shifted, q, q, causal=True, scale=0.125)
 
 
 # Backward tolerances: each entry is held to tol x (|ref| + rms(ref)), ref
@@ -52,11 +95,6 @@ def test_flash_fwd_matches_plain_version(cuda, dtype, tol_o, tol_lse, s, h, h_kv
 # in another order too, the outputs round to bf16, and a P or dS near a
 # rounding boundary rounds one ulp apart: 2**-6 is four bf16 ulps.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
-
-
-def _bwd_err(got, want):
-    g, w = got.float(), want.float()
-    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
 
 
 def _bwd_inputs(gen, b, s, h, h_kv, d, dtype, causal):
@@ -80,7 +118,7 @@ def test_flash_bwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
     want = tfa.reference_flash_bwd(q, k, v, o, lse, do, delta, causal=causal, scale=scale)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype == dtype, name
-        assert _bwd_err(g, w) <= BWD_TOL[dtype], (name, _bwd_err(g, w))
+        assert _entry_err(g, w) <= BWD_TOL[dtype], (name, _entry_err(g, w))
 
 
 # bf16, the tensor-core route: several 64-row tiles with a ragged last one,
@@ -94,7 +132,7 @@ def test_flash_bwd_bf16_over_ragged_tiles_matches_plain_version(cuda, s, causal,
     torch.cuda.synchronize()
     want = tfa.reference_flash_bwd(q, k, v, o, lse, do, delta, **kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert _bwd_err(g, w) <= BWD_TOL[torch.bfloat16], (name, _bwd_err(g, w))
+        assert _entry_err(g, w) <= BWD_TOL[torch.bfloat16], (name, _entry_err(g, w))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

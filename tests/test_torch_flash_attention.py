@@ -3,8 +3,9 @@
 The same seeded numpy inputs go through the JAX flash attention (its Pallas
 kernel in interpret mode on the CPU, as tests/test_ops.py runs it, at
 `highest` matmul precision) and through the port's CPU path, in float32,
-within 2e-5 max-abs. The CUDA kernel itself is checked against its plain
-version by tests/test_torch_cuda_kernels.py and chip_smoke.py on the card.
+within 2e-5 max-abs; in bfloat16 entry by entry, within one bf16 ulp. The
+CUDA kernel itself is checked against its plain version by
+tests/test_torch_cuda_kernels.py and chip_smoke.py on the card.
 """
 
 import importlib
@@ -90,6 +91,48 @@ def test_lse_matches_jax(causal, kv_heads):
     assert tl.dtype == torch.float32
     assert _maxdiff(jo, to) < TOL
     assert _maxdiff(jl, tl) < TOL
+
+
+def _entry_err(got, want):
+    """max over entries of |got - want| / (|want| + rms(want)): the measure
+    the card's checks use (chip_smoke.py `entry_err`)."""
+    g, w = (np.asarray(x, dtype=np.float32) for x in (got, want))
+    return float(np.max(np.abs(g - w) / (np.abs(w) + np.sqrt(np.mean(w * w)))))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv_heads", [None, 2], ids=["mha", "gqa"])
+def test_forward_matches_jax_kernel_in_bf16(causal, kv_heads):
+    """bfloat16: the port's CPU forward (`reference_flash_fwd`, the plain
+    version the card holds the CUDA kernel against) rounds the unnormalised
+    P of each 64-key block to bf16 where the Pallas `_fwd_kernel` does, so
+    it reads within one bf16 ulp of the kernel entry by entry (at most
+    0.004 here): 2**-7 x (|ref| + rms(ref)). Rounding P/l instead, as the
+    unfused fallback does, reads up to 0.0157. lse is fp32 on both sides."""
+    b, s, h, d = 1, 192, 4, 64
+    for seed in range(3):
+        q, k, v = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                   for a in _qkv(b=b, s=s, h=h, d=d, kv_heads=kv_heads, seed=seed))
+        jo, jl = jfa.flash_attention_with_lse(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                              causal=causal, block_q=64, block_k=64)
+        to, tl = tfa.flash_attention_with_lse(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                                              causal=causal)
+        assert to.dtype == torch.bfloat16 and tl.dtype == torch.float32
+        err = _entry_err(to.float().numpy(), np.asarray(jo.astype(jnp.float32)))
+        assert err <= 2 ** -7, (seed, err)
+        assert _maxdiff(jl, tl) < 1e-5, seed
+
+
+def test_blockwise_plain_forward_matches_unfused_in_fp32():
+    """In float32 the blockwise plain version and the unfused one differ by
+    fp32 rounding only: a ragged s (3 full 64-key blocks and 8 keys) and GQA."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b=2, s=200, h=4, d=32, kv_heads=2, seed=4))
+    for causal in (True, False):
+        o, lse = tfa.reference_flash_fwd(q, k, v, causal=causal, scale=0.2)
+        o_ref, lse_ref = tfa.reference_attention_with_lse(
+            q, k.repeat_interleave(2, 2), v.repeat_interleave(2, 2), causal=causal, scale=0.2)
+        assert o.shape == q.shape and lse.shape == (2, 4, 200)
+        assert _maxdiff(o, o_ref) < TOL and _maxdiff(lse, lse_ref) < TOL
 
 
 def test_reference_attention_with_lse_matches_jax():
