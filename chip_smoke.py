@@ -19,19 +19,32 @@ Phases, each printing its own line, any failure exits non-zero:
      (random weights from a seed) answers 8 requests; the flash kernel's
      launch count on that path is checked;
   6. train-parity: 3 AdamW steps at Llama-2-7B width, 2 layers, float32,
-     through the kernels and through plain autograd from the same params:
-     the first step's gradients and every step's loss must agree;
+     through the kernels and through plain autograd from the same params,
+     under remat "dots" and "hot": the first step's gradients and every
+     step's loss must agree, and the flash forward runs 2 (dots) or 1 (hot)
+     times per layer per step;
   7. train: 6 AdamW steps of Llama-2-7B at full width, 8 layers, bf16, on a
-     2 x 2048-token batch: a finite, falling loss, step time, tokens/s, MFU,
-     peak memory, and each kernel's launch count on that path.
-Then one JSON line with every kernel's numbers, and the device line last.
+     2 x 2048-token batch, under remat "hot", "dots" and "attn": a finite,
+     falling loss, step time, tokens/s, MFU, peak memory, and each kernel's
+     launch count on that path;
+  8. zero: ZeRO-1 (train/zero.py) over a NCCL group of one rank against the
+     plain step, 2 layers, bf16: losses and params bitwise equal after 3
+     steps; each optimizer state's bytes;
+  9. checkpoint: 3 steps, an elastic checkpoint at world 1 resharded to 4 on
+     disk, restored into a fresh run, 3 more steps: bitwise equal to 6
+     uninterrupted steps; then an HF safetensors export and reload, bitwise,
+     with the same greedy tokens from PagedLM.
+Then one JSON line with every kernel's numbers (the backward kernels'
+launches from the "hot" train run), and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -629,11 +642,13 @@ def phase_train_parity():
     """3 AdamW steps at Llama-2-7B width, 2 layers, float32 with TF32 off,
     b=1, s=256, through the kernels (attn_impl="full") and through plain
     autograd over attention_reference ("naive"), from the same params and
-    tokens. The first step's gradient of every leaf agrees within 1e-5 of
-    that leaf's norm (readings at most 2.6e-6: fp32 sums in another order);
-    Adam's updates hide a gradient off by a factor, so the losses alone do
-    not show one. Losses agree within 5e-5 relative at every step: Adam
-    carries the gradients' rounding into the next steps."""
+    tokens, under remat "dots" and "hot". The first step's gradient of every
+    leaf agrees within 1e-5 of that leaf's norm (readings at most 2.6e-6:
+    fp32 sums in another order); Adam's updates hide a gradient off by a
+    factor, so the losses alone do not show one. Losses agree within 5e-5
+    relative at every step: Adam carries the gradients' rounding into the
+    next steps. The flash forward runs twice per layer per step under "dots"
+    (remat runs it again) and once under "hot" (its output is kept)."""
     import torch
 
     from ray_tpu_torch.models import transformer as tfm
@@ -642,45 +657,54 @@ def phase_train_parity():
     torch.backends.cudnn.allow_tf32 = False
     rtol, grad_rtol, n_layers, n_steps = 5e-5, 1e-5, 2, 3
     tokens = torch.randint(0, 32000, (1, 256), generator=torch.Generator().manual_seed(3))
-    losses, launches, grads = {}, {}, {}
-    for impl in ("full", "naive"):
-        cfg = tfm.llama2_7b(n_layers=n_layers, dtype=torch.float32, attn_impl=impl)
-        init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
-        params, opt = init(torch.Generator(device="cuda").manual_seed(2))
-        _zero_launch_counts()
-        losses[impl] = [step(params, opt, tokens).item()]
-        # step leaves each leaf's gradient in .grad until the next step
-        grads[impl] = {name: t.grad.clone() for name, t in _named_leaves(params)}
-        losses[impl] += [step(params, opt, tokens).item() for _ in range(n_steps - 1)]
-        launches[impl] = _launch_counts()
-        del params, opt
+    for policy, fwd_per_layer in (("dots", 2), ("hot", 1)):
+        losses, launches, grads = {}, {}, {}
+        for impl in ("full", "naive"):
+            cfg = tfm.llama2_7b(n_layers=n_layers, dtype=torch.float32, attn_impl=impl,
+                                remat_policy=policy)
+            init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
+            params, opt = init(torch.Generator(device="cuda").manual_seed(2))
+            _zero_launch_counts()
+            losses[impl] = [step(params, opt, tokens).item()]
+            # step leaves each leaf's gradient in .grad until the next step
+            grads[impl] = {name: t.grad.clone() for name, t in _named_leaves(params)}
+            losses[impl] += [step(params, opt, tokens).item() for _ in range(n_steps - 1)]
+            launches[impl] = _launch_counts()
+            del params, opt
+            torch.cuda.empty_cache()
+        grad_diff = {name: ((g - grads["naive"][name]).norm() / grads["naive"][name].norm()).item()
+                     for name, g in grads["full"].items()}
+        del grads
         torch.cuda.empty_cache()
-    grad_diff = {name: ((g - grads["naive"][name]).norm() / grads["naive"][name].norm()).item()
-                 for name, g in grads["full"].items()}
-    del grads
-    torch.cuda.empty_cache()
-    diff = max(abs(a - b) / abs(b) for a, b in zip(losses["full"], losses["naive"]))
-    print(f"[train-parity] llama2_7b width, 2 layers, fp32, b=1 s=256, adamw(1e-4), remat dots: "
-          f"losses kernels {[round(x, 6) for x in losses['full']]} plain "
-          f"{[round(x, 6) for x in losses['naive']]}; max rel diff {diff:.3g} (tol {rtol}); "
-          f"launches kernels {launches['full']} plain {launches['naive']}", flush=True)
-    print("[train-parity] first-step gradient, |kernels - plain| / |plain| per leaf: "
-          + ", ".join(f"{n} {e:.3g}" for n, e in grad_diff.items()) + f" (tol {grad_rtol})",
-          flush=True)
-    if not all(math.isfinite(x) for x in losses["full"] + losses["naive"]) or diff > rtol:
-        _fail("train-parity: the kernels' losses disagree with plain autograd")
-    if not all(e <= grad_rtol for e in grad_diff.values()):
-        _fail("train-parity: the kernels' first-step gradients disagree with plain autograd")
-    # remat runs each layer's forward (its flash kernel too) again in the backward.
-    want = {"flash_fwd": 2 * n_layers * n_steps, "flash_bwd_dq": n_layers * n_steps,
-            "flash_bwd_dkv": n_layers * n_steps}
-    if launches["full"] != want or any(launches["naive"].values()):
-        _fail(f"train-parity launches {launches}, want {want} through the kernels")
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses["full"], losses["naive"]))
+        print(f"[train-parity] llama2_7b width, 2 layers, fp32, b=1 s=256, adamw(1e-4), remat "
+              f"{policy}: losses kernels {[round(x, 6) for x in losses['full']]} plain "
+              f"{[round(x, 6) for x in losses['naive']]}; max rel diff {diff:.3g} (tol {rtol}); "
+              f"launches kernels {launches['full']} plain {launches['naive']}", flush=True)
+        print(f"[train-parity] remat {policy}: first-step gradient, |kernels - plain| / |plain| "
+              "per leaf: " + ", ".join(f"{n} {e:.3g}" for n, e in grad_diff.items())
+              + f" (tol {grad_rtol})", flush=True)
+        if not all(math.isfinite(x) for x in losses["full"] + losses["naive"]) or diff > rtol:
+            _fail(f"train-parity: the kernels' losses disagree with plain autograd ({policy})")
+        if not all(e <= grad_rtol for e in grad_diff.values()):
+            _fail(f"train-parity: the kernels' first-step gradients disagree with plain "
+                  f"autograd ({policy})")
+        want = {"flash_fwd": fwd_per_layer * n_layers * n_steps,
+                "flash_bwd_dq": n_layers * n_steps, "flash_bwd_dkv": n_layers * n_steps}
+        if launches["full"] != want or any(launches["naive"].values()):
+            _fail(f"train-parity launches under {policy}: {launches}, want {want} through the "
+                  "kernels")
 
 
-def phase_train(profile: bool = False):
-    """6 AdamW steps of llama2_7b(n_layers=8) in bf16, remat "dots", on one
-    fixed batch of 2 x 2048 random tokens; returns each kernel's launches."""
+# Flash forward launches per layer per step under each remat policy: "dots"
+# runs it again in the backward, "attn" and "hot" keep its output.
+TRAIN_POLICIES = {"hot": 1, "dots": 2, "attn": 1}
+
+
+def _train_run(policy: str, profile: bool):
+    """6 AdamW steps of llama2_7b(n_layers=8) in bf16 under remat `policy`,
+    on one fixed batch of 2 x 2048 random tokens; returns each kernel's
+    launches."""
     import gc
     import statistics
 
@@ -688,7 +712,7 @@ def phase_train(profile: bool = False):
 
     from ray_tpu_torch.models import transformer as tfm
 
-    cfg = tfm.llama2_7b(n_layers=8, dtype=torch.bfloat16)
+    cfg = tfm.llama2_7b(n_layers=8, dtype=torch.bfloat16, remat_policy=policy)
     b, s, n_steps = 2, 2048, 6
     init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
     gc.collect()  # what earlier phases left in reference cycles
@@ -700,7 +724,8 @@ def phase_train(profile: bool = False):
     torch.cuda.synchronize()
     n_params = tfm.param_count(params)
     print(f"[train] llama2_7b width, {cfg.n_layers} layers ({n_params / 1e9:.3f} B params), bf16, "
-          f"random weights from seed 0 on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"remat {policy}, random weights from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
     losses, step_ms = [], []
@@ -710,14 +735,30 @@ def phase_train(profile: bool = False):
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # What the policy keeps: the bytes one more forward leaves allocated for
+    # its backward (logits and loss included, the same under every policy),
+    # and that backward's peak, both above params, AdamW state and tokens.
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = tfm.next_token_loss(params, tokens, cfg)
+    kept = torch.cuda.memory_allocated() - base
+    loss.backward()
+    del loss
+    fwd_bwd_peak = torch.cuda.max_memory_allocated() - base
+    opt.zero_grad(set_to_none=True)
     p50 = statistics.median(step_ms[1:])
     tok_s = b * s / (p50 / 1e3)
     mfu = tfm.flops_per_token(cfg, s) * tok_s / PEAK_FLOPS["bfloat16"]
-    print(f"[train] {n_steps} steps of adamw(1e-4) on {b} x {s} tokens, remat dots: losses "
+    print(f"[train] remat {policy}: {n_steps} steps of adamw(1e-4) on {b} x {s} tokens: losses "
           f"{[round(x, 4) for x in losses]}; step ms {[round(t, 1) for t in step_ms]}, p50 over "
           f"steps 2-{n_steps} {p50:.1f}; {tok_s:.0f} tokens/s; MFU {100 * mfu:.2f}% (against "
           f"the H100 bf16 dense peak, 989 TFLOP/s); max_memory_allocated {peak / 2**30:.2f} GiB "
           f"({held / 2**30:.2f} GiB held before the phase); launches {launches}", flush=True)
+    print(f"[train] remat {policy}: one more forward keeps {kept / 2**20:.1f} MiB for its "
+          f"backward ({kept / 2**20 / cfg.n_layers:.1f} MiB per layer, logits included); that "
+          f"backward peaks {fwd_bwd_peak / 2**30:.3f} GiB above params and AdamW state",
+          flush=True)
     if profile:
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
@@ -725,22 +766,224 @@ def phase_train(profile: bool = False):
             t = time.perf_counter()
             step(params, opt, tokens).item()
             wall = time.perf_counter() - t
-        _print_profile(prof, wall, "train")
+        _print_profile(prof, wall, f"train {policy}")
     del params, opt
     torch.cuda.empty_cache()
     if not all(math.isfinite(x) for x in losses):
-        _fail(f"train: a loss is not finite: {losses}")
+        _fail(f"train ({policy}): a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        _fail(f"train: the loss did not fall: {losses}")
-    for kern in ("flash_bwd_dq", "flash_bwd_dkv"):
-        if launches[kern] < cfg.n_layers * n_steps:
-            _fail(f"train: {kern} launched {launches[kern]} times, want >= "
-                  f"{cfg.n_layers} x {n_steps}")
-    # remat runs each layer's forward, the flash kernel included, again in the backward.
-    if launches["flash_fwd"] < 2 * cfg.n_layers * n_steps:
-        _fail(f"train: flash_fwd launched {launches['flash_fwd']} times, want >= "
-              f"2 x {cfg.n_layers} x {n_steps}")
+        _fail(f"train ({policy}): the loss did not fall: {losses}")
+    want = {"flash_fwd": TRAIN_POLICIES[policy] * cfg.n_layers * n_steps,
+            "flash_bwd_dq": cfg.n_layers * n_steps, "flash_bwd_dkv": cfg.n_layers * n_steps}
+    if launches != want:
+        _fail(f"train ({policy}): launches {launches}, want {want}")
     return launches
+
+
+def phase_train(profile: bool = False):
+    """The train run under remat "hot" (the JAX package's training default),
+    then "dots" and "attn"; returns the "hot" run's launches."""
+    runs = {policy: _train_run(policy, profile and policy == "hot") for policy in TRAIN_POLICIES}
+    return runs["hot"]
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True) inside, restored after; the
+    embedding's backward then sums without atomics. cuBLAS asks for
+    CUBLAS_WORKSPACE_CONFIG, which this process uses on one stream only."""
+    import torch
+
+    was, env = torch.are_deterministic_algorithms_enabled(), os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _tree_equal(a, b) -> bool:
+    """Whether two trees have the same key paths and every leaf the same
+    dtype, shape and bytes (so -0.0 differs from 0.0)."""
+    import torch
+
+    from ray_tpu_torch.models.convert import flatten
+
+    def raw(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    (pa, la), (pb, lb) = flatten(a), flatten(b)
+    return pa == pb and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(raw(x).to(y.device), raw(y))
+        for x, y in zip(la, lb))
+
+
+def phase_zero():
+    """ZeRO-1 over a NCCL group of one rank in this process, against the
+    plain step from the same params: llama2_7b(n_layers=2), bf16, remat
+    "hot", b=1, s=2048, 3 steps, deterministic algorithms. Losses and
+    params must be bitwise equal: the update is elementwise and a
+    reduce-scatter over one rank is the identity."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.train import backend, zero
+
+    cfg = tfm.llama2_7b(n_layers=2, dtype=torch.bfloat16, remat_policy="hot")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+    t0 = time.perf_counter()
+    info = backend.setup_torch_distributed(0, 1, backend.coordinator_address(
+        backend.TorchBackendConfig()))
+    print(f"[zero] process group {dist.get_backend()} {info} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        with _deterministic():
+            runs = {}
+            for name, kw in (("plain", {}), ("zero", {"zero_axis": "data"})):
+                init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda", **kw)
+                params, opt = init(torch.Generator(device="cuda").manual_seed(4))
+                losses, step_ms = [], []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    losses.append(step(params, opt, tokens).item())
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+                runs[name] = (losses, params, zero.per_device_bytes(opt), step_ms)
+                del opt
+        (pl, pp, pb, pms), (zl, zp, zb, zms) = runs["plain"], runs["zero"]
+        same = pl == zl and _tree_equal(pp, zp)
+        print(f"[zero] llama2_7b width, 2 layers, bf16, remat hot, b=1 s=2048, 3 steps of "
+              f"adamw(1e-4), {dist.get_backend()} world 1: losses plain {pl} zero {zl}; losses "
+              "and params "
+              f"bitwise equal {same}; optimizer state per device {pb / 2**30:.3f} GiB plain, "
+              f"{zb / 2**30:.3f} GiB zero; step ms plain {[round(t, 1) for t in pms]}, zero "
+              f"{[round(t, 1) for t in zms]}",
+              flush=True)
+        del runs, pp, zp
+        torch.cuda.empty_cache()
+        if not same:
+            _fail("zero: the ZeRO step at world 1 differs from the plain step")
+        if zb < pb:
+            _fail(f"zero: {zb} optimizer bytes at world 1, below the plain {pb}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _greedy(cfg, params, prompt, n_new):
+    """PagedLM prefill + decode on one sequence: n_new greedy tokens."""
+    from ray_tpu_torch.serve.llm import PagedLM
+
+    T = 16
+    pages = list(range(1, 1 + -(-(len(prompt) + n_new) // T)))
+    lm = PagedLM(cfg, params, device="cuda", num_pages=len(pages) + 1, page_tokens=T,
+                 max_slots=1, max_pages_per_seq=len(pages))
+    out = [lm.prefill(prompt, pages, 0)]
+    while len(out) < n_new:
+        out.append(lm.decode([out[-1]], [len(prompt) + len(out) - 1], [pages])[0])
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_checkpoint():
+    """Save, reshard, resume and HF round trip on llama2_7b(n_layers=2),
+    bf16, remat "hot", b=1, s=2048, under deterministic algorithms: 3 steps,
+    save_state (elastic format) at world 1, reshard to world 4 on disk,
+    restore into fresh params and a fresh optimizer (bitwise equal to what
+    was saved), 3 more steps: losses and params bitwise equal to an
+    uninterrupted 6-step run. Then export_hf_checkpoint ->
+    load_hf_checkpoint, bitwise, and PagedLM's 8 greedy tokens from the
+    reloaded weights equal those from the originals."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.train import elastic_checkpoint as ec
+    from ray_tpu_torch.train import hf_checkpoint as hf
+
+    cfg = tfm.llama2_7b(n_layers=2, dtype=torch.bfloat16, remat_policy="hot")
+    init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(6))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    timings = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        timings[name] = time.perf_counter() - t
+        return out
+
+    try:
+        with _deterministic():
+            params, opt = init(torch.Generator(device="cuda").manual_seed(7))
+            straight = [step(params, opt, tokens).item() for _ in range(6)]
+            want = params
+            del opt
+            params, opt = init(torch.Generator(device="cuda").manual_seed(7))
+            resumed = [step(params, opt, tokens).item() for _ in range(3)]
+            saved = (params, convert.opt_state_to_torch(opt, params))
+            w1, w4 = f"{tmp}/world1", f"{tmp}/world4"
+            timed("save", ec.save_state, w1, *saved, step=3, world_size=1, rank=0)
+            written = _dir_bytes(w1)
+            for kind in ("params", "opt"):
+                timed(f"reshard {kind}", ec.reshard, w1, w4, 4, kind=kind)
+            shutil.rmtree(w1)
+            state = timed("load", ec.load_state, w4)
+            del params, opt
+            params, opt = init(torch.Generator(device="cuda").manual_seed(8))
+            with torch.no_grad():
+                for t, src in zip(convert.flatten(params)[1],
+                                  convert.flatten(state["params"])[1]):
+                    t.copy_(src)
+            convert.opt_state_from_numpy(state["opt_state"], opt, params)
+            restored = (_tree_equal(saved[0], params)
+                        and _tree_equal(saved[1], convert.opt_state_to_torch(opt, params))
+                        and state["step"] == 3 and state["saved_world_size"] == 4)
+            del saved, state
+            resumed += [step(params, opt, tokens).item() for _ in range(3)]
+            del opt
+        same = resumed == straight and _tree_equal(want, params)
+        print(f"[checkpoint] llama2_7b width, 2 layers, bf16, remat hot, b=1 s=2048, "
+              f"deterministic: losses straight {straight} resumed {resumed}; restored state "
+              f"bitwise equal to the saved {restored}; after 6 steps losses and params bitwise "
+              f"equal {same}; elastic checkpoint {written / 2**30:.3f} GiB at world 1, "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in timings.items()), flush=True)
+        if not restored:
+            _fail("checkpoint: the restored state differs from the saved one")
+        if not same:
+            _fail("checkpoint: the resumed run differs from the uninterrupted one")
+        del want
+        path = f"{tmp}/model.safetensors"
+        timed("hf export", hf.export_hf_checkpoint, params, cfg, path)
+        loaded = timed("hf load", hf.load_hf_checkpoint, path, cfg, device="cuda")
+        hf_same = _tree_equal(params, loaded)
+        prompt = torch.randint(0, cfg.vocab_size, (21,),
+                               generator=torch.Generator().manual_seed(9)).tolist()
+        params = tfm.map_tree(lambda t: t.detach(), params)
+        got, gold = _greedy(cfg, loaded, prompt, 8), _greedy(cfg, params, prompt, 8)
+        print(f"[checkpoint] HF safetensors {os.path.getsize(path) / 2**30:.3f} GiB: export "
+              f"{timings['hf export']:.1f} s, load onto the card {timings['hf load']:.1f} s; "
+              f"reloaded weights bitwise equal {hf_same}; greedy tokens reloaded {got} "
+              f"original {gold}", flush=True)
+        if not hf_same or got != gold:
+            _fail("checkpoint: the HF round trip changed the weights or the greedy tokens")
+        del params, loaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -761,6 +1004,8 @@ def main() -> int:
     fwd_row["launches"] = phase_serve(profile=args.profile)
     phase_train_parity()
     train_launches = phase_train(profile=args.profile)
+    phase_zero()
+    phase_checkpoint()
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     print(json.dumps({"kernels": [fwd_row, dq_row, dkv_row]}), flush=True)

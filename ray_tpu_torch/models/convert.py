@@ -1,4 +1,5 @@
-"""Moves transformer params between the JAX package's pytree and the port.
+"""Moves transformer params and AdamW state between the JAX package's pytrees
+and the port.
 
 `params_from_numpy` takes the JAX param tree with each leaf converted by
 `np.asarray` (bfloat16 leaves arrive as numpy arrays of the `bfloat16`
@@ -6,21 +7,79 @@ extension dtype) and returns the port's tree on `device`, in cfg.dtype.
 `params_to_numpy` goes back; numpy has no built-in bfloat16, so bfloat16
 tensors come out as float32 arrays, which widens them exactly. Both use the
 key paths of `init_params`, and the shapes are checked against them.
+
+`opt_state_to_torch` / `opt_state_to_numpy` / `opt_state_from_numpy` map
+torch.optim.AdamW's per-param state (step, exp_avg, exp_avg_sq) to and from
+optax adamw's `ScaleByAdamState(count, mu, nu)`, as the dict
+{"count": int32 scalar, "mu": tree, "nu": tree}, mu and nu shaped like the
+params. These keep every bit: a checkpoint must not widen bfloat16.
+
+`flatten` and `unflatten` order a tree's leaves as `jax.tree_util` does:
+dict keys sorted (so "blocks/attn/wk" comes before "wo", and ZeRO's leaf
+indices "0", "1", "10", ..., "2" sort as strings), not in insertion order as
+`transformer.tree_leaves` has them. Every leaf index that crosses between
+the packages (an elastic checkpoint's manifest, ZeRO's keys) uses it.
 """
 
 from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from .transformer import Params, TransformerConfig, map_tree, param_spec
 
+Path = Tuple[str, ...]
 
-def _leaf_to_tensor(arr) -> torch.Tensor:
-    arr = np.array(arr)  # a writable copy: jax's host buffers are read-only
+
+def flatten(tree) -> Tuple[List[Path], List[Any]]:
+    """(key paths, leaves) in jax.tree_util's order: a dict's keys sorted,
+    anything that is not a dict a leaf."""
+    if not isinstance(tree, dict):
+        return [()], [tree]
+    paths, leaves = [], []
+    for key in sorted(tree):
+        if not isinstance(key, str):
+            raise TypeError(f"tree keys must be str, got {key!r}")
+        sub_paths, sub_leaves = flatten(tree[key])
+        paths += [(key, *p) for p in sub_paths]
+        leaves += sub_leaves
+    return paths, leaves
+
+
+def unflatten(paths: List[Path], leaves: List[Any]):
+    """The nested dict with `leaves` at `paths` (flatten's inverse)."""
+    if list(paths) == [()]:
+        return leaves[0]
+    tree: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def to_tensor(x) -> torch.Tensor:
+    """A leaf (a tensor, a numpy array, bfloat16 as ml_dtypes' dtype, or a
+    number) as a CPU tensor with the same bits: a copy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    arr = np.array(x)  # a writable copy: jax's host buffers are read-only
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: same bits as torch's
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy with the same bits; numpy has no bfloat16, so a bfloat16
+    tensor comes out as a uint16 array of its bits (`.view(ml_dtypes.bfloat16)`
+    is JAX's array)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def _check_tree(tree, spec, path: str = "") -> None:
@@ -42,7 +101,7 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None) -> Params:
 
     dev = resolve_device(device)
     _check_tree(tree, param_spec(cfg))
-    return map_tree(lambda a: _leaf_to_tensor(a).to(device=dev, dtype=cfg.dtype), tree)
+    return map_tree(lambda a: to_tensor(a).to(device=dev, dtype=cfg.dtype), tree)
 
 
 def params_to_numpy(params: Params):
@@ -55,3 +114,84 @@ def params_to_numpy(params: Params):
         return t.numpy()
 
     return map_tree(to_np, params)
+
+
+# ------------------------------------------------------------ AdamW state
+
+
+def _param_leaves(optimizer: torch.optim.Optimizer, params):
+    """(paths, leaves, group of each leaf by id) of the optimizer's params."""
+    paths, leaves = flatten(params)
+    groups = {id(p): g for g in optimizer.param_groups for p in g["params"]}
+    for path, t in zip(paths, leaves):
+        if id(t) not in groups:
+            raise ValueError(f"param {'/'.join(path)} is not one of the optimizer's params")
+    return paths, leaves, groups
+
+
+def opt_state_to_torch(optimizer: torch.optim.Optimizer, params) -> Dict[str, Any]:
+    """AdamW's state over `params` (the tensors the optimizer was built on)
+    as optax's ScaleByAdamState: {"count", "mu", "nu"}, CPU copies in the
+    params' dtype. Before the first step it is optax's init: count 0 and
+    zero moments."""
+    paths, leaves, _ = _param_leaves(optimizer, params)
+    counts, mu, nu = set(), [], []
+    for t in leaves:
+        state = optimizer.state.get(t)
+        if not state:
+            counts.add(0)
+            mu.append(torch.zeros(t.shape, dtype=t.dtype))
+            nu.append(torch.zeros(t.shape, dtype=t.dtype))
+            continue
+        counts.add(int(state["step"]))
+        mu.append(state["exp_avg"].detach().to("cpu", copy=True))
+        nu.append(state["exp_avg_sq"].detach().to("cpu", copy=True))
+    if len(counts) > 1:
+        raise ValueError(f"params were stepped unequally often ({sorted(counts)}); optax "
+                         "keeps one count")
+    return {"count": torch.tensor(counts.pop() if counts else 0, dtype=torch.int32),
+            "mu": unflatten(paths, mu), "nu": unflatten(paths, nu)}
+
+
+def opt_state_to_numpy(optimizer: torch.optim.Optimizer, params) -> Dict[str, Any]:
+    """opt_state_to_torch with numpy leaves (bfloat16 as uint16 bits, see
+    tensor_to_numpy)."""
+    state = opt_state_to_torch(optimizer, params)
+    return {"count": tensor_to_numpy(state["count"]),
+            "mu": map_tree(tensor_to_numpy, state["mu"]),
+            "nu": map_tree(tensor_to_numpy, state["nu"])}
+
+
+def as_tensor(x, dtype: torch.dtype, shape) -> torch.Tensor:
+    """to_tensor(x), where a bfloat16 leaf may also come as uint16 bits;
+    raises unless it has `dtype` and `shape`."""
+    t = to_tensor(x)
+    if dtype == torch.bfloat16 and t.dtype == torch.uint16:
+        t = t.view(torch.bfloat16)
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"leaf {t.dtype} {tuple(t.shape)} does not match {dtype} {tuple(shape)}")
+    return t
+
+
+def _adam_fields(state):
+    if isinstance(state, dict):
+        return state["count"], state["mu"], state["nu"]
+    return state.count, state.mu, state.nu  # optax's ScaleByAdamState
+
+
+def opt_state_from_numpy(state, optimizer: torch.optim.Optimizer, params) -> None:
+    """Loads optax adamw's ScaleByAdamState (the namedtuple, or the dict of
+    opt_state_to_torch; leaves numpy or tensors) into `optimizer`'s state
+    for `params`, bit for bit: step = count, exp_avg = mu, exp_avg_sq = nu."""
+    count, mu, nu = _adam_fields(state)
+    paths, leaves, groups = _param_leaves(optimizer, params)
+    if flatten(mu)[0] != paths or flatten(nu)[0] != paths:
+        raise ValueError("mu/nu trees do not have the params' key paths")
+    step = float(np.asarray(count.cpu() if isinstance(count, torch.Tensor) else count))
+    for t, m, v in zip(leaves, flatten(mu)[1], flatten(nu)[1]):
+        # torch keeps step on the host unless the optimizer is fused or capturable
+        group = groups[id(t)]
+        dev = t.device if group.get("fused") or group.get("capturable") else "cpu"
+        optimizer.state[t] = {"step": torch.tensor(step, dtype=torch.float32, device=dev),
+                              "exp_avg": as_tensor(m, t.dtype, t.shape).to(t.device),
+                              "exp_avg_sq": as_tensor(v, t.dtype, t.shape).to(t.device)}

@@ -50,7 +50,9 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "full"  # "full" (flash kernel) | "naive"
     # Per-layer recompute in the backward, while grad is enabled: "dots"
-    # keeps matmul outputs and recomputes the rest; None recomputes all.
+    # keeps matmul outputs and recomputes the rest; "attn" keeps the flash
+    # forward's output; "hot" keeps JAX's HOT_SAVE_NAMES frontier; None
+    # recomputes all (_remat_layer).
     remat: bool = True
     remat_policy: Optional[str] = "dots"
     tie_embeddings: bool = False
@@ -240,15 +242,22 @@ def _qkv(h, ap, cfg: TransformerConfig):
     return q, k, v
 
 
-def _mlp(h, mp, cfg: TransformerConfig):
+def _mlp_act(h, mp, cfg: TransformerConfig):
+    """The MLP up to w_down: the gate/up products and their activation."""
     up = torch.matmul(h, mp["w_up"]).float()
     if cfg.mlp_act == "swiglu":
         gate = torch.matmul(h, mp["w_gate"]).float()
-        act = (F.silu(gate) * up).to(cfg.dtype)
-    else:
-        # jax.nn.gelu defaults to the tanh approximation.
-        act = F.gelu(up, approximate="tanh").to(cfg.dtype)
+        return (F.silu(gate) * up).to(cfg.dtype)
+    # jax.nn.gelu defaults to the tanh approximation.
+    return F.gelu(up, approximate="tanh").to(cfg.dtype)
+
+
+def _mlp_down(act, mp, cfg: TransformerConfig):
     return torch.matmul(act, mp["w_down"]).to(cfg.dtype)
+
+
+def _mlp(h, mp, cfg: TransformerConfig):
+    return _mlp_down(_mlp_act(h, mp, cfg), mp, cfg)
 
 
 def _attention(q, k, v, cfg: TransformerConfig):
@@ -280,12 +289,18 @@ def _residual(x, h, attn_out, lp, cfg: TransformerConfig):
     return x + _mlp(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg)
 
 
-def _layer(x, lp, cfg: TransformerConfig, cos, sin):
+def _attend(x, lp, cfg: TransformerConfig, cos, sin):
+    """The layer up to attention: (h, o), h the attention pre-norm and o
+    attention's output."""
     h = _norm(x, lp["attn_norm"]["scale"], cfg)
     q, k, v = _qkv(h, lp["attn"], cfg)
     q = apply_rope(q, cos, sin, cfg)
     k = apply_rope(k, cos, sin, cfg)
-    o = _attention(q, k, v, cfg)
+    return h, _attention(q, k, v, cfg)
+
+
+def _layer(x, lp, cfg: TransformerConfig, cos, sin):
+    h, o = _attend(x, lp, cfg, cos, sin)
     return _residual(x, h, _attn_out(o, lp["attn"], cfg), lp, cfg)
 
 
@@ -299,32 +314,94 @@ def _head(params: Params) -> torch.Tensor:
 # [b, s, d] @ [d, k] projection reaches aten as mm; attention's batched
 # products (bmm) and the flash kernels are recomputed.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# The flash forward's registered op: its (o, lse) are JAX's flash_o/flash_lse.
+_FLASH = (torch.ops.ray_tpu_torch.flash_fwd.default,)
+
+# What JAX's remat_policy="hot" saves (save_only_these_names,
+# ray_tpu/models/transformer.py HOT_SAVE_NAMES). The port's "hot" keeps the
+# same frontier in torch's terms (see _hot_layer).
+HOT_SAVE_NAMES = (
+    "flash_o",
+    "flash_lse",
+    "q_bf16",
+    "k_bf16",
+    "v_bf16",
+    "attn_out_bf16",
+    "mlp_in_bf16",
+    "mlp_act_bf16",
+)
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+def _saving(ops) -> Callable:
+    """A selective-checkpoint context that keeps the outputs of `ops` and
+    recomputes every other op."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _ckpt(fn, *args, context_fn=noop_context_fn):
+    # The layer draws no random numbers, so no RNG state is stashed.
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn)
+
+
+def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin):
+    """_layer under remat "hot": the backward recomputes the two norms, RoPE
+    and the gate/up products with their activation, and nothing else, as
+    JAX's save_only_these_names(*HOT_SAVE_NAMES) does.
+
+    torch.utils.checkpoint replays a region's forward up to the last tensor
+    its backward reads, running every op it holds no output of, so a saved
+    tag alone would not stop the projections that feed it from running
+    again. The layer is built from two checkpointed regions instead:
+      - _attend keeps the q/k/v projections' outputs (before RoPE, which is
+        elementwise and recomputed; JAX's q/k/v_bf16 are after it, the same
+        bytes) and the flash op's (o, lse) (flash_o/flash_lse);
+      - the MLP up to w_down keeps nothing: its backward recomputes the
+        norm and the gate/up products from its input, the residual x +
+        attn_out (JAX keeps attn_out, from which it re-adds that residual,
+        and mlp_in; under the parallel block the input is h, JAX's mlp_in);
+    w_o and w_down run outside both regions, so autograd keeps their inputs:
+    o (already kept) and the activation (mlp_act_bf16). Per layer that is
+    3 + 1 + 1 tensors of [b, s, d] and one of [b, s, d_ff] in cfg.dtype plus
+    lse, one [b, s, d] fewer than JAX's frontier (mlp_in, which the port
+    recomputes with the norm JAX also recomputes)."""
+    h, o = _ckpt(_attend, x, lp, cfg, cos, sin, context_fn=_saving(_DOTS + _FLASH))
+    attn_out = _attn_out(o, lp["attn"], cfg)
+    if cfg.parallel_block:
+        act = _ckpt(_mlp_act, h, lp["mlp"], cfg)
+        return x + attn_out + _mlp_down(act, lp["mlp"], cfg)
+    x = x + attn_out
+    act = _ckpt(_normed_mlp_act, x, lp, cfg)
+    return x + _mlp_down(act, lp["mlp"], cfg)
+
+
+def _normed_mlp_act(x, lp, cfg: TransformerConfig):
+    return _mlp_act(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg)
 
 
 def _remat_layer(policy: Optional[str]) -> Callable:
-    """_layer under torch.utils.checkpoint with the JAX package's policy."""
-    if policy in ("attn", "hot"):
-        raise NotImplementedError(
-            f"remat_policy={policy!r} needs named save points (checkpoint_name); not "
-            "ported yet (ROADMAP Queue 1, item 2)"
-        )
-    if policy == "dots":
-        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    elif policy is None:
-        context_fn = noop_context_fn
-    else:
+    """_layer under torch.utils.checkpoint with the JAX package's policy:
+      None: everything recomputed, the flash forward too;
+      "dots": the projections' outputs kept, the rest (flash forward
+        included) recomputed;
+      "attn": only the flash forward's (o, lse) kept, so it never runs
+        again; every projection but w_down (whose output no backward
+        reads) runs again;
+      "hot": see _hot_layer.
+    What each keeps per layer at Llama-2-7B width in bf16 on 2 x 2048
+    tokens, besides the layer's 32 MiB input: "dots" 332 MiB (seven
+    projection outputs, rounded to bf16; JAX keeps them in fp32, 664 MiB),
+    "hot" 246.5 MiB (JAX's frontier: 278.5), "attn" 32.5 MiB (as JAX)."""
+    if policy == "hot":
+        return _hot_layer
+    contexts = {None: noop_context_fn, "dots": _saving(_DOTS), "attn": _saving(_FLASH)}
+    if policy not in contexts:
         raise ValueError(f"unknown remat_policy {policy!r}")
-
-    def layer(*args):
-        # The layer draws no random numbers, so no RNG state is stashed.
-        return checkpoint(_layer, *args, use_reentrant=False, preserve_rng_state=False,
-                          context_fn=context_fn)
-
-    return layer
+    return functools.partial(_ckpt, _layer, context_fn=contexts[policy])
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -385,35 +462,55 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
-                     zero_axis: Optional[str] = None):
-    """The single-device train step (fwd + bwd + optimizer), the counterpart
-    of the JAX package's `build_train_step(cfg, tx, mesh)` without ZeRO.
+                     zero_axis: Optional[str] = None, mesh=None):
+    """The train step (fwd + bwd + optimizer), the counterpart of the JAX
+    package's `build_train_step(cfg, tx, mesh, zero_axis=...)`.
 
     Returns `(init_state, step)`:
       init_state(generator) -> (params, optimizer): params from
         `init_params` on `device` (CUDA unless the caller passes "cpu"),
         every leaf requiring grad, and `make_optimizer(leaves)`, e.g.
-        `adamw(1e-4)`;
+        `adamw(1e-4)`; with `zero_axis`, the ZeRO-sharded optimizer of
+        train/zero.py (`init_opt_state`) over this rank's shards instead;
       step(params, optimizer, tokens) -> loss: one step on tokens
         [batch, seq]. It updates params and optimizer state IN PLACE and
         returns the loss before the update (a 0-d tensor), where the JAX
         step is pure and donates its inputs.
+
+    With `zero_axis` the step is train/zero.py's ZeRO-1 step over the
+    torch.distributed group (the default group, or the `zero_axis` dim of
+    the DeviceMesh `mesh`, which must already be initialised): each rank
+    passes its own [batch/N, seq] slice of the batch and gets the loss's
+    mean over ranks.
     """
-    if zero_axis is not None:
-        raise NotImplementedError(
-            "zero_axis: the ZeRO-sharded update waits for the port's torch.distributed "
-            "layer (ROADMAP Queue 1, item 4)"
-        )
     from .._device import resolve_device
 
     dev = resolve_device(device)
 
-    def init_state(generator: torch.Generator):
+    def init_leaf_params(generator: torch.Generator):
         params = init_params(cfg, generator, device=dev)
-        leaves = tree_leaves(params)
-        for t in leaves:
+        for t in tree_leaves(params):
             t.requires_grad_(True)
-        return params, make_optimizer(leaves)
+        return params
+
+    if zero_axis is not None:
+        from ..train import zero
+
+        like = map_tree(lambda leaf: torch.empty(leaf[0], dtype=cfg.dtype, device="meta"),
+                        param_spec(cfg))
+        zero_step, _ = zero.build_zero_step(
+            lambda p, tokens: next_token_loss(p, tokens.to(dev), cfg), like, mesh,
+            axis=zero_axis)
+
+        def zero_init_state(generator: torch.Generator):
+            params = init_leaf_params(generator)
+            return params, zero.init_opt_state(make_optimizer, params, mesh, zero_axis)
+
+        return zero_init_state, zero_step
+
+    def init_state(generator: torch.Generator):
+        params = init_leaf_params(generator)
+        return params, make_optimizer(tree_leaves(params))
 
     def step(params: Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)

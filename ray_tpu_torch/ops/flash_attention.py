@@ -300,6 +300,23 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
+# The flash forward as a registered operator, so that a selective-checkpoint
+# policy (models/transformer.py, remat "attn" and "hot") sees it and can keep
+# its (o, lse) from the forward: the counterpart of JAX naming them
+# flash_o/flash_lse in its vjp. An (o, lse) served from that cache launches
+# nothing and counts nothing in flash_fwd.launches.
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, causal=causal, scale=scale)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
 def flash_bwd(q, k, v, o, lse, do, delta, *, causal: bool, scale: float):
     """One flash backward: (dq, dk, dv) from the forward's inputs, its output
     o and lse, the upstream gradient do and delta = sum_d(do * o) [b, h, s]
@@ -319,7 +336,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+        o, lse = torch.ops.ray_tpu_torch.flash_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.set_materialize_grads(False)

@@ -143,24 +143,51 @@ def test_init_state_gives_leaf_params_and_optax_defaults():
 
 
 class _CountMatmuls(TorchDispatchMode):
+    """Counts the flash forward op and records each mm's weight shape."""
+
     def __init__(self):
         super().__init__()
-        self.n = 0
+        self.mm_weights = []
+        self.flash = 0
+
+    @property
+    def n(self):
+        return len(self.mm_weights)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += func is torch.ops.aten.mm.default
+        if func is torch.ops.aten.mm.default:
+            self.mm_weights.append(tuple(args[1].shape))
+        self.flash += func is torch.ops.ray_tpu_torch.flash_fwd.default
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("policy", [None, "dots"])
+GPTJ_TINY = dict(mlp_act="gelu", parallel_block=True, norm_type="layer",
+                 rope_style="interleaved", rotary_dim=8)
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "attn", "hot"])
 def test_remat_gives_the_same_loss_and_grads(policy, monkeypatch):
-    """Each layer's forward (its flash call included) runs again in the
-    backward, and the result is the one without remat; "dots" takes the
-    projections' outputs from the forward instead of running them again."""
+    _check_remat(policy, {}, monkeypatch)
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "attn", "hot"])
+def test_remat_under_the_gptj_block_gives_the_same_loss_and_grads(policy, monkeypatch):
+    _check_remat(policy, GPTJ_TINY, monkeypatch)
+
+
+def _check_remat(policy, arch, monkeypatch):
+    """Each layer recomputes in the backward what its policy does not keep,
+    and the result is the one without remat:
+      None: the whole layer, the flash forward and the projections too (all
+        but the last of each layer, whose output no backward reads);
+      "dots": everything but the projections, the flash forward included;
+      "attn": everything but the flash forward: every projection but w_down;
+      "hot": exactly the gate/up products (2 per layer for swiglu, 1 for
+        gelu), and no projection or flash forward."""
     calls = []
     real_fwd = tfa.flash_fwd
     monkeypatch.setattr(tfa, "flash_fwd", lambda *a, **kw: calls.append(1) or real_fwd(*a, **kw))
-    _, tcfg, np_params, tokens = _setup()
+    _, tcfg, np_params, tokens = _setup(**arch)
     results = []
     for cfg in (tcfg, tcfg.replace(remat=True, remat_policy=policy)):
         del calls[:]
@@ -168,21 +195,35 @@ def test_remat_gives_the_same_loss_and_grads(policy, monkeypatch):
         with _CountMatmuls() as mm:
             loss = ttfm.next_token_loss(params, torch.from_numpy(tokens), cfg)
             loss.backward()
+        assert mm.flash == len(calls)  # every op call launched: none came from a cache
         results.append((loss.detach(), [t.grad for t in ttfm.tree_leaves(params)], len(calls),
-                        mm.n))
+                        mm.mm_weights))
     (plain_loss, plain_grads, plain_calls, plain_mm), (loss, grads, n_calls, n_mm) = results
-    assert plain_calls == tcfg.n_layers and n_calls == 2 * tcfg.n_layers
-    # None runs the projections again (all but the last of each layer,
-    # whose output no backward reads); "dots" runs none of them again.
-    assert n_mm > plain_mm if policy is None else n_mm == plain_mm
+    L = tcfg.n_layers
+    assert plain_calls == L and n_calls == (2 * L if policy in (None, "dots") else L)
+    d, f = tcfg.d_model, tcfg.d_ff
+    gate_up = [(d, f)] * (2 if tcfg.mlp_act == "swiglu" else 1)
+    projections = [(d, tcfg.n_heads * tcfg.head_dim)] + [(d, tcfg.n_kv_heads * tcfg.head_dim)] * 2
+    extra = list(n_mm)
+    for w in plain_mm:
+        extra.remove(w)
+    want = {None: None, "dots": [], "attn": (projections + [(d, d)] + gate_up) * L,
+            "hot": gate_up * L}[policy]
+    if policy is None:
+        assert len(extra) > 0
+    else:
+        assert sorted(extra) == sorted(want)
     assert torch.equal(loss, plain_loss)
     for a, b in zip(grads, plain_grads):
+        if b is None:  # mlp_norm under the parallel block: unused
+            assert a is None
+            continue
         torch.testing.assert_close(a, b, atol=1e-7, rtol=0)
 
 
 def test_remat_is_off_without_grad():
     _, tcfg, np_params, tokens = _setup()
-    cfg = tcfg.replace(remat=True, remat_policy="hot")  # would raise under grad
+    cfg = tcfg.replace(remat=True, remat_policy="hot")
     with torch.no_grad():
         logits = ttfm.forward(params_from_numpy(np_params, cfg, device="cpu"),
                               torch.from_numpy(tokens), cfg)
@@ -191,12 +232,31 @@ def test_remat_is_off_without_grad():
 
 @pytest.mark.parametrize("policy", ["attn", "hot"])
 def test_unported_remat_policies_raise(policy):
-    _, tcfg, np_params, tokens = _setup()
+    """"attn" and "hot" raised until the port had them; now the loss and
+    gradients under each match JAX's value_and_grad under the same policy
+    (the tolerances of test_loss_gradient_matches_jax), and only a policy
+    the JAX package lacks raises."""
+    assert ttfm.HOT_SAVE_NAMES == jtfm.HOT_SAVE_NAMES
+    jcfg, tcfg, np_params, tokens = _setup()
+    jcfg = jcfg.replace(remat=True, remat_policy=policy)
     cfg = tcfg.replace(remat=True, remat_policy=policy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.next_token_loss(_leaf_params(np_params, cfg), torch.from_numpy(tokens), cfg)
+    jloss, jgrads = jax.value_and_grad(jtfm.next_token_loss)(np_params, jnp.asarray(tokens), jcfg)
+    params = _leaf_params(np_params, cfg)
+    tloss = ttfm.next_token_loss(params, torch.from_numpy(tokens), cfg)
+    tloss.backward()
+    assert abs(tloss.item() - float(jloss)) < LOSS_TOL
+    _assert_trees_close(jgrads, ttfm.map_tree(lambda t: t.grad.numpy(), params), GRAD_TOL)
+    with pytest.raises(ValueError, match="remat_policy"):
+        bad = cfg.replace(remat_policy=policy + "_x")
+        ttfm.next_token_loss(_leaf_params(np_params, bad), torch.from_numpy(tokens), bad)
 
 
 def test_zero_axis_raises():
-    with pytest.raises(NotImplementedError, match="ZeRO"):
+    """The ZeRO step needs a torch.distributed process group (its parity
+    with the JAX package's is tests/test_torch_zero.py); without one,
+    build_train_step(zero_axis=...) raises."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises((RuntimeError, ValueError), match="process group"):
         ttfm.build_train_step(ttfm.tiny(), ttfm.adamw(1e-4), device="cpu", zero_axis="data")
