@@ -32,16 +32,17 @@ import shutil
 import subprocess
 import sys
 
-ONE_CHAIN = ("mma_bf16.cuh", "constexpr int HALF = (KD + 1) / 2;", "constexpr int HALF = KD;")
+ONE_CHAIN = ("mma_bf16.cuh", "constexpr int CHAIN = (KD + 1) / 2 < 4 ? (KD + 1) / 2 : 4;",
+             "constexpr int CHAIN = KD;")
 # The forward's q tile and the blocks per SM its registers must allow.
 FWD_BQ = "constexpr int FWD_BQ = 64;"
-FWD_MIN_BLOCKS = "constexpr int FWD_MIN_BLOCKS = 2;"
+FWD_MIN_BLOCKS = "return D > 128 ? 1 : 2;"
 FWD_BUILDS = {
     "BQ=64, 4 warps, 2 blocks/SM (as built)": [],
     "BQ=128, 8 warps, 2 blocks/SM": [("flash_fwd.cu", FWD_BQ, FWD_BQ.replace("64", "128"))],
     "BQ=128, 8 warps, 1 block/SM": [("flash_fwd.cu", FWD_BQ, FWD_BQ.replace("64", "128")),
                                     ("flash_fwd.cu", FWD_MIN_BLOCKS,
-                                     FWD_MIN_BLOCKS.replace("2", "1"))],
+                                     "return 1;")],
     "BQ=64, one chain": [ONE_CHAIN],
 }
 

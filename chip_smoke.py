@@ -12,30 +12,42 @@ Phases, each printing its own line, any failure exits non-zero:
      and the bound; at the train shape in bf16 each check must refuse two
      planted faults, each kernel must repeat bit for bit, and one pass
      through flash_attention_with_lse (forward) and
-     flash_attention(...).backward must give the same results;
+     flash_attention(...).backward must give the same results; the same at
+     GPT-J's shape (b=1, s=2048, 16 heads of 256, causal) in bf16 and fp32,
+     and in fp32 with batch x heads = 65600;
   4. paged: PagedLM prefill+decode against the port's full forward, Llama-2-7B
      width, 2 layers, float32: greedy tokens must be equal;
-  5. serve: InferenceEngine over PagedLM at full Llama-2-7B width in bf16
+  5. gptj: gpt_j_6b(n_layers=2) at full width (head_dim 256), bf16: a paged
+     prefill and decode, then 3 AdamW steps under remat "hot"; all three
+     kernels must launch at head_dim 256 and the loss fall;
+  6. serve: InferenceEngine over PagedLM at full Llama-2-7B width in bf16
      (random weights from a seed) answers 8 requests; the flash kernel's
      launch count on that path is checked;
-  6. train-parity: 3 AdamW steps at Llama-2-7B width, 2 layers, float32,
+  7. deploy: the same model at full width and depth as a Serve deployment
+     (llm_deployment on init(local_mode=True)): 8 requests through the
+     streaming handle and 8 through LLMClient's feed at once must give the
+     greedy tokens of InferenceEngine driven directly, and a handle close()
+     must free its request's pages within one decode step; TTFT and
+     decode tokens/s of handle, feed and direct engine;
+  8. train-parity: 3 AdamW steps at Llama-2-7B width, 2 layers, float32,
      through the kernels and through plain autograd from the same params,
      under remat "dots" and "hot": the first step's gradients and every
      step's loss must agree, and the flash forward runs 2 (dots) or 1 (hot)
      times per layer per step;
-  7. train: 6 AdamW steps of Llama-2-7B at full width, 8 layers, bf16, on a
+  9. train: 6 AdamW steps of Llama-2-7B at full width, 8 layers, bf16, on a
      2 x 2048-token batch, under remat "hot", "dots" and "attn": a finite,
      falling loss, step time, tokens/s, MFU, peak memory, and each kernel's
      launch count on that path;
-  8. zero: ZeRO-1 (train/zero.py) over a NCCL group of one rank against the
+  10. zero: ZeRO-1 (train/zero.py) over a NCCL group of one rank against the
      plain step, 2 layers, bf16: losses and params bitwise equal after 3
      steps; each optimizer state's bytes;
-  9. checkpoint: 3 steps, an elastic checkpoint at world 1 resharded to 4 on
+  11. checkpoint: 3 steps, an elastic checkpoint at world 1 resharded to 4 on
      disk, restored into a fresh run, 3 more steps: bitwise equal to 6
      uninterrupted steps; then an HF safetensors export and reload, bitwise,
      with the same greedy tokens from PagedLM.
 Then one JSON line with every kernel's numbers (the backward kernels'
-launches from the "hot" train run), and the device line last.
+launches from the "hot" train run; each kernel's numbers at head_dim 256,
+with the gptj phase's launches, under "at_d256"), and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -199,11 +211,14 @@ def _check_fwd():
 
     # (b, s, h, h_kv, d, dtype, causal); s=1024 is the serve phase's largest
     # prefill bucket, the shape reported in the JSON line; b=2, s=2048 is the
-    # train phase's.
+    # train phase's; h=16, d=256 GPT-J's (the gptj phase's train shape), in
+    # both dtypes; b x h = 65600 puts more blocks on grid x than y could hold.
     cases = [(1, s, 32, 32, 128, torch.bfloat16, True) for s in (16, 128, 512, 1024, 2048)]
     cases += [(2, 2048, 32, 32, 128, torch.bfloat16, True),
               (2, 256, 8, 2, 128, torch.bfloat16, True), (1, 300, 8, 8, 64, torch.float32, False),
-              (1, 40, 4, 2, 16, torch.float32, True)]
+              (1, 40, 4, 2, 16, torch.float32, True),
+              GPTJ_SHAPE + (torch.bfloat16, True), GPTJ_SHAPE + (torch.float32, True),
+              (4100, 40, 16, 4, 16, torch.float32, True)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = None
     for b, s, h, h_kv, d, dt, causal in cases:
@@ -235,18 +250,21 @@ def _check_fwd():
               flush=True)
         if not ok:
             _fail(f"flash_fwd disagrees with its plain version at {where}")
-        if (b, s, h, d, dt, causal) == (2, 2048, 32, 128, torch.bfloat16, True):
+        numbers = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": lib_ms}
+        if (b, s, h, d, dt, causal) in ((2, 2048, 32, 128, torch.bfloat16, True),
+                                        GPTJ_SHAPE[:3] + (256, torch.bfloat16, True)):
             _check_fwd_train_shape(q, k, v, o, lse, o_ref, kw, where)
-            print(f"[kernel] flash_fwd at the train shape {where}: ms {ms:.4f}; SDPA forward "
+            print(f"[kernel] flash_fwd at a train shape {where}: ms {ms:.4f}; SDPA forward "
                   f"{lib_ms:.4f} ms; ratio {ms / lib_ms:.2f}", flush=True)
         if (b, s, h, d, dt, causal) == (1, 1024, 32, 128, torch.bfloat16, True):
-            report = {
-                "name": "flash_fwd", "route": "cuda",
-                "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-                "replaces": "ray_tpu/ops/flash_attention.py:64",
-                "launches": None, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-            }
+            report = {"name": "flash_fwd", "route": "cuda",
+                      "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "replaces": "ray_tpu/ops/flash_attention.py:64", "launches": None,
+                      **numbers}
+        if (b, s, h, h_kv, d, dt) == GPTJ_SHAPE + (torch.bfloat16,):
+            d256 = {"shape": where, "launches": None, **numbers}
+    report["at_d256"] = d256
     return report
 
 
@@ -281,9 +299,14 @@ def _check_fwd_train_shape(q, k, v, o, lse, o_ref, kw, where):
         _fail(f"flash_attention_with_lse launched {launched}, want one flash_fwd")
 
 
+# GPT-J's attention at the gptj phase's train shape: (b, s, h, h_kv, d).
+GPTJ_SHAPE = (1, 2048, 16, 16, 256)
+
+
 def _check_bwd():
     """The backward kernels (flash_bwd_dq, flash_bwd_dkv) against their plain
-    versions on the card; times at the train phase's shape."""
+    versions on the card; times at the train phase's shape and, under
+    "at_d256", at GPT-J's."""
     import torch
     import torch.nn.functional as F
 
@@ -294,11 +317,14 @@ def _check_bwd():
     # one reported) and again in fp32, then every head_dim in both dtypes,
     # causal or not, GQA and MQA, and lengths that are not a multiple of the
     # 64-row tile.
+    # GPT-J's head_dim 256 in both dtypes, and b x h = 65600 on grid x.
+    timed = {(2, 2048, 32, 32, 128, bf, True): "", GPTJ_SHAPE + (bf, True): "_d256"}
     cases = [(2, 2048, 32, 32, 128, bf, True), (2, 2048, 32, 32, 128, f32, True),
              (1, 1000, 8, 4, 128, bf, False), (1, 256, 4, 2, 128, f32, True),
              (1, 300, 8, 8, 64, bf, False), (1, 200, 8, 2, 64, f32, True),
              (1, 96, 4, 4, 32, bf, True), (1, 130, 2, 2, 32, f32, False),
-             (1, 40, 4, 2, 16, bf, True), (2, 128, 4, 1, 16, f32, False)]
+             (1, 40, 4, 2, 16, bf, True), (2, 128, 4, 1, 16, f32, False),
+             GPTJ_SHAPE + (bf, True), GPTJ_SHAPE + (f32, True), (4100, 40, 16, 4, 16, f32, True)]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for b, s, h, h_kv, d, dt, causal in cases:
@@ -336,10 +362,17 @@ def _check_bwd():
                   + "; ".join(f"{f} {e:.3g}" for f, e in planted.items()), flush=True)
             if min(planted.values()) <= tol:
                 _fail(f"the backward check passes a planted fault at {where}: {planted}")
-        if rows:
+        if (b, s, h, h_kv, d, dt, causal) == GPTJ_SHAPE + (f32, True):
+            # The FMA kernels at head_dim 256 (32-row tiles): times only.
+            print(f"[kernel] flash_bwd {where}: " + "; ".join(
+                f"{kern} ms {_time_ms(lambda fn=fn: fn(*args, **kw), iters=5):.4f} bound_ms "
+                f"{flash_bound_ms(kern, b, s, h, h_kv, d, name, causal)[0]:.4f}"
+                for kern, fn in (("dq", fa.flash_bwd_dq), ("dkv", fa.flash_bwd_dkv))), flush=True)
+        suffix = timed.get((b, s, h, h_kv, d, dt, causal))
+        if suffix is None:
             continue
-        # The train phase's shape: no atomics, so a second launch repeats the
-        # first bit for bit; the autograd path reaches the same kernels.
+        # The train phases' shapes: no atomics, so a second launch repeats
+        # the first bit for bit; the autograd path reaches the same kernels.
         again = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
         torch.cuda.synchronize()
         same = [torch.equal(x, y) for x, y in zip((*got["dq"], *got["dkv"]), again)]
@@ -370,19 +403,23 @@ def _check_bwd():
                   f"causal={causal}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
                   f"(SDPA backward: dq, dk and dv together) bound_ms {bound:.4f} ({by})",
                   flush=True)
-            rows[kern] = {
-                "name": f"flash_bwd_{kern}", "route": "cuda",
-                "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
-                "replaces": ("ray_tpu/ops/flash_attention.py:104" if kern == "dq"
-                             else "ray_tpu/ops/flash_attention.py:133"),
-                "launches": None, "max_abs_err": max(errs[lb][1] for lb in labels), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-            }
+            numbers = {"max_abs_err": max(errs[lb][1] for lb in labels), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "library_ms": lib_ms}
+            rows[kern + suffix] = (
+                {"shape": where, "launches": None, **numbers} if suffix else
+                {"name": f"flash_bwd_{kern}", "route": "cuda",
+                 "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                 "replaces": ("ray_tpu/ops/flash_attention.py:104" if kern == "dq"
+                              else "ray_tpu/ops/flash_attention.py:133"),
+                 "launches": None, **numbers})
         pair_ms = _time_ms(lambda: (fa.flash_bwd_dq(*args, **kw), fa.flash_bwd_dkv(*args, **kw)),
                            iters=10)
         print(f"[kernel] flash_bwd pair (dq + dkv) b={b} s={s} h={h} h_kv={h_kv} d={d} {name} "
               f"causal={causal}: ms {pair_ms:.4f}; SDPA backward {lib_ms:.4f} ms; ratio "
               f"{pair_ms / lib_ms:.2f}", flush=True)
+    for kern in ("dq", "dkv"):
+        rows[kern]["at_d256"] = rows.pop(kern + "_d256")
     return rows
 
 
@@ -461,6 +498,56 @@ def phase_paged():
         _fail("paged prefill/decode disagrees with the full forward")
     del lm
     torch.cuda.empty_cache()
+
+
+def phase_gptj():
+    """gpt_j_6b(n_layers=2) at full width (16 heads of head_dim 256, gelu,
+    parallel block), bf16, random weights from seed 0: a paged prefill and 7
+    decode steps, then 3 AdamW steps under remat "hot" on 1 x 2048 tokens,
+    all through the kernels at head_dim 256. Each kernel must launch where
+    the path runs it, the tokens lie in the vocabulary and the loss is
+    finite and falling. Returns the train run's launches."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.gpt_j_6b(n_layers=2, dtype=torch.bfloat16, remat_policy="hot")
+    n_steps = 3
+    init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
+    params, opt = init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (300,),
+                           generator=torch.Generator().manual_seed(10)).tolist()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    toks = _greedy(cfg, tfm.map_tree(lambda t: t.detach(), params), prompt, 8)
+    serve_s = time.perf_counter() - t0
+    serve_launches = _launch_counts()
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(11))
+    _zero_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(n_steps):
+        t = time.perf_counter()
+        losses.append(step(params, opt, tokens).item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = _launch_counts()
+    print(f"[gptj] gpt_j_6b width, 2 layers ({tfm.param_count(params) / 1e9:.3f} B params), "
+          f"head_dim {cfg.head_dim}, bf16: paged prefill of {len(prompt)} tokens + 7 decode "
+          f"steps in {serve_s:.2f} s, tokens {toks}, launches {serve_launches}; {n_steps} steps "
+          f"of adamw(1e-4), remat hot, 1 x 2048 tokens: losses {[round(x, 4) for x in losses]}, "
+          f"step ms {[round(t, 1) for t in step_ms]}, launches {launches}", flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    if serve_launches != {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        _fail(f"gptj: the paged prefill launched {serve_launches}, want one flash_fwd a layer")
+    if not all(0 <= t < cfg.vocab_size for t in toks):
+        _fail(f"gptj: out-of-vocabulary tokens {toks}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        _fail(f"gptj: the loss is not finite and falling: {losses}")
+    want = {n: cfg.n_layers * n_steps for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if launches != want:
+        _fail(f"gptj: train launches {launches}, want {want}")
+    return launches
 
 
 def _timed(fn, log):
@@ -615,6 +702,161 @@ def phase_serve(profile: bool = False):
     if launches < lm.cfg.n_layers * n_prefills:
         _fail(f"flash_fwd launched {launches} times, want >= {lm.cfg.n_layers} x {n_prefills}")
     return launches
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _drive(streams, prompts, n_new, deadline_s=600):
+    """Runs every (label, open_stream) of `streams` on its prompt in its own
+    thread, all at once; returns {label: (t_submit, [(t, token)])}. A
+    stream that raises or outlives the deadline fails the phase."""
+    import threading
+
+    out, errors = {}, []
+
+    def run(label, open_stream, prompt):
+        t0 = time.perf_counter()
+        toks = []
+        try:
+            for tok in open_stream(prompt, n_new):
+                toks.append((time.perf_counter(), tok))
+        except Exception as e:  # noqa: BLE001 - reported below, fails the phase
+            errors.append((label, repr(e)))
+        out[label] = (t0, toks)
+
+    threads = [threading.Thread(target=run, args=(label, fn, p), daemon=True)
+               for (label, fn), p in zip(streams, prompts)]
+    for t in threads:
+        t.start()
+    end = time.monotonic() + deadline_s
+    for t in threads:
+        t.join(timeout=max(1.0, end - time.monotonic()))
+    if errors or any(t.is_alive() for t in threads):
+        _fail(f"requests failed or hung: {errors}")
+    return out
+
+
+def _latency(runs, labels):
+    """(TTFT p50 ms, decode tokens/s) over the runs named by `labels`."""
+    import statistics
+
+    ttft = [(runs[lb][1][0][0] - runs[lb][0]) * 1e3 for lb in labels]
+    first = min(runs[lb][1][0][0] for lb in labels)
+    last = max(runs[lb][1][-1][0] for lb in labels)
+    n_decode = sum(len(runs[lb][1]) - 1 for lb in labels)
+    return statistics.median(ttft), n_decode / (last - first)
+
+
+def phase_deploy():
+    """Llama-2-7B at full width and depth in bf16 (random weights from seed
+    0) deployed with llm_deployment on ray_tpu_torch.init(local_mode=True):
+    8 requests through the streaming handle and 8 through LLMClient's feed,
+    all at once. Their greedy tokens must equal InferenceEngine's driven
+    directly over the same builder, seed and prompts, and flash_fwd must
+    launch on the deployment's path. Then a handle close() mid-stream must
+    free the request's pages within one decode step. Prints TTFT p50 and
+    decode tokens/s for the handle, the feed and the direct engine."""
+    import gc
+    import random
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import (EngineConfig, InferenceEngine, LLMClient,
+                                         llama2_7b_paged_lm, llm_deployment)
+
+    gc.collect()  # the serve phase's model
+    torch.cuda.empty_cache()
+    smi = _smi()
+    n_new, geometry = 32, dict(num_pages=512, page_tokens=16, max_slots=8, max_pages_per_seq=64)
+    cfg = EngineConfig(page_tokens=16, pool_pages=512, max_new_tokens=n_new)
+    rng = random.Random(1)
+    lengths = (280, 700, 20, 310, 96, 450, 64, 296)
+    prompts = [[rng.randrange(1, 32000) for _ in range(n)] for n in lengths * 2]
+    labels = [f"handle {i}" for i in range(8)] + [f"feed {i}" for i in range(8)]
+
+    t0 = time.perf_counter()
+    lm = llama2_7b_paged_lm(seed=0, device="cuda", **geometry)
+    eng = InferenceEngine(lm, cfg, name="chip-smoke-direct")
+    try:
+        list(eng.generate([1, 2, 3, 4], 2))  # warm-up
+        direct = _drive([(lb, eng.generate) for lb in labels], prompts, n_new)
+    finally:
+        eng.close()
+    del lm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    direct_s = time.perf_counter() - t0
+    direct_ttft, direct_tps = _latency(direct, labels)
+
+    rt.init(local_mode=True)
+    try:
+        t0 = time.perf_counter()
+        app = llm_deployment(llama2_7b_paged_lm, name="llama2-7b", engine_config=cfg,
+                             model_kwargs=dict(seed=0, device="cuda", **geometry))
+        handle = serve.run(app, name="llama2-7b", http_port=None)
+        stream = handle.options(stream=True)
+        client = LLMClient("llama2-7b")
+        stats = handle.options(method_name="engine_stats")
+        try:
+            list(stream.remote([1, 2, 3, 4], 2))  # warm-up
+            list(client.generate([1, 2, 3, 4], 2))
+            up_s = time.perf_counter() - t0
+            _zero_launch_counts()
+            runs = _drive([(lb, stream.remote if lb.startswith("handle") else client.generate)
+                           for lb in labels], prompts, n_new)
+            launches = _launch_counts()
+
+            # A handle close() mid-stream frees the request's pages.
+            gen = stream.remote(prompts[0], 400)
+            got = [next(gen), next(gen)]
+            gen.close()  # the cancel goes to the replica ahead of the stats call below
+            before = stats.remote().result(timeout=60)
+            deadline = time.monotonic() + 60
+            while True:
+                after = stats.remote().result(timeout=60)
+                if after["running"] == 0 and after["kv"]["used_pages"] == 0:
+                    break
+                if time.monotonic() > deadline:
+                    _fail(f"deploy: a closed stream kept its pages: {after}")
+                time.sleep(0.002)
+        finally:
+            client.close()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    h_ttft, h_tps = _latency(runs, labels[:8])
+    f_ttft, f_tps = _latency(runs, labels[8:])
+    all_ttft, all_tps = _latency(runs, labels)
+    mismatched = [lb for lb in labels if [t for _, t in runs[lb][1]] != [t for _, t in direct[lb][1]]]
+    steps = after["decode_steps"] - before["decode_steps"]
+    print(f"[deploy] llama2_7b bf16 seed 0 via llm_deployment on init(local_mode=True), up in "
+          f"{up_s:.1f} s; 16 requests at once, prompts {[len(p) for p in prompts]}, {n_new} new "
+          f"tokens each; greedy tokens equal to InferenceEngine driven directly: "
+          f"{16 - len(mismatched)}/16 (direct run {direct_s:.1f} s); flash_fwd launches "
+          f"{launches['flash_fwd']}", flush=True)
+    print(f"[deploy] {smi}: handle TTFT p50 {h_ttft:.1f} ms, decode {h_tps:.1f} tok/s; feed "
+          f"TTFT p50 {f_ttft:.1f} ms, decode {f_tps:.1f} tok/s; all 16 through the deployment "
+          f"TTFT p50 {all_ttft:.1f} ms, decode {all_tps:.1f} tok/s; direct engine, same 16 "
+          f"requests: TTFT p50 {direct_ttft:.1f} ms, decode {direct_tps:.1f} tok/s", flush=True)
+    print(f"[deploy] handle close() after 2 of 400 tokens ({got}): pages and slot freed "
+          f"{steps} decode step(s) after close returned; tokens emitted over the engine's life "
+          f"{after['tokens_emitted']}", flush=True)
+    if mismatched:
+        _fail(f"deploy: greedy tokens differ from the direct engine for {mismatched}")
+    if launches["flash_fwd"] < 32 * 16:
+        _fail(f"deploy: flash_fwd launched {launches['flash_fwd']} times, want >= 32 x 16")
+    if steps > 1:
+        _fail(f"deploy: a closed stream's pages freed {steps} decode steps after close")
 
 
 def _launch_counts():
@@ -1001,7 +1243,10 @@ def main() -> int:
     phase_build()
     fwd_row, dq_row, dkv_row = phase_kernel()
     phase_paged()
+    for row, n in zip((fwd_row, dq_row, dkv_row), phase_gptj().values()):
+        row["at_d256"]["launches"] = n
     fwd_row["launches"] = phase_serve(profile=args.profile)
+    phase_deploy()
     phase_train_parity()
     train_launches = phase_train(profile=args.profile)
     phase_zero()

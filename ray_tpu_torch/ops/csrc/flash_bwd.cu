@@ -55,14 +55,20 @@
 // delta)): two blocks per SM. dq takes its q tile in reverse order, so the
 // heaviest causal rows start first; dkv's k tile 0 is its heaviest already.
 // ptxas (CUDA 12.8, sm_90a, d=128): dq 242 registers, dkv 254, no spills;
-// the 128 fp32 accumulators of dK and dV hold dkv at the 255 ceiling.
+// the 128 fp32 accumulators of dK and dV hold dkv at the 255 ceiling. So at
+// d=256 (GPT-J) two blocks share each output tile, each owning 128 of its
+// columns (grid z, out_cols) and computing S and dP over the full head dim:
+// the products S and dP run twice, the output products once; 198 KB of
+// tiles, one block per SM.
 //
 // float32: the FMA kernels (flash_bwd_dq_fma, flash_bwd_dkv_fma). TF32
 // tensor cores would miss the fp32 gates (1e-5 of each leaf's gradient norm,
 // 1e-4 per entry), so fp32 keeps fp32 FMAs from fp32 tiles in shared memory:
-// 256 threads, thread t owning rows 4*(t/16)..+3 of its tile, score columns
-// (t%16) + 16*j and output columns (t%16) + 16*c; rows padded by one float;
-// 149 KB (dq) and 166 KB (dkv) at d=128, one block per SM.
+// thread t owning rows 4*(t/16)..+3 of its tile, score columns (t%16) +
+// 16*j and output columns (t%16) + 16*c; rows padded by one float. 64-row
+// tiles and 256 threads up to d=128 (149 KB for dq and 166 KB for dk/dv at
+// d=128); 32-row tiles and 128 threads at d=256 (133 KB and 137 KB), since
+// 64-row ones would not fit; one block per SM.
 //
 // Bound at the training shape (b=2, s=2048, h=h_kv=32, d=128, bf16, causal),
 // with pairs = s(s+1)/2: dq does 3 products, 3*2*b*h*pairs*d = 103 GFLOP =
@@ -87,27 +93,40 @@ static_assert(BQ == BK, "the causal tile bounds assume square tiles");
 // ---------------------------------------------------------------------------
 // float32: FMA kernels.
 
-constexpr int NT = 256;
 constexpr int ROWS = 4;  // rows of the owned tile per thread
-static_assert(BQ == ROWS * (NT / 16), "q and k tiles share one row mapping");
 
-// rows [r0, r0 + n) of one head of a [B, S, heads, D] tensor into a padded
-// tile; rows past S are zero.
+// The FMA kernels' square tile: 64 rows up to d=128; 32 at d=256, where four
+// fp32 tiles of 64 x 257 would take 263 KB of the 227 KB a block may use.
+// 16 threads share a row group, so the block has 16 * tile / ROWS threads,
+// and each thread takes tile / 16 score columns.
+template <int D>
+__host__ __device__ constexpr int fma_tile() {
+  return D > 128 ? 32 : 64;
+}
+
+template <int D>
+__host__ __device__ constexpr int fma_threads() {
+  return 16 * fma_tile<D>() / ROWS;
+}
+
+// rows [r0, r0 + tile) of one head of a [B, S, heads, D] tensor into a
+// padded tile; rows past S are zero.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long stride, int r0,
                                           int S) {
-  constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < BQ * D; e += NT) {
+  constexpr int LD = D + 1, T = fma_tile<D>();
+  for (int e = threadIdx.x; e < T * D; e += fma_threads<D>()) {
     const int r = e / D, c = e % D;
     const int pos = r0 + r;
     dst[r * LD + c] = pos < S ? src[long(pos) * stride + c] : 0.f;
   }
 }
 
-// lse and delta of rows [r0, r0 + 64) of one [B, H, S] row; 0 past S.
+// lse and delta of rows [r0, r0 + tile) of one [B, H, S] row; 0 past S.
+template <int D>
 __device__ __forceinline__ void load_row_stats(float* sL, float* sD, const float* lse,
                                                const float* delta, int r0, int S) {
-  for (int r = threadIdx.x; r < BQ; r += NT) {
+  for (int r = threadIdx.x; r < fma_tile<D>(); r += fma_threads<D>()) {
     const int pos = r0 + r;
     sL[r] = pos < S ? lse[pos] : 0.f;
     sD[r] = pos < S ? delta[pos] : 0.f;
@@ -116,40 +135,45 @@ __device__ __forceinline__ void load_row_stats(float* sL, float* sD, const float
 
 template <int D>
 constexpr size_t dq_fma_smem_bytes() {
-  return sizeof(float) * (4 * size_t(BQ) * (D + 1) + size_t(BQ) * (BK + 1) + 2 * BQ);
+  constexpr size_t T = fma_tile<D>();
+  return sizeof(float) * (4 * T * (D + 1) + T * (T + 1) + 2 * T);
 }
 
 template <int D>
 constexpr size_t dkv_fma_smem_bytes() {
-  return sizeof(float) * (4 * size_t(BQ) * (D + 1) + 2 * size_t(BK) * (BQ + 1) + 2 * BQ);
+  constexpr size_t T = fma_tile<D>();
+  return sizeof(float) * (4 * T * (D + 1) + 2 * T * (T + 1) + 2 * T);
 }
 
+// Grid (b*h, q tiles).
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(fma_threads<D>())
 flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dq, int S, int H, int HKV, float scale, int causal) {
+  constexpr int T = fma_tile<D>();
+  constexpr int JC = T / 16;  // score columns per thread
   constexpr int LD = D + 1;
-  constexpr int LP = BK + 1;
+  constexpr int LP = T + 1;
   constexpr int OC = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sDO = sQ + BQ * LD;
-  float* sK = sDO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sDS = sV + BK * LD;
-  float* sL = sDS + BQ * LP;
-  float* sDl = sL + BQ;
+  float* sDO = sQ + T * LD;
+  float* sK = sDO + T * LD;
+  float* sV = sK + T * LD;
+  float* sDS = sV + T * LD;
+  float* sL = sDS + T * LP;
+  float* sDl = sL + T;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4;
   const int cl = tid & 15;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int head = bh % H;
   const int kvh = head / (H / HKV);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.y * T;
   const long q_stride = long(H) * D;
   const long kv_stride = long(HKV) * D;
   const long q_off = long(b) * S * q_stride + long(head) * D;
@@ -158,7 +182,7 @@ flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<D>(sQ, q + q_off, q_stride, q0, S);
   load_tile<D>(sDO, dout + q_off, q_stride, q0, S);
-  load_row_stats(sL, sDl, lse + long(bh) * S, delta + long(bh) * S, q0, S);
+  load_row_stats<D>(sL, sDl, lse + long(bh) * S, delta + long(bh) * S, q0, S);
 
   float acc[ROWS][OC];
 #pragma unroll
@@ -166,37 +190,37 @@ flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
 
-  const int nk = (S + BK - 1) / BK;
-  const int last_k = causal ? min(nk - 1, (q0 + BQ - 1) / BK) : nk - 1;
+  const int nk = (S + T - 1) / T;
+  const int last_k = causal ? min(nk - 1, (q0 + T - 1) / T) : nk - 1;
   for (int kt = 0; kt <= last_k; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * T;
     __syncthreads();  // the previous tile's sK/sDS reads are done
     load_tile<D>(sK, kb, kv_stride, k0, S);
     load_tile<D>(sV, vb, kv_stride, k0, S);
     __syncthreads();
 
-    float s[ROWS][4], dp[ROWS][4];
+    float s[ROWS][JC], dp[ROWS][JC];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < JC; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int dd = 0; dd < D; ++dd) {
-      float qv[ROWS], ov[ROWS], kv[4], vv[4];
+      float qv[ROWS], ov[ROWS], kv[JC], vv[JC];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         qv[i] = sQ[(ROWS * rg + i) * LD + dd];
         ov[i] = sDO[(ROWS * rg + i) * LD + dd];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JC; ++j) {
         kv[j] = sK[(cl + 16 * j) * LD + dd];
         vv[j] = sV[(cl + 16 * j) * LD + dd];
       }
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JC; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
@@ -207,7 +231,7 @@ flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
       const int r = ROWS * rg + i;
       const int qp = q0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JC; ++j) {
         const int kp = k0 + cl + 16 * j;
         const bool live = qp < S && kp < S && (!causal || qp >= kp);
         const float p = live ? expf(s[i][j] * scale - sL[r]) : 0.f;
@@ -217,7 +241,7 @@ flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < T; ++kk) {
       float dsv[ROWS];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) dsv[i] = sDS[(ROWS * rg + i) * LP + kk];
@@ -240,33 +264,36 @@ flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Grid (b*h_kv, k tiles).
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(fma_threads<D>())
 flash_bwd_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   float* __restrict__ dk, float* __restrict__ dv, int S, int H, int HKV,
                   float scale, int causal) {
+  constexpr int T = fma_tile<D>();
+  constexpr int JC = T / 16;  // score columns per thread
   constexpr int LD = D + 1;
-  constexpr int LP = BQ + 1;
+  constexpr int LP = T + 1;
   constexpr int OC = D / 16;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sDO = sQ + BQ * LD;
-  float* sP = sDO + BQ * LD;
-  float* sDS = sP + BK * LP;
-  float* sL = sDS + BK * LP;
-  float* sDl = sL + BQ;
+  float* sV = sK + T * LD;
+  float* sQ = sV + T * LD;
+  float* sDO = sQ + T * LD;
+  float* sP = sDO + T * LD;
+  float* sDS = sP + T * LP;
+  float* sL = sDS + T * LP;
+  float* sDl = sL + T;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4;
   const int cl = tid & 15;
-  const int b = blockIdx.y / HKV;
-  const int kvh = blockIdx.y % HKV;
+  const int b = blockIdx.x / HKV;
+  const int kvh = blockIdx.x % HKV;
   const int rep = H / HKV;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.y * T;
   const long q_stride = long(H) * D;
   const long kv_stride = long(HKV) * D;
   const long kv_off = long(b) * S * kv_stride + long(kvh) * D;
@@ -280,44 +307,44 @@ flash_bwd_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < OC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (S + T - 1) / T;
   // The first q tile whose last row reaches k0 (flash_attention.py:149).
-  const int first_q = causal ? k0 / BQ : 0;
+  const int first_q = causal ? k0 / T : 0;
   for (int r = 0; r < rep; ++r) {
     const int head = kvh * rep + r;
     const long q_off = long(b) * S * q_stride + long(head) * D;
     const long row_off = (long(b) * H + head) * S;
     for (int qt = first_q; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
+      const int q0 = qt * T;
       __syncthreads();  // the previous tile's sQ/sDO/sP/sDS reads are done
       load_tile<D>(sQ, q + q_off, q_stride, q0, S);
       load_tile<D>(sDO, dout + q_off, q_stride, q0, S);
-      load_row_stats(sL, sDl, lse + row_off, delta + row_off, q0, S);
+      load_row_stats<D>(sL, sDl, lse + row_off, delta + row_off, q0, S);
       __syncthreads();
 
       // Transposed scores: s[i][j] = S[q0 + cl + 16j][k0 + 4rg + i].
-      float s[ROWS][4], dp[ROWS][4];
+      float s[ROWS][JC], dp[ROWS][JC];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < JC; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int dd = 0; dd < D; ++dd) {
-        float kv[ROWS], vv[ROWS], qv[4], ov[4];
+        float kv[ROWS], vv[ROWS], qv[JC], ov[JC];
 #pragma unroll
         for (int i = 0; i < ROWS; ++i) {
           kv[i] = sK[(ROWS * rg + i) * LD + dd];
           vv[i] = sV[(ROWS * rg + i) * LD + dd];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JC; ++j) {
           qv[j] = sQ[(cl + 16 * j) * LD + dd];
           ov[j] = sDO[(cl + 16 * j) * LD + dd];
         }
 #pragma unroll
         for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < JC; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
           }
@@ -328,7 +355,7 @@ flash_bwd_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
         const int kr = ROWS * rg + i;
         const int kp = k0 + kr;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JC; ++j) {
           const int qr = cl + 16 * j;
           const int qp = q0 + qr;
           const bool live = qp < S && kp < S && (!causal || qp >= kp);
@@ -340,7 +367,7 @@ flash_bwd_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
 #pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
+      for (int qq = 0; qq < T; ++qq) {
         float pv[ROWS], dsv[ROWS];
 #pragma unroll
         for (int i = 0; i < ROWS; ++i) {
@@ -400,17 +427,35 @@ constexpr size_t dkv_mma_smem_bytes() {
   return 6 * tc_tile_bytes<D>() + 4 * size_t(BQ) * sizeof(float);
 }
 
-// Grid (b*h, nq); block y takes q tile nq-1-y, so the heaviest causal tiles
-// are scheduled first.
+// Output columns per block. At d=256 the dk and dv accumulators of a warp's
+// 16 rows would take 256 registers a thread (dq's 128 on top of the scores),
+// past the 255 a thread may have: there grid z = 2 blocks share each output
+// tile, each owning 128 of its columns and computing S and dP over the full
+// head dim. Up to d=128 one block owns every column, as before.
 template <int D>
-__global__ void __launch_bounds__(TC_NT, 2)
+__host__ __device__ constexpr int out_cols() {
+  return D > 128 ? 128 : D;
+}
+
+// Two blocks per SM up to d=128; at d=256 the six tiles take 198 KB.
+template <int D>
+__host__ __device__ constexpr int tc_min_blocks() {
+  return D > 128 ? 1 : 2;
+}
+
+// Grid (b*h, nq, D / out_cols); block y takes q tile nq-1-y, so the heaviest
+// causal tiles are scheduled first; block z owns output columns
+// [z * out_cols, (z + 1) * out_cols).
+template <int D>
+__global__ void __launch_bounds__(TC_NT, tc_min_blocks<D>())
 flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dq, int S, int H, int HKV, float scale, int causal) {
   constexpr int LD = tc_ld<D>();
   constexpr int TILE = BQ * LD;
-  constexpr int NO = D / 8;   // 8-column tiles of the dq accumulator
+  constexpr int DO = out_cols<D>();
+  constexpr int NO = DO / 8;  // 8-column tiles of the dq accumulator
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sDO = sQ + TILE;
@@ -423,6 +468,7 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = bh / H, head = bh % H;
   const int kvh = head / (H / HKV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int col0 = DO == D ? 0 : blockIdx.z * DO;
   const long q_stride = long(H) * D;
   const long kv_stride = long(HKV) * D;
   const long q_off = long(b) * S * q_stride + long(head) * D;
@@ -500,9 +546,9 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t ads[4];
         c_to_a(ads, s[2 * j], s[2 * j + 1]);
 #pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
+        for (int np = 0; np < DO / 16; ++np) {
           uint32_t bk[4];
-          ldmatrix_x4_trans(bk, cK + (c0 + j * 16) * LD + np * 16 + off_bt);
+          ldmatrix_x4_trans(bk, cK + (c0 + j * 16) * LD + col0 + np * 16 + off_bt);
           mma_16816(acc[2 * np], ads, bk[0], bk[1]);
           mma_16816(acc[2 * np + 1], ads, bk[2], bk[3]);
         }
@@ -517,14 +563,15 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qp[i] >= S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + long(qp[i]) * q_stride + n * 8 + 2 * t) =
+      *reinterpret_cast<__nv_bfloat162*>(dqb + long(qp[i]) * q_stride + col0 + n * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
-// Grid (b*h_kv, nk): block y owns k tile y.
+// Grid (b*h_kv, nk, D / out_cols): block y owns k tile y, block z output
+// columns [z * out_cols, (z + 1) * out_cols) of it.
 template <int D>
-__global__ void __launch_bounds__(TC_NT, 2)
+__global__ void __launch_bounds__(TC_NT, tc_min_blocks<D>())
 flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
@@ -532,7 +579,8 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   float scale, int causal) {
   constexpr int LD = tc_ld<D>();
   constexpr int TILE = BQ * LD;
-  constexpr int NO = D / 8;
+  constexpr int DO = out_cols<D>();
+  constexpr int NO = DO / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + TILE;
@@ -546,6 +594,7 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.x / HKV, kvh = blockIdx.x % HKV;
   const int rep = H / HKV;
   const int k0 = blockIdx.y * BK;
+  const int col0 = DO == D ? 0 : blockIdx.z * DO;
   const long q_stride = long(H) * D;
   const long kv_stride = long(HKV) * D;
   const long kv_off = long(b) * S * kv_stride + long(kvh) * D;
@@ -635,12 +684,12 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         c_to_a(ap, st[2 * j], st[2 * j + 1]);
         c_to_a(ads, dpt[2 * j], dpt[2 * j + 1]);
 #pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
+        for (int np = 0; np < DO / 16; ++np) {
           uint32_t bo[4], bq[4];
-          ldmatrix_x4_trans(bo, cDO + (c0 + j * 16) * LD + np * 16 + off_bt);
+          ldmatrix_x4_trans(bo, cDO + (c0 + j * 16) * LD + col0 + np * 16 + off_bt);
           mma_16816(dv_acc[2 * np], ap, bo[0], bo[1]);
           mma_16816(dv_acc[2 * np + 1], ap, bo[2], bo[3]);
-          ldmatrix_x4_trans(bq, cQ + (c0 + j * 16) * LD + np * 16 + off_bt);
+          ldmatrix_x4_trans(bq, cQ + (c0 + j * 16) * LD + col0 + np * 16 + off_bt);
           mma_16816(dk_acc[2 * np], ads, bq[0], bq[1]);
           mma_16816(dk_acc[2 * np + 1], ads, bq[2], bq[3]);
         }
@@ -656,7 +705,7 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kp[i] >= S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const long o = long(kp[i]) * kv_stride + n * 8 + 2 * t;
+      const long o = long(kp[i]) * kv_stride + col0 + n * 8 + 2 * t;
       *reinterpret_cast<__nv_bfloat162*>(dkb + o) =
           __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dvb + o) =
@@ -677,7 +726,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// float32 -> FMA kernels, grid (tiles, b*heads).
+// float32 -> FMA kernels, grid (b*heads, tiles).
 template <int D, bool DKV>
 cudaError_t launch_fma(const Args& a) {
   const float* q = static_cast<const float*>(a.q);
@@ -686,13 +735,14 @@ cudaError_t launch_fma(const Args& a) {
   const float* dout = static_cast<const float*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
-  const int tiles = (a.S + BQ - 1) / BQ;
+  constexpr int T = fma_tile<D>();
+  const int tiles = (a.S + T - 1) / T;
   if constexpr (DKV) {
     constexpr size_t smem = dkv_fma_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_fma<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_fma<D><<<dim3(tiles, a.B * a.HKV), NT, smem, a.stream>>>(
+    flash_bwd_dkv_fma<D><<<dim3(a.B * a.HKV, tiles), fma_threads<D>(), smem, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<float*>(a.out0), static_cast<float*>(a.out1),
         a.S, a.H, a.HKV, a.scale, a.causal);
   } else {
@@ -700,14 +750,14 @@ cudaError_t launch_fma(const Args& a) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_fma<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_fma<D><<<dim3(tiles, a.B * a.H), NT, smem, a.stream>>>(
+    flash_bwd_dq_fma<D><<<dim3(a.B * a.H, tiles), fma_threads<D>(), smem, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<float*>(a.out0), a.S, a.H, a.HKV, a.scale,
         a.causal);
   }
   return cudaGetLastError();
 }
 
-// bfloat16 -> tensor-core kernels, grid (b*heads, tiles).
+// bfloat16 -> tensor-core kernels, grid (b*heads, tiles, column blocks).
 template <int D, bool DKV>
 cudaError_t launch_mma(const Args& a) {
   const bf16* q = static_cast<const bf16*>(a.q);
@@ -717,12 +767,13 @@ cudaError_t launch_mma(const Args& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   const int tiles = (a.S + BQ - 1) / BQ;
+  constexpr int splits = D / out_cols<D>();
   if constexpr (DKV) {
     constexpr size_t smem = dkv_mma_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_mma<D><<<dim3(a.B * a.HKV, tiles), TC_NT, smem, a.stream>>>(
+    flash_bwd_dkv_mma<D><<<dim3(a.B * a.HKV, tiles, splits), TC_NT, smem, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.S,
         a.H, a.HKV, a.scale, a.causal);
   } else {
@@ -730,7 +781,7 @@ cudaError_t launch_mma(const Args& a) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_mma<D><<<dim3(a.B * a.H, tiles), TC_NT, smem, a.stream>>>(
+    flash_bwd_dq_mma<D><<<dim3(a.B * a.H, tiles, splits), TC_NT, smem, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), a.S, a.H, a.HKV, a.scale,
         a.causal);
   }
@@ -745,6 +796,7 @@ cudaError_t dispatch(const Args& a, int D, int dtype) {
       case 32: return launch_fma<32, DKV>(a);
       case 64: return launch_fma<64, DKV>(a);
       case 128: return launch_fma<128, DKV>(a);
+      case 256: return launch_fma<256, DKV>(a);
     }
   } else if (dtype == 1) {
     switch (D) {
@@ -752,6 +804,7 @@ cudaError_t dispatch(const Args& a, int D, int dtype) {
       case 32: return launch_mma<32, DKV>(a);
       case 64: return launch_mma<64, DKV>(a);
       case 128: return launch_mma<128, DKV>(a);
+      case 256: return launch_mma<256, DKV>(a);
     }
   }
   return cudaErrorInvalidValue;
@@ -759,10 +812,10 @@ cudaError_t dispatch(const Args& a, int D, int dtype) {
 
 template <bool DKV>
 int run(const Args& a, int D, int dtype) {
-  // Grid limits: the FMA kernels put b*heads on y, the tensor-core ones the
-  // tile count; both must fit y's 65535.
-  if (a.B < 1 || a.S < 1 || a.H < 1 || a.HKV < 1 || a.H % a.HKV != 0 || a.B * a.H > 65535 ||
-      (a.S + BQ - 1) / BQ > 65535)
+  // Grid limits: b*heads on x, the tile count (of the smallest tile, 32
+  // rows) on y, which must fit 65535.
+  if (a.B < 1 || a.S < 1 || a.H < 1 || a.HKV < 1 || a.H % a.HKV != 0 ||
+      long(a.B) * a.H > 0x7fffffffL || (a.S + 31) / 32 > 65535)
     return int(cudaErrorInvalidValue);
   return int(dispatch<DKV>(a, D, dtype));
 }
@@ -770,7 +823,8 @@ int run(const Args& a, int D, int dtype) {
 }  // namespace
 
 // q, dout, dq: [B, S, H, D]; k, v: [B, S, HKV, D] (all contiguous, one dtype;
-// bf16 pointers 16-byte aligned); lse, delta: [B, H, S] fp32. dtype:
+// bf16 pointers 16-byte aligned); lse, delta: [B, H, S] fp32; D in 16, 32,
+// 64, 128, 256. dtype:
 // 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels).
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

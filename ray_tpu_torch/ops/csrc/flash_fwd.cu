@@ -34,9 +34,12 @@
 // padded by 16 bytes (tc_ld), loaded by 16-byte cp.async with zero fill past
 // s: Q once, K and V double-buffered so that the next tile loads while this
 // one is computed. Shared memory at d=128: Q + 2 x K + 2 x V = 85 KB, two
-// blocks per SM. Block y takes q tile nq-1-y, so the heaviest causal tiles
-// start first. ptxas (CUDA 12.8, sm_90a): 240 registers at d=128, 177 at 64,
-// 127 at 32 and 16, no spills. A 128-row q tile (8 warps) ran slower at the
+// blocks per SM. At d=256 (GPT-J) the same design runs one block per SM:
+// the tiles take 165 KB and the 16 x 256 accumulator 128 registers a thread,
+// and each score sums four chains of 64 (scores_16x32). Block y takes q tile
+// nq-1-y, so the heaviest causal tiles start first. ptxas (CUDA 12.8,
+// sm_90a): 240 registers at d=128, 177 at 64, 127 at 32 and 16, no spills;
+// 255 and 416 bytes spilled at d=256. A 128-row q tile (8 warps) ran slower at the
 // train shape and no faster at the serve shape, with registers for one block
 // per SM or spilling for two; holding Q's A fragments in registers instead of
 // reloading them per tile did not move the time (PERF.md).
@@ -46,7 +49,8 @@
 // train-parity's 1e-4 and 1e-5). 256 threads: thread t owns query rows
 // 4*(t/16)..+3 of a 64-row tile, score columns (t%16) + 16*j and output
 // columns (t%16) + 16*c; fp32 FMAs from fp32 tiles in shared memory, rows
-// padded by one float: 116 KB at d=128, one block per SM.
+// padded by one float: 116 KB at d=128 and 209 KB at d=256, one block per
+// SM.
 //
 // Bound, with pairs = s(s+1)/2 causal: operations 2*2*b*h*pairs*d against
 // 989 TFLOP/s, bytes q+k+v+o (bf16) + lse (fp32) against 3.35 TB/s. At the
@@ -106,11 +110,11 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid >> 4;
   const int cl = tid & 15;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int head = bh % H;
   const int kvh = head / (H / HKV);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.y * BQ;
   const long q_stride = long(H) * D;    // between positions of one head
   const long kv_stride = long(HKV) * D;
   const float* qb = q + long(b) * S * q_stride + long(head) * D;
@@ -224,10 +228,14 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
 using namespace mma_bf16;
 
 // Rows of the q tile, 16 per warp, and the blocks per SM that ptxas must
-// leave registers for.
+// leave registers for: two up to d=128; one at d=256, where the 16 x 256 fp32
+// accumulator alone takes 128 registers a thread and the tiles 165 KB.
 constexpr int FWD_BQ = 64;
-constexpr int FWD_MIN_BLOCKS = 2;
 constexpr int FWD_NT = 32 * (FWD_BQ / 16);
+template <int D>
+__host__ __device__ constexpr int fwd_min_blocks() {
+  return D > 128 ? 1 : 2;
+}
 static_assert(FWD_BQ % BK == 0, "the causal last tile assumes q tiles of whole key tiles");
 
 template <int D>
@@ -237,7 +245,7 @@ constexpr size_t mma_smem_bytes() {
 
 // Grid (b*h, nq); block y takes q tile nq-1-y.
 template <int D>
-__global__ void __launch_bounds__(FWD_NT, FWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(FWD_NT, fwd_min_blocks<D>())
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               bf16* __restrict__ o, float* __restrict__ lse, int S, int H, int HKV, float scale,
               int causal) {
@@ -389,8 +397,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
 // ---------------------------------------------------------------------------
 // Launch.
 
-// float32 -> FMA kernel, grid (q tiles, b*h); bfloat16 -> tensor-core
-// kernel, grid (b*h, q tiles).
+// Grid (b*h, q tiles) for both kernels: b*h on x (up to 2^31 - 1), the q tile
+// count on y (up to 65535).
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
                    int H, int HKV, int dtype, float scale, int causal, cudaStream_t stream) {
@@ -399,7 +407,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_fma<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
-    flash_fwd_fma<D><<<dim3((S + BQ - 1) / BQ, B * H), NT, smem, stream>>>(
+    flash_fwd_fma<D><<<dim3(B * H, (S + BQ - 1) / BQ), NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), S, H, HKV, scale, causal);
   } else {
@@ -417,15 +425,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 }  // namespace
 
 // q: [B, S, H, D], k/v: [B, S, HKV, D], o: [B, S, H, D] (all contiguous, one
-// dtype; bf16 pointers 16-byte aligned), lse: [B, H, S] fp32. dtype:
+// dtype; bf16 pointers 16-byte aligned), lse: [B, H, S] fp32; D in 16, 32,
+// 64, 128, 256. dtype:
 // 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                          int S, int H, int HKV, int D, int dtype, float scale, int causal,
                          void* stream) {
-  // Grid limits: the FMA kernel puts b*h on y, the tensor-core one the q
-  // tile count; both must fit y's 65535.
-  if (B < 1 || S < 1 || H < 1 || HKV < 1 || H % HKV != 0 || B * H > 65535 ||
+  // Grid limits: b*h on x, the q tile count on y, which must fit 65535.
+  if (B < 1 || S < 1 || H < 1 || HKV < 1 || H % HKV != 0 || long(B) * H > 0x7fffffffL ||
       (S + BQ - 1) / BQ > 65535 || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -434,6 +442,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
     case 32: return int(launch<32>(q, k, v, o, lse, B, S, H, HKV, dtype, scale, causal, st));
     case 64: return int(launch<64>(q, k, v, o, lse, B, S, H, HKV, dtype, scale, causal, st));
     case 128: return int(launch<128>(q, k, v, o, lse, B, S, H, HKV, dtype, scale, causal, st));
+    case 256: return int(launch<256>(q, k, v, o, lse, B, S, H, HKV, dtype, scale, causal, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

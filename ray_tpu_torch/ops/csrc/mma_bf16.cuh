@@ -168,23 +168,29 @@ __device__ __forceinline__ void score_step(float (&acc)[4][4], const bf16* a, co
 // lane's A-fragment address in a row-major [16 rows][D] tile, `b` its n-major
 // B-fragment address in a row-major [32 rows][D] tile (rows padded to LD).
 // The tensor cores truncate where an fp32 add rounds, so a chain of 8
-// products drifts; the two halves of the head dim are summed as separate
-// chains and added in fp32, which keeps P and dS on the side of a bf16
-// rounding boundary the plain version puts them (PERF.md).
+// products drifts; the head dim is summed as separate chains of at most 4
+// steps (64 columns: the two halves up to d=128, four quarters at d=256),
+// added in fp32 in order, which keeps P and dS on the side of a bf16 rounding
+// boundary the plain version puts them (PERF.md).
 template <int D, int LD>
 __device__ __forceinline__ void scores_16x32(float (&c)[4][4], const bf16* a, const bf16* b) {
   constexpr int KD = D / 16;
-  constexpr int HALF = (KD + 1) / 2;
-  float hi[4][4];
+  constexpr int CHAIN = (KD + 1) / 2 < 4 ? (KD + 1) / 2 : 4;  // steps per chain
 #pragma unroll
   for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = hi[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 #pragma unroll
-  for (int kd = 0; kd < HALF; ++kd) score_step<LD>(c, a, b, kd);
+  for (int kd = 0; kd < CHAIN; ++kd) score_step<LD>(c, a, b, kd);
 #pragma unroll
-  for (int kd = HALF; kd < KD; ++kd) score_step<LD>(hi, a, b, kd);
-  if constexpr (KD > 1) {
+  for (int k0 = CHAIN; k0 < KD; k0 += CHAIN) {
+    float hi[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hi[n][e] = 0.f;
+#pragma unroll
+    for (int kd = k0; kd < k0 + CHAIN; ++kd) score_step<LD>(hi, a, b, kd);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll

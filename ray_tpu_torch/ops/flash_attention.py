@@ -10,13 +10,14 @@ each kernel's plain PyTorch version runs instead. Layouts are the JAX
 package's: q/k/v are [batch, seq, heads, head_dim]; lse and the backward's
 delta are [batch, heads, seq] fp32.
 
-The kernels take head_dim in {16, 32, 64, 128}, float32 or bfloat16, any
-sequence length (they mask the ragged edge), causal or not, and GQA. Inputs
+The kernels take head_dim in {16, 32, 64, 128, 256}, float32 or bfloat16,
+any sequence length (they mask the ragged edge), any batch x heads, causal
+or not, and GQA. Inputs
 they do not take go to the unfused `attention_reference` (plain autograd) on
 the CPU, as the JAX package's `_pick_block` sends untileable shapes there;
-on CUDA they raise. The kernels' 64 x 64 tiles are fixed when they are
-compiled, so the JAX functions' block_q / block_k arguments have no
-counterpart here.
+on CUDA they raise. The kernels' tiles are fixed when they are compiled (64
+x 64; the float32 backward's 32 x 32 at head_dim 256), so the JAX
+functions' block_q / block_k arguments have no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -200,8 +201,6 @@ def _check_kernel_inputs(q, k, v, **like_q) -> Tuple[int, int, int, int, int]:
         raise ValueError("flash kernel inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash kernel needs contiguous inputs")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} exceeds the kernel's grid limit 65535")
     return b, s, h, h_kv, d
 
 

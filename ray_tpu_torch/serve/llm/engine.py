@@ -1,6 +1,5 @@
 """Continuous-batching inference engine (copy of
-ray_tpu/serve/llm/engine.py for the PyTorch port, without the chaos hooks
-and the raytpu_* metric handles; stats() reports the plain counters).
+ray_tpu/serve/llm/engine.py for the PyTorch port).
 
 One resident loop per replica owns a fixed set of decode SLOTS (the
 compiled step's batch width). Requests join a slot the moment one frees
@@ -31,10 +30,14 @@ import logging
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Sequence
 
+from ...chaos.controller import kill_now as _chaos_kill
+from ...chaos.controller import maybe_inject as _chaos_inject
 from ...exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError
+from ...utils import internal_metrics as imet
 from .kv_cache import PagedKVAllocator, SeqPages
 
 logger = logging.getLogger(__name__)
@@ -96,7 +99,21 @@ class InferenceEngine:
         self.model = model
         self.config = config or EngineConfig()
         self.name = name
-        self.alloc = PagedKVAllocator(self.config.pool_pages, self.config.page_tokens)
+        cfg = self.config
+        labels = {"deployment": name}
+        self._m_tpot = imet.SERVE_TPOT.labels(**labels)
+        self._m_tps = imet.SERVE_TOKENS_PER_S.labels(**labels)
+        self._m_shed = imet.SERVE_REQUESTS_SHED.labels(**labels)
+        self.alloc = PagedKVAllocator(
+            cfg.pool_pages,
+            cfg.page_tokens,
+            metrics={
+                "used": imet.KV_PAGES_USED.labels(**labels),
+                "total": imet.KV_PAGES_TOTAL.labels(**labels),
+                "hits": imet.PREFIX_CACHE_HITS.labels(**labels),
+                "misses": imet.PREFIX_CACHE_MISSES.labels(**labels),
+            },
+        )
         self._rid = itertools.count(1)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -108,6 +125,8 @@ class InferenceEngine:
         self.shed_total = 0
         self.tokens_emitted = 0
         self.decode_steps = 0
+        self._tok_window = 0
+        self._t_window = time.monotonic()
         self._thread = threading.Thread(
             target=self._loop, name=f"llm-engine-{name}", daemon=True
         )
@@ -139,6 +158,7 @@ class InferenceEngine:
                 raise RuntimeError("engine is shut down")
             if len(self._waiting) >= self.config.max_queue:
                 self.shed_total += 1
+                self._m_shed.inc()
                 raise BackpressureError(
                     reason=f"admission queue full ({self.config.max_queue})"
                 )
@@ -146,6 +166,7 @@ class InferenceEngine:
                 pages = self.alloc.allocate(prompt)
             except KVPoolExhaustedError:
                 self.shed_total += 1
+                self._m_shed.inc()
                 raise
             rid = next(self._rid)
             seq = _Seq(rid, prompt, max_new, pages, sink)
@@ -263,6 +284,7 @@ class InferenceEngine:
     def _emit_locked(self, seq: _Seq, tok: int) -> None:
         seq.n_out += 1
         self.tokens_emitted += 1
+        self._tok_window += 1
         try:
             seq.sink("tok", int(tok))
         except Exception:
@@ -288,6 +310,7 @@ class InferenceEngine:
                     and not any(self._slots)
                     and not self._cancels
                 ):
+                    self._m_tps.set(0.0)
                     self._cond.wait(timeout=1.0)
                 if self._stop:
                     for seq in list(self._by_rid.values()):
@@ -335,12 +358,24 @@ class InferenceEngine:
 
             # Model step runs OUTSIDE the lock: submit/cancel stay
             # responsive for the full decode latency.
+            t0 = time.monotonic()
             try:
+                rule = _chaos_inject("serve.decode", self.name)
+                if rule is not None:
+                    if rule.action == "delay":
+                        time.sleep(rule.delay_s)
+                    elif rule.action == "kill":
+                        _chaos_kill("serve.decode", self.name)
+                    else:
+                        raise RayTpuError(
+                            f"chaos: injected decode fault ({self.name})"
+                        )
                 next_tokens = self.model.decode(tokens, positions, tables)
                 step_err: Optional[BaseException] = None
             except Exception as e:  # noqa: BLE001 - batch fail-fast, loop survives
                 next_tokens, step_err = None, e
 
+            step_ms = (time.monotonic() - t0) * 1000.0
             with self._cond:
                 if step_err is not None:
                     # Fail-fast every sequence that was in the failed
@@ -352,6 +387,7 @@ class InferenceEngine:
                             self._finish_locked(seq, "error", _typed(step_err))
                     continue
                 self.decode_steps += 1
+                self._m_tpot.observe(step_ms)
                 for seq in batch:
                     if seq.finished or seq.cancelled:
                         continue
@@ -360,6 +396,12 @@ class InferenceEngine:
                     self._emit_locked(seq, tok)
                     if self._done_after_emit(seq, tok):
                         self._finish_locked(seq, "done", "stop")
+                now = time.monotonic()
+                dt = now - self._t_window
+                if dt >= 0.5:
+                    self._m_tps.set(self._tok_window / dt)
+                    self._tok_window = 0
+                    self._t_window = now
 
     # -------------------------------------------------------------- admin
 

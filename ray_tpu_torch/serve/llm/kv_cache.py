@@ -56,10 +56,12 @@ class PagedKVAllocator:
     """Free-list page allocator + refcounts + hashed-prefix radix index.
 
     Thread-safe: the engine loop extends/releases while submitters
-    allocate.
+    allocate. `metrics` is an optional dict of pre-bound instrument
+    handles ({"hits", "misses", "used", "total"}) so the allocator stays
+    importable without pulling a deployment label in here.
     """
 
-    def __init__(self, num_pages: int, page_tokens: int):
+    def __init__(self, num_pages: int, page_tokens: int, metrics: Optional[dict] = None):
         if num_pages < 2:
             raise ValueError(f"pool needs >= 2 pages (1 is the trash page), got {num_pages}")
         if page_tokens < 1:
@@ -74,8 +76,12 @@ class PagedKVAllocator:
         self._page_key: Dict[int, _PrefixKey] = {}
         # zero-ref indexed pages, oldest-released first (eviction order)
         self._evictable: "collections.OrderedDict[int, None]" = collections.OrderedDict()
+        self._metrics = metrics or {}
         self.prefix_hits = 0
         self.prefix_misses = 0
+        g = self._metrics.get("total")
+        if g is not None:
+            g.set(self.total_pages)
 
     # ---------------------------------------------------------- capacity
 
@@ -163,6 +169,7 @@ class PagedKVAllocator:
                 fresh.append(page)
             self.prefix_hits += len(matched)
             self.prefix_misses += fresh_needed
+            self._observe_locked(hits=len(matched), misses=fresh_needed)
             return SeqPages(pages=matched + fresh, cached_tokens=len(matched) * self.page_tokens)
 
     def extend(self, seq: SeqPages) -> int:
@@ -175,6 +182,7 @@ class PagedKVAllocator:
                 )
             self._ref[page] = 1
             seq.pages.append(page)
+            self._observe_locked()
             return page
 
     def commit(self, seq: SeqPages, tokens) -> None:
@@ -210,8 +218,22 @@ class PagedKVAllocator:
                 else:
                     self._ref.pop(page, None)
                     self._return_page_locked(page)
+            self._observe_locked()
 
-    # ------------------------------------------------------------- stats
+    # ----------------------------------------------------------- metrics
+
+    def _observe_locked(self, hits: int = 0, misses: int = 0) -> None:
+        g = self._metrics.get("used")
+        if g is not None:
+            g.set(len(self._ref))
+        if hits:
+            c = self._metrics.get("hits")
+            if c is not None:
+                c.inc(hits)
+        if misses:
+            c = self._metrics.get("misses")
+            if c is not None:
+                c.inc(misses)
 
     def stats(self) -> dict:
         with self._lock:

@@ -5,7 +5,9 @@ The engine schedules against a small protocol: an object with
 `prefill(prompt, pages, cached_tokens) -> token` and
 `decode(last_tokens, positions, block_tables) -> tokens`, plus the pool
 geometry attributes. StubModel is a deterministic model for scheduler
-tests; PagedLM runs models/transformer.py's paged prefill and decode.
+tests; PagedLM runs models/transformer.py's paged prefill and decode. The
+module-level builders (tiny_paged_lm, stub_model, llama2_7b_paged_lm) are
+what `llm_deployment` hands each replica.
 """
 
 from __future__ import annotations
@@ -132,3 +134,21 @@ class PagedLM:
                 self.kv, bts.to(self.device),
             )
             return torch.argmax(logits, dim=-1).tolist()
+
+
+def tiny_paged_lm(**kw) -> PagedLM:
+    """Builder for deployments and tests: PagedLM(**kw), by default the
+    test-sized transformer on the paged decode path."""
+    return PagedLM(**kw)
+
+
+def stub_model(**kw) -> StubModel:
+    return StubModel(**kw)
+
+
+def llama2_7b_paged_lm(*, seed: int = 0, device=None, **geometry) -> PagedLM:
+    """Builder for `llm_deployment`: Llama-2-7B at full width and depth in
+    bf16, random weights from `seed`, on `device` (the current CUDA device
+    by default). `geometry` sets the pool (num_pages, page_tokens,
+    max_slots, max_pages_per_seq)."""
+    return PagedLM(tfm.llama2_7b(dtype=torch.bfloat16), seed=seed, device=device, **geometry)

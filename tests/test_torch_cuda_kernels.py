@@ -58,14 +58,15 @@ def _check_fwd(gen, b, s, h, h_kv, d, dtype, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,h,h_kv,d,causal", [(16, 4, 4, 128, True), (200, 8, 2, 64, True),
-                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True)])
+                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True),
+                                                (200, 4, 2, 256, True), (70, 2, 2, 256, False)])
 def test_flash_fwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
     _check_fwd(cuda, 2, s, h, h_kv, d, dtype, causal)
 
 
 # bf16, the tensor-core route: several 64-row tiles with a ragged last one,
 # GQA with 4 query heads per kv head, every head dim.
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("s,causal", [(130, True), (300, False), (1000, True)])
 def test_flash_fwd_bf16_over_ragged_tiles_matches_plain_version(cuda, s, causal, d):
     _check_fwd(cuda, 2, s, 8, 2, d, torch.bfloat16, causal)
@@ -107,7 +108,8 @@ def _bwd_inputs(gen, b, s, h, h_kv, d, dtype, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,h,h_kv,d,causal", [(16, 4, 4, 128, True), (200, 8, 2, 64, True),
-                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True)])
+                                                (96, 4, 1, 16, False), (130, 2, 2, 32, True),
+                                                (200, 4, 2, 256, True), (70, 2, 2, 256, False)])
 def test_flash_bwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
     q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 2, s, h, h_kv, d, dtype, causal)
     scale = d ** -0.5
@@ -123,7 +125,7 @@ def test_flash_bwd_matches_plain_version(cuda, dtype, s, h, h_kv, d, causal):
 
 # bf16, the tensor-core route: several 64-row tiles with a ragged last one,
 # GQA with 4 query heads per kv head, every head dim.
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("s,causal", [(130, True), (300, False), (1000, True)])
 def test_flash_bwd_bf16_over_ragged_tiles_matches_plain_version(cuda, s, causal, d):
     q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 2, s, 8, 2, d, torch.bfloat16, causal)
@@ -156,6 +158,36 @@ def test_flash_bwd_bf16_raises_on_misaligned_inputs(cuda):
 
 def _launch_counts():
     return tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_gptj_heads_match_plain_versions(cuda, dtype):
+    """GPT-J's attention (16 heads of 256, causal) through all three kernels:
+    bf16 on the tensor cores (the backward splits each output tile's columns
+    over two blocks), fp32 on FMAs (the backward's 32-row tiles)."""
+    _check_fwd(cuda, 1, 512, 16, 16, 256, dtype, True)
+    q, k, v, o, lse, do, delta = _bwd_inputs(cuda, 1, 512, 16, 16, 256, dtype, True)
+    kw = dict(causal=True, scale=256 ** -0.5)
+    got = tfa.flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    again = tfa.flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tfa.reference_flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _entry_err(g, w) <= BWD_TOL[dtype], (name, _entry_err(g, w))
+
+
+def test_flash_kernels_take_batch_times_heads_past_65535(cuda):
+    """b*h = 65600 blocks on grid x, where CUDA's y would stop at 65535."""
+    b, s, h, d = 4100, 40, 16, 16
+    _check_fwd(cuda, b, s, h, 4, d, torch.float32, True)
+    q, k, v, o, lse, do, delta = _bwd_inputs(cuda, b, s, h, 4, d, torch.float32, True)
+    kw = dict(causal=True, scale=d ** -0.5)
+    got = tfa.flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    want = tfa.reference_flash_bwd(q, k, v, o, lse, do, delta, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _entry_err(g, w) <= BWD_TOL[torch.float32], (name, _entry_err(g, w))
 
 
 def test_train_step_on_cuda_matches_cpu(cuda):
@@ -213,3 +245,30 @@ def test_paged_lm_on_cuda_matches_cpu(cuda):
     assert toks[0] == toks[1]
     steps = [lm.decode([toks[0], 0], [len(prompt), -1], [[1, 2], []]) for lm in (cpu, gpu)]
     assert steps[0][0] == steps[1][0]
+
+
+def test_gptj_width_paged_prefill_and_decode_match_full_forward(cuda):
+    """GPT-J at full width (16 heads of 256), 2 layers, fp32: paged prefill
+    through the flash forward at head_dim 256, then decode, give the full
+    forward's greedy tokens."""
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.serve.llm import PagedLM
+
+    cfg = tfm.gpt_j_6b(n_layers=2, dtype=torch.float32)
+    lm = PagedLM(cfg, seed=0, device="cuda", num_pages=8, page_tokens=16, max_slots=1,
+                 max_pages_per_seq=4)
+    prompt = torch.randint(0, cfg.vocab_size, (21,), generator=torch.Generator().manual_seed(0))
+    prompt = prompt.tolist()
+    pages = [1, 2]  # 21 prompt tokens and 4 decoded ones fit two pages of 16
+    before = tfa.flash_fwd.launches
+    got = [lm.prefill(prompt, pages, 0)]
+    assert tfa.flash_fwd.launches == before + cfg.n_layers
+    while len(got) < 5:
+        got.append(lm.decode([got[-1]], [len(prompt) + len(got) - 1], [pages])[0])
+    seq, gold = list(prompt), []
+    with torch.inference_mode():
+        for _ in range(5):
+            logits = tfm.forward(lm.params, torch.tensor([seq], device="cuda"), cfg)
+            gold.append(int(torch.argmax(logits[0, -1])))
+            seq.append(gold[-1])
+    assert got == gold

@@ -18,7 +18,8 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "ray_tpu", "optax", "orbax", "flax", "ml_dtypes")
+    return top in ("jax", "jaxlib", "ray_tpu", "optax", "orbax", "flax", "ml_dtypes",
+                   "cloudpickle")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -43,7 +44,8 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'ml_dtypes', 'orbax')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'ml_dtypes', 'orbax',\n"
+        "                              'cloudpickle')]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
