@@ -44,10 +44,23 @@ Phases, each printing its own line, any failure exits non-zero:
   11. checkpoint: 3 steps, an elastic checkpoint at world 1 resharded to 4 on
      disk, restored into a fresh run, 3 more steps: bitwise equal to 6
      uninterrupted steps; then an HF safetensors export and reload, bitwise,
-     with the same greedy tokens from PagedLM.
+     with the same greedy tokens from PagedLM;
+  12. fit: the zero phase's configuration trained through TorchTrainer.fit
+     on init(local_mode=True), 8 steps with an elastic checkpoint reported
+     at step 3, uninterrupted (A) and with a failure after step 5 and a
+     restart from that checkpoint (B): the resumed run equals the
+     uninterrupted one and build_train_step driven directly, bit for bit;
+     keep-1 checkpoints, goodput, MFU and each kernel's launches; the
+     trainer's step p50 against the plain step's, driven from the main
+     thread and, as a control, from a plain thread with no runtime
+     (--profile traces one step of each);
+  13. tune: Tuner over that TorchTrainer, two lrs trained at once on the
+     card: each trial bitwise equal to a direct run, the best trial named,
+     each kernel's launches.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
-with the gptj phase's launches, under "at_d256"), and the device line last.
+with the gptj phase's launches, under "at_d256"; its launches in the fit
+and tune phases under "launches_by_path"), and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -569,7 +582,7 @@ _CUPTI_OVERHEAD = {"Unknown", "Buffer Flush", "Instrumentation", "Resource",
                    "Command Buffer Full", "Activity Buffer Request", "UVM Activity Init"}
 
 
-def _print_profile(prof, wall_s, phase):
+def _print_profile(prof, wall_s, phase, top=15):
     """Device time by kernel over a phase's traced window, and the device's
     busy share of that window (one stream, so kernel times do not overlap).
     Only kernels count: the profiler also credits each CPU op of the tracing
@@ -590,7 +603,7 @@ def _print_profile(prof, wall_s, phase):
         sums[group] += e.self_device_time_total / 1e3
     print(f"[profile {phase}] by kind: " + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sums.items()),
           flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile {phase}] {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}",
               flush=True)
 
@@ -1228,6 +1241,470 @@ def phase_checkpoint():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The fit and tune phases train the zero phase's configuration through
+# TorchTrainer and Tuner: llama2_7b(n_layers=2), bf16, remat "hot", b=1,
+# s=2048, adamw, seed 0, under deterministic algorithms.
+FIT_SEQ = 2048
+FIT_STEPS, FIT_CKPT_AT, FIT_FAIL_AFTER = 8, 3, 5
+TUNE_STEPS, TUNE_LRS = 4, (1e-4, 3e-4)
+# With --profile, step 6 of the plain runs and of run B's resumed attempt is
+# traced; it is left out of every step p50.
+FIT_PROFILE_AT = 6
+
+
+def _traced(enabled: bool):
+    import torch
+
+    if not enabled:
+        return contextlib.nullcontext()
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+
+def _in_thread(fn, *args):
+    """fn(*args) in a plain threading.Thread (no runtime); its result."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=run, name="plain-step")
+    t.start()
+    t.join(timeout=300)
+    if "error" in out:
+        raise out["error"]
+    if "value" not in out:
+        _fail("a plain run in its own thread did not finish in 300 s")
+    return out["value"]
+
+
+def _fit_cfg():
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    return tfm.llama2_7b(n_layers=2, dtype=torch.bfloat16, remat_policy="hot")
+
+
+def _fit_batch(step: int, vocab: int):
+    """Step i's batch: 1 x 2048 tokens from a generator seeded with i, so a
+    resume at the wrong step shows in its losses."""
+    import torch
+
+    return torch.randint(0, vocab, (1, FIT_SEQ), generator=torch.Generator().manual_seed(step))
+
+
+def _params_sha256(params) -> str:
+    """SHA-256 of every param's bytes in convert.flatten's order."""
+    import hashlib
+
+    import torch
+
+    from ray_tpu_torch.models.convert import flatten
+
+    h = hashlib.sha256()
+    for t in flatten(params)[1]:
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _direct_run(lr: float, n_steps: int, profile_at=None, label: str = ""):
+    """The same model, seed and batches through build_train_step driven
+    directly: (losses, step ms, params_sha256). Step `profile_at` is traced
+    and its device time printed under `label`."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    cfg = _fit_cfg()
+    init, step = tfm.build_train_step(cfg, tfm.adamw(lr), device="cuda")
+    params, opt = init(torch.Generator(device="cuda").manual_seed(0))
+    losses, step_ms = [], []
+    for i in range(n_steps):
+        tokens = _fit_batch(i, cfg.vocab_size)
+        with _traced(i == profile_at) as prof:
+            t = time.perf_counter()
+            losses.append(step(params, opt, tokens).item())  # .item() waits for the device
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        if i == profile_at:
+            _print_profile(prof, step_ms[-1] / 1e3, label, top=5)
+    sha = _params_sha256(params)
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses, step_ms, sha
+
+
+def _make_loop(log: list):
+    """The training loop of the fit and tune phases, as a user writes it for
+    TorchTrainer: the model and AdamW state built on the mesh's device from
+    seed 0; with a checkpoint from train.get_checkpoint(), params and AdamW
+    state restored from it and the steps resumed after its step; one report
+    per step with the loss and tokens_per_s (MFU from configure_telemetry);
+    an elastic checkpoint of params and AdamW state reported at
+    config["ckpt_at"]; a raise after reporting config["fail_after"] in an
+    attempt that did not restore; step config["profile_at"] traced.
+    Appends its events to `log`."""
+
+    def loop(config):
+        import gc
+        import shutil
+        import tempfile
+
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models import convert
+        from ray_tpu_torch.models import transformer as tfm
+        from ray_tpu_torch.train import elastic_checkpoint as ec
+
+        run, lr = config["run"], config["lr"]
+        device = train.get_mesh().devices.flat[0]
+        gc.collect()
+        log.append({"run": run, "lr": lr, "event": "start",
+                    "allocated": torch.cuda.memory_allocated(device)})
+        cfg = _fit_cfg()
+        train.configure_telemetry(flops_per_token=tfm.flops_per_token(cfg, FIT_SEQ))
+        init, step = tfm.build_train_step(cfg, tfm.adamw(lr), device=device)
+        params, opt = init(torch.Generator(device=device).manual_seed(0))
+        start, ck = 0, train.get_checkpoint()
+        if ck is not None:
+            t = time.perf_counter()
+            state = ec.load_state(ck.path)
+            with torch.no_grad():
+                for p, src in zip(convert.flatten(params)[1],
+                                  convert.flatten(state["params"])[1]):
+                    p.copy_(src)
+            convert.opt_state_from_numpy(state["opt_state"], opt, params)
+            torch.cuda.synchronize(device)
+            log.append({"run": run, "lr": lr, "event": "restore",
+                        "s": time.perf_counter() - t})
+            start = state["step"] + 1
+            del state
+        sources = {}  # step -> directory of a reported checkpoint
+        for i in range(start, config["steps"]):
+            tokens = _fit_batch(i, cfg.vocab_size)
+            with _traced(i == config.get("profile_at")) as prof:
+                t = time.perf_counter()
+                with train.phase("compute"):
+                    loss = step(params, opt, tokens).item()  # .item() waits for the device
+                dt = time.perf_counter() - t
+            if i == config.get("profile_at"):
+                _print_profile(prof, dt, f"fit trainer step {i} (run {run})", top=5)
+            metrics = {"step": i, "loss": loss, "lr": lr, "tokens_per_s": FIT_SEQ / dt}
+            if i == config["steps"] - 1:
+                metrics["params_sha256"] = _params_sha256(params)
+            ckpt = None
+            if i == config.get("ckpt_at"):
+                d = tempfile.mkdtemp(prefix="ckpt-", dir=config["scratch"])
+                t = time.perf_counter()
+                opt_state = convert.opt_state_to_torch(opt, params)  # host copies
+                t_state = time.perf_counter()
+                ec.save_state(d, params, opt_state, step=i, world_size=1, rank=0)
+                del opt_state
+                log.append({"run": run, "lr": lr, "event": "save",
+                            "s": time.perf_counter() - t, "state_s": t_state - t})
+                sources[i], ckpt = d, train.Checkpoint(d)
+            entry = {"run": run, "lr": lr, "event": "report", "step": i, "loss": loss,
+                     "compute_ms": FIT_SEQ / metrics["tokens_per_s"] * 1e3,
+                     "t": time.perf_counter(), "metrics": metrics}
+            log.append(entry)
+            train.report(metrics, checkpoint=ckpt)
+            entry["report_ms"] = (time.perf_counter() - entry["t"]) * 1e3
+            # report() returns once its payload is queued, and the trainer
+            # copies a checkpoint after taking it off the size-1 queue: only
+            # the report two steps later proves that copy done.
+            for s in [s for s in sources if s <= i - 2]:
+                shutil.rmtree(sources.pop(s))
+            if ck is None and i == config.get("fail_after"):
+                raise RuntimeError(f"injected failure after step {i}")
+
+    return loop
+
+
+def _intervals_ms(log, run, lr=None):
+    """{step: ms from the previous step's report to this one's}."""
+    t = {e["step"]: e["t"] for e in log
+         if e["event"] == "report" and e["run"] == run and (lr is None or e["lr"] == lr)}
+    return {i: (t[i] - t[i - 1]) * 1e3 for i in sorted(t) if i - 1 in t}
+
+
+def phase_fit(profile: bool = False):
+    """TorchTrainer.fit on the card, ScalingConfig(num_workers=1,
+    resources_per_worker={"GPU": 1}), keep-1 checkpoints. Run A: 8 steps
+    uninterrupted, an elastic checkpoint (params and AdamW state) reported at
+    step 3. Run B: the same loop with max_failures=1; its first attempt
+    raises after reporting step 5, its second restores step 3's checkpoint
+    through train.get_checkpoint() and runs steps 4-7. Exact gates: B
+    succeeds; both end at step 7; A's losses and params equal
+    build_train_step driven directly, and B's losses of steps 4-7 and final
+    params equal A's, bit for bit; one checkpoint directory in each trial
+    dir; B's goodput has restart_rework and A's none; the reported MFU is
+    flops_per_token x tokens_per_s / 989e12; each kernel launches 16 times
+    in A and 20 in B. Prints the trainer's step p50 (report to report, over
+    A's clean steps) against the plain step's, driven from the main thread
+    before the runtime starts and while it is up, and from a plain thread
+    with no runtime; checkpoint save, persist and restore seconds, goodput,
+    and memory after B's failed attempt and after its fit. With `profile`,
+    step 6 of B's resumed attempt and of each plain run is traced. Returns
+    each run's launches and the trainer's step p50."""
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = _smi()
+    cfg = _fit_cfg()
+    fpt = tfm.flops_per_token(cfg, FIT_SEQ)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fit-")
+    log, results, launches, memory = [], {}, {}, {}
+    loop = _make_loop(log)
+    at = FIT_PROFILE_AT if profile else None
+    with _deterministic():
+        # The plain step three ways: from the main thread, from a plain
+        # thread (no runtime), and from the main thread with the runtime up.
+        plain = {"main": _direct_run(1e-4, FIT_STEPS, at, "fit plain step, main thread"),
+                 "thread": _in_thread(_direct_run, 1e-4, FIT_STEPS, at,
+                                      "fit plain step, own thread, no runtime")}
+        rt.init(local_mode=True)
+        try:
+            for run, extra, failures in (
+                    ("A", {}, 0),
+                    ("B", {"fail_after": FIT_FAIL_AFTER, "profile_at": at}, 1)):
+                scratch = os.path.join(tmp, f"{run}-sources")
+                os.makedirs(scratch)
+                trainer = TorchTrainer(
+                    loop,
+                    train_loop_config={"run": run, "lr": 1e-4, "steps": FIT_STEPS,
+                                       "ckpt_at": FIT_CKPT_AT, "scratch": scratch, **extra},
+                    scaling_config=ScalingConfig(num_workers=1, resources_per_worker={"GPU": 1}),
+                    run_config=RunConfig(name=f"fit_{run}", storage_path=tmp,
+                                         failure_config=FailureConfig(max_failures=failures),
+                                         checkpoint_config=CheckpointConfig(num_to_keep=1)))
+                gc.collect()
+                memory[f"{run} before"] = torch.cuda.memory_allocated()
+                _zero_launch_counts()
+                t0 = time.perf_counter()
+                results[run] = trainer.fit()
+                wall = time.perf_counter() - t0
+                launches[run] = _launch_counts()
+                gc.collect()
+                memory[f"{run} after fit"] = torch.cuda.memory_allocated()
+                print(f"[fit] run {run}: fit {wall:.1f} s, error {results[run].error!r}, "
+                      f"launches {launches[run]}", flush=True)
+            plain["main, runtime up"] = _direct_run(
+                1e-4, FIT_STEPS, at, "fit plain step, main thread, runtime up")
+        finally:
+            rt.shutdown()
+    try:
+        a, b = results["A"], results["B"]
+        steps = {run: {e["step"]: e["metrics"] for e in log
+                       if e["event"] == "report" and e["run"] == run} for run in "AB"}
+        b_starts = [e["allocated"] for e in log if e["event"] == "start" and e["run"] == "B"]
+        ckpt_dirs = {run: sorted(d for d in os.listdir(results[run].path)
+                                 if d.startswith("checkpoint_")) for run in "AB"}
+        a_losses = [steps["A"][i]["loss"] for i in range(FIT_STEPS)]
+        b_second = max(k for k, e in enumerate(log) if e["event"] == "start" and e["run"] == "B")
+        b_last = {e["step"]: e["loss"] for e in log[b_second:]
+                  if e["event"] == "report" and e["run"] == "B"}  # B's second attempt
+        steps_log = {e["step"]: e for e in log if e["event"] == "report" and e["run"] == "A"}
+        saves = [e["s"] for e in log if e["event"] == "save"]
+        save_state_s = [e["state_s"] for e in log if e["event"] == "save"]
+        restores = [e["s"] for e in log if e["event"] == "restore"]
+        gaps = _intervals_ms(log, "A")
+        # Clean intervals: not the checkpoint's step (the save), not the one
+        # whose report() waits out the trainer's copy of it (the second
+        # report after it: the first fills the size-1 queue while the copy
+        # runs), not the last (params_sha256).
+        timed = [i for i in range(1, FIT_STEPS - 1) if i not in (FIT_CKPT_AT, FIT_CKPT_AT + 3)]
+        trainer_p50 = statistics.median(gaps[i] for i in timed)
+        # The step alone (the loop's timer around it), over the steps the
+        # plain p50s take.
+        steps_timed = [i for i in range(1, FIT_STEPS) if i != at]
+        compute_p50 = statistics.median(steps_log[i]["compute_ms"] for i in steps_timed)
+        plain_p50 = {k: statistics.median(v[1][i] for i in steps_timed) for k, v in plain.items()}
+        last = a.metrics
+        want_mfu = fpt * last["tokens_per_s"] / PEAK_FLOPS["bfloat16"]
+        print(f"[fit] {smi}: llama2_7b width, 2 layers, bf16, remat hot, b=1 s={FIT_SEQ}, "
+              f"adamw(1e-4), deterministic, TorchTrainer on init(local_mode=True): losses A "
+              f"{a_losses}; plain {plain['main'][0]}; B's second attempt {b_last}", flush=True)
+        print(f"[fit] {smi}: trainer step ms report to report (A), as step: interval / "
+              "compute / report() call "
+              + ", ".join(f"{i}: {gaps[i]:.1f} / {steps_log[i]['compute_ms']:.1f} / "
+                          f"{steps_log[i]['report_ms']:.2f}" for i in sorted(gaps))
+              + "; plain step ms " + "; ".join(f"{k} {[round(t, 1) for t in v[1]]}"
+                                                for k, v in plain.items()), flush=True)
+        base = plain_p50["main"]
+        print(f"[fit] {smi}: trainer step p50 over clean intervals {timed} {trainer_p50:.2f} ms, "
+              f"the step alone p50 over steps {steps_timed} {compute_p50:.2f} ms; plain step p50 "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in plain_p50.items())
+              + f"; against the main thread's: trainer ratio {trainer_p50 / base:.4f}, its step "
+              f"alone {compute_p50 / base:.4f}, "
+              + ", ".join(f"{k} {v / base:.4f}" for k, v in plain_p50.items() if k != "main"),
+              flush=True)
+        print(f"[fit] {smi}: elastic checkpoint save s {[round(s, 2) for s in saves]} (of "
+              f"which AdamW state to the host {[round(s, 2) for s in save_state_s]}), "
+              f"persist (copy) s A {a.metrics['goodput_seconds']['checkpoint']} B "
+              f"{b.metrics['goodput_seconds']['checkpoint']}, restore s "
+              f"{[round(s, 2) for s in restores]}; goodput A {a.metrics['goodput']:.4f} "
+              f"{a.metrics['goodput_seconds']}, B {b.metrics['goodput']:.4f} "
+              f"{b.metrics['goodput_seconds']}; MFU reported {last['mfu']:.6f} at "
+              f"{last['tokens_per_s']:.0f} tokens/s, expected {want_mfu:.6f}", flush=True)
+        print(f"[fit] {smi}: memory_allocated GiB before B {memory['B before'] / 2**30:.3f}, "
+              f"after B's failed attempt {b_starts[-1] / 2**30:.3f}, after B's fit "
+              f"{memory['B after fit'] / 2**30:.3f} (A: before {memory['A before'] / 2**30:.3f}, "
+              f"after {memory['A after fit'] / 2**30:.3f}); checkpoint dirs {ckpt_dirs}",
+              flush=True)
+        if b.error is not None or a.error is not None:
+            _fail(f"fit: errors A {a.error!r} B {b.error!r}")
+        if a.metrics["step"] != FIT_STEPS - 1 or b.metrics["step"] != FIT_STEPS - 1:
+            _fail(f"fit: last steps A {a.metrics['step']} B {b.metrics['step']}")
+        want_losses, _, want_sha = plain["main"]
+        if a_losses != want_losses or steps["A"][FIT_STEPS - 1]["params_sha256"] != want_sha:
+            _fail("fit: the trainer's run differs from build_train_step driven directly")
+        if any(v[0] != want_losses or v[2] != want_sha for v in plain.values()):
+            _fail("fit: the direct runs differ")
+        if (sorted(b_last) != list(range(FIT_CKPT_AT + 1, FIT_STEPS))
+                or any(b_last[i] != a_losses[i] for i in b_last)):
+            _fail("fit: the resumed attempt's losses differ from the uninterrupted run's")
+        if b.metrics["params_sha256"] != a.metrics["params_sha256"]:
+            _fail("fit: the resumed run's params differ from the uninterrupted run's")
+        if len(restores) != 1 or len(saves) != 2:
+            _fail(f"fit: {len(saves)} saves and {len(restores)} restores, want 2 and 1")
+        if any(len(d) != 1 for d in ckpt_dirs.values()):
+            _fail(f"fit: keep-1 left {ckpt_dirs}")
+        if (a.metrics["goodput_seconds"]["restart_rework"] != 0
+                or not b.metrics["goodput_seconds"]["restart_rework"] > 0):
+            _fail("fit: restart_rework is not 0 in A and positive in B")
+        if abs(last["mfu"] - want_mfu) > 1e-9 * want_mfu:
+            _fail(f"fit: MFU {last['mfu']} against {want_mfu} at the H100's 989e12")
+        # The failed attempt's error stays on the Result; its tensors must
+        # not (params, grads and AdamW state: 5.0 GiB).
+        if max(b_starts[-1], memory["B after fit"]) - memory["B before"] > 256 * 2**20:
+            _fail("fit: the failed attempt's tensors stayed allocated")
+        for run, n_steps in (("A", FIT_STEPS),
+                             ("B", FIT_FAIL_AFTER + 1 + FIT_STEPS - FIT_CKPT_AT - 1)):
+            want = {k: cfg.n_layers * n_steps for k in launches[run]}
+            if launches[run] != want:
+                _fail(f"fit: run {run} launched {launches[run]}, want {want}")
+        return {"fit_uninterrupted": launches["A"], "fit_resumed": launches["B"]}, trainer_p50
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_tune(fit_step_ms: float):
+    """Tuner over the fit phase's TorchTrainer: grid lr in {1e-4, 3e-4},
+    TuneConfig(metric="loss", mode="min", max_concurrent_trials=2), so both
+    trials train on the card at once from two threads, 4 steps each, the
+    same model and batches, deterministic algorithms. Each trial's losses
+    and final params must equal build_train_step driven directly with its
+    lr, bit for bit; get_best_result() must name the trial whose last loss
+    is lower; each kernel launches 16 times. Prints each trial's step p50
+    and their combined tokens/s against the lone trainer's."""
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = _smi()
+    cfg = _fit_cfg()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tune-")
+    log = []
+    rt.init(local_mode=True)
+    try:
+        with _deterministic():
+            direct = {lr: _direct_run(lr, TUNE_STEPS) for lr in TUNE_LRS}
+            # Control: the same two runs at once from two plain threads, no
+            # runtime and no Tune, for what sharing the card costs by itself.
+            both = {}
+            threads = [threading.Thread(target=lambda lr=lr: both.update(
+                {lr: _direct_run(lr, TUNE_STEPS)})) for lr in TUNE_LRS]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            trainer = TorchTrainer(
+                _make_loop(log),
+                train_loop_config={"run": "tune", "steps": TUNE_STEPS, "scratch": tmp},
+                scaling_config=ScalingConfig(num_workers=1, resources_per_worker={"GPU": 1}),
+                run_config=RunConfig(storage_path=os.path.join(tmp, "inner")))
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            grid = tune.Tuner(
+                trainer,
+                param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+                tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=2),
+                run_config=RunConfig(name="tune", storage_path=tmp),
+            ).fit()
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    trial = {lr: {e["step"]: e["metrics"] for e in log
+                  if e["event"] == "report" and e["lr"] == lr} for lr in TUNE_LRS}
+    # Steps 1..TUNE_STEPS-2: the last interval carries params_sha256.
+    p50 = {lr: statistics.median(ms for i, ms in _intervals_ms(log, "tune", lr).items()
+                                 if i < TUNE_STEPS - 1) for lr in TUNE_LRS}
+    combined = sum(FIT_SEQ / (ms / 1e3) for ms in p50.values())
+    lone = FIT_SEQ / (fit_step_ms / 1e3)
+    best = grid.get_best_result()
+    want_best = min(TUNE_LRS, key=lambda lr: direct[lr][0][-1])
+    print(f"[tune] {smi}: Tuner over TorchTrainer, lr {list(TUNE_LRS)}, 2 trials at once, "
+          f"{TUNE_STEPS} steps each, in {wall:.1f} s: losses "
+          + "; ".join(f"lr {lr} trial {[trial[lr][i]['loss'] for i in sorted(trial[lr])]} "
+                      f"direct {direct[lr][0]}" for lr in TUNE_LRS)
+          + f"; best {best.metrics.get('lr')} (want {want_best}); errors {grid.errors}; "
+          f"launches {launches}", flush=True)
+    print(f"[tune] {smi}: per-trial step p50 (report to report, steps 1-{TUNE_STEPS - 2}) "
+          + ", ".join(f"lr {lr} {p50[lr]:.2f} ms ({p50[lr] / fit_step_ms:.3f}x the lone "
+                      "trainer's)" for lr in TUNE_LRS)
+          + f"; combined {combined:.0f} tokens/s against the lone trainer's {lone:.0f} "
+          f"({combined / lone:.3f}x)", flush=True)
+    print(f"[tune] {smi}: control, the two direct runs at once from two threads: step ms "
+          + "; ".join(f"lr {lr} {[round(t, 1) for t in both[lr][1]]} (p50 steps 1-"
+                      f"{TUNE_STEPS - 1} {statistics.median(both[lr][1][1:]):.2f}), losses "
+                      f"equal to the sequential run's {both[lr][0] == direct[lr][0]}"
+                      for lr in TUNE_LRS if lr in both)
+          + f"; the sequential runs' step p50 "
+          + ", ".join(f"{statistics.median(direct[lr][1][1:]):.2f}" for lr in TUNE_LRS),
+          flush=True)
+    if grid.errors or len(grid) != len(TUNE_LRS):
+        _fail(f"tune: {len(grid)} results, errors {grid.errors}")
+    for lr in TUNE_LRS:
+        got = [trial[lr][i]["loss"] for i in sorted(trial[lr])]
+        if got != direct[lr][0] or trial[lr][TUNE_STEPS - 1]["params_sha256"] != direct[lr][2]:
+            _fail(f"tune: the lr {lr} trial differs from build_train_step driven directly")
+    if best.metrics.get("lr") != want_best:
+        _fail(f"tune: get_best_result() named lr {best.metrics.get('lr')}, want {want_best}")
+    want = {k: cfg.n_layers * TUNE_STEPS * len(TUNE_LRS) for k in launches}
+    if launches != want:
+        _fail(f"tune: launches {launches}, want {want}")
+    return {"tune": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -1235,8 +1712,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phase and one more train step with torch.profiler "
-                         "and print device time by kernel")
+                    help="trace the serve phase, one more train step, and one step each of "
+                         "the fit phase's trainer and plain runs with torch.profiler, and print "
+                         "device time by kernel")
     args = ap.parse_args()
 
     name = phase_device()
@@ -1251,8 +1729,12 @@ def main() -> int:
     train_launches = phase_train(profile=args.profile)
     phase_zero()
     phase_checkpoint()
+    by_path, fit_step_ms = phase_fit(profile=args.profile)
+    by_path.update(phase_tune(fit_step_ms))
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
+    for row in (fwd_row, dq_row, dkv_row):
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
     print(json.dumps({"kernels": [fwd_row, dq_row, dkv_row]}), flush=True)
     import torch
 

@@ -7,9 +7,10 @@ tasks, actors, objects, placement groups), Serve with its LLM deployment
 and channel feed (serve, serve.llm, core.channel), the LLM serving path
 (serve.llm over models.transformer, with the flash-attention forward as a
 CUDA kernel in ops), training (models.transformer.build_train_step, with
-the flash backward kernels, remat and ZeRO-1) and the training state in
+the flash backward kernels, remat and ZeRO-1), the training state in
 train (torch.distributed set-up, ZeRO-1, elastic, pytree and HF
-checkpoints).
+checkpoints), and on the in-process runtime the trainer
+(train.TorchTrainer, train.report) and Tune (tune.Tuner).
 """
 
 from . import exceptions  # noqa: F401
@@ -38,6 +39,7 @@ from .core.placement_group import (  # noqa: F401
     remove_placement_group,
 )
 from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError  # noqa: F401
+from . import train, tune  # noqa: F401,E402  (after api: both build on it)
 
 __all__ = [
     "BackpressureError",
@@ -63,5 +65,7 @@ __all__ = [
     "remote",
     "remove_placement_group",
     "shutdown",
+    "train",
+    "tune",
     "wait",
 ]

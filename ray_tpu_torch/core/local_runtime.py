@@ -111,11 +111,16 @@ class LocalRuntime(Runtime):
                 self._local_refs[object_id] = c
                 return
             self._local_refs.pop(object_id, None)
-            if self._objects.pop(object_id, None) is None:
+            stored = self._objects.pop(object_id, None)
+            if stored is None:
                 # Not stored yet (fire-and-forget): mark so the producing
                 # task's _store skips the value instead of leaking it.
                 self._freed.add(object_id)
-            self._futures.pop(object_id, None)
+            fut = self._futures.pop(object_id, None)
+        # A value may hold ObjectRefs, whose __del__ re-enters this method:
+        # let it go only once the lock is released (the JAX package frees
+        # it under the lock and deadlocks).
+        del stored, fut
 
     # ------------------------------------------------------------- objects
     def _future_for(self, oid: ObjectID) -> concurrent.futures.Future:
@@ -315,9 +320,11 @@ class LocalRuntime(Runtime):
         for i in range(int(hdr[1].get(STREAM_COUNT_KEY, 0))):
             oid = task_id.object_id_for_return(i + 1)
             with self._obj_lock:
-                if oid not in self._local_refs:
-                    self._objects.pop(oid, None)
-                    self._futures.pop(oid, None)
+                if oid in self._local_refs:
+                    continue
+                # Dropped after the lock, as in remove_local_ref.
+                item = (self._objects.pop(oid, None), self._futures.pop(oid, None))
+            del item
 
     def _store_error(self, spec: TaskSpec, err: BaseException) -> None:
         if not isinstance(err, exc.RayTpuError):

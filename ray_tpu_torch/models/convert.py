@@ -1,5 +1,5 @@
-"""Moves transformer params and AdamW state between the JAX package's pytrees
-and the port.
+"""Moves transformer and MLP params and AdamW state between the JAX
+package's pytrees and the port.
 
 `params_from_numpy` takes the JAX param tree with each leaf converted by
 `np.asarray` (bfloat16 leaves arrive as numpy arrays of the `bfloat16`
@@ -14,51 +14,70 @@ optax adamw's `ScaleByAdamState(count, mu, nu)`, as the dict
 {"count": int32 scalar, "mu": tree, "nu": tree}, mu and nu shaped like the
 params. These keep every bit: a checkpoint must not widen bfloat16.
 
+`mlp_params_from_numpy` does the same for models/mlp.py's tree.
+
 `flatten` and `unflatten` order a tree's leaves as `jax.tree_util` does:
 dict keys sorted (so "blocks/attn/wk" comes before "wo", and ZeRO's leaf
-indices "0", "1", "10", ..., "2" sort as strings), not in insertion order as
-`transformer.tree_leaves` has them. Every leaf index that crosses between
+indices "0", "1", "10", ..., "2" sort as strings), list items in order (the
+MLP's layers), not in insertion order as `transformer.tree_leaves` has
+them. Every leaf index that crosses between
 the packages (an elastic checkpoint's manifest, ZeRO's keys) uses it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
 from .transformer import Params, TransformerConfig, map_tree, param_spec
 
-Path = Tuple[str, ...]
+Path = Tuple[Union[str, int], ...]
 
 
 def flatten(tree) -> Tuple[List[Path], List[Any]]:
-    """(key paths, leaves) in jax.tree_util's order: a dict's keys sorted,
-    anything that is not a dict a leaf."""
-    if not isinstance(tree, dict):
+    """(key paths, leaves) in jax.tree_util's order: a dict's keys sorted, a
+    list's items in order (their path keys are ints), anything else a
+    leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        for key in keys:
+            if not isinstance(key, str):
+                raise TypeError(f"tree keys must be str, got {key!r}")
+    elif isinstance(tree, list):
+        keys = range(len(tree))
+    else:
         return [()], [tree]
     paths, leaves = [], []
-    for key in sorted(tree):
-        if not isinstance(key, str):
-            raise TypeError(f"tree keys must be str, got {key!r}")
+    for key in keys:
         sub_paths, sub_leaves = flatten(tree[key])
         paths += [(key, *p) for p in sub_paths]
         leaves += sub_leaves
     return paths, leaves
 
 
+def _lists(node):
+    """A nested dict whose int-keyed levels become lists."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
 def unflatten(paths: List[Path], leaves: List[Any]):
-    """The nested dict with `leaves` at `paths` (flatten's inverse)."""
+    """The tree with `leaves` at `paths` (flatten's inverse)."""
     if list(paths) == [()]:
         return leaves[0]
-    tree: Dict[str, Any] = {}
+    tree: Dict[Any, Any] = {}
     for path, leaf in zip(paths, leaves):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
-    return tree
+    return _lists(tree)
 
 
 def to_tensor(x) -> torch.Tensor:
@@ -195,3 +214,27 @@ def opt_state_from_numpy(state, optimizer: torch.optim.Optimizer, params) -> Non
         optimizer.state[t] = {"step": torch.tensor(step, dtype=torch.float32, device=dev),
                               "exp_avg": as_tensor(m, t.dtype, t.shape).to(t.device),
                               "exp_avg_sq": as_tensor(v, t.dtype, t.shape).to(t.device)}
+
+
+# ------------------------------------------------------------------- MLP
+
+
+def mlp_params_from_numpy(tree, cfg, device=None):
+    """The JAX package's MLP params ({"layers": [{"w", "b"}, ...]}, numpy
+    leaves) -> the port's models/mlp.py tree on `device`, in cfg.dtype."""
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    dims = cfg.dims
+    if len(layers) != len(dims) - 1:
+        raise ValueError(f"MLP tree has {len(layers)} layers, cfg {len(dims) - 1}")
+    out = []
+    for i, (layer, din, dout) in enumerate(zip(layers, dims[:-1], dims[1:])):
+        if set(layer) != {"w", "b"}:
+            raise ValueError(f"MLP layer {i}: want keys ['b', 'w'], got {sorted(layer)}")
+        if np.shape(layer["w"]) != (din, dout) or np.shape(layer["b"]) != (dout,):
+            raise ValueError(f"MLP layer {i}: want w {(din, dout)} and b {(dout,)}, got "
+                             f"{np.shape(layer['w'])} and {np.shape(layer['b'])}")
+        out.append({k: to_tensor(layer[k]).to(device=dev, dtype=cfg.dtype) for k in ("w", "b")})
+    return {"layers": out}

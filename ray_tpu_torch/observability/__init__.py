@@ -1,2 +1,3 @@
 """Observability of the port: the flight recorder's `record` that
-core/channel.py and the chaos controller stamp events into."""
+core/channel.py, the chaos controller and the trainer stamp events into,
+and the trainer's goodput ledger and MFU helpers (goodput.py)."""

@@ -3,8 +3,9 @@
 PyTorch port).
 
 `record()` is one counter bump and one slot store, no lock and no IO, so
-the channel's reads and writes and the chaos controller's injections can
-afford it unconditionally; `snapshot()` reads the ring back in order.
+the channel's reads and writes, the chaos controller's injections and the
+trainer's restores can afford it unconditionally; `snapshot()` reads the
+ring back in order.
 The JAX package's dumps, crash hooks and trace merge are not ported.
 
 Env knobs: RAY_TPU_FLIGHT_RECORDER=0 turns the ring off,
@@ -19,6 +20,15 @@ import time
 from typing import Any, List, Optional
 
 _DEFAULT_SIZE = 4096
+
+# Event-kind prefixes (the segment before the first ".") the port records,
+# the JAX package's KIND_PREFIXES for the paths the port has; consumers
+# group and filter by prefix.
+KIND_PREFIXES = {
+    "chan",   # core/channel.py reads/writes/timeouts
+    "chaos",  # chaos controller injections
+    "train",  # trainer restores (train.restore)
+}
 
 
 class FlightRecorder:

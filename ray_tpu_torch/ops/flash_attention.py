@@ -23,6 +23,7 @@ functions' block_q / block_k arguments have no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -241,6 +242,16 @@ def _launch(source: str, symbol: str, tensors, dims, dtype, scale: float, causal
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper) -> None:
+    """Adds one to `wrapper.launches`, under a lock: concurrent training
+    threads (two Tune trials on one card) launch the same kernels."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
+
+
 def flash_fwd(q, k, v, *, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """One flash forward: (o [b, s, h, d], lse [b, h, s] fp32).
 
@@ -254,7 +265,7 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float) -> Tuple[torch.Tensor, tor
     _check_aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    flash_fwd.launches += 1
+    _count_launch(flash_fwd)
     _launch("flash_fwd", "flash_fwd", (q, k, v, o, lse), (b, s, h, h_kv, d), q.dtype, scale,
             causal)
     return o, lse
@@ -270,7 +281,7 @@ def flash_bwd_dq(q, k, v, lse, do, delta, *, causal: bool, scale: float) -> torc
     _check_row_stats(q, lse=lse, delta=delta)
     _check_aligned(q, k, v, do)
     dq = torch.empty_like(q)
-    flash_bwd_dq.launches += 1
+    _count_launch(flash_bwd_dq)
     _launch("flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq), dims, q.dtype, scale,
             causal)
     return dq
@@ -288,7 +299,7 @@ def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool,
     _check_row_stats(q, lse=lse, delta=delta)
     _check_aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    flash_bwd_dkv.launches += 1
+    _count_launch(flash_bwd_dkv)
     _launch("flash_bwd", "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), dims, q.dtype,
             scale, causal)
     return dk, dv

@@ -1,7 +1,7 @@
 """Tracing: spans with context propagation (copy of ray_tpu/tracing.py for
-the PyTorch port, trimmed to the spans Serve opens: the handle's
-`serve.request`, the replica's `serve.replica` and the response's
-`serve.response`).
+the PyTorch port, trimmed to the spans Serve and the trainer open: the
+handle's `serve.request`, the replica's `serve.replica`, the response's
+`serve.response` and the training loop's `train.phase.<name>`).
 
 Spans are plain dicts `{trace_id, span_id, parent_id, name, start_us,
 end_us, attrs}`; the ambient context rides a contextvar, so spans opened
@@ -126,6 +126,12 @@ def null_span(name=None, attrs=None):
     """A no-op stand-in for span(); hot loops that check is_enabled()
     once pick between the two instead of re-checking per span."""
     return contextlib.nullcontext()
+
+
+def maybe_span(name: str, attrs: Optional[Dict[str, Any]] = None):
+    """span() when tracing is on, else a no-op context: the one-liner for
+    instrumenting a call site without an enabled-check of its own."""
+    return span(name, attrs) if is_enabled() else contextlib.nullcontext()
 
 
 # ----------------------------------------------------------------- spans

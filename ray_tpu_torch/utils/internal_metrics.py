@@ -1,6 +1,6 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
-the feed's channel and the chaos controller record into.
+the feed's channel, the chaos controller and the trainer record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
@@ -267,6 +267,54 @@ SERVE_REQUESTS_SHED = Counter(
     "LLM requests rejected with backpressure (pool exhausted / queue full)",
     component="serve",
     tag_keys=("deployment",),
+)
+# --- train ------------------------------------------------------------------
+TRAIN_REPORTS = Counter(
+    "raytpu_train_reports_total",
+    "train.report() calls (one per training step loop iteration)",
+    component="train",
+)
+TRAIN_STEP_TIME = Histogram(
+    "raytpu_train_step_time_ms",
+    "Wall time between consecutive train.report() calls",
+    component="train",
+    boundaries=[1, 5, 10, 50, 100, 500, 1000, 5000, 10000, 60000],
+)
+TRAIN_TOKENS_PER_S = Gauge(
+    "raytpu_train_tokens_per_s",
+    "Reported training throughput (mirrored from report() metrics)",
+    component="train",
+    tag_keys=("trial", "rank"),
+)
+TRAIN_MFU = Gauge(
+    "raytpu_train_mfu",
+    "Reported model FLOPs utilization (mirrored from report() metrics)",
+    component="train",
+    tag_keys=("trial", "rank"),
+)
+TRAIN_PHASE_TIME = Histogram(
+    "raytpu_train_phase_time_ms",
+    "Per-step training phase durations (train.phase: data_wait / compute / allreduce / ...)",
+    component="train",
+    boundaries=[0.5, 1, 5, 10, 50, 100, 500, 1000, 5000, 10000, 60000],
+    tag_keys=("phase",),
+)
+TRAIN_GOODPUT = Gauge(
+    "raytpu_train_goodput",
+    "Goodput fraction: productive step time / total wall time of the run",
+    component="train",
+    tag_keys=("trial",),
+)
+TRAIN_WORLD_SIZE = Gauge(
+    "raytpu_train_world_size",
+    "Current training gang world size (elastic runs move below target)",
+    component="train",
+    tag_keys=("trial",),
+)
+CHECKPOINTS_RESTORED = Counter(
+    "raytpu_checkpoints_restored_total",
+    "Training attempts resumed from a checkpoint after a gang failure",
+    component="train",
 )
 # --- chaos ------------------------------------------------------------------
 CHAOS_INJECTIONS = Counter(

@@ -1,5 +1,6 @@
-"""The port's training state on the card (marker `cuda`; each test skips
-without a CUDA device): ZeRO-1 over NCCL and the HF round trip.
+"""The port's training state and trainer on the card (marker `cuda`; each
+test skips without a CUDA device): ZeRO-1 over NCCL, the HF round trip and
+a one-step TorchTrainer fit through the flash kernels.
 
 This file imports neither jax nor ray_tpu, so it runs on a GPU machine
 without them:
@@ -7,10 +8,13 @@ without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_train.py
 """
 
+import math
 import os
 
 import pytest
 import torch
+
+import ray_tpu_torch
 
 from ray_tpu_torch.models import transformer as tfm
 from ray_tpu_torch.models.convert import flatten
@@ -77,3 +81,42 @@ def test_hf_round_trip_on_the_card_is_bitwise(cuda, tmp_path):
     loaded = hf_checkpoint.load_hf_checkpoint(path, cfg)
     assert all(t.device.type == "cuda" for t in flatten(loaded)[1])
     assert _bitwise(params, loaded)
+
+
+def _one_step_loop(config):
+    from ray_tpu_torch import train
+
+    device = train.get_mesh().devices.flat[0]
+    cfg = tfm.tiny(dtype=torch.bfloat16, attn_impl="full", remat=True, remat_policy="hot")
+    init, step = tfm.build_train_step(cfg, tfm.adamw(1e-3), device=device)
+    params, opt = init(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    loss = step(params, opt, tokens).item()
+    train.report({"loss": loss, "device": str(params["embed"]["embedding"].device),
+                  "current": torch.cuda.current_device(), "layers": cfg.n_layers})
+
+
+def test_torch_trainer_fits_one_step_through_the_kernels(cuda, tmp_path):
+    """TorchTrainer.fit with the default ScalingConfig (use_gpu=True): the
+    loop's thread runs on the mesh's CUDA device and its one step launches
+    each flash kernel once per layer (remat "hot" keeps the forward's
+    output)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+        result = TorchTrainer(
+            _one_step_loop,
+            scaling_config=ScalingConfig(num_workers=1, resources_per_worker={"GPU": 1}),
+            run_config=RunConfig(storage_path=str(tmp_path)),
+        ).fit()
+        launches = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert result.error is None, result.error
+    m = result.metrics
+    assert math.isfinite(m["loss"]) and m["device"] == "cuda:0" and m["current"] == 0
+    assert launches == (m["layers"],) * 3

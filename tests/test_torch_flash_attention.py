@@ -55,7 +55,8 @@ def _both(arrays, *, causal, lse=False, **jax_blocks):
 @pytest.mark.parametrize("causal", [True, False])
 def test_forward_matches_jax(causal):
     jo, to = _both(_qkv(), causal=causal, block_q=64, block_k=64)
-    assert _maxdiff(jo, to) < TOL
+    diff = _maxdiff(jo, to)
+    assert diff < TOL, f"max |JAX - port| {diff:.6g} against {TOL} (causal={causal})"
 
 
 def test_multiblock_row_matches_jax():

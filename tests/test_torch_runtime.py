@@ -309,3 +309,34 @@ def test_port_counts_cuda_devices_and_num_gpus_overrides():
         assert ray_tpu_torch.get(on_gpu.remote(), timeout=10) == "ran"
     finally:
         ray_tpu_torch.shutdown()
+
+
+@ray_tpu_torch.remote
+def _one():
+    return 1
+
+
+@ray_tpu_torch.remote
+def _holds_a_ref():
+    return [_one.remote()]
+
+
+def test_dropping_a_value_that_holds_refs_does_not_deadlock():
+    """The last ref to a stored value that holds ObjectRefs frees the value,
+    whose refs then release themselves through the same runtime: the port
+    lets the value go after its object lock (the JAX package's local mode
+    frees it under the lock and deadlocks, so only the port runs here)."""
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
+    try:
+        def drop():
+            ref = _holds_a_ref.remote()
+            inner = ray_tpu_torch.get(ref, timeout=10)
+            assert ray_tpu_torch.get(inner[0], timeout=10) == 1
+            del inner
+            del ref  # the store held the list's only other reference
+            return ray_tpu_torch.get(_one.remote(), timeout=10)
+
+        assert bounded(drop, 30) == 1
+    finally:
+        ray_tpu_torch.shutdown()
