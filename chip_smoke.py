@@ -14,7 +14,11 @@ Phases, each printing its own line, any failure exits non-zero:
      through flash_attention_with_lse (forward) and
      flash_attention(...).backward must give the same results; the same at
      GPT-J's shape (b=1, s=2048, 16 heads of 256, causal) in bf16 and fp32,
-     and in fp32 with batch x heads = 65600;
+     and in fp32 with batch x heads = 65600; at the train shape the backward
+     kernels also take the lse variant (a dlse != 0 from merging the block
+     with a seeded second one by their lse, as ring attention does),
+     directly and through flash_attention_with_lse's backward, planted
+     faults refused;
   4. paged: PagedLM prefill+decode against the port's full forward, Llama-2-7B
      width, 2 layers, float32: greedy tokens must be equal;
   5. gptj: gpt_j_6b(n_layers=2) at full width (head_dim 256), bf16: a paged
@@ -56,11 +60,24 @@ Phases, each printing its own line, any failure exits non-zero:
      (--profile traces one step of each);
   13. tune: Tuner over that TorchTrainer, two lrs trained at once on the
      card: each trial bitwise equal to a direct run, the best trial named,
-     each kernel's launches.
+     each kernel's launches;
+  14. parallel: (a) next_token_loss with attn_impl "ring" and "ulysses" on a
+     DeviceMesh with seq=1 over a NCCL group of one rank against "full"
+     (llama2_7b(n_layers=2), bf16, "hot", b=1, s=2048): loss and every
+     leaf's gradient, bitwise or not; (b) 4 processes of this script
+     sharing the card over gloo (collectives staged through host memory;
+     their times are not multi-GPU speed): ring_attention and
+     ulysses_attention at Llama-2-7B's attention width (32 heads of 128,
+     bf16, causal, global s=8192) against one flash_attention call, output
+     and dq/dk/dv, with each call's launches across ranks; then in fp32 the
+     model's ring and Ulysses over seq=4 and next_token_loss_pipelined over
+     stage=4 (4 layers, 4 microbatches) against the unsplit model: loss,
+     every leaf's gradient and launches; peak memory per rank.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
-with the gptj phase's launches, under "at_d256"; its launches in the fit
-and tune phases under "launches_by_path"), and the device line last.
+with the gptj phase's launches, under "at_d256"; its launches in the fit,
+tune and parallel phases' model paths (ring, ulysses, pipeline) under
+"launches_by_path"), and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -196,10 +213,12 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 FWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -6, 1e-3)}  # (o, lse)
 
 
-def entry_err(got, want) -> float:
-    """max over entries of |got - want| / (|want| + rms(want))."""
+def entry_err(got, want, rms=None) -> float:
+    """max over entries of |got - want| / (|want| + rms(want)); `rms` given
+    where `want` is a part of a larger reference (the whole one's rms)."""
     g, w = got.float(), want.float()
-    return ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
+    rms = w.pow(2).mean().sqrt() if rms is None else rms
+    return ((g - w).abs() / (w.abs() + rms)).max().item()
 
 
 def _planted_faults(t):
@@ -395,6 +414,8 @@ def _check_bwd():
             _fail(f"flash_bwd is not deterministic at {where}")
         del again
         _check_autograd_bwd(q, k, v, do, want, causal, scale, tol, where)
+        if not suffix:
+            _check_bwd_lse(q, k, v, o, lse, do, kw, tol, where)
         # Times. SDPA's backward (its fwd+bwd less its fwd) computes dq, dk
         # and dv together: one number for both rows, and for the pair.
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -458,6 +479,70 @@ def _check_autograd_bwd(q, k, v, do, want, causal, scale, tol, where):
         _fail(f"the autograd backward disagrees with the plain versions at {where}: {errs}")
     if launched != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
         _fail(f"the autograd backward launched {launched}, want one of each kernel")
+
+
+def _merge_with_other_block(o, lse, o2, lse2):
+    """Ring attention's merge of two blocks' normalised partials by their
+    lse (ray_tpu_torch/parallel/ring_attention.py), in float32."""
+    import torch
+
+    lse_m = torch.logaddexp(lse, lse2)
+    w1 = torch.exp(lse - lse_m).transpose(1, 2)[..., None]
+    w2 = torch.exp(lse2 - lse_m).transpose(1, 2)[..., None]
+    return o.float() * w1 + o2.float() * w2
+
+
+def _check_bwd_lse(q, k, v, o, lse, do, kw, tol, where):
+    """The lse variant of the backward, fed as ring attention feeds it: this
+    block's (o, lse) merged by their lse with a second block's (the same
+    queries over seeded keys before them), and
+    the merge's backward from do gives this block's do (w1 * do) and a dlse
+    != 0, so the kernels see delta = sum(do1 * o) - dlse.
+    flash_bwd_dq and flash_bwd_dkv on those against their plain versions
+    entry by entry, both planted faults refused; then one pass through
+    flash_attention_with_lse and the same merge backward, one launch of
+    each backward kernel."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    # the other block: the same queries over seeded keys and values before
+    # them (non-causal), as the ring's blocks below the diagonal are
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    k2, v2 = (torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype) for x in (k, v))
+    o2, lse2 = fa.flash_fwd(q, k2, v2, causal=False, scale=kw["scale"])
+    o_leaf, lse_leaf = o.detach().float().requires_grad_(), lse.detach().requires_grad_()
+    _merge_with_other_block(o_leaf, lse_leaf, o2, lse2).backward(do.float())
+    do1, dlse = o_leaf.grad.to(do.dtype), lse_leaf.grad
+    delta1 = (do1.float() * o.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, lse, do1, (delta1 - dlse).contiguous())
+    got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    want = (fa.reference_flash_bwd_dq(*args, **kw), *fa.reference_flash_bwd_dkv(*args, **kw))
+    errs = {lb: entry_err(g, w) for lb, g, w in zip(("dq", "dk", "dv"), got, want)}
+    planted = {f"{lb} {fault}": entry_err(bad, w) for lb, g, w in zip(("dq", "dk", "dv"), got, want)
+               for fault, bad in _planted_faults(g).items()}
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = _launch_counts()
+    _merge_with_other_block(*fa.flash_attention_with_lse(*leaves, **kw), o2, lse2).backward(
+        do.float())
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launch_counts().items()}
+    auto = {lb: entry_err(x.grad, w) for lb, x, w in zip(("dq", "dk", "dv"), leaves, want)}
+    print(f"[kernel] flash_bwd with dlse != 0 from a ring merge (|dlse| mean "
+          f"{dlse.abs().mean().item():.3g}, |delta| mean {delta1.abs().mean().item():.3g}) "
+          f"{where}: max |err| / (|ref| + rms(ref)) "
+          + "; ".join(f"{lb} {e:.3g}" for lb, e in errs.items())
+          + "; through flash_attention_with_lse's backward " + "; ".join(
+              f"{lb} {e:.3g}" for lb, e in auto.items()) + f"; tol {tol}; planted faults read "
+          + "; ".join(f"{f} {e:.3g}" for f, e in planted.items()) + f"; launches {launched}",
+          flush=True)
+    if not all(math.isfinite(e) and e <= tol for e in (*errs.values(), *auto.values())):
+        _fail(f"the lse variant of the backward disagrees with its plain versions at {where}")
+    if min(planted.values()) <= tol:
+        _fail(f"the lse-variant backward check passes a planted fault at {where}: {planted}")
+    if launched != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+        _fail(f"flash_attention_with_lse's backward launched {launched}, want one of each")
 
 
 def phase_kernel():
@@ -1705,17 +1790,371 @@ def phase_tune(fit_step_ms: float):
     return {"tune": launches}
 
 
+# The parallel phase: a NCCL world of one rank in this process (a), then
+# PARALLEL_WORLD processes sharing the card over gloo (b).
+PARALLEL_WORLD = 4
+PARALLEL_TIMEOUT_S = 900
+# (b)'s attention at Llama-2-7B's width: (b, global s, heads, head_dim).
+PAR_ATTN_SHAPE = (1, 8192, 32, 128)
+PAR_SEQ = 2048
+PAR_MICROBATCHES = 4
+# (b)'s attention against one flash_attention call over the whole sequence,
+# per entry, to the whole result's rms. Ulysses runs that call's kernel on
+# each head group: 2**-6, the kernel phase's. The ring rounds each block's
+# o and each block's dq/dk/dv to bf16 before it sums them, where the whole
+# call rounds once, so the two differ by more than one kernel and its plain
+# version do (up to 0.0186 on an H100, PERF.md): the ring is held to 2**-5.
+# A wrong block, mask or lse merge is off by O(1), and both planted faults
+# must still be refused.
+PAR_TOL = {"ring": 2 ** -5, "ulysses": 2 ** -6}
+
+
+def _grad_diffs(got, full):
+    """({leaf: |g - g_full| / |g_full|}, every leaf bitwise equal) of two
+    {leaf: gradient} dicts."""
+    import torch
+
+    diffs, bitwise = {}, True
+    for name, g in got.items():
+        ref = full[name].to(g.device)
+        diffs[name] = ((g - ref).norm() / ref.norm()).item()
+        bitwise = bitwise and torch.equal(g, ref)
+    return diffs, bitwise
+
+
+def _check_loss_grads(label, loss, loss_full, got, full, launches, log):
+    """Logs and gates a loss and its gradients against the reference's at
+    the train-parity phase's tolerances: loss 5e-5 relative, each leaf 1e-5
+    of its gradient's norm."""
+    rtol, grad_rtol = 5e-5, 1e-5
+    diffs, bitwise = _grad_diffs(got, full)
+    diff, worst = abs(loss - loss_full) / abs(loss_full), max(diffs.values())
+    bitwise = bitwise and loss == loss_full
+    log(f"{label}: loss {loss:.6f} vs {loss_full:.6f} (rel diff {diff:.3g}, tol {rtol}); worst "
+        f"leaf gradient |g - g_ref| / |g_ref| {worst:.3g} ({max(diffs, key=diffs.get)}; tol "
+        f"{grad_rtol}); bitwise {bitwise}; launches {launches}")
+    if not (math.isfinite(loss) and diff <= rtol and worst <= grad_rtol):
+        _fail(f"parallel: {label} disagrees with its reference: loss {diff:.3g}, gradients "
+              f"{diffs}")
+
+
+def _seq_parallel_losses(params, tokens, base, mesh, log):
+    """next_token_loss with attn_impl "ring" and "ulysses" on `mesh` against
+    "full" without one, from the same params: {impl: launches}; fails past
+    _check_loss_grads's tolerances."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    loss_full = tfm.next_token_loss(params, tokens, base)
+    loss_full.backward()
+    full = {name: t.grad for name, t in _named_leaves(params)}
+    for t in tfm.tree_leaves(params):
+        t.grad = None
+    out = {}
+    for impl in ("ring", "ulysses"):
+        _zero_launch_counts()
+        loss = tfm.next_token_loss(params, tokens, base.replace(attn_impl=impl), mesh)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[impl] = _launch_counts()
+        _check_loss_grads(f"{impl} vs full", loss.item(), loss_full.item(),
+                          {name: t.grad for name, t in _named_leaves(params)}, full, out[impl],
+                          log)
+        for t in tfm.tree_leaves(params):
+            t.grad = None
+    return out
+
+
+def _parallel_nccl():
+    """(a): llama2_7b(n_layers=2), bf16, remat "hot", b=1, s=2048 on a
+    DeviceMesh with seq=1 over a NCCL group of one rank."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.parallel import build_device_mesh
+    from ray_tpu_torch.train import backend
+
+    backend.setup_torch_distributed(0, 1, backend.coordinator_address(
+        backend.TorchBackendConfig()))
+    try:
+        mesh = build_device_mesh(axis_sizes={"seq": 1})
+        base = tfm.llama2_7b(n_layers=2, dtype=torch.bfloat16, remat_policy="hot")
+        tokens = torch.randint(0, base.vocab_size, (1, 2048), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(5))
+        params = tfm.init_params(base, torch.Generator(device="cuda").manual_seed(4))
+        for t in tfm.tree_leaves(params):
+            t.requires_grad_(True)
+        _seq_parallel_losses(params, tokens, base, mesh, lambda msg: print(
+            f"[parallel] (a) {dist.get_backend()} world 1, seq=1, llama2_7b width, 2 layers, bf16, "
+            f"remat hot, b=1 s=2048: {msg}", flush=True))
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_attention(rank, n, mesh):
+    """(b) at Llama-2-7B's attention width: ring_attention and
+    ulysses_attention on this rank's shard of a causal bf16 sequence, the
+    output and dq/dk/dv for a fixed dO against one flash_attention call over
+    the whole sequence, entry by entry; each call's launches, then a second
+    call's seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import ring_attention, ulysses_attention
+
+    b, s, h, d = PAR_ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    mine = slice(rank * s // n, (rank + 1) * s // n)
+    ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*ref, causal=True).backward(do)
+    o_ref = fa.flash_attention(*(x.detach() for x in ref), causal=True)
+    whole = {"o": o_ref, **{f"d{n_}": x.grad for n_, x in zip("qkv", ref)}}
+    # each rank holds its part of the whole call's result, to the whole's rms
+    want = {key: (t[:, mine], t.float().pow(2).mean().sqrt()) for key, t in whole.items()}
+    out = {}
+    for impl, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        secs = []
+        for call in range(2):
+            leaves = [x[:, mine].contiguous().requires_grad_() for x in (q, k, v)]
+            dist.barrier()
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            o = fn(*leaves, mesh, causal=True)
+            o.backward(do[:, mine].contiguous())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if call == 0:
+                launches = _launch_counts()
+                got = {"o": o, **{f"d{n_}": x.grad for n_, x in zip("qkv", leaves)}}
+                errs = {key: entry_err(got[key], *want[key]) for key in want}
+                planted = {f"{key} {fault}": entry_err(bad, *want[key])
+                           for key in ("o", "dk") for fault, bad in
+                           _planted_faults(got[key]).items()}
+        out[impl] = {"launches": launches, "errs": errs, "planted": planted, "s": secs}
+    return out
+
+
+def _par_model(rank, n, mesh_seq, mesh_stage):
+    """(b) at model level, fp32 with TF32 off: llama2_7b(n_layers=2), b=1,
+    s=2048, ring and Ulysses over seq=n against "full" on this rank; then
+    next_token_loss_pipelined over stage=n on llama2_7b(n_layers=n) with
+    PAR_MICROBATCHES microbatches against next_token_loss."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lines = []
+    base = tfm.llama2_7b(n_layers=2, dtype=torch.float32, remat_policy="hot")
+    tokens = torch.randint(0, base.vocab_size, (1, PAR_SEQ),
+                           generator=torch.Generator().manual_seed(3)).cuda()
+    params = tfm.init_params(base, torch.Generator(device="cuda").manual_seed(2))
+    for t in tfm.tree_leaves(params):
+        t.requires_grad_(True)
+    t0 = time.perf_counter()
+    seq = _seq_parallel_losses(params, tokens, base, mesh_seq, lines.append)
+    seq_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = tfm.llama2_7b(n_layers=n, dtype=torch.float32, remat_policy="hot")
+    tokens = torch.randint(0, cfg.vocab_size, (PAR_MICROBATCHES, PAR_SEQ),
+                           generator=torch.Generator().manual_seed(6)).cuda()
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    for t in tfm.tree_leaves(params):
+        t.requires_grad_(True)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    loss = tfm.next_token_loss_pipelined(params, tokens, cfg, mesh_stage,
+                                         num_microbatches=PAR_MICROBATCHES)
+    loss.backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    # the pipeline's gradients wait on the host while the reference runs,
+    # one rank at a time (four at once would not fit the card)
+    piped = {name: t.grad.cpu() for name, t in _named_leaves(params)}
+    for t in tfm.tree_leaves(params):
+        t.grad = None
+    for turn in range(n):
+        if turn == rank:
+            loss_full = tfm.next_token_loss(params, tokens, cfg)
+            loss_full.backward()
+            torch.cuda.synchronize()
+        dist.barrier()
+    _check_loss_grads(f"pipeline over stage={n}, {PAR_MICROBATCHES} microbatches, vs "
+                      "next_token_loss", loss.item(), loss_full.item(), piped,
+                      {name: t.grad for name, t in _named_leaves(params)}, launches, lines.append)
+    del params, piped
+    torch.cuda.empty_cache()
+    return {**seq, "pipeline": launches}, lines, {"seq_s": seq_s, "pipeline_s": pipe_s}
+
+
+def _parallel_rank(rank: int, world: int, url: str, out_path: str) -> None:
+    """One rank of (b): joins the gloo group, runs _par_attention and
+    _par_model, and writes its results as JSON to out_path."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import build_device_mesh
+    from ray_tpu_torch.train import backend
+
+    torch.cuda.set_device(0)
+    backend.setup_torch_distributed(rank, world, url, backend="gloo", init_timeout_s=300)
+    try:
+        t0 = time.perf_counter()
+        mesh_seq = build_device_mesh(axis_sizes={"seq": world})
+        mesh_stage = build_device_mesh(axis_sizes={"stage": world})
+        attention = _par_attention(rank, world, mesh_seq)
+        torch.cuda.empty_cache()
+        launches, lines, secs = _par_model(rank, world, mesh_seq, mesh_stage)
+        result = {"attention": attention, "launches": launches, "lines": lines,
+                  "secs": {**secs, "rank_s": time.perf_counter() - t0},
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def _run_ranks(world: int, tmp: str):
+    """Starts `world` processes of this script as ranks of (b), waits for all
+    of them (any failure or the deadline stops every one) and returns their
+    results."""
+    url = f"file://{tmp}/rendezvous"
+    logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), str(world), url, f"{tmp}/rank{r}.json"],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+            elif time.monotonic() > deadline:
+                failed = f"no result within {PARALLEL_TIMEOUT_S} s"
+            else:
+                time.sleep(0.5)
+        if failed is None and any(p.returncode != 0 for p in procs):
+            failed = "a rank exited non-zero"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if failed:
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.log") as f:
+                print(f"[parallel] rank {r} log (end):\n{f.read()[-3000:]}", flush=True)
+        _fail(f"parallel: {failed}")
+    results = []
+    for r in range(world):
+        with open(f"{tmp}/rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def _sum_launches(counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_parallel():
+    """(a) ring and Ulysses at seq=1 over a NCCL world of one rank; (b)
+    PARALLEL_WORLD ranks sharing the card over gloo (collectives staged
+    through host memory): ring and Ulysses attention at Llama-2-7B's width
+    against one flash_attention call, then ring and Ulysses in the model and
+    the GPipe pipeline against the unsplit model. Returns the model paths'
+    launches, summed over the ranks."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    _parallel_nccl()
+    print(f"[parallel] (a) {time.perf_counter() - t0:.1f} s", flush=True)
+    n = PARALLEL_WORLD
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = _run_ranks(n, tmp)
+    phase_s = time.perf_counter() - t0
+    b, s, h, d = PAR_ATTN_SHAPE
+    blocks = {"ring": n * (n + 1) // 2, "ulysses": n}
+    for impl, per_call in blocks.items():
+        tol = PAR_TOL[impl]
+        launches = _sum_launches([r["attention"][impl]["launches"] for r in results])
+        errs = {key: max(r["attention"][impl]["errs"][key] for r in results)
+                for key in results[0]["attention"][impl]["errs"]}
+        # each rank plants the faults in its part: the whole tensor's reading
+        # is the largest over the ranks
+        planted = {key: max(r["attention"][impl]["planted"][key] for r in results)
+                   for key in results[0]["attention"][impl]["planted"]}
+        secs = [r["attention"][impl]["s"] for r in results]
+        print(f"[parallel] (b) {impl}_attention, {n} ranks over gloo, b={b} s={s} (per rank "
+              f"{s // n}) h={h} d={d} bf16 causal, vs one flash_attention over the whole "
+              "sequence: max |err| / (|ref| + rms(ref)) over ranks "
+              + "; ".join(f"{k} {e:.3g}" for k, e in errs.items()) + f" (tol {tol}); planted "
+              "faults read " + "; ".join(f"{k} {e:.3g}" for k, e in planted.items())
+              + "; launches "
+              f"across ranks {launches} (want {per_call} of each); seconds per rank, first and "
+              f"second call, forward + backward {secs}", flush=True)
+        if not all(math.isfinite(e) and e <= tol for e in errs.values()):
+            _fail(f"parallel: {impl}_attention disagrees with flash_attention: {errs}")
+        if min(planted.values()) <= tol:
+            _fail(f"parallel: the {impl}_attention check passes a planted fault: {planted}")
+        if launches != {k: per_call for k in launches}:
+            _fail(f"parallel: {impl}_attention launched {launches}, want {per_call} of each")
+    for r, res in enumerate(results):
+        for line in res["lines"]:
+            print(f"[parallel] (b) rank {r}, fp32 model: {line}", flush=True)
+    by_path = {path: _sum_launches([r["launches"][path] for r in results])
+               for path in ("ring", "ulysses", "pipeline")}
+    layers = 2
+    want = {"ring": {k: layers * blocks["ring"] for k in by_path["ring"]},
+            "ulysses": {k: layers * blocks["ulysses"] for k in by_path["ulysses"]},
+            # one layer per stage; remat recomputes each microbatch's forward
+            "pipeline": {"flash_fwd": 2 * n * PAR_MICROBATCHES,
+                         "flash_bwd_dq": n * PAR_MICROBATCHES,
+                         "flash_bwd_dkv": n * PAR_MICROBATCHES}}
+    print(f"[parallel] (b) model paths' launches across ranks {by_path}", flush=True)
+    if by_path != want:
+        _fail(f"parallel: model launches {by_path}, want {want}")
+    print(f"[parallel] (b) {n} processes sharing one {_smi()} over gloo (not multi-GPU "
+          f"speed): peak memory per rank GiB {[round(r['peak_gib'], 3) for r in results]}; "
+          f"seconds per rank {[{k: round(v, 1) for k, v in r['secs'].items()} for r in results]};"
+          f" phase {phase_s:.1f} s", flush=True)
+    return by_path
+
+
 def main() -> int:
     import argparse
 
     import ray_tpu_torch  # noqa: F401  (fails at once outside a checkout)
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD", "INIT_URL", "OUT"),
+                    help="run one rank of the parallel phase's gloo world (the phase starts "
+                         "these processes itself)")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve phase, one more train step, and one step each of "
                          "the fit phase's trainer and plain runs with torch.profiler, and print "
                          "device time by kernel")
     args = ap.parse_args()
+    if args.parallel_rank:
+        rank, world, url, out = args.parallel_rank
+        _parallel_rank(int(rank), int(world), url, out)
+        return 0
 
     name = phase_device()
     phase_build()
@@ -1731,6 +2170,7 @@ def main() -> int:
     phase_checkpoint()
     by_path, fit_step_ms = phase_fit(profile=args.profile)
     by_path.update(phase_tune(fit_step_ms))
+    by_path.update(phase_parallel())
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     for row in (fwd_row, dq_row, dkv_row):

@@ -27,11 +27,17 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..ops.flash_attention import attention_reference, flash_attention
+from ..parallel.collectives import _all_reduce
+from ..parallel.mesh import data_parallel_rank, mesh_shape
+from ..parallel.pipeline import pipeline_apply, shard_stage_params, split_stacked_layers
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 
 Params = Dict[str, Any]
 
@@ -48,7 +54,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attn_impl: str = "full"  # "full" (flash kernel) | "naive"
+    attn_impl: str = "full"  # "full" (flash kernel) | "naive" | "ring" | "ulysses"
     # Per-layer recompute in the backward, while grad is enabled: "dots"
     # keeps matmul outputs and recomputes the rest; "attn" keeps the flash
     # forward's output; "hot" keeps JAX's HOT_SAVE_NAMES frontier; None
@@ -260,19 +266,23 @@ def _mlp(h, mp, cfg: TransformerConfig):
     return _mlp_down(_mlp_act(h, mp, cfg), mp, cfg)
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
+    """Causal attention over [b, s, h, d]. "ring" and "ulysses" take this
+    rank's sequence shard and run over the mesh's "seq" dim."""
+    if cfg.attn_impl not in ("full", "naive", "ring", "ulysses"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.attn_impl == "full":
         return flash_attention(q, k, v, causal=True)
-    if cfg.attn_impl != "naive":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported (ring/ulysses wait for the "
-            "parallel layer)"
-        )
     rep = cfg.n_heads // cfg.n_kv_heads
     if rep > 1:  # jnp.repeat(k, rep, axis=2)
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    return attention_reference(q, k, v, causal=True)
+    if cfg.attn_impl == "naive":
+        return attention_reference(q, k, v, causal=True)
+    if mesh is None:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r} requires a mesh")
+    parallel = ring_attention if cfg.attn_impl == "ring" else ulysses_attention
+    return parallel(q, k, v, mesh, causal=True)
 
 
 def _attn_out(o, ap, cfg: TransformerConfig):
@@ -289,18 +299,18 @@ def _residual(x, h, attn_out, lp, cfg: TransformerConfig):
     return x + _mlp(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg)
 
 
-def _attend(x, lp, cfg: TransformerConfig, cos, sin):
+def _attend(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
     """The layer up to attention: (h, o), h the attention pre-norm and o
     attention's output."""
     h = _norm(x, lp["attn_norm"]["scale"], cfg)
     q, k, v = _qkv(h, lp["attn"], cfg)
     q = apply_rope(q, cos, sin, cfg)
     k = apply_rope(k, cos, sin, cfg)
-    return h, _attention(q, k, v, cfg)
+    return h, _attention(q, k, v, cfg, mesh)
 
 
-def _layer(x, lp, cfg: TransformerConfig, cos, sin):
-    h, o = _attend(x, lp, cfg, cos, sin)
+def _layer(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
+    h, o = _attend(x, lp, cfg, cos, sin, mesh)
     return _residual(x, h, _attn_out(o, lp["attn"], cfg), lp, cfg)
 
 
@@ -348,7 +358,7 @@ def _ckpt(fn, *args, context_fn=noop_context_fn):
                       context_fn=context_fn)
 
 
-def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin):
+def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
     """_layer under remat "hot": the backward recomputes the two norms, RoPE
     and the gate/up products with their activation, and nothing else, as
     JAX's save_only_these_names(*HOT_SAVE_NAMES) does.
@@ -369,7 +379,7 @@ def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin):
     3 + 1 + 1 tensors of [b, s, d] and one of [b, s, d_ff] in cfg.dtype plus
     lse, one [b, s, d] fewer than JAX's frontier (mlp_in, which the port
     recomputes with the norm JAX also recomputes)."""
-    h, o = _ckpt(_attend, x, lp, cfg, cos, sin, context_fn=_saving(_DOTS + _FLASH))
+    h, o = _ckpt(_attend, x, lp, cfg, cos, sin, mesh, context_fn=_saving(_DOTS + _FLASH))
     attn_out = _attn_out(o, lp["attn"], cfg)
     if cfg.parallel_block:
         act = _ckpt(_mlp_act, h, lp["mlp"], cfg)
@@ -404,45 +414,142 @@ def _remat_layer(policy: Optional[str]) -> Callable:
     return functools.partial(_ckpt, _layer, context_fn=contexts[policy])
 
 
-def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens [batch, seq] -> final-norm hidden states [batch, seq, d].
-    With cfg.remat and grad enabled, each layer recomputes in the backward."""
-    s = tokens.shape[1]
+class _Replicated(torch.autograd.Function):
+    """The param leaves as they are; the backward sums each leaf's gradient
+    over `group` (the ranks holding other rows or positions of the batch),
+    so every rank's params get the gradient of the global loss, as JAX's
+    replicated params do. One node for all leaves: it runs once, after the
+    rest of the backward, on every rank alike."""
+
+    @staticmethod
+    def forward(ctx, group, *leaves):
+        ctx.group = group
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(_all_reduce(g, ctx.group) for g in grads))
+
+
+def _local_shard(mesh, b: int, s: int) -> Tuple[slice, int, int, Any]:
+    """This rank's part of a global [b, s] batch on `mesh`: (rows, first
+    position, positions, the group of ranks holding the other parts or None).
+    Rows go over ("data", "fsdp"), positions over "seq"; the other dims
+    replicate."""
+    sizes = mesh_shape(mesh)
+    if sizes["tensor"] > 1:
+        raise NotImplementedError(
+            "a 'tensor' mesh dim > 1 (heads over 'tensor', params as DTensors) waits for the "
+            "next slice of the port (ROADMAP Queue 1 item 2)")
+    n_rows, n_seq = sizes["data"] * sizes["fsdp"], sizes["seq"]
+    if b % n_rows or s % n_seq:
+        raise ValueError(f"batch [{b}, {s}] does not split over data x fsdp = {n_rows} and "
+                         f"seq = {n_seq}")
+    row = data_parallel_rank(mesh)
+    seq = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["seq"]
+    rows = slice(row * (b // n_rows), (row + 1) * (b // n_rows))
+    split = [a for a in ("data", "fsdp", "seq") if sizes[a] > 1]
+    if not split:
+        group = None
+    elif n_rows * n_seq == dist.get_world_size():
+        group = dist.group.WORLD
+    elif len(split) == 1:
+        group = mesh.get_group(split[0])
+    else:
+        raise NotImplementedError(f"batch split over {split} beside a 'stage' or 'expert' dim "
+                                  "> 1 (ROADMAP Queue 1 item 2)")
+    return rows, seq * (s // n_seq), s // n_seq, group
+
+
+def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh):
+    """(final-norm hidden states [batch, seq, d], the params as used) of
+    tokens [batch, seq]. With cfg.remat and grad enabled, each layer
+    recomputes in the backward.
+
+    With a DeviceMesh (parallel.build_device_mesh) every rank passes the
+    GLOBAL tokens, as the JAX function takes the global array, and gets ITS
+    part of the result: rows over ("data", "fsdp"), positions over "seq"
+    (RoPE at their global positions; attention over the whole sequence
+    needs attn_impl "ring" or "ulysses"). The params' gradients are summed
+    over those ranks in the backward (the returned params carry that sum;
+    read the head from them)."""
+    b, s = tokens.shape
     emb = params["embed"]["embedding"]
     cos, sin = rope_tables(cfg, s, emb.device)
+    if mesh is not None:
+        rows, start, s_local, group = _local_shard(mesh, b, s)
+        if mesh_shape(mesh)["seq"] > 1 and cfg.attn_impl not in ("ring", "ulysses"):
+            raise ValueError(f"attn_impl={cfg.attn_impl!r} attends within one rank's positions; "
+                             "a sequence split over 'seq' needs 'ring' or 'ulysses'")
+        tokens = tokens[rows, start:start + s_local]
+        cos, sin = cos[start:start + s_local], sin[start:start + s_local]
+        if group is not None and torch.is_grad_enabled():
+            it = iter(_Replicated.apply(group, *tree_leaves(params)))
+            params = map_tree(lambda _: next(it), params)
+            emb = params["embed"]["embedding"]
     x = emb[tokens.long()]
     layer = _remat_layer(cfg.remat_policy) if cfg.remat and torch.is_grad_enabled() else _layer
     for i in range(cfg.n_layers):
-        x = layer(x, _layer_params(params, i), cfg, cos, sin)
-    return _norm(x, params["final_norm"]["scale"], cfg)
+        x = layer(x, _layer_params(params, i), cfg, cos, sin, mesh)
+    return _norm(x, params["final_norm"]["scale"], cfg), params
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens [batch, seq] int -> logits [batch, seq, vocab] float32."""
-    x = forward_hidden(params, tokens, cfg)
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+                   mesh=None) -> torch.Tensor:
+    """tokens [batch, seq] -> final-norm hidden states [batch, seq, d] (with a
+    mesh: this rank's part, see _hidden)."""
+    return _hidden(params, tokens, cfg, mesh)[0]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None) -> torch.Tensor:
+    """tokens [batch, seq] int -> logits [batch, seq, vocab] float32 (with a
+    mesh: this rank's part, see _hidden)."""
+    x, params = _hidden(params, tokens, cfg, mesh)
     return torch.matmul(x, _head(params)).float()
 
 
 # ------------------------------------------------------------------ train
 
 
-def next_token_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+def _nll_sum(logits, targets, m):
+    nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
+    return (nll.view(targets.shape) * m).sum()
+
+
+def next_token_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None, *,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal LM loss: mean cross-entropy of token t+1 given tokens <= t.
 
     As in the JAX package, the forward runs at full length and the last
     position is masked (not sliced off); `mask` [batch, seq] marks valid
-    target tokens.
+    target tokens. With a mesh every rank passes the global tokens (and
+    mask) and gets the global mean: its part's targets are the global
+    targets' (a part's last target is the next part's first token), only
+    the global last position is masked, and the sum and count are summed
+    over the ranks that hold the other parts. The gradient each rank's
+    backward computes is its own part's; forward_hidden sums the params'
+    gradients over those ranks.
     """
-    logits = forward(params, tokens, cfg)
+    b, s = tokens.shape
     targets = torch.roll(tokens.long(), -1, dims=1)
-    nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
-    nll = nll.view(targets.shape)
-    s = tokens.shape[1]
-    m = (torch.arange(s, device=nll.device) < s - 1).to(nll.dtype).expand_as(nll)
+    m = (torch.arange(s, device=tokens.device) < s - 1).float().expand(b, s)
     if mask is not None:
-        m = m * torch.roll(mask, -1, dims=1).to(nll.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+        m = m * torch.roll(mask, -1, dims=1).float()
+    group = None
+    if mesh is not None:
+        rows, start, s_local, group = _local_shard(mesh, b, s)
+        targets, m = (t[rows, start:start + s_local] for t in (targets, m))
+    logits = forward(params, tokens, cfg, mesh)
+    m = m.to(device=logits.device, dtype=logits.dtype)
+    local = _nll_sum(logits, targets.to(logits.device), m)
+    count = m.sum()
+    if group is None:
+        return local / count.clamp_min(1.0)
+    total = _all_reduce(local.detach(), group)
+    count = _all_reduce(count, group)
+    # the global sum's value with this rank's part's gradient
+    return (local + (total - local.detach())) / count.clamp_min(1.0)
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -481,7 +588,11 @@ def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
     torch.distributed group (the default group, or the `zero_axis` dim of
     the DeviceMesh `mesh`, which must already be initialised): each rank
     passes its own [batch/N, seq] slice of the batch and gets the loss's
-    mean over ranks.
+    mean over ranks. Without it, `mesh` (a DeviceMesh of
+    parallel.build_device_mesh) goes to next_token_loss: every rank passes
+    the global batch, computes its part (rows over data x fsdp, positions
+    over seq with attn_impl "ring" or "ulysses"), and gets the global loss
+    and the global gradient, so every rank's update is the same.
     """
     from .._device import resolve_device
 
@@ -514,7 +625,7 @@ def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
 
     def step(params: Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
-        loss = next_token_loss(params, tokens.to(dev), cfg)
+        loss = next_token_loss(params, tokens.to(dev), cfg, mesh)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -538,6 +649,52 @@ def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
     )
     attn = 12 * cfg.n_layers * cfg.d_model * (seq_len / 2)
     return 6.0 * n_params + attn
+
+
+def forward_pipelined(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh, *,
+                      num_microbatches: int = 4, stage_axis: str = "stage") -> torch.Tensor:
+    """Pipeline-parallel forward: the layer stack splits into S stages over
+    the mesh's `stage_axis` dim, microbatches stream through the GPipe
+    schedule of parallel/pipeline.py, and the backward of this function is
+    the backward pipeline. Every rank passes the whole params and the global
+    tokens and gets the whole logits [batch, seq, vocab]; the embedding and
+    head run on every rank (they are batch-local); each rank runs only its
+    stage's layers, and its blocks' gradient is gathered from every stage.
+    With cfg.remat each stage recomputes its layers in the backward (JAX's
+    jax.checkpoint of the stage function)."""
+    S = mesh_shape(mesh)[stage_axis]
+    if mesh_shape(mesh)["tensor"] > 1:
+        raise NotImplementedError(
+            "a 'tensor' mesh dim > 1 waits for the next slice of the port (ROADMAP Queue 1 "
+            "item 2)")
+    b, s = tokens.shape
+    if b % num_microbatches:
+        raise ValueError(f"batch {b} not divisible into {num_microbatches} microbatches")
+    emb = params["embed"]["embedding"]
+    cos, sin = rope_tables(cfg, s, emb.device)
+    x = emb[tokens.long()]
+    stage = shard_stage_params(split_stacked_layers(params["blocks"], S), mesh, stage_axis)
+
+    def stage_fn(local_blocks, xin):
+        for i in range(cfg.n_layers // S):
+            xin = _layer(xin, map_tree(lambda t: t[i], local_blocks), cfg, cos, sin)
+        return xin
+
+    mb = x.reshape(num_microbatches, b // num_microbatches, s, cfg.d_model)
+    y = pipeline_apply(stage_fn, stage, mb, mesh, axis=stage_axis, remat=cfg.remat)
+    x = _norm(y.reshape(b, s, cfg.d_model), params["final_norm"]["scale"], cfg)
+    return torch.matmul(x, _head(params)).float()
+
+
+def next_token_loss_pipelined(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+                              mesh, *, num_microbatches: int = 4) -> torch.Tensor:
+    """next_token_loss over forward_pipelined (its backward is the backward
+    pipeline); every rank gets the loss and the whole gradient."""
+    logits = forward_pipelined(params, tokens, cfg, mesh, num_microbatches=num_microbatches)
+    b, s = tokens.shape
+    targets = torch.roll(tokens.long(), -1, dims=1).to(logits.device)
+    m = (torch.arange(s, device=logits.device) < s - 1).float().expand(b, s)
+    return _nll_sum(logits, targets, m) / m.sum().clamp_min(1.0)
 
 
 # ------------------------------------------------------------ paged decode

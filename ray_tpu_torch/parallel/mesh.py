@@ -1,5 +1,6 @@
 """Mesh layout for the PyTorch port: the axis vocabulary and `MeshSpec` of
-ray_tpu/parallel/mesh.py, and a device mesh without a process group.
+ray_tpu/parallel/mesh.py, a device mesh without a process group, and a
+torch `DeviceMesh` over the process group.
 
 Axis vocabulary (the framework standard, outermost first):
 
@@ -13,8 +14,17 @@ Axis vocabulary (the framework standard, outermost first):
 `build_mesh` returns a `Mesh`: the axis names, their resolved sizes and a
 numpy object array of `torch.device`s shaped by AXIS_ORDER, so
 `mesh.devices.size` reads as it does on a `jax.sharding.Mesh`. Its devices
-are the CUDA devices, or the CPU when the caller asks for it. DeviceMesh
-placements, sharding rules and collectives come with the parallel layer.
+are the CUDA devices, or the CPU when the caller asks for it; the trainer's
+worker reads its device from it.
+
+`build_device_mesh` is the counterpart of the JAX `build_mesh` for the
+parallel layer: a `torch.distributed.device_mesh.DeviceMesh` over the ranks
+of the default process group, one rank per device, with all six AXIS_ORDER
+dims, size-1 dims kept. Each dim's process group is what the collectives,
+the sharding rules, sequence and pipeline parallelism and ZeRO
+(train/zero.py) run over. Where JAX's mesh holds every device of one SPMD
+program, each rank of the port runs its own program and holds one
+coordinate of the mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # Canonical axis order: outermost (slowest-varying, cheapest link) first.
 AXIS_ORDER = ("data", "fsdp", "stage", "expert", "seq", "tensor")
@@ -99,13 +110,106 @@ def build_mesh(axis_sizes: Optional[Dict[str, int]] = None, *, use_gpu: bool = T
     """A Mesh over `default_devices(use_gpu)`, sized by `axis_sizes` (axes
     not named are 1) or, without them, all devices on "data"."""
     devices = default_devices(use_gpu)
-    if axis_sizes is None:
-        axis_sizes = MeshSpec().resolve(len(devices))
-    else:
-        axis_sizes = {k: axis_sizes.get(k, 1) for k in AXIS_ORDER}
-        if math.prod(axis_sizes.values()) != len(devices):
-            raise ValueError(f"axis sizes {axis_sizes} do not cover {len(devices)} devices")
+    axis_sizes = _axis_sizes(axis_sizes, None, len(devices))
     arr = np.empty(len(devices), dtype=object)
     arr[:] = devices
     return Mesh(AXIS_ORDER, dict(axis_sizes),
                 arr.reshape(tuple(axis_sizes[a] for a in AXIS_ORDER)))
+
+
+class PartitionSpec(tuple):
+    """jax.sharding.PartitionSpec's counterpart: one entry per tensor dim,
+    each None (replicated), a mesh axis name, or a tuple of axis names
+    (the dim split over their product, the first axis major)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+def _axis_sizes(axis_sizes: Optional[Dict[str, int]], spec: Optional[MeshSpec],
+                n: int) -> Dict[str, int]:
+    if axis_sizes is None:
+        return (spec or MeshSpec()).resolve(n)
+    sizes = {k: axis_sizes.get(k, 1) for k in AXIS_ORDER}
+    if math.prod(sizes.values()) != n:
+        raise ValueError(f"axis sizes {sizes} do not cover {n} devices")
+    return sizes
+
+
+def build_device_mesh(spec: Optional[MeshSpec] = None, *,
+                      axis_sizes: Optional[Dict[str, int]] = None):
+    """A DeviceMesh over every rank of the default process group (which
+    must be initialised, e.g. by train.setup_torch_distributed), shaped by
+    `spec` (MeshSpec().resolve: "data" absorbs the world) or `axis_sizes`
+    (axes not named are 1), with dims named AXIS_ORDER. Rank r sits at the
+    row-major coordinate r, so "tensor" neighbours are adjacent ranks. Its
+    device type is "cuda" under NCCL, else "cpu" (gloo; the port's
+    collectives stage CUDA tensors through host memory there)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("build_device_mesh needs an initialised process group "
+                           "(train.setup_torch_distributed)")
+    sizes = _axis_sizes(axis_sizes, spec, dist.get_world_size())
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(sizes[a] for a in AXIS_ORDER),
+                            mesh_dim_names=AXIS_ORDER)
+
+
+def single_device_mesh():
+    """A DeviceMesh of a world of one rank (raises in a larger world, as
+    the JAX function does with more than one device)."""
+    return build_device_mesh(MeshSpec(data=1))
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size, of a DeviceMesh or a `Mesh`."""
+    if isinstance(mesh, Mesh):
+        return dict(mesh.axis_sizes)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def placements(mesh, spec) -> tuple:
+    """The DTensor placements (one per mesh dim) that lay a tensor out as
+    `spec` does on a JAX mesh: Shard(d) on each mesh dim that tensor dim d
+    names, Replicate() elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def named_sharding(mesh, *spec) -> tuple:
+    """The placements of PartitionSpec(*spec) on `mesh` (jax's
+    NamedSharding(mesh, PartitionSpec(*spec)))."""
+    return placements(mesh, PartitionSpec(*spec))
+
+
+def host_local_device_count(use_gpu: bool = True) -> int:
+    """Devices this process sees: CUDA devices, or the one CPU device."""
+    return len(default_devices(use_gpu))
+
+
+def data_parallel_rank(mesh) -> int:
+    """This rank's (data x fsdp) coordinate in `mesh`: which shard of the
+    global batch it loads. Raises if this rank is not in the mesh: a default
+    would make every rank load shard 0."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh; cannot determine its "
+                         "data-parallel rank")
+    c = dict(zip(mesh.mesh_dim_names, coord))
+    return int(c["data"] * mesh_shape(mesh)["fsdp"] + c["fsdp"])

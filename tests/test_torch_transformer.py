@@ -160,7 +160,12 @@ def test_presets_match_jax():
 
 
 def test_unported_attention_raises():
-    cfg = ttfm.tiny(attn_impl="ring", dtype=torch.float32)
-    params = ttfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        ttfm.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
+    """Ring and Ulysses are ported (tests/test_torch_parallel_model.py); like
+    the JAX package's, they raise without a mesh, and an unknown attn_impl
+    raises."""
+    for impl, match in (("ring", "requires a mesh"), ("ulysses", "requires a mesh"),
+                        ("sparse", "unknown attn_impl")):
+        cfg = ttfm.tiny(attn_impl=impl, dtype=torch.float32)
+        params = ttfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(ValueError, match=match):
+            ttfm.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
