@@ -21,7 +21,11 @@ Backward: dq, dk and dv
     kernels cast) against the same function in float64;
   - of the kernels as built, whose scores S and dP sum the head dim as two
     chains of mma.sync and add the chains in fp32, against both;
-  - of the same kernels with each score summed as one chain.
+  - of the same kernels with each score summed as one chain;
+  - the lse variant (as ring attention feeds it): delta less a dlse drawn at
+    random at |delta|'s scale, the plain version and the kernels as built
+    against float64, to tell rounding from a fault (chip_smoke.py's kernel
+    phase reads dk 0.016 against 2**-6 on such a dlse, PERF.md).
 It prints the largest error and how many entries exceed 2**-8 and 2**-7, and
 each build's kernel times. Needs a CUDA device; exits non-zero without one.
 """
@@ -234,9 +238,11 @@ def backward_section(builds) -> int:
             print(f"[seed {seed}] plain vs float64: " + "; ".join(
                 f"{n} {describe(err_map(w, x))}" for n, w, x in zip(("dq", "dk", "dv"), plain,
                                                                     exact)), flush=True)
+            variant = lse_variant_inputs(q, k, v, lse, do, delta, kw, seed)
             for label, csrc in builds.items():
                 _build.CSRC = csrc
                 _build._libs.pop("flash_bwd", None)
+                lse_variant(variant, args, kw, seed, label)
                 got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
                 torch.cuda.synchronize()
                 ms = [_time_ms(lambda: fn(*args, **kw), iters=10)
@@ -246,12 +252,53 @@ def backward_section(builds) -> int:
                     f"{describe(err_map(g, x))}"
                     for n, g, w, x in zip(("dq", "dk", "dv"), got, plain, exact))
                     + f"; ms dq {ms[0]:.4f} dkv {ms[1]:.4f}", flush=True)
-            del plain, exact
+            del plain, exact, variant
             torch.cuda.empty_cache()
     finally:
         _build.CSRC = builds["two chains (as built)"]
         _build._libs.pop("flash_bwd", None)
     return 0
+
+
+def lse_variant_inputs(q, k, v, lse, do, delta, kw, seed):
+    """The lse variant's inputs, as ring attention feeds them: delta - dlse,
+    dlse drawn at random at |delta|'s scale (mean |dlse| = 0.8 mean |delta|,
+    as chip_smoke.py's first lse check drew it); with the plain version's
+    dq/dk/dv on them and the float64 backward's."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+    dlse = torch.randn(delta.shape, generator=gen, device="cuda") * delta.abs().mean()
+    args = (q, k, v, lse, do, (delta - dlse).contiguous())
+    plain = (fa.reference_flash_bwd_dq(*args, **kw), *fa.reference_flash_bwd_dkv(*args, **kw))
+    return {"args": args, "plain": plain, "exact": reference64(*args, **kw),
+            "dlse": dlse.abs().mean().item(), "delta": delta.abs().mean().item()}
+
+
+def lse_variant(inputs, plain_args, kw, seed, label):
+    """The backward kernels of the current build on the lse variant's
+    inputs, against their plain versions and float64; the plain version
+    against float64 beside them; and, for scale, what a kernel that dropped
+    dlse would read (the kernels on `plain_args`, delta without dlse)."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    args = inputs["args"]
+    got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+    dropped = (fa.flash_bwd_dq(*plain_args, **kw), *fa.flash_bwd_dkv(*plain_args, **kw))
+    torch.cuda.synchronize()
+    print(f"[seed {seed}] {label}, lse variant, dlse dropped: " + "; ".join(
+        f"{n} vs float64 max {err_map(g, x).max().item():.4g}"
+        for n, g, x in zip(("dq", "dk", "dv"), dropped, inputs["exact"])), flush=True)
+    print(f"[seed {seed}] {label}, lse variant, random dlse (|dlse| mean {inputs['dlse']:.3g}, "
+          f"|delta| mean {inputs['delta']:.3g}): " + "; ".join(
+              f"{n} kernel vs plain max {err_map(g, w).max().item():.4g}, kernel vs float64 "
+              f"{describe(err_map(g, x))}, plain vs float64 {describe(err_map(w, x))}"
+              for n, g, w, x in zip(("dq", "dk", "dv"), got, inputs["plain"], inputs["exact"])),
+          flush=True)
 
 
 if __name__ == "__main__":

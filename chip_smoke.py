@@ -64,7 +64,8 @@ Phases, each printing its own line, any failure exits non-zero:
   14. parallel: (a) next_token_loss with attn_impl "ring" and "ulysses" on a
      DeviceMesh with seq=1 over a NCCL group of one rank against "full"
      (llama2_7b(n_layers=2), bf16, "hot", b=1, s=2048): loss and every
-     leaf's gradient, bitwise or not; (b) 4 processes of this script
+     leaf's gradient, bitwise or not; and moe_apply at Switch-Base's width
+     over that world against no mesh, bitwise; (b) 4 processes of this script
      sharing the card over gloo (collectives staged through host memory;
      their times are not multi-GPU speed): ring_attention and
      ulysses_attention at Llama-2-7B's attention width (32 heads of 128,
@@ -72,12 +73,21 @@ Phases, each printing its own line, any failure exits non-zero:
      and dq/dk/dv, with each call's launches across ranks; then in fp32 the
      model's ring and Ulysses over seq=4 and next_token_loss_pipelined over
      stage=4 (4 layers, 4 microbatches) against the unsplit model: loss,
-     every leaf's gradient and launches; peak memory per rank.
+     every leaf's gradient and launches; (c) tensor parallelism at
+     llama2_7b(n_layers=2)'s full width on params from shard_tree, tensor=4
+     and fsdp=2 x tensor=2: in fp32 the first step's loss and every rank's
+     gradient shard of every leaf against the unsplit model, then 3 AdamW
+     steps' losses; TP x SP (tensor=2 x seq=2, ring and Ulysses); in bf16
+     one forward and backward with each kernel's launches; (d) the Switch
+     MoE at Switch-Base's expert width (768 / 3072, 128 experts, capacity
+     factor 1.25, 8192 tokens) over expert=4 against the unsplit layer:
+     y, x's gradient, the aux loss and every param's gradient shard, with
+     the tokens dropped; peak memory per rank.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
-tune and parallel phases' model paths (ring, ulysses, pipeline) under
-"launches_by_path"), and the device line last.
+tune and parallel phases' model paths (ring, ulysses, pipeline, the TP
+meshes and TP x SP) under "launches_by_path"), and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -1891,6 +1901,12 @@ def _parallel_nccl():
             f"remat hot, b=1 s=2048: {msg}", flush=True))
         del params
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        secs, dropped = _moe_world1(build_device_mesh(axis_sizes={"expert": 1}))
+        print(f"[parallel] (a) {dist.get_backend()} world 1, moe_apply at Switch-Base's width "
+              f"({MOE_CFG}), {MOE_TOKENS} tokens fp32, forward + backward: bitwise equal to "
+              f"mesh=None; {dropped} tokens dropped; {secs:.3f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -2000,6 +2016,326 @@ def _par_model(rank, n, mesh_seq, mesh_stage):
     return {**seq, "pipeline": launches}, lines, {"seq_s": seq_s, "pipeline_s": pipe_s}
 
 
+# (c): tensor parallelism at Llama-2-7B's width, 2 layers, on these meshes
+# of the 4 ranks, and TP x SP on TP_SP_MESH.
+TP_MESHES = {"tensor=4": {"tensor": 4}, "fsdp=2 x tensor=2": {"fsdp": 2, "tensor": 2}}
+TP_SP_MESH = {"seq": 2, "tensor": 2}
+TP_BATCH = (2, 2048)
+TP_STEPS = 3
+TP_LR = 1e-4
+# (d): the Switch MoE layer at Switch-Base's expert width (Fedus et al. 2021,
+# Table 9: d_model 768, d_ff 3072, 128 experts, capacity factor 1.25) on
+# MOE_TOKENS tokens, fp32, experts over "expert" on the 4 ranks.
+MOE_CFG = {"d_model": 768, "d_ff": 3072, "n_experts": 128, "capacity_factor": 1.25}
+MOE_TOKENS = 8192
+# JAX's TestMoE tolerances (rtol, atol), per entry: |got - want| <= atol +
+# rtol |want|, for y and x's gradient (_moe_check).
+MOE_TOL = (2e-4, 2e-5)
+
+
+def _tp_cfg(dtype):
+    import torch  # noqa: F401
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    return tfm.llama2_7b(n_layers=2, dtype=dtype, remat_policy="hot")
+
+
+def _tp_tokens(vocab: int):
+    import torch
+
+    return torch.randint(0, vocab, TP_BATCH, generator=torch.Generator().manual_seed(41)).cuda()
+
+
+def _shard_diffs(got, want):
+    """{leaf: |g - w| / |w|} of two {leaf: tensor} dicts."""
+    return {name: ((g - want[name]).norm() / want[name].norm()).item() for name, g in got.items()}
+
+
+def _check_shards(label, loss, loss_ref, got, want, launches, log, t):
+    """Gates a loss and this rank's gradient shard of every leaf against the
+    unsplit model's (loss 5e-5 relative, each leaf 1e-5 of its shard's
+    norm, as _check_loss_grads), and refuses two planted faults: every
+    shard t times too large (the row-parallel sum with psum's transpose
+    upstream) and every shard moved by one entry."""
+    import torch
+
+    rtol, grad_rtol = 5e-5, 1e-5
+    diffs = _shard_diffs(got, want)
+    diff, worst = abs(loss - loss_ref) / abs(loss_ref), max(diffs.values())
+    planted = {
+        f"x{t}": max(_shard_diffs({k: g * t for k, g in got.items()}, want).values()),
+        "moved": max(_shard_diffs({k: torch.roll(g.flatten(), 1).view_as(g)
+                                   for k, g in got.items()}, want).values()),
+    }
+    log(f"{label}: loss {loss:.6f} vs {loss_ref:.6f} (rel diff {diff:.3g}, tol {rtol}); worst "
+        f"leaf gradient shard |g - g_ref| / |g_ref| {worst:.3g} ({max(diffs, key=diffs.get)}; "
+        f"tol {grad_rtol}); planted faults read {planted}; launches {launches}")
+    if not (math.isfinite(loss) and diff <= rtol and worst <= grad_rtol):
+        _fail(f"parallel: {label} disagrees with the unsplit model: loss {diff:.3g}, "
+              f"gradients {diffs}")
+    if min(planted.values()) <= grad_rtol:
+        _fail(f"parallel: the {label} gradient check passes a planted fault: {planted}")
+
+
+def _tp_reference(rank, n, cfg, tokens):
+    """The unsplit model's TP_STEPS AdamW steps, one rank at a time (four at
+    once would not fit the card beside the rest): (losses, {leaf: first
+    step's gradient, on the host})."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    for turn in range(n):
+        if turn == rank:
+            init, step = tfm.build_train_step(cfg, tfm.adamw(TP_LR), device="cuda")
+            params, opt = init(torch.Generator(device="cuda").manual_seed(40))
+            losses = [step(params, opt, tokens).item()]
+            grads = {name: t.grad.cpu() for name, t in _named_leaves(params)}
+            losses += [step(params, opt, tokens).item() for _ in range(TP_STEPS - 1)]
+            del params, opt
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return losses, grads
+
+
+def _tp_shards(params, mesh, full):
+    """({leaf: this rank's gradient shard}, {leaf: the same shard of `full`})."""
+    from ray_tpu_torch.parallel.sharding import local_shard, shard_slices, spec_of
+
+    got, want = {}, {}
+    for name, t in _named_leaves(params):
+        got[name] = local_shard(t.grad)
+        want[name] = full[name][shard_slices(tuple(t.shape), spec_of(t), mesh)].to(
+            got[name].device)
+    return got, want
+
+
+def _par_tensor(rank, n, meshes, mesh_sp):
+    """(c): llama2_7b(n_layers=2) at full width, fp32 with TF32 off, remat
+    "hot", b x s = TP_BATCH. The unsplit model's 3 AdamW steps (one rank at a
+    time); on each TP mesh, build_train_step on params from shard_tree:
+    the first step's loss and this rank's gradient shard of every leaf
+    against the unsplit model's, then the 3 steps' losses; on TP_SP_MESH,
+    next_token_loss with ring and Ulysses against the same. Then in bf16 one
+    forward and backward per TP mesh, with each kernel's launches. Returns
+    ({path: launches}, log lines, seconds)."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.parallel import shard_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines, secs, launches = [], {}, {}
+    cfg = _tp_cfg(torch.float32)
+    tokens = _tp_tokens(cfg.vocab_size)
+    ref_losses, ref_grads = _tp_reference(rank, n, cfg, tokens)
+    for label, mesh in meshes.items():
+        t_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["tensor"]
+        init, step = tfm.build_train_step(cfg, tfm.adamw(TP_LR), device="cuda", mesh=mesh)
+        params, opt = init(torch.Generator(device="cuda").manual_seed(40))
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(params, opt, tokens).item()]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = _launch_counts()
+        got, want = _tp_shards(params, mesh, ref_grads)
+        _check_shards(f"fp32 {label}, first step", losses[0], ref_losses[0], got, want, launched,
+                      lines.append, t_size)
+        del got, want
+        t0 = time.perf_counter()
+        losses += [step(params, opt, tokens).item() for _ in range(TP_STEPS - 1)]
+        torch.cuda.synchronize()
+        secs[f"{label} first step"] = first_s
+        secs[f"{label} next {TP_STEPS - 1} steps"] = time.perf_counter() - t0
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        lines.append(f"fp32 {label}: {TP_STEPS} AdamW steps' losses {losses} vs the unsplit "
+                     f"model's {ref_losses} (rel diff {max(rel):.3g}, tol 5e-05)")
+        if max(rel) > 5e-5:
+            _fail(f"parallel: {label}'s AdamW trajectory {losses} departs from {ref_losses}")
+        del params, opt
+        torch.cuda.empty_cache()
+    for impl in ("ring", "ulysses"):
+        label = f"tensor=2 x seq=2 {impl}"
+        params = shard_tree(tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(40)),
+                            mesh_sp)
+        for t in tfm.tree_leaves(params):
+            t.requires_grad_(True)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        loss = tfm.next_token_loss(params, tokens, cfg.replace(attn_impl=impl), mesh_sp)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launches[label] = _launch_counts()
+        got, want = _tp_shards(params, mesh_sp, ref_grads)
+        _check_shards(f"fp32 {label}", loss.item(), ref_losses[0], got, want, launches[label],
+                      lines.append, 2)
+        del params, got, want, loss
+        torch.cuda.empty_cache()
+    del ref_grads
+    bf16 = _tp_cfg(torch.bfloat16)
+    for label, mesh in meshes.items():
+        params = shard_tree(tfm.init_params(bf16, torch.Generator(device="cuda").manual_seed(40)),
+                            mesh)
+        for t in tfm.tree_leaves(params):
+            t.requires_grad_(True)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        loss = tfm.next_token_loss(params, tokens, bf16, mesh)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs[f"bf16 {label}"] = time.perf_counter() - t0
+        launches[label] = _launch_counts()
+        lines.append(f"bf16 {label}, forward + backward: loss {loss.item():.6f}, launches "
+                     f"{launches[label]}")
+        if not math.isfinite(loss.item()):
+            _fail(f"parallel: bf16 {label} loss {loss.item()}")
+        del params, loss
+        torch.cuda.empty_cache()
+    return launches, lines, secs
+
+
+def _moe_check(label, got, want, log):
+    """Gates {name: result} against the unsplit layer's: y and x's gradient
+    per entry at JAX's TestMoE tolerances (|got - want| <= atol + rtol
+    |want|), the aux loss to 1e-6, and each param's gradient shard to 1e-5
+    of its norm, as _check_shards holds the model's (a sum over 8192 tokens
+    taken in four parts, where an entry that cancels to ~0 carries the fp32
+    rounding of its terms). Each reading is scaled so that <= 1 passes. Two
+    planted faults must be refused: every result twice too large, and every
+    result moved by one entry."""
+    import torch
+
+    rtol, atol = MOE_TOL
+
+    def readings(results):
+        out = {}
+        for k, g in results.items():
+            if k == "aux":
+                out[k] = abs(g - want[k]) / 1e-6
+            elif k.startswith("dw") or k == "drouter":
+                out[k] = ((g - want[k]).norm() / want[k].norm()).item() / 1e-5
+            else:
+                out[k] = ((g - want[k]).abs() / (atol + rtol * want[k].abs())).max().item()
+        return out
+
+    errs = readings(got)
+    planted = {"x2": max(readings({k: g * 2 for k, g in got.items()}).values()),
+               "moved": max(readings({k: torch.roll(g.flatten(), 1).view_as(g) if k != "aux"
+                                      else g for k, g in got.items()}).values())}
+    log(f"{label}: y and dx per entry |got - ref| / ({atol} + {rtol} |ref|), aux |got - ref| / "
+        "1e-6, each param gradient shard |g - g_ref| / |g_ref| / 1e-5 (<= 1 passes): "
+        + "; ".join(f"{k} {e:.3g}" for k, e in errs.items()) + f"; planted faults read {planted}")
+    if not all(math.isfinite(e) and e <= 1 for e in errs.values()):
+        _fail(f"parallel: {label} disagrees with the unsplit layer: {errs}")
+    if min(planted.values()) <= 1:
+        _fail(f"parallel: the {label} check passes a planted fault: {planted}")
+
+
+def _moe_inputs(cfg):
+    """Switch-Base's params, MOE_TOKENS tokens and the loss weights w, fp32,
+    on the card from seeds."""
+    import torch
+
+    from ray_tpu_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, w = (torch.randn((MOE_TOKENS, cfg.d_model), generator=gen, device="cuda")
+            for _ in range(2))
+    return moe.init_moe_params(cfg, torch.Generator(device="cuda").manual_seed(30)), x, w
+
+
+def _moe_dropped(params, x, cfg) -> int:
+    """Tokens past their expert's capacity, counted from the routing."""
+    import torch
+
+    idx = torch.argmax(x @ params["router"], dim=-1)
+    cap = max(1, int(cfg.capacity_factor * x.shape[0] / cfg.n_experts))
+    return int((torch.bincount(idx, minlength=cfg.n_experts) - cap).clamp_min(0).sum())
+
+
+def _par_moe(rank, n, mesh):
+    """(d): moe_apply at Switch-Base's width with the experts over
+    "expert"=n (each rank 1/n of the tokens and of the experts) against the
+    unsplit layer, run by each rank in turn: this rank's rows of y and of
+    x's gradient, the aux loss, and its shard of each param's gradient, for
+    sum(y * w) + aux. Returns (log lines, seconds, dropped tokens)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import TRANSFORMER_RULES, shard_tree
+    from ray_tpu_torch.parallel.sharding import local_shard, shard_slices, spec_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe.MoEConfig(**MOE_CFG)
+    full, x, w = _moe_inputs(cfg)
+    rows = slice(rank * MOE_TOKENS // n, (rank + 1) * MOE_TOKENS // n)
+    params = shard_tree({"moe": full}, mesh, moe.EXPERT_RULES + TRANSFORMER_RULES)["moe"]
+    want = {}
+    for turn in range(n):
+        if turn == rank:
+            p = {k: v.clone().requires_grad_() for k, v in full.items()}
+            xr = x.clone().requires_grad_()
+            y, aux = moe.moe_apply(p, xr, cfg)
+            ((y * w).sum() + aux).backward()
+            want = {"y": y[rows].detach(), "aux": aux.item(), "dx": xr.grad[rows]}
+            for k, t in params.items():
+                want[f"d{k}"] = p[k].grad[shard_slices(tuple(t.shape), spec_of(t), mesh)]
+            del p, xr, y
+            torch.cuda.empty_cache()
+        dist.barrier()
+    for t in params.values():
+        t.requires_grad_(True)
+    xl = x[rows].clone().requires_grad_()
+    secs = []
+    for call in range(2):
+        for t in (xl, *params.values()):
+            t.grad = None
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_apply(params, xl, cfg, mesh=mesh)
+        ((y * w[rows]).sum() + aux).backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    got = {"y": y.detach(), "aux": aux.item(), "dx": xl.grad,
+           **{f"d{k}": local_shard(t.grad) for k, t in params.items()}}
+    lines = []
+    _moe_check(f"expert={n}, {MOE_TOKENS} tokens ({MOE_TOKENS // n} per rank), "
+               f"{cfg.n_experts // n} of {cfg.n_experts} experts per rank", got, want, lines.append)
+    return lines, secs, _moe_dropped(full, x, cfg)
+
+
+def _moe_world1(mesh):
+    """(a)'s MoE part: moe_apply forward and backward at Switch-Base's width
+    over a mesh of one rank against mesh=None, bitwise; (seconds, dropped
+    tokens)."""
+    import torch
+
+    from ray_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(**MOE_CFG)
+    full, x, w = _moe_inputs(cfg)
+    out, secs = [], []
+    for m in (None, mesh):
+        p = {k: v.clone().requires_grad_() for k, v in full.items()}
+        xr = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_apply(p, xr, cfg, mesh=m)
+        ((y * w).sum() + aux).backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out.append([y, aux, xr.grad, *(p[k].grad for k in ("router", "w_up", "w_down"))])
+    if not all(torch.equal(a, b) for a, b in zip(*out)) or not torch.isfinite(out[1][0]).all():
+        _fail("parallel: moe_apply over a one-rank mesh differs from moe_apply without one")
+    return secs[1], _moe_dropped(full, x, cfg)
+
+
 def _parallel_rank(rank: int, world: int, url: str, out_path: str) -> None:
     """One rank of (b): joins the gloo group, runs _par_attention and
     _par_model, and writes its results as JSON to out_path."""
@@ -2013,14 +2349,31 @@ def _parallel_rank(rank: int, world: int, url: str, out_path: str) -> None:
     backend.setup_torch_distributed(rank, world, url, backend="gloo", init_timeout_s=300)
     try:
         t0 = time.perf_counter()
+        # every rank builds every mesh (and its groups) in one order, first
         mesh_seq = build_device_mesh(axis_sizes={"seq": world})
         mesh_stage = build_device_mesh(axis_sizes={"stage": world})
+        tp_meshes = {label: build_device_mesh(axis_sizes=axes) for label, axes in TP_MESHES.items()}
+        mesh_sp = build_device_mesh(axis_sizes=TP_SP_MESH)
+        mesh_expert = build_device_mesh(axis_sizes={"expert": world})
         attention = _par_attention(rank, world, mesh_seq)
         torch.cuda.empty_cache()
         launches, lines, secs = _par_model(rank, world, mesh_seq, mesh_stage)
-        result = {"attention": attention, "launches": launches, "lines": lines,
+        peak_b = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        tp_launches, tp_lines, tp_secs = _par_tensor(rank, world, tp_meshes, mesh_sp)
+        peak_c = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        moe_lines, moe_secs, dropped = _par_moe(rank, world, mesh_expert)
+        result = {"attention": attention, "launches": {**launches, **tp_launches},
+                  "lines": lines, "tp_lines": tp_lines, "moe_lines": moe_lines,
                   "secs": {**secs, "rank_s": time.perf_counter() - t0},
-                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                  "tp_secs": {**tp_secs, "part_s": t2 - t1},
+                  "moe": {"s": moe_secs, "part_s": time.perf_counter() - t2,
+                          "dropped": dropped},
+                  "peak_gib": {"b": peak_b, "c": peak_c,
+                               "d": torch.cuda.max_memory_allocated() / 2**30}}
     finally:
         dist.destroy_process_group()
     with open(out_path, "w") as f:
@@ -2073,12 +2426,13 @@ def _sum_launches(counts):
 
 
 def phase_parallel():
-    """(a) ring and Ulysses at seq=1 over a NCCL world of one rank; (b)
-    PARALLEL_WORLD ranks sharing the card over gloo (collectives staged
-    through host memory): ring and Ulysses attention at Llama-2-7B's width
-    against one flash_attention call, then ring and Ulysses in the model and
-    the GPipe pipeline against the unsplit model. Returns the model paths'
-    launches, summed over the ranks."""
+    """(a) ring and Ulysses at seq=1, and the MoE, over a NCCL world of one
+    rank; (b) PARALLEL_WORLD ranks sharing the card over gloo (collectives
+    staged through host memory): ring and Ulysses attention at Llama-2-7B's
+    width against one flash_attention call, then ring and Ulysses in the
+    model and the GPipe pipeline against the unsplit model; (c) tensor
+    parallelism and TP x SP (_par_tensor); (d) the MoE over expert=4
+    (_par_moe). Returns the model paths' launches, summed over the ranks."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -2118,22 +2472,42 @@ def phase_parallel():
     for r, res in enumerate(results):
         for line in res["lines"]:
             print(f"[parallel] (b) rank {r}, fp32 model: {line}", flush=True)
-    by_path = {path: _sum_launches([r["launches"][path] for r in results])
-               for path in ("ring", "ulysses", "pipeline")}
+    for r, res in enumerate(results):
+        for line in res["tp_lines"]:
+            print(f"[parallel] (c) rank {r}, llama2_7b(n_layers=2) b x s {TP_BATCH}, remat hot: "
+                  f"{line}", flush=True)
+    for r, res in enumerate(results):
+        for line in res["moe_lines"]:
+            print(f"[parallel] (d) rank {r}, moe_apply {MOE_CFG} fp32: {line}", flush=True)
+    paths = ("ring", "ulysses", "pipeline", *TP_MESHES, "tensor=2 x seq=2 ring",
+             "tensor=2 x seq=2 ulysses")
+    by_path = {path: _sum_launches([r["launches"][path] for r in results]) for path in paths}
     layers = 2
+    # ring at seq=2: 1 + 2 blocks per seq group, one group per tensor rank
+    sp_ring = layers * 3 * TP_SP_MESH["tensor"]
     want = {"ring": {k: layers * blocks["ring"] for k in by_path["ring"]},
             "ulysses": {k: layers * blocks["ulysses"] for k in by_path["ulysses"]},
             # one layer per stage; remat recomputes each microbatch's forward
             "pipeline": {"flash_fwd": 2 * n * PAR_MICROBATCHES,
                          "flash_bwd_dq": n * PAR_MICROBATCHES,
-                         "flash_bwd_dkv": n * PAR_MICROBATCHES}}
-    print(f"[parallel] (b) model paths' launches across ranks {by_path}", flush=True)
+                         "flash_bwd_dkv": n * PAR_MICROBATCHES},
+            # "hot" keeps the flash output: one launch of each per layer per rank
+            **{label: {k: layers * n for k in by_path[label]} for label in TP_MESHES},
+            "tensor=2 x seq=2 ring": {k: sp_ring for k in by_path["ring"]},
+            "tensor=2 x seq=2 ulysses": {k: layers * n for k in by_path["ring"]}}
+    print(f"[parallel] (b)-(c) model paths' launches across ranks {by_path}", flush=True)
     if by_path != want:
         _fail(f"parallel: model launches {by_path}, want {want}")
-    print(f"[parallel] (b) {n} processes sharing one {_smi()} over gloo (not multi-GPU "
-          f"speed): peak memory per rank GiB {[round(r['peak_gib'], 3) for r in results]}; "
-          f"seconds per rank {[{k: round(v, 1) for k, v in r['secs'].items()} for r in results]};"
-          f" phase {phase_s:.1f} s", flush=True)
+    print(f"[parallel] (d) tokens dropped by the capacity: {results[0]['moe']['dropped']} of "
+          f"{MOE_TOKENS}; seconds per rank, first and second call, forward + backward "
+          f"{[[round(x, 3) for x in r['moe']['s']] for r in results]}", flush=True)
+    print(f"[parallel] (b)-(d) {n} processes sharing one {_smi()} over gloo (not multi-GPU "
+          f"speed): peak memory per rank GiB "
+          f"{[{k: round(v, 3) for k, v in r['peak_gib'].items()} for r in results]}; seconds "
+          f"per rank (b) {[{k: round(v, 1) for k, v in r['secs'].items()} for r in results]}, "
+          f"(c) {[{k: round(v, 1) for k, v in r['tp_secs'].items()} for r in results]}, "
+          f"(d) {[round(r['moe']['part_s'], 1) for r in results]}; phase {phase_s:.1f} s",
+          flush=True)
     return by_path
 
 

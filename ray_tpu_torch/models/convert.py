@@ -238,3 +238,18 @@ def mlp_params_from_numpy(tree, cfg, device=None):
                              f"{np.shape(layer['w'])} and {np.shape(layer['b'])}")
         out.append({k: to_tensor(layer[k]).to(device=dev, dtype=cfg.dtype) for k in ("w", "b")})
     return {"layers": out}
+
+
+# ------------------------------------------------------------------- MoE
+
+
+def moe_params_from_numpy(tree, cfg, device=None):
+    """The JAX package's MoE params ({"router", "w_up", "w_down"}, numpy
+    leaves) -> the port's models/moe.py tree on `device`, in cfg.dtype."""
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    spec = {"router": ((d, E),), "w_up": ((E, d, f),), "w_down": ((E, f, d),)}
+    _check_tree(tree, spec)
+    return {k: to_tensor(tree[k]).to(device=dev, dtype=cfg.dtype) for k in spec}

@@ -17,6 +17,17 @@ cast back; projections cast q/k/v to cfg.dtype; logits are fp32. A bf16
 product goes to cuBLAS, which accumulates in fp32 and rounds its output to
 bf16 once, where XLA kept the fp32 sum (preferred_element_type) for the next
 elementwise op; in float32 the two are the same computation.
+
+On a DeviceMesh (`mesh=`) every rank passes the global tokens and computes
+its part: rows over ("data", "fsdp"), positions over "seq", and, where the
+params are DTensors from `parallel.shard_tree`, heads and d_ff over
+"tensor" (Megatron-LM's split, as GSPMD partitions JAX's forward): each
+rank reads its leaves' local shards, gathers a layer's weights over "fsdp"
+where it uses them, runs the column-parallel products (wq/wk/wv,
+w_gate/w_up) on its columns and the row-parallel ones (wo, w_down) on its
+rows with the sum over "tensor" after them, and names every collective
+(see _Shard). Nothing relies on DTensor's sharding propagation, which the
+flash op and torch.utils.checkpoint do not go through.
 """
 
 from __future__ import annotations
@@ -27,15 +38,16 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..ops.flash_attention import attention_reference, flash_attention
-from ..parallel.collectives import _all_reduce
-from ..parallel.mesh import data_parallel_rank, mesh_shape
+from ..parallel.collectives import (_all_reduce, all_gather, axis_index, grad_sum, tp_copy,
+                                    tp_gather, tp_reduce, tp_split)
+from ..parallel.mesh import axes_group, data_parallel_rank, mesh_shape
 from ..parallel.pipeline import pipeline_apply, shard_stage_params, split_stacked_layers
+from ..parallel.sharding import PartitionSpec, dim_axes, grad_group, local_shard, spec_of
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 
@@ -239,79 +251,145 @@ def _apply_rope_rows(x, cos, sin, cfg: TransformerConfig):
     return _rope(x, cos[:, None, :].float(), sin[:, None, :].float(), cfg)
 
 
-def _qkv(h, ap, cfg: TransformerConfig):
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """What one rank's layer computes on a mesh.
+
+    tensor: each weight's dim split over "tensor" in this rank's shard, 1
+      (columns: wq/wk/wv, w_gate/w_up; the output comes out split) or 0
+      (rows: wo, w_down; partial outputs summed over "tensor"), None where
+      the weight is whole (tensor = 1, plain params, or a dim the clamp
+      left whole);
+    heads: attention runs on this rank's head group [t h/T, (t+1) h/T), its
+      kv heads [t h_kv/T, ...) (GQA's i // rep stays inside the rank), one
+      kernel call per rank; otherwise q, k, v are gathered and every rank
+      runs the whole call, as GSPMD does where JAX's shard_map path does
+      not apply (ray_tpu/models/transformer.py:259-265);
+    seq_start: the first position of this rank's "seq" shard, for "full" and
+      "naive" over a "seq" split, which gather q, k, v over "seq", run one
+      whole-sequence call and keep this rank's rows (the causal mask is
+      top-left aligned, so a query shard against gathered keys would be
+      masked wrong); None otherwise."""
+
+    mesh: Any
+    tensor: Dict[str, Optional[int]]
+    heads: bool
+    seq_start: Optional[int] = None
+
+
+def _tensor_split(shard: Optional[_Shard], name: str) -> Optional[int]:
+    return None if shard is None else shard.tensor.get(name)
+
+
+def _qkv(h, ap, cfg: TransformerConfig, shard: Optional[_Shard] = None):
+    """q [b, s, h, hd], k/v [b, s, h_kv, hd] in cfg.dtype; on a "tensor"
+    split, this rank's head group (shard.heads: q's and, where h_kv divides,
+    k/v's own; else k/v whole, repeated to h heads and split like q) or all
+    heads on every rank."""
     b, s, _ = h.shape
     hd = cfg.head_dim
-    q = torch.matmul(h, ap["wq"]).reshape(b, s, cfg.n_heads, hd).to(cfg.dtype)
-    k = torch.matmul(h, ap["wk"]).reshape(b, s, cfg.n_kv_heads, hd).to(cfg.dtype)
-    v = torch.matmul(h, ap["wv"]).reshape(b, s, cfg.n_kv_heads, hd).to(cfg.dtype)
-    return q, k, v
+    names = (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads), ("wv", cfg.n_kv_heads))
+    columns = any(_tensor_split(shard, name) == 1 for name, _ in names)
+    hc = tp_copy(h, shard.mesh) if columns else h  # one gradient sum for the three
+    out = []
+    for name, n in names:
+        split = _tensor_split(shard, name)
+        y = torch.matmul(hc if split == 1 else h, ap[name])  # this rank's columns, or all
+        local = split == 1 and shard.heads and n % mesh_shape(shard.mesh)["tensor"] == 0
+        if split == 1 and not local:
+            y = tp_gather(y, shard.mesh)
+        y = y.reshape(b, s, -1, hd)
+        if shard is not None and shard.heads and not local:  # k/v whole: repeat, split
+            y = tp_split(y.repeat_interleave(cfg.n_heads // n, dim=2), shard.mesh, dim=2)
+        out.append(y.to(cfg.dtype))
+    return tuple(out)
 
 
-def _mlp_act(h, mp, cfg: TransformerConfig):
-    """The MLP up to w_down: the gate/up products and their activation."""
-    up = torch.matmul(h, mp["w_up"]).float()
+def _mlp_act(h, mp, cfg: TransformerConfig, shard: Optional[_Shard] = None):
+    """The MLP up to w_down: the gate/up products and their activation (on
+    this rank's d_ff columns where w_up is split over "tensor")."""
+    hc = tp_copy(h, shard.mesh) if _tensor_split(shard, "w_up") == 1 else h
+    up = torch.matmul(hc, mp["w_up"]).float()
     if cfg.mlp_act == "swiglu":
-        gate = torch.matmul(h, mp["w_gate"]).float()
+        gate = torch.matmul(hc, mp["w_gate"]).float()
         return (F.silu(gate) * up).to(cfg.dtype)
     # jax.nn.gelu defaults to the tanh approximation.
     return F.gelu(up, approximate="tanh").to(cfg.dtype)
 
 
-def _mlp_down(act, mp, cfg: TransformerConfig):
-    return torch.matmul(act, mp["w_down"]).to(cfg.dtype)
+def _row_product(x, x_split: bool, w, name: str, shard: Optional[_Shard]):
+    """x @ w for wo / w_down, x split over "tensor" on its last dim or
+    whole: on this rank's rows of w with the sum over "tensor", or whole."""
+    if _tensor_split(shard, name) == 0:
+        x = x if x_split else tp_split(x, shard.mesh)
+        return tp_reduce(torch.matmul(x, w), shard.mesh)
+    if x_split:
+        x = tp_gather(x, shard.mesh)
+    return torch.matmul(x, w)
 
 
-def _mlp(h, mp, cfg: TransformerConfig):
-    return _mlp_down(_mlp_act(h, mp, cfg), mp, cfg)
+def _mlp_down(act, mp, cfg: TransformerConfig, shard: Optional[_Shard] = None):
+    split = _tensor_split(shard, "w_up") == 1
+    return _row_product(act, split, mp["w_down"], "w_down", shard).to(cfg.dtype)
 
 
-def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
+def _mlp(h, mp, cfg: TransformerConfig, shard: Optional[_Shard] = None):
+    return _mlp_down(_mlp_act(h, mp, cfg, shard), mp, cfg, shard)
+
+
+def _attention(q, k, v, cfg: TransformerConfig, shard: Optional[_Shard] = None):
     """Causal attention over [b, s, h, d]. "ring" and "ulysses" take this
-    rank's sequence shard and run over the mesh's "seq" dim."""
+    rank's sequence shard and run over the mesh's "seq" dim; "full" and
+    "naive" on a "seq" split run over the whole gathered sequence."""
     if cfg.attn_impl not in ("full", "naive", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.attn_impl in ("full", "naive") and shard is not None and shard.seq_start is not None:
+        s_local = q.shape[1]
+        q, k, v = (all_gather(t, shard.mesh, "seq", gather_dim=1) for t in (q, k, v))
+        o = _attention(q, k, v, cfg)
+        return o.narrow(1, shard.seq_start, s_local)
     if cfg.attn_impl == "full":
         return flash_attention(q, k, v, causal=True)
-    rep = cfg.n_heads // cfg.n_kv_heads
+    rep = q.shape[2] // k.shape[2]
     if rep > 1:  # jnp.repeat(k, rep, axis=2)
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     if cfg.attn_impl == "naive":
         return attention_reference(q, k, v, causal=True)
-    if mesh is None:
+    if shard is None:
         raise ValueError(f"attn_impl={cfg.attn_impl!r} requires a mesh")
     parallel = ring_attention if cfg.attn_impl == "ring" else ulysses_attention
-    return parallel(q, k, v, mesh, causal=True)
+    return parallel(q, k, v, shard.mesh, causal=True)
 
 
-def _attn_out(o, ap, cfg: TransformerConfig):
+def _attn_out(o, ap, cfg: TransformerConfig, shard: Optional[_Shard] = None):
     b, s = o.shape[:2]
-    return torch.matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim), ap["wo"]).to(cfg.dtype)
+    heads = shard is not None and shard.heads
+    return _row_product(o.reshape(b, s, -1), heads, ap["wo"], "wo", shard).to(cfg.dtype)
 
 
-def _residual(x, h, attn_out, lp, cfg: TransformerConfig):
+def _residual(x, h, attn_out, lp, cfg: TransformerConfig, shard: Optional[_Shard] = None):
     """Parallel block (GPT-J): the MLP reads the same pre-norm h as
     attention; sequential (llama): re-norm after adding attention."""
     if cfg.parallel_block:
-        return x + attn_out + _mlp(h, lp["mlp"], cfg)
+        return x + attn_out + _mlp(h, lp["mlp"], cfg, shard)
     x = x + attn_out
-    return x + _mlp(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg)
+    return x + _mlp(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg, shard)
 
 
-def _attend(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
+def _attend(x, lp, cfg: TransformerConfig, cos, sin, shard: Optional[_Shard] = None):
     """The layer up to attention: (h, o), h the attention pre-norm and o
     attention's output."""
     h = _norm(x, lp["attn_norm"]["scale"], cfg)
-    q, k, v = _qkv(h, lp["attn"], cfg)
+    q, k, v = _qkv(h, lp["attn"], cfg, shard)
     q = apply_rope(q, cos, sin, cfg)
     k = apply_rope(k, cos, sin, cfg)
-    return h, _attention(q, k, v, cfg, mesh)
+    return h, _attention(q, k, v, cfg, shard)
 
 
-def _layer(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
-    h, o = _attend(x, lp, cfg, cos, sin, mesh)
-    return _residual(x, h, _attn_out(o, lp["attn"], cfg), lp, cfg)
+def _layer(x, lp, cfg: TransformerConfig, cos, sin, shard: Optional[_Shard] = None):
+    h, o = _attend(x, lp, cfg, cos, sin, shard)
+    return _residual(x, h, _attn_out(o, lp["attn"], cfg, shard), lp, cfg, shard)
 
 
 def _head(params: Params) -> torch.Tensor:
@@ -358,7 +436,7 @@ def _ckpt(fn, *args, context_fn=noop_context_fn):
                       context_fn=context_fn)
 
 
-def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
+def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin, shard: Optional[_Shard] = None):
     """_layer under remat "hot": the backward recomputes the two norms, RoPE
     and the gate/up products with their activation, and nothing else, as
     JAX's save_only_these_names(*HOT_SAVE_NAMES) does.
@@ -379,18 +457,18 @@ def _hot_layer(x, lp, cfg: TransformerConfig, cos, sin, mesh=None):
     3 + 1 + 1 tensors of [b, s, d] and one of [b, s, d_ff] in cfg.dtype plus
     lse, one [b, s, d] fewer than JAX's frontier (mlp_in, which the port
     recomputes with the norm JAX also recomputes)."""
-    h, o = _ckpt(_attend, x, lp, cfg, cos, sin, mesh, context_fn=_saving(_DOTS + _FLASH))
-    attn_out = _attn_out(o, lp["attn"], cfg)
+    h, o = _ckpt(_attend, x, lp, cfg, cos, sin, shard, context_fn=_saving(_DOTS + _FLASH))
+    attn_out = _attn_out(o, lp["attn"], cfg, shard)
     if cfg.parallel_block:
-        act = _ckpt(_mlp_act, h, lp["mlp"], cfg)
-        return x + attn_out + _mlp_down(act, lp["mlp"], cfg)
+        act = _ckpt(_mlp_act, h, lp["mlp"], cfg, shard)
+        return x + attn_out + _mlp_down(act, lp["mlp"], cfg, shard)
     x = x + attn_out
-    act = _ckpt(_normed_mlp_act, x, lp, cfg)
-    return x + _mlp_down(act, lp["mlp"], cfg)
+    act = _ckpt(_normed_mlp_act, x, lp, cfg, shard)
+    return x + _mlp_down(act, lp["mlp"], cfg, shard)
 
 
-def _normed_mlp_act(x, lp, cfg: TransformerConfig):
-    return _mlp_act(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg)
+def _normed_mlp_act(x, lp, cfg: TransformerConfig, shard: Optional[_Shard] = None):
+    return _mlp_act(_norm(x, lp["mlp_norm"]["scale"], cfg), lp["mlp"], cfg, shard)
 
 
 def _remat_layer(policy: Optional[str]) -> Callable:
@@ -414,84 +492,127 @@ def _remat_layer(policy: Optional[str]) -> Callable:
     return functools.partial(_ckpt, _layer, context_fn=contexts[policy])
 
 
-class _Replicated(torch.autograd.Function):
-    """The param leaves as they are; the backward sums each leaf's gradient
-    over `group` (the ranks holding other rows or positions of the batch),
-    so every rank's params get the gradient of the global loss, as JAX's
-    replicated params do. One node for all leaves: it runs once, after the
-    rest of the backward, on every rank alike."""
-
-    @staticmethod
-    def forward(ctx, group, *leaves):
-        ctx.group = group
-        return tuple(t.view_as(t) for t in leaves)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        return (None, *(_all_reduce(g, ctx.group) for g in grads))
+BATCH_AXES = ("data", "fsdp", "seq")
 
 
-def _local_shard(mesh, b: int, s: int) -> Tuple[slice, int, int, Any]:
+def _local_shard(mesh, b: int, s: int) -> Tuple[slice, int, int, Tuple[str, ...]]:
     """This rank's part of a global [b, s] batch on `mesh`: (rows, first
-    position, positions, the group of ranks holding the other parts or None).
-    Rows go over ("data", "fsdp"), positions over "seq"; the other dims
-    replicate."""
+    position, positions, the batch dims larger than 1). Rows go over
+    ("data", "fsdp"), positions over "seq"; the other dims replicate the
+    batch."""
     sizes = mesh_shape(mesh)
-    if sizes["tensor"] > 1:
-        raise NotImplementedError(
-            "a 'tensor' mesh dim > 1 (heads over 'tensor', params as DTensors) waits for the "
-            "next slice of the port (ROADMAP Queue 1 item 2)")
     n_rows, n_seq = sizes["data"] * sizes["fsdp"], sizes["seq"]
     if b % n_rows or s % n_seq:
         raise ValueError(f"batch [{b}, {s}] does not split over data x fsdp = {n_rows} and "
                          f"seq = {n_seq}")
     row = data_parallel_rank(mesh)
-    seq = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["seq"]
+    seq = axis_index(mesh, "seq")
     rows = slice(row * (b // n_rows), (row + 1) * (b // n_rows))
-    split = [a for a in ("data", "fsdp", "seq") if sizes[a] > 1]
-    if not split:
-        group = None
-    elif n_rows * n_seq == dist.get_world_size():
-        group = dist.group.WORLD
-    elif len(split) == 1:
-        group = mesh.get_group(split[0])
-    else:
-        raise NotImplementedError(f"batch split over {split} beside a 'stage' or 'expert' dim "
-                                  "> 1 (ROADMAP Queue 1 item 2)")
-    return rows, seq * (s // n_seq), s // n_seq, group
+    split = tuple(a for a in BATCH_AXES if sizes[a] > 1)
+    return rows, seq * (s // n_seq), s // n_seq, split
+
+
+def _gather_dims(x, spec, mesh, batch: Tuple[str, ...], keep: Tuple[str, ...] = ()):
+    """A leaf's local shard -> the tensor whole on every dim not split over
+    `keep`: all_gather over a batch dim (its backward reduce-scatters the
+    ranks' partial gradients), tp_gather over any other (every rank there
+    computes the same, so its backward keeps its slice)."""
+    for d, axes in enumerate(dim_axes(spec, x.dim())):
+        if any(a in keep for a in axes):
+            if len(axes) > 1:
+                raise NotImplementedError(f"a dim split over {axes}: the 'tensor' split of a "
+                                          "weight must be alone on its dim")
+            continue
+        for a in reversed(axes):
+            x = all_gather(x, mesh, a, gather_dim=d) if a in batch else tp_gather(
+                x, mesh, a, dim=d)
+    return x
+
+
+# Column-parallel weights (their outputs split over "tensor"); wo and
+# w_down are row-parallel (their inputs split, the outputs summed).
+_COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")
+
+
+def _plan(params: Params, specs: Params, cfg: TransformerConfig, mesh) -> _Shard:
+    """The _Shard of a forward: each weight's "tensor" split read from its
+    spec (the leading layer dim dropped), and whether attention runs per
+    head group: where JAX runs its shard_map (h and, for "full", h_kv
+    divisible by "tensor") and q's columns are split."""
+    T = mesh_shape(mesh)["tensor"]
+    tensor = {}
+    for group in ("attn", "mlp"):
+        for name, spec in specs["blocks"][group].items():
+            axes = dim_axes(spec, params["blocks"][group][name].dim())
+            if any(axes[0]):
+                raise NotImplementedError(f"blocks.{group}.{name}: the layer dim is split over "
+                                          f"{axes[0]}")
+            dims = [d for d in (1, 2) if "tensor" in axes[d]]
+            split = dims[0] - 1 if dims else None
+            if split is not None and split != (1 if name in _COLUMN else 0):
+                raise NotImplementedError(f"blocks.{group}.{name} split over 'tensor' on its "
+                                          f"{'input' if split == 0 else 'output'} dim")
+            tensor[name] = split
+    if tensor.get("w_gate", tensor["w_up"]) != tensor["w_up"]:
+        raise NotImplementedError("w_gate and w_up split over 'tensor' differently")
+    kv_ok = cfg.attn_impl != "full" or (
+        cfg.n_kv_heads % T == 0 and tensor["wk"] == 1 and tensor["wv"] == 1)
+    heads = T > 1 and tensor["wq"] == 1 and cfg.n_heads % T == 0 and kv_ok
+    return _Shard(mesh, tensor, heads)
+
+
+def _local_params(params: Params, mesh, batch: Tuple[str, ...]):
+    """(this rank's shard of every leaf, each leaf's spec). With grad on,
+    the shards pass through one grad_sum node that sums each leaf's
+    gradient over the batch dims the leaf is not split over."""
+    specs = map_tree(spec_of, params)
+    leaves = [local_shard(t) for t in tree_leaves(params)]
+    if torch.is_grad_enabled() and batch:
+        leaves = grad_sum(leaves, [grad_group(mesh, spec, batch) for spec in tree_leaves(specs)])
+    it = iter(leaves)
+    return map_tree(lambda _: next(it), params), specs
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh):
-    """(final-norm hidden states [batch, seq, d], the params as used) of
-    tokens [batch, seq]. With cfg.remat and grad enabled, each layer
-    recomputes in the backward.
+    """(final-norm hidden states [batch, seq, d], the head [d, vocab] as
+    used) of tokens [batch, seq]. With cfg.remat and grad enabled, each
+    layer recomputes in the backward.
 
     With a DeviceMesh (parallel.build_device_mesh) every rank passes the
     GLOBAL tokens, as the JAX function takes the global array, and gets ITS
     part of the result: rows over ("data", "fsdp"), positions over "seq"
-    (RoPE at their global positions; attention over the whole sequence
-    needs attn_impl "ring" or "ulysses"). The params' gradients are summed
-    over those ranks in the backward (the returned params carry that sum;
-    read the head from them)."""
+    (RoPE at their global positions; "full" and "naive" attend over the
+    gathered sequence). Params are plain tensors (whole on every rank) or
+    DTensors (parallel.shard_tree): each rank computes on its shards (see
+    _Shard), gathering the embedding and the head whole. Each leaf's
+    gradient is summed over the batch ranks in the backward, so every rank
+    gets its shard of the global gradient."""
     b, s = tokens.shape
-    emb = params["embed"]["embedding"]
+    if mesh is None:
+        emb = params["embed"]["embedding"]
+        cos, sin = rope_tables(cfg, s, emb.device)
+        layer = _remat_layer(cfg.remat_policy) if cfg.remat and torch.is_grad_enabled() else _layer
+        x = emb[tokens.long()]
+        for i in range(cfg.n_layers):
+            x = layer(x, _layer_params(params, i), cfg, cos, sin)
+        return _norm(x, params["final_norm"]["scale"], cfg), _head(params)
+    rows, start, s_local, batch = _local_shard(mesh, b, s)
+    params, specs = _local_params(params, mesh, batch)
+    shard = _plan(params, specs, cfg, mesh)
+    if mesh_shape(mesh)["seq"] > 1 and cfg.attn_impl in ("full", "naive"):
+        shard = dataclasses.replace(shard, seq_start=start)
+    whole = functools.partial(_gather_dims, mesh=mesh, batch=batch)
+    emb = whole(params["embed"]["embedding"], specs["embed"]["embedding"])
     cos, sin = rope_tables(cfg, s, emb.device)
-    if mesh is not None:
-        rows, start, s_local, group = _local_shard(mesh, b, s)
-        if mesh_shape(mesh)["seq"] > 1 and cfg.attn_impl not in ("ring", "ulysses"):
-            raise ValueError(f"attn_impl={cfg.attn_impl!r} attends within one rank's positions; "
-                             "a sequence split over 'seq' needs 'ring' or 'ulysses'")
-        tokens = tokens[rows, start:start + s_local]
-        cos, sin = cos[start:start + s_local], sin[start:start + s_local]
-        if group is not None and torch.is_grad_enabled():
-            it = iter(_Replicated.apply(group, *tree_leaves(params)))
-            params = map_tree(lambda _: next(it), params)
-            emb = params["embed"]["embedding"]
-    x = emb[tokens.long()]
+    cos, sin = cos[start:start + s_local], sin[start:start + s_local]
+    x = emb[tokens[rows, start:start + s_local].long()]
     layer = _remat_layer(cfg.remat_policy) if cfg.remat and torch.is_grad_enabled() else _layer
     for i in range(cfg.n_layers):
-        x = layer(x, _layer_params(params, i), cfg, cos, sin, mesh)
-    return _norm(x, params["final_norm"]["scale"], cfg), params
+        lp = {g: {k: whole(t[i], PartitionSpec(*specs["blocks"][g][k][1:]), keep=("tensor",))
+                  for k, t in leaves.items()} for g, leaves in params["blocks"].items()}
+        x = layer(x, lp, cfg, cos, sin, shard)
+    head = emb.T if "lm_head" not in params else whole(params["lm_head"], specs["lm_head"])
+    return _norm(x, params["final_norm"]["scale"], cfg), head
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -504,9 +625,9 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None) -> torch.Tensor:
     """tokens [batch, seq] int -> logits [batch, seq, vocab] float32 (with a
-    mesh: this rank's part, see _hidden)."""
-    x, params = _hidden(params, tokens, cfg, mesh)
-    return torch.matmul(x, _head(params)).float()
+    mesh: this rank's rows and positions, every vocab entry; see _hidden)."""
+    x, head = _hidden(params, tokens, cfg, mesh)
+    return torch.matmul(x, head).float()
 
 
 # ------------------------------------------------------------------ train
@@ -538,8 +659,9 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
         m = m * torch.roll(mask, -1, dims=1).float()
     group = None
     if mesh is not None:
-        rows, start, s_local, group = _local_shard(mesh, b, s)
+        rows, start, s_local, batch = _local_shard(mesh, b, s)
         targets, m = (t[rows, start:start + s_local] for t in (targets, m))
+        group = axes_group(mesh, batch) if batch else None
     logits = forward(params, tokens, cfg, mesh)
     m = m.to(device=logits.device, dtype=logits.dtype)
     local = _nll_sum(logits, targets.to(logits.device), m)
@@ -574,10 +696,14 @@ def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
     package's `build_train_step(cfg, tx, mesh, zero_axis=...)`.
 
     Returns `(init_state, step)`:
-      init_state(generator) -> (params, optimizer): params from
-        `init_params` on `device` (CUDA unless the caller passes "cpu"),
-        every leaf requiring grad, and `make_optimizer(leaves)`, e.g.
-        `adamw(1e-4)`; with `zero_axis`, the ZeRO-sharded optimizer of
+      init_state(generator, params=None) -> (params, optimizer): params from
+        `init_params` on `device` (CUDA unless the caller passes "cpu"), on
+        a DeviceMesh `mesh` laid out by `parallel.shard_tree` (DTensors; or
+        the caller's `params`, sharded alike), every leaf requiring grad,
+        and `make_optimizer(shards)`, e.g. `adamw(1e-4)`, over each leaf's
+        local shard (a DTensor's local tensor: AdamW is elementwise, and
+        DTensor's op dispatch on a six-dim mesh costs more than the
+        update); with `zero_axis`, the ZeRO-sharded optimizer of
         train/zero.py (`init_opt_state`) over this rank's shards instead;
       step(params, optimizer, tokens) -> loss: one step on tokens
         [batch, seq]. It updates params and optimizer state IN PLACE and
@@ -591,8 +717,9 @@ def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
     mean over ranks. Without it, `mesh` (a DeviceMesh of
     parallel.build_device_mesh) goes to next_token_loss: every rank passes
     the global batch, computes its part (rows over data x fsdp, positions
-    over seq with attn_impl "ring" or "ulysses"), and gets the global loss
-    and the global gradient, so every rank's update is the same.
+    over seq, heads and d_ff over tensor), and gets the global loss and its
+    shard of the global gradient, so every rank updates its shard as JAX's
+    step updates the sharded params.
     """
     from .._device import resolve_device
 
@@ -619,18 +746,38 @@ def build_train_step(cfg: TransformerConfig, make_optimizer, *, device=None,
 
         return zero_init_state, zero_step
 
-    def init_state(generator: torch.Generator):
-        params = init_leaf_params(generator)
-        return params, make_optimizer(tree_leaves(params))
+    def init_state(generator: torch.Generator, params: Optional[Params] = None):
+        if params is None:
+            params = init_leaf_params(generator)
+            if mesh is not None:
+                from ..parallel.sharding import shard_tree
+
+                params = shard_tree(params, mesh)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        return params, make_optimizer(_shard_storage(params))
 
     def step(params: Params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor):
-        optimizer.zero_grad(set_to_none=True)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.grad = None
         loss = next_token_loss(params, tokens.to(dev), cfg, mesh)
         loss.backward()
+        for t, shard in zip(leaves, _shard_storage(params)):
+            if shard is not t:  # a DTensor: its local gradient on its local tensor
+                shard.grad = local_shard(t.grad)
         optimizer.step()
         return loss.detach()
 
     return init_state, step
+
+
+def _shard_storage(params: Params) -> List[torch.Tensor]:
+    """Each leaf's local tensor (a DTensor's own storage, read outside
+    autograd; a plain tensor itself): what the train step's optimizer
+    updates in place."""
+    with torch.no_grad():
+        return [local_shard(t) for t in tree_leaves(params)]
 
 
 def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
@@ -661,12 +808,14 @@ def forward_pipelined(params: Params, tokens: torch.Tensor, cfg: TransformerConf
     head run on every rank (they are batch-local); each rank runs only its
     stage's layers, and its blocks' gradient is gathered from every stage.
     With cfg.remat each stage recomputes its layers in the backward (JAX's
-    jax.checkpoint of the stage function)."""
+    jax.checkpoint of the stage function).
+
+    As JAX's stage function runs with mesh=None inside a shard_map over the
+    stage dim only, every other dim ("tensor" too) replicates the pipeline:
+    DTensor params are gathered whole first (tp_gather: each rank keeps its
+    shard of the whole gradient)."""
     S = mesh_shape(mesh)[stage_axis]
-    if mesh_shape(mesh)["tensor"] > 1:
-        raise NotImplementedError(
-            "a 'tensor' mesh dim > 1 waits for the next slice of the port (ROADMAP Queue 1 "
-            "item 2)")
+    params = map_tree(lambda t: _gather_dims(local_shard(t), spec_of(t), mesh, ()), params)
     b, s = tokens.shape
     if b % num_microbatches:
         raise ValueError(f"batch {b} not divisible into {num_microbatches} microbatches")

@@ -16,6 +16,24 @@ what `jax.grad` gives that device's shard:
   - all_to_all: all_to_all with split and concat dims swapped;
   - ring_permute by `shift`: ring_permute by -shift;
   - pbroadcast (select + psum): psum of the cotangents, kept on the root.
+`axis` may name several mesh dims, as JAX's axis_name tuples do: the op
+then runs over their group, `mesh.axes_group(mesh, axes)`.
+
+Tensor parallelism (Megatron-LM's pair, Shoeybi et al. 2019) needs
+gradients that the transposes above do not give: over "tensor" the ranks
+hold the same activations and the same loss, not parts of a sum, so a
+replicated value's gradient must come out whole on every rank, not summed
+T times. Four ops keep that convention:
+  - tp_copy before a column-parallel product: identity forward, psum of
+    the (partial) gradients backward;
+  - tp_reduce after a row-parallel product: psum forward, identity
+    backward (with `psum` here the gradient upstream would be T times too
+    large);
+  - tp_gather (all-gather forward, this rank's slice of the whole gradient
+    backward) and tp_split (this rank's slice forward, all-gather backward)
+    move a value between sharded and replicated.
+A bfloat16 or half tensor is summed in float32 and rounded once, as one
+product over the whole contraction would be.
 
 Backends. NCCL takes CUDA tensors. Gloo's point-to-point and all-to-all
 ops read host memory only, so where `dist.get_backend(group)` is "gloo" and
@@ -33,20 +51,26 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from .mesh import axes_group
+
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
+Axes = Union[str, Sequence[str]]
 
 
-def group_of(mesh, axis: str):
-    """The process group of `mesh`'s dim `axis`; the default group without a
+def group_of(mesh, axis: Axes):
+    """The process group of `mesh`'s dim `axis` (or of several dims: the
+    ranks that share every other coordinate); the default group without a
     mesh."""
-    return dist.group.WORLD if mesh is None else mesh.get_group(axis)
+    if mesh is None:
+        return dist.group.WORLD
+    return axes_group(mesh, axis)
 
 
-def axis_size(mesh, axis: str) -> int:
+def axis_size(mesh, axis: Axes) -> int:
     return dist.get_world_size(group_of(mesh, axis))
 
 
-def axis_index(mesh, axis: str) -> int:
+def axis_index(mesh, axis: Axes) -> int:
     """This rank's coordinate along `axis` (lax.axis_index)."""
     return dist.get_rank(group_of(mesh, axis))
 
@@ -224,14 +248,84 @@ class _RingPermute(torch.autograd.Function):
         return (None, None, *_ring_permute(gs, ctx.group, -ctx.shift))
 
 
+def _sum(x, group):
+    """_all_reduce in float32 for a 16-bit x, rounded once."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _all_reduce(x.float(), group).to(x.dtype)
+    return _all_reduce(x, group)
+
+
+def _own(x, group, dim: int):
+    """This rank's chunk of x along dim."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous()
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.group, ctx.dim), None, None
+
+
+class _TPSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, *leaves):
+        ctx.groups = groups
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(g if group is None or g is None else _all_reduce(g, group)
+                        for g, group in zip(grads, ctx.groups)))
+
+
 # ------------------------------------------------------------------ API
 
 
-def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def psum(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
     return _PSum.apply(x, group_of(mesh, axis))
 
 
-def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def pmean(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
     return psum(x, mesh, axis) / axis_size(mesh, axis)
 
 
@@ -270,6 +364,41 @@ def ring_permute(x: Tensors, mesh, axis: str, *, shift: int = 1):
     return out[0] if isinstance(x, torch.Tensor) else tuple(out)
 
 
+def tp_copy(x: torch.Tensor, mesh, axis: Axes = "tensor") -> torch.Tensor:
+    """x as it is; the backward sums x's gradient over `axis` (the input of
+    a column-parallel product, whose gradient each rank holds a part of)."""
+    return _TPCopy.apply(x, group_of(mesh, axis))
+
+
+def tp_reduce(x: torch.Tensor, mesh, axis: Axes = "tensor") -> torch.Tensor:
+    """The sum of x over `axis` (a row-parallel product's partial outputs);
+    the backward passes the gradient through, as every rank already holds
+    all of it."""
+    return _TPReduce.apply(x, group_of(mesh, axis))
+
+
+def tp_gather(x: torch.Tensor, mesh, axis: Axes = "tensor", *, dim: int = -1) -> torch.Tensor:
+    """Every rank's x concatenated along dim in rank order; the backward
+    keeps this rank's slice of the (whole, equal on every rank) gradient."""
+    return _TPGather.apply(x, group_of(mesh, axis), dim % x.dim())
+
+
+def tp_split(x: torch.Tensor, mesh, axis: Axes = "tensor", *, dim: int = -1) -> torch.Tensor:
+    """This rank's chunk of x (equal on every rank) along dim; the backward
+    gathers every rank's chunk gradient into the whole."""
+    return _TPSplit.apply(x, group_of(mesh, axis), dim % x.dim())
+
+
+def grad_sum(leaves: Sequence[torch.Tensor], groups: Sequence) -> Tuple[torch.Tensor, ...]:
+    """The leaves as they are; the backward sums each one's gradient over
+    its group (None: no sum). A model passes its params' local shards
+    through one such node, so every rank's shard gets the gradient of the
+    global loss from the ranks that hold other parts of the batch: one node
+    for all leaves runs once, after the rest of the backward, on every rank
+    alike."""
+    return _GradSum.apply(tuple(groups), *leaves)
+
+
 def one_hot_rank(mesh, axis: str, n: Optional[int] = None,
                  dtype=torch.float32, device=None) -> torch.Tensor:
     """This rank's one-hot row over `axis`'s n ranks."""
@@ -286,6 +415,7 @@ def pbroadcast(x: torch.Tensor, mesh, axis: str, root: int = 0) -> torch.Tensor:
     return psum(torch.where(is_root, x, torch.zeros_like(x)), mesh, axis)
 
 
-__all__ = ["all_gather", "all_to_all", "axis_index", "axis_size", "group_of", "one_hot_rank",
-           "pbroadcast",
-           "pmax", "pmean", "psum", "reduce_scatter", "ring_permute"]
+__all__ = ["all_gather", "all_to_all", "axis_index", "axis_size", "grad_sum", "group_of",
+           "one_hot_rank",
+           "pbroadcast", "pmax", "pmean", "psum", "reduce_scatter", "ring_permute", "tp_copy",
+           "tp_gather", "tp_reduce", "tp_split"]

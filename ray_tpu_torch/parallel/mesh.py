@@ -25,13 +25,21 @@ the sharding rules, sequence and pipeline parallelism and ZeRO
 (train/zero.py) run over. Where JAX's mesh holds every device of one SPMD
 program, each rank of the port runs its own program and holds one
 coordinate of the mesh.
+
+A collective over several dims at once (JAX's psum over a tuple of axis
+names: the gradient sum over ("data", "fsdp", "seq"), the MoE's token
+groups) runs over `axes_group(mesh, axes)`: the ranks that share this
+rank's coordinate on every other dim. `dist.new_group` must be called by
+every rank, in the same order, for every group, so `build_device_mesh`
+makes all of them up front, never lazily from a branch some ranks skip.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -145,18 +153,74 @@ def build_device_mesh(spec: Optional[MeshSpec] = None, *,
     must be initialised, e.g. by train.setup_torch_distributed), shaped by
     `spec` (MeshSpec().resolve: "data" absorbs the world) or `axis_sizes`
     (axes not named are 1), with dims named AXIS_ORDER. Rank r sits at the
-    row-major coordinate r, so "tensor" neighbours are adjacent ranks. Its
-    device type is "cuda" under NCCL, else "cpu" (gloo; the port's
-    collectives stage CUDA tensors through host memory there)."""
+    row-major coordinate r, so "tensor" neighbours are adjacent ranks.
+
+    Its device type is "cuda" under NCCL, and under gloo where the process
+    has a card (ranks sharing one GPU: DTensors keep their shards on it,
+    and the port's collectives stage them through host memory); "cpu"
+    otherwise. It also makes every group over several of its dims
+    (`axes_group`), on every rank in one order."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError("build_device_mesh needs an initialised process group "
                            "(train.setup_torch_distributed)")
     sizes = _axis_sizes(axis_sizes, spec, dist.get_world_size())
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(sizes[a] for a in AXIS_ORDER),
+    cuda = dist.get_backend() == "nccl" or torch.cuda.is_available()
+    mesh = init_device_mesh("cuda" if cuda else "cpu", tuple(sizes[a] for a in AXIS_ORDER),
                             mesh_dim_names=AXIS_ORDER)
+    mesh._axes_groups = _make_axes_groups(mesh)
+    return mesh
+
+
+def _split_axes(mesh, axes: Sequence[str]) -> tuple:
+    """The dims of `axes` larger than 1, in AXIS_ORDER."""
+    sizes = mesh_shape(mesh)
+    unknown = set(axes) - set(sizes)
+    if unknown:
+        raise ValueError(f"mesh has no axis {sorted(unknown)}; axes: {tuple(sizes)}")
+    return tuple(a for a in AXIS_ORDER if a in axes and sizes[a] > 1)
+
+
+def _make_axes_groups(mesh) -> Dict[tuple, object]:
+    """This rank's group for every set of two or more dims larger than 1 that
+    leaves out another such dim (the set of all of them is the world).
+    Every rank creates every group, in the order of itertools.combinations
+    over AXIS_ORDER, as dist.new_group requires."""
+    split = _split_axes(mesh, AXIS_ORDER)
+    ranks = mesh.mesh  # [*sizes] global ranks, row-major
+    me = dist.get_rank()
+    groups = {}
+    for k in range(2, len(split)):
+        for axes in itertools.combinations(split, k):
+            inner = [AXIS_ORDER.index(a) for a in axes]
+            outer = [i for i in range(len(AXIS_ORDER)) if i not in inner]
+            rows = ranks.permute(outer + inner).reshape(-1, math.prod(ranks.shape[i]
+                                                                       for i in inner))
+            for row in rows.tolist():
+                group = dist.new_group(row)
+                if me in row:
+                    groups[axes] = group
+    return groups
+
+
+def axes_group(mesh, axes: Union[str, Sequence[str]]):
+    """The process group of the ranks that share this rank's coordinate on
+    every dim of `mesh` but `axes` (one name or several): what a collective
+    over those dims runs on. Its rank order is row-major over `axes` in
+    AXIS_ORDER. A single dim larger than 1 is the DeviceMesh's own group;
+    dims all of size 1 give the group of the first (this rank alone)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    split = _split_axes(mesh, axes)
+    if len(split) <= 1:
+        return mesh.get_group(split[0] if split else axes[0])
+    if split == _split_axes(mesh, AXIS_ORDER):
+        return dist.group.WORLD
+    groups = getattr(mesh, "_axes_groups", None)
+    if groups is None:
+        raise ValueError("a group over several mesh dims needs a mesh from build_device_mesh, "
+                         "which makes those groups on every rank")
+    return groups[split]
 
 
 def single_device_mesh():

@@ -94,10 +94,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
     Where the JAX function takes the global [batch, seq, heads, head_dim]
     arrays and runs the ring under shard_map, each rank here passes ITS
     shard, [b, seq / n, h, d] (positions rank * seq / n onwards; k/v may
-    have fewer heads, GQA), and gets its shard of the output."""
-    if mesh_shape(mesh).get("tensor", 1) > 1:
-        raise NotImplementedError("ring attention with heads over a 'tensor' dim waits for "
-                                  "the tensor-parallel slice (ROADMAP item 2)")
+    have fewer heads, GQA), and gets its shard of the output. With heads
+    over "tensor" (batch_seq_spec) each rank passes its head group and runs
+    the ring over the "seq" group of that head group: the ranks that share
+    its "tensor" coordinate."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _ring_attention_shard(q, k, v, mesh, axis=axis, causal=causal, scale=scale)
 

@@ -4,17 +4,26 @@ ray_tpu/parallel/sharding.py.
 
 The rules and the clamp are the JAX package's. `tree_shardings` turns them
 into each leaf's DTensor placements (JAX: NamedShardings), `shard_tree`
-places a tree with `distribute_tensor` (JAX: device_put), and `shard_batch`
-assembles each rank's shard of a batch into a global DTensor
+places a tree as DTensors (JAX: device_put), and `shard_batch` assembles
+each rank's shard of a batch into a global DTensor
 (`DTensor.from_local`; JAX: make_array_from_process_local_data).
+
+The model code reads a leaf back with `local_shard` (this rank's tensor,
+differentiable: its gradient becomes the DTensor's, with the leaf's
+placements) and `spec_of` (the PartitionSpec its placements stand for); a
+plain tensor reads as replicated. Rule sets compose by concatenation, the
+first match winning: `models.moe.EXPERT_RULES + TRANSFORMER_RULES` for a
+tree that holds both (its MoE leaves under a "moe" key).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
-from .mesh import PartitionSpec, mesh_shape, placements
+import torch
+
+from .mesh import PartitionSpec, axes_group, mesh_shape, placements
 
 PyTree = Any
 Rules = Sequence[Tuple[str, PartitionSpec]]
@@ -93,13 +102,86 @@ def tree_shardings(tree: PyTree, mesh, rules: Rules = TRANSFORMER_RULES) -> PyTr
         lambda path, leaf: placements(mesh, _leaf_spec(path, leaf, mesh, rules)), tree)
 
 
+def dim_axes(spec: PartitionSpec, ndim: int) -> List[tuple]:
+    """The mesh axes that split each of a tensor's ndim dims, as tuples."""
+    out = []
+    for d in range(ndim):
+        entry = spec[d] if d < len(spec) else None
+        out.append(() if entry is None else entry if isinstance(entry, tuple) else (entry,))
+    return out
+
+
+def shard_slices(shape: Tuple[int, ...], spec: PartitionSpec, mesh) -> Tuple[slice, ...]:
+    """This rank's slice of each dim of a tensor of `shape` laid out as
+    `spec` on `mesh` (DTensor's even chunks; a dim split over several axes
+    is split by the first, each part by the next)."""
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    out = []
+    for n, axes in zip(shape, dim_axes(spec, len(shape))):
+        start, length = 0, n
+        for a in axes:
+            if length % sizes[a]:
+                raise ValueError(f"dim of {n} does not split over {axes} on {sizes}")
+            length //= sizes[a]
+            start += coord[a] * length
+        out.append(slice(start, start + length))
+    return tuple(out)
+
+
 def shard_tree(tree: PyTree, mesh, rules: Rules = TRANSFORMER_RULES) -> PyTree:
     """Every leaf as a DTensor with its rule-derived placements: each rank
-    passes the whole (equal) tensor and keeps its shard."""
-    from torch.distributed.tensor import distribute_tensor
+    passes the whole (equal) tensor and keeps its shard, with no transfer
+    (as distribute_tensor(..., src_data_rank=None))."""
+    from torch.distributed.tensor import DTensor
 
-    return _map_with_path(lambda path, leaf: distribute_tensor(
-        leaf, mesh, list(placements(mesh, _leaf_spec(path, leaf, mesh, rules)))), tree)
+    def one(path, leaf):
+        spec = _leaf_spec(path, leaf, mesh, rules)
+        local = leaf.detach()[shard_slices(tuple(leaf.shape), spec, mesh)].clone()
+        out = DTensor.from_local(local, mesh, list(placements(mesh, spec)), run_check=False,
+                                 shape=leaf.shape, stride=leaf.contiguous().stride())
+        return out.requires_grad_(leaf.requires_grad)
+
+    return _map_with_path(one, tree)
+
+
+def spec_of(leaf) -> PartitionSpec:
+    """The PartitionSpec a DTensor's placements stand for (a plain tensor:
+    replicated). An entry is one axis name, or a tuple where several mesh
+    dims split one tensor dim."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(leaf, DTensor):
+        return PartitionSpec()
+    entries: List[list] = [[] for _ in range(leaf.ndim)]
+    for name, p in zip(leaf.device_mesh.mesh_dim_names, leaf.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(name)
+        elif not p.is_replicate():
+            raise ValueError(f"placement {p} of a param on {name!r} is neither Shard nor "
+                             "Replicate")
+    out = [None if not e else e[0] if len(e) == 1 else tuple(e) for e in entries]
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def local_shard(leaf) -> torch.Tensor:
+    """This rank's tensor of a leaf: a DTensor's local shard (to_local, so
+    its gradient lands on the DTensor with the leaf's placements), or a
+    plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.to_local() if isinstance(leaf, DTensor) else leaf
+
+
+def grad_group(mesh, spec: PartitionSpec, batch: Sequence[str]):
+    """The group a leaf's gradient is summed over (collectives.grad_sum):
+    the dims of `batch` (those whose ranks hold other parts of the batch)
+    that the leaf is not split over; None where that is none."""
+    split = {a for axes in dim_axes(spec, len(spec)) for a in axes}
+    rest = tuple(a for a in batch if a not in split)
+    return axes_group(mesh, rest) if rest else None
 
 
 def replicated(mesh) -> tuple:
@@ -156,5 +238,5 @@ def shard_batch(batch: PyTree, mesh, *, seq: bool = False) -> PyTree:
 
 
 __all__ = ["BATCH_SEQ_SPEC", "BATCH_SPEC", "PartitionSpec", "TRANSFORMER_RULES", "batch_sharding",
-           "replicate_tree", "replicated", "shard_batch", "shard_tree", "spec_for_path", "tree_shardings",
-           "tree_specs"]
+           "dim_axes", "grad_group", "local_shard", "replicate_tree", "replicated", "shard_batch",
+           "shard_slices", "shard_tree", "spec_for_path", "spec_of", "tree_shardings", "tree_specs"]

@@ -14,7 +14,6 @@ import torch
 
 from ..ops.flash_attention import flash_attention
 from .collectives import all_to_all, axis_size
-from .mesh import mesh_shape
 
 
 def _ulysses_shard(q, k, v, mesh, *, axis: str, causal: bool, scale: Optional[float]):
@@ -37,15 +36,14 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *
     Needs num_heads % n == 0 (and the same of k/v's heads). Where the JAX
     function takes the global [batch, seq, heads, head_dim] arrays, each
     rank here passes ITS sequence shard [b, seq / n, h, d] and gets its
-    shard of the output."""
+    shard of the output. With heads over "tensor" each rank passes its
+    head group (num_heads here is that group's) and the all-to-alls run
+    over the "seq" group of that head group."""
     n = axis_size(mesh, axis)
     if q.shape[2] % n:
         raise ValueError(f"num_heads={q.shape[2]} not divisible by {axis} ranks {n}")
     if k.shape[2] % n:
         raise ValueError(f"num_kv_heads={k.shape[2]} not divisible by {axis} ranks {n}")
-    if mesh_shape(mesh).get("tensor", 1) > 1:
-        raise NotImplementedError("Ulysses with heads over a 'tensor' dim waits for the "
-                                  "tensor-parallel slice (ROADMAP item 2)")
     return _ulysses_shard(q, k, v, mesh, axis=axis, causal=causal, scale=scale)
 
 

@@ -161,10 +161,22 @@ def test_data_and_sequence_parallel_train_step_matches_jax(world):
 
 
 def test_tensor_dim_is_refused(world):
-    """A "tensor" dim > 1 (heads over "tensor", params as DTensors) waits for
-    the next slice: forward and forward_pipelined raise, naming it."""
-    _, np_params, tokens = _setup(3, s=16)
-    outs = world.run("tensor_dim_refused", _inputs({}, np_params, tokens, stage=2, tensor=2))
-    for out in outs:
-        for name in ("forward", "forward_pipelined"):
-            assert "next slice" in str(out[name]), (name, str(out[name]))
+    """Once refused, now a parity case: on stage=2 x tensor=2, forward (the
+    tensor split of plain params: every rank whole, rows and heads
+    replicated) and forward_pipelined (the stages replicated over "tensor",
+    as JAX's stage function runs with mesh=None under a shard_map over
+    "stage" only): logits, loss and every leaf's gradient against JAX's."""
+    jcfg, np_params, tokens = _setup(3, s=16, b=4)
+    mesh = _jmesh(stage=2, tensor=2)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    for pipelined, fwd, loss_fn in ((False, jtfm.forward, jtfm.next_token_loss),
+                                    (True, jtfm.forward_pipelined,
+                                     jtfm.next_token_loss_pipelined)):
+        jlogits = np.asarray(_jit(fwd, jcfg, mesh)(jparams, jnp.asarray(tokens)))
+        jloss, jgrads = _jit(jax.value_and_grad(loss_fn), jcfg, mesh)(jparams,
+                                                                     jnp.asarray(tokens))
+        outs = world.run("model_loss", {**_inputs({}, np_params, tokens, stage=2, tensor=2),
+                                        "pipelined": np.bool_(pipelined)})
+        for out in outs:
+            np.testing.assert_allclose(out["logits"], jlogits, rtol=0, atol=LOGIT_TOL)
+        _check_loss_and_grads(outs, jloss, jgrads)

@@ -222,36 +222,93 @@ def train_steps(rank, world, data, out):
     mesh = _mesh(data)
     cfg, start = _model(data)
     init, step = tfm.build_train_step(cfg, tfm.adamw(float(data["lr"])), device="cpu", mesh=mesh)
+    # init_state lays params out by shard_tree: replicated on this mesh
     params, opt = init(torch.Generator().manual_seed(0))
     with torch.no_grad():
         for t, src in zip(flatten(params)[1], flatten(start)[1]):
-            t.copy_(src)
+            par.sharding.local_shard(t).copy_(src)
     tokens = _t(data, "tokens")
     losses = [float(step(params, opt, tokens))]
     # the step leaves each leaf's gradient in .grad until the next step
-    put_tree(out, "grads", tfm.map_tree(lambda t: t.grad, params))
+    _put_local(out, "grads", tfm.map_tree(lambda t: t.grad, params))
     losses += [float(step(params, opt, tokens)) for _ in range(2)]
     out["losses"] = np.array(losses)
-    put_tree(out, "params", params)
+    _put_local(out, "params", params)
 
 
-def tensor_dim_refused(rank, world, data, out):
-    """forward and forward_pipelined on a mesh with "tensor" = 2: the message
-    of the NotImplementedError each raises."""
+def _put_local(out, prefix, tree):
+    """Each leaf's local shard (a DTensor's to_local, a tensor itself)."""
+    put_tree(out, prefix, tfm.map_tree(par.sharding.local_shard, tree))
+
+
+def tp_model(rank, world, data, out):
+    """The model on params laid out by shard_tree on the given mesh: this
+    rank's logits, the loss and every leaf's gradient shard; whether each
+    gradient has its param's placements."""
     mesh = _mesh(data)
     cfg, params = _model(data)
-    for name, fn in (("forward", tfm.forward), ("forward_pipelined", tfm.forward_pipelined)):
-        try:
-            fn(params, _t(data, "tokens"), cfg, mesh)
-            out[name] = np.array("")
-        except NotImplementedError as e:
-            out[name] = np.array(str(e))
+    params = par.shard_tree(params, mesh)
+    tokens = _t(data, "tokens")
+    with torch.no_grad():
+        out["logits"] = tfm.forward(params, tokens, cfg, mesh).numpy()
+    loss = tfm.next_token_loss(params, tokens, cfg, mesh)
+    loss.backward()
+    out["loss"] = np.float64(loss.item())
+    _put_local(out, "grads", tfm.map_tree(lambda t: t.grad, params))
+    _put_local(out, "local", params)
+    out["same_placements"] = np.bool_(all(
+        t.grad.placements == t.placements for t in tfm.tree_leaves(params)))
+
+
+def tp_train_steps(rank, world, data, out):
+    """build_train_step with the mesh on the caller's sharded params: 3 AdamW
+    steps' losses, the first step's gradient shards and the param shards
+    after."""
+    mesh = _mesh(data)
+    cfg, start = _model(data)
+    init, step = tfm.build_train_step(cfg, tfm.adamw(float(data["lr"])), device="cpu", mesh=mesh)
+    params, opt = init(torch.Generator().manual_seed(0), params=par.shard_tree(start, mesh))
+    tokens = _t(data, "tokens")
+    losses = [float(step(params, opt, tokens))]
+    _put_local(out, "grads", tfm.map_tree(lambda t: t.grad, params))
+    losses += [float(step(params, opt, tokens)) for _ in range(2)]
+    out["losses"] = np.array(losses)
+    _put_local(out, "params", params)
+
+
+def moe_case(rank, world, data, out):
+    """moe_apply on this rank's token block with params laid out by
+    EXPERT_RULES (under a "moe" key, the rules composed with the
+    transformer's): y, the aux loss, and the gradients of sum(y * w) + aux
+    for x and each param shard."""
+    from ray_tpu_torch.models import moe
+
+    mesh = _mesh(data)
+    cfg = moe.MoEConfig(**json.loads(str(data["cfg"])))
+    rules = moe.EXPERT_RULES + par.TRANSFORMER_RULES
+    params = par.shard_tree({"moe": load_tree(data, "params")}, mesh, rules)["moe"]
+    for t in params.values():
+        t.requires_grad_()
+    sizes = par.mesh_shape(mesh)
+    axes = tuple(a for a in moe.TOKEN_AXES if sizes[a] > 1)
+    g, n = (col.axis_index(mesh, axes), col.axis_size(mesh, axes)) if axes else (0, 1)
+    x, w = (_t(data, k) for k in ("x", "w"))
+    rows = slice(g * x.shape[0] // n, (g + 1) * x.shape[0] // n)
+    x = x[rows].clone().requires_grad_()
+    capacity = int(data["capacity"]) if "capacity" in data.files else None
+    y, aux = moe.moe_apply(params, x, cfg, capacity=capacity, mesh=mesh)
+    ((y * w[rows]).sum() + aux).backward()
+    out["y"], out["aux"], out["dx"] = y.detach().numpy(), np.float64(aux.item()), x.grad.numpy()
+    out["rows"] = np.array([rows.start, rows.stop])
+    _put_local(out, "grads", {k: t.grad for k, t in params.items()})
+    out["same_placements"] = np.bool_(all(
+        t.grad.placements == t.placements for t in params.values()))
 
 
 SCENARIOS = {f.__name__: f for f in (mesh_cases, collective_grads, shard_params,
                                      shard_batch_case, seq_attention, pipeline_forward,
-                                     pipeline_grad, model_loss, train_steps,
-                                     tensor_dim_refused)}
+                                     pipeline_grad, model_loss, train_steps, tp_model,
+                                     tp_train_steps, moe_case)}
 
 
 def main():
