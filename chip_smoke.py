@@ -82,12 +82,29 @@ Phases, each printing its own line, any failure exits non-zero:
      MoE at Switch-Base's expert width (768 / 3072, 128 experts, capacity
      factor 1.25, 8192 tokens) over expert=4 against the unsplit layer:
      y, x's gradient, the aux loss and every param's gradient shard, with
-     the tokens dropped; peak memory per rank.
+     the tokens dropped; peak memory per rank;
+  15. cluster: the cluster runtime (init() with no arguments: a GCS, a
+     raylet and worker processes): (a) cluster_resources()["GPU"] from the
+     GPU manager; a num_gpus=1 task sees CUDA_VISIBLE_DEVICES="0" and the
+     card; two num_gpus=0.5 tasks held at once by a barrier actor share
+     device 0; a bf16 4096 x 11008 CUDA tensor through put, get and a GPU
+     task and back, bitwise, twice (GB/s); flash_attention at the serve
+     shape in an actor's process against its plain version; no-op tasks and
+     calls to one actor per second; (b) TorchTrainer with one worker process
+     over NCCL, the fit phase's model, 4 steps: losses and params_sha256
+     bitwise equal to the in-process trainer's and build_train_step's,
+     launches 8 / 8 / 8 in the worker, step p50 beside the in-process
+     trainer's; (c) two worker processes sharing the card over gloo,
+     MeshSpec(data=2), fp32: 3 AdamW steps against one process (first loss
+     1e-6, trajectory 1e-5, every leaf 1e-5 of its norm), then ZeRO-1 over
+     "data" against the plain two-rank run; no process and no
+     /dev/shm/rtpt_* pool left after shutdown.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
-tune and parallel phases' model paths (ring, ulysses, pipeline, the TP
-meshes and TP x SP) under "launches_by_path"), and the device line last.
+tune, parallel and cluster phases' model paths (ring, ulysses, pipeline, the
+TP meshes and TP x SP; the cluster's actor, NCCL trainer worker and gloo
+ranks) under "launches_by_path"), and the device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -2511,6 +2528,495 @@ def phase_parallel():
     return by_path
 
 
+# ------------------------------------------------------------------ cluster
+
+CLUSTER_TENSOR = (4096, 11008)  # Llama-2-7B's w_up
+CLUSTER_SERVE_SHAPE = (1, 1024, 32, 128)  # b, s, heads, head_dim: the serve phase's
+CLUSTER_STEPS = 4
+CLUSTER_DATA_STEPS = 3
+CLUSTER_HOST_CALLS = 1000
+CLUSTER_TIMEOUT_S = 300
+
+
+def _cluster_gpu_task():
+    """What a num_gpus=1 task sees from inside its worker process."""
+    import torch
+
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.device_count(),
+            torch.cuda.get_device_name(0), os.getpid())
+
+
+class _Barrier:
+    """Releases its callers once `n` have arrived (max_concurrency >= n)."""
+
+    def __init__(self, n: int):
+        import threading
+
+        self.n, self.count, self.cv = n, 0, threading.Condition()
+
+    def arrive(self) -> bool:
+        with self.cv:
+            self.count += 1
+            self.cv.notify_all()
+            return self.cv.wait_for(lambda: self.count >= self.n, timeout=120)
+
+
+def _cluster_half_gpu_task(barrier):
+    """A num_gpus=0.5 task: meets the other one at the barrier, so both hold
+    their share at once; returns the device ids it sees."""
+    import ray_tpu_torch as rt
+
+    met = rt.get(barrier.arrive.remote(), timeout=150)
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), met, os.getpid()
+
+
+def _cluster_echo(x):
+    """Returns the tensor it was given, with where it arrived."""
+    return x, str(x.device), str(x.dtype)
+
+
+def _cluster_noop():
+    return None
+
+
+class _FlashActor:
+    """An actor in a worker process that runs flash_attention at the serve
+    shape and holds K1 against its plain version."""
+
+    def ping(self):
+        return None
+
+    def check(self, shape):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        b, s, h, d = shape
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        _zero_launch_counts()
+        o = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=d ** -0.5)
+        return {"err": entry_err(o, o_ref), "max_abs": (o.float() - o_ref.float()).abs().max().item(),
+                "launches": launches, "pid": os.getpid(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _cluster_loop(config):
+    """Part (b)'s loop: the fit phase's model and batches, deterministic, on
+    this worker's current CUDA device; one report per step, then a last one
+    with the losses, report times, params_sha256 and kernel launches."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.use_deterministic_algorithms(True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = _fit_cfg()
+    init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device)
+    params, opt = init(torch.Generator(device=device).manual_seed(0))
+    _zero_launch_counts()
+    losses, times = [], []
+    for i in range(config["steps"]):
+        loss = step(params, opt, _fit_batch(i, cfg.vocab_size)).item()
+        losses.append(loss)
+        times.append(time.perf_counter())
+        train.report({"step": i, "loss": loss})
+    train.report({"step": config["steps"], "losses": losses, "report_t": times,
+                  "launches": _launch_counts(), "params_sha256": _params_sha256(params),
+                  "pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                  "backend": (torch.distributed.get_backend()
+                              if torch.distributed.is_initialized() else None)})
+
+
+def _cluster_data_cfg():
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    return tfm.llama2_7b(n_layers=2, dtype=torch.float32, remat_policy="hot")
+
+
+def _cluster_data_batch(step: int, vocab: int):
+    """Step i's global batch of part (c): 2 rows, seeded 2i and 2i + 1."""
+    import torch
+
+    return torch.cat([_fit_batch(2 * step + r, vocab) for r in range(2)])
+
+
+def _host_leaves(params):
+    """Every leaf's local tensor (the whole leaf under a data-only mesh),
+    copied to the host, in convert.flatten's order."""
+    from ray_tpu_torch.models.convert import flatten
+    from ray_tpu_torch.parallel.sharding import local_shard
+
+    return [local_shard(t).detach().cpu() for t in flatten(params)[1]]
+
+
+def _leaf_rel_diffs(got, want):
+    """||got - want|| / ||want|| for each leaf."""
+    return [((g.double() - w.double()).norm() / w.double().norm().clamp_min(1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def _cluster_data_loop(config):
+    """Part (c)'s loop, one rank of a gloo world sharing the card: fp32 with
+    TF32 off, deterministic; 3 AdamW steps of the plain data-parallel step on
+    the global batch, then 3 of ZeRO-1 over "data" on this rank's row from
+    the same init. Rank 0 saves the plain run's final params to
+    config["out"]. Reports losses, launches, peak memory, and how far the
+    ZeRO run's params are from the plain run's."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = train.get_mesh()
+    rank = train.get_context().get_world_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = _cluster_data_cfg()
+    out = {"rank": rank, "pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "backend": torch.distributed.get_backend(), "mesh": str(mesh)}
+    leaves = {}
+    for mode in ("plain", "zero"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        kw = {"zero_axis": "data"} if mode == "zero" else {}
+        init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device,
+                                          mesh=mesh, **kw)
+        params, opt = init(torch.Generator(device=device).manual_seed(0))
+        _zero_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(config["steps"]):
+            batch = _cluster_data_batch(i, cfg.vocab_size)
+            losses.append(step(params, opt, batch[rank:rank + 1] if mode == "zero" else batch)
+                          .item())
+        out[mode] = {"losses": losses, "launches": _launch_counts(),
+                     "s": time.perf_counter() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+        leaves[mode] = _host_leaves(params)
+        del params, opt, init, step
+    if rank == 0:
+        torch.save(leaves["plain"], config["out"])
+    diffs = _leaf_rel_diffs(leaves["zero"], leaves["plain"])
+    worst = max(range(len(diffs)), key=diffs.__getitem__)
+    out["zero_bitwise"] = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                              for a, b in zip(leaves["zero"], leaves["plain"]))
+    out["zero_worst"] = (worst, diffs[worst])
+    train.report(out)
+
+
+def _cluster_reference_data():
+    """Part (c)'s reference: one fp32 process (this one) on the same global
+    batches: losses and final params on the host."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = _cluster_data_cfg()
+        init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
+        params, opt = init(torch.Generator(device="cuda").manual_seed(0))
+        losses = [step(params, opt, _cluster_data_batch(i, cfg.vocab_size)).item()
+                  for i in range(CLUSTER_DATA_STEPS)]
+        leaves = _host_leaves(params)
+        del params, opt
+        torch.cuda.empty_cache()
+        return losses, leaves
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def _report_p50(metrics) -> float:
+    import statistics
+
+    t = metrics["report_t"]
+    return statistics.median((t[i] - t[i - 1]) * 1e3 for i in range(1, len(t)))
+
+
+def _cluster_processes(session_dir):
+    """pids of the processes of one cluster: its GCS, raylets and workers,
+    each of which names a socket in the session dir on its command line."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if "ray_tpu_torch.core." in cmd and session_dir in cmd:
+            out.append(int(pid))
+    return out
+
+
+def phase_cluster():
+    """The cluster runtime on the card (init() with no arguments: a GCS, a
+    raylet and worker processes). (a) the GPU manager's resources, a
+    num_gpus=1 task's CUDA_VISIBLE_DEVICES and device name, two num_gpus=0.5
+    tasks held at once by a barrier actor on one device id, a bf16 CUDA
+    tensor of Llama-2-7B's w_up shape through put, a GPU task and get
+    (bitwise), flash_attention at the serve shape in an actor's process
+    against its plain version, and host rates of no-op tasks and actor
+    calls; (b) TorchTrainer with one worker process over NCCL, the fit
+    phase's model, 4 steps, bitwise equal to the in-process TorchTrainer and
+    to build_train_step driven directly, K1/K2/K3 8 / 8 / 8 in the worker;
+    (c) two worker processes sharing the card over gloo, MeshSpec(data=2),
+    fp32, 3 AdamW steps against one fp32 process, then ZeRO-1 over "data"
+    against the plain two-rank run. Every process of the cluster and every
+    /dev/shm/rtpt_* file must be gone after its shutdown. Returns the
+    launches of each path."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchBackendConfig,
+                                     TorchTrainer)
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    name = torch.cuda.get_device_name(0)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    launches = {}
+    try:
+        # References, in this process: build_train_step driven directly and
+        # the in-process TorchTrainer (part b), and one fp32 process (part c).
+        cfg = {"lr": 1e-4, "steps": CLUSTER_STEPS}
+        with _deterministic():
+            direct_losses, direct_ms, direct_sha = _direct_run(1e-4, CLUSTER_STEPS)
+            rt.init(local_mode=True)
+            try:
+                local = TorchTrainer(
+                    _cluster_loop, train_loop_config=cfg,
+                    scaling_config=ScalingConfig(num_workers=1, resources_per_worker={"GPU": 1}),
+                    run_config=RunConfig(name="cluster_local", storage_path=tmp)).fit()
+            finally:
+                rt.shutdown()
+            ref_losses, ref_leaves = _cluster_reference_data()
+        if local.error is not None:
+            _fail(f"cluster: the in-process trainer failed: {local.error!r}")
+        torch.cuda.empty_cache()
+
+        # Workers inherit the driver's environment: cuBLAS's workspace
+        # setting makes their deterministic algorithms usable.
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        t0 = time.perf_counter()
+        rt.init()
+        boot_s = time.perf_counter() - t0
+        session_dir = current_runtime()._cluster.session_dir
+        # This cluster's pools and its driver's lock file.
+        ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+        try:
+            res = rt.cluster_resources()
+            print(f"[cluster] {smi}: init() {boot_s:.2f} s, cluster_resources {res}", flush=True)
+            if res.get("GPU") != 1.0:
+                _fail(f"cluster: cluster_resources()['GPU'] is {res.get('GPU')}, want 1.0")
+
+            # (a) device leases
+            gpu_task = rt.remote(num_gpus=1)(_cluster_gpu_task)
+            t0 = time.perf_counter()
+            visible, count, dev_name, pid = rt.get(gpu_task.remote(), timeout=CLUSTER_TIMEOUT_S)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rt.get(gpu_task.remote(), timeout=CLUSTER_TIMEOUT_S)
+            again_s = time.perf_counter() - t0
+            print(f"[cluster] (a) num_gpus=1 task in pid {pid} (driver {os.getpid()}): "
+                  f"CUDA_VISIBLE_DEVICES={visible!r}, {count} device(s), {dev_name}; "
+                  f"{first_s:.2f} s on a new worker (its boot, torch's import, a CUDA "
+                  f"context), {again_s * 1e3:.1f} ms again", flush=True)
+            if visible != "0" or count != 1 or dev_name != name or pid == os.getpid():
+                _fail("cluster: the num_gpus=1 task does not see exactly device 0")
+            barrier = rt.remote(max_concurrency=2)(_Barrier).remote(2)
+            half = rt.remote(num_gpus=0.5)(_cluster_half_gpu_task)
+            t0 = time.perf_counter()
+            halves = rt.get([half.remote(barrier), half.remote(barrier)],
+                            timeout=CLUSTER_TIMEOUT_S)
+            print(f"[cluster] (a) two num_gpus=0.5 tasks held together by a barrier actor: "
+                  f"{halves} in {time.perf_counter() - t0:.2f} s", flush=True)
+            if [h[:2] for h in halves] != [("0", True), ("0", True)] \
+                    or halves[0][2] == halves[1][2]:
+                _fail("cluster: the two half-GPU tasks did not share device 0 at once")
+            rt.kill(barrier)
+
+            # (a) a bf16 CUDA tensor through the object store, twice: the
+            # first put touches fresh pool pages, the first GPU task that
+            # gets a tensor imports torch in its worker.
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            w_up = torch.randn(CLUSTER_TENSOR, generator=gen, device="cuda").to(torch.bfloat16)
+            nbytes = w_up.numel() * w_up.element_size()
+            echo = rt.remote(num_gpus=1)(_cluster_echo)
+            same, rounds = True, []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = rt.put(w_up)
+                put_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                got = rt.get(ref)
+                torch.cuda.synchronize()
+                get_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back, where, dtype = rt.get(echo.remote(ref), timeout=CLUSTER_TIMEOUT_S)
+                torch.cuda.synchronize()
+                trip_s = time.perf_counter() - t0
+                same = same and back.device.type == "cuda" and where == "cuda:0" and all(
+                    torch.equal(x.view(torch.int16), w_up.view(torch.int16)) for x in (got, back))
+                rounds.append(f"put {put_s:.4f} s ({nbytes / put_s / 1e9:.2f} GB/s), get "
+                              f"{get_s:.4f} s ({nbytes / get_s / 1e9:.2f} GB/s), into a GPU task "
+                              f"(arrived on {where}, {dtype}) and back {trip_s:.4f} s")
+                del ref, got, back
+            print(f"[cluster] (a) bf16 {CLUSTER_TENSOR} ({nbytes / 2**20:.1f} MiB) on the card, "
+                  f"first / second: {' / '.join(rounds)}; bitwise equal on the card {same}",
+                  flush=True)
+            if not same:
+                _fail("cluster: the bf16 CUDA tensor did not come back bitwise equal on the card")
+            del w_up
+
+            # (a) K1 in an actor's process
+            actor = rt.remote(num_gpus=1)(_FlashActor).remote()
+            chk = rt.get(actor.check.remote(CLUSTER_SERVE_SHAPE), timeout=CLUSTER_TIMEOUT_S)
+            tol = FWD_TOL["bfloat16"][0]
+            print(f"[cluster] (a) flash_attention in an actor (pid {chk['pid']}, "
+                  f"CUDA_VISIBLE_DEVICES={chk['visible']!r}) at b, s, h, d "
+                  f"{CLUSTER_SERVE_SHAPE} bf16 causal: max |err| / (|ref| + rms(ref)) "
+                  f"{chk['err']:.3g} (max abs {chk['max_abs']:.3g}; tol {tol:.3g}), launches "
+                  f"{chk['launches']}", flush=True)
+            want = {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            if not (math.isfinite(chk["err"]) and chk["err"] <= tol) or chk["launches"] != want:
+                _fail("cluster: flash_attention in the actor's process failed its check")
+            launches["cluster actor"] = chk["launches"]
+            rt.kill(actor)
+
+            # (a) host rates
+            noop = rt.remote(_cluster_noop)
+            rt.get([noop.remote() for _ in range(10)], timeout=CLUSTER_TIMEOUT_S)
+            t0 = time.perf_counter()
+            rt.get([noop.remote() for _ in range(CLUSTER_HOST_CALLS)], timeout=CLUSTER_TIMEOUT_S)
+            task_rate = CLUSTER_HOST_CALLS / (time.perf_counter() - t0)
+            pinger = rt.remote(_FlashActor).remote()
+            rt.get(pinger.ping.remote(), timeout=CLUSTER_TIMEOUT_S)
+            t0 = time.perf_counter()
+            rt.get([pinger.ping.remote() for _ in range(CLUSTER_HOST_CALLS)],
+                   timeout=CLUSTER_TIMEOUT_S)
+            actor_rate = CLUSTER_HOST_CALLS / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for _ in range(200):
+                rt.get(pinger.ping.remote(), timeout=CLUSTER_TIMEOUT_S)
+            call_ms = (time.perf_counter() - t0) / 200 * 1e3
+            rt.kill(pinger)
+            print(f"[cluster] (a) host, {os.cpu_count()} cores: {CLUSTER_HOST_CALLS} no-op tasks "
+                  f"at {task_rate:.0f}/s, {CLUSTER_HOST_CALLS} calls to one actor at "
+                  f"{actor_rate:.0f}/s, one call and its get in turn {call_ms:.3f} ms",
+                  flush=True)
+
+            # (b) TorchTrainer, one worker process over NCCL
+            t0 = time.perf_counter()
+            nccl = TorchTrainer(
+                _cluster_loop, train_loop_config=cfg,
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                             backend=TorchBackendConfig(backend="nccl")),
+                run_config=RunConfig(name="cluster_nccl", storage_path=tmp)).fit()
+            fit_s = time.perf_counter() - t0
+            if nccl.error is not None:
+                _fail(f"cluster: the NCCL trainer failed: {nccl.error!r}")
+            m, lm = nccl.metrics, local.metrics
+            print(f"[cluster] (b) {smi}: TorchTrainer, 1 worker process (pid {m['pid']}, "
+                  f"CUDA_VISIBLE_DEVICES={m['visible']!r}, {m['backend']}), llama2_7b width, 2 "
+                  f"layers, bf16, remat hot, b=1 s={FIT_SEQ}, deterministic: fit {fit_s:.1f} s; "
+                  f"losses {m['losses']}, in-process trainer {lm['losses']}, direct "
+                  f"{direct_losses}; params_sha256 equal {m['params_sha256'] == direct_sha} / "
+                  f"{lm['params_sha256'] == direct_sha}; step p50 report to report "
+                  f"{_report_p50(m):.2f} ms (in-process trainer {_report_p50(lm):.2f} ms, direct "
+                  f"step p50 {sorted(direct_ms[1:])[len(direct_ms[1:]) // 2]:.2f} ms); launches "
+                  f"in the worker {m['launches']}", flush=True)
+            if m["backend"] != "nccl" or m["pid"] == os.getpid():
+                _fail("cluster: the trainer's worker is not a process on NCCL")
+            if not (m["losses"] == lm["losses"] == direct_losses
+                    and m["params_sha256"] == lm["params_sha256"] == direct_sha):
+                _fail("cluster: the NCCL worker's run is not bitwise the in-process one's")
+            want = {k: 2 * CLUSTER_STEPS for k in m["launches"]}
+            if m["launches"] != want:
+                _fail(f"cluster: the worker launched {m['launches']}, want {want}")
+            launches["cluster trainer nccl"] = m["launches"]
+
+            # (c) two worker processes sharing the card over gloo
+            out = os.path.join(tmp, "rank0_params.pt")
+            t0 = time.perf_counter()
+            gloo = TorchTrainer(
+                _cluster_data_loop,
+                train_loop_config={"lr": 1e-4, "steps": CLUSTER_DATA_STEPS, "out": out},
+                scaling_config=ScalingConfig(num_workers=2, use_gpu=True,
+                                             resources_per_worker={"GPU": 0.5},
+                                             mesh=MeshSpec(data=2),
+                                             backend=TorchBackendConfig(backend="gloo")),
+                run_config=RunConfig(name="cluster_gloo", storage_path=tmp)).fit()
+            fit_s = time.perf_counter() - t0
+            if gloo.error is not None:
+                _fail(f"cluster: the gloo trainer failed: {gloo.error!r}")
+            g = gloo.metrics
+            got = torch.load(out)
+            diffs = _leaf_rel_diffs(got, ref_leaves)
+            first = abs(g["plain"]["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+            traj = max(abs(a - b) / abs(b) for a, b in zip(g["plain"]["losses"], ref_losses))
+            zl = max(abs(a - b) / abs(b) for a, b in zip(g["zero"]["losses"],
+                                                         g["plain"]["losses"]))
+            print(f"[cluster] (c) {smi}: 2 worker processes sharing the card over "
+                  f"{g['backend']} (not multi-GPU speed), each CUDA_VISIBLE_DEVICES="
+                  f"{g['visible']!r}, MeshSpec(data=2), llama2_7b width, 2 layers, fp32, TF32 "
+                  f"off, global batch 2 x {FIT_SEQ}, {CLUSTER_DATA_STEPS} AdamW steps: fit "
+                  f"{fit_s:.1f} s; losses {g['plain']['losses']} vs one process {ref_losses}: "
+                  f"first rel {first:.3g} (tol 1e-6), trajectory rel {traj:.3g} (tol 1e-5); "
+                  f"final params, worst leaf ||d|| / ||ref|| {max(diffs):.3g} (tol 1e-5)",
+                  flush=True)
+            print(f"[cluster] (c) ZeRO-1 over data, each rank its row: losses "
+                  f"{g['zero']['losses']} (rel to the plain run {zl:.3g}); params bitwise equal "
+                  f"to the plain run's {g['zero_bitwise']} (worst leaf {g['zero_worst']}); "
+                  f"rank 0 peak memory GiB plain {g['plain']['peak_gib']:.3f} ZeRO "
+                  f"{g['zero']['peak_gib']:.3f}; seconds plain {g['plain']['s']:.1f} ZeRO "
+                  f"{g['zero']['s']:.1f}; launches rank 0 plain {g['plain']['launches']} ZeRO "
+                  f"{g['zero']['launches']}", flush=True)
+            if not (first <= 1e-6 and traj <= 1e-5 and max(diffs) <= 1e-5):
+                _fail("cluster: the two-rank gloo run is not within its tolerance of one process")
+            if not (g["zero_bitwise"] or g["zero_worst"][1] <= 1e-6):
+                _fail(f"cluster: ZeRO-1 differs from the plain run: {g['zero_worst']}")
+            for mode in ("plain", "zero"):
+                want = {k: 2 * CLUSTER_DATA_STEPS for k in g[mode]["launches"]}
+                if g[mode]["launches"] != want:
+                    _fail(f"cluster: rank 0's {mode} run launched {g[mode]['launches']}, "
+                          f"want {want}")
+                launches[f"cluster gloo data=2 {mode} (rank 0)"] = g[mode]["launches"]
+        finally:
+            t0 = time.perf_counter()
+            rt.shutdown()
+            down_s = time.perf_counter() - t0
+        left = _cluster_processes(session_dir)
+        pools = glob.glob(ours + "*")
+        print(f"[cluster] shutdown {down_s:.2f} s; processes left {left}, pools left "
+              f"{sorted(pools)}; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+        if left or pools:
+            _fail("cluster: processes or /dev/shm/rtpt_* pools outlived shutdown")
+        return launches
+    finally:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
@@ -2545,6 +3051,7 @@ def main() -> int:
     by_path, fit_step_ms = phase_fit(profile=args.profile)
     by_path.update(phase_tune(fit_step_ms))
     by_path.update(phase_parallel())
+    by_path.update(phase_cluster())
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     for row in (fwd_row, dq_row, dkv_row):

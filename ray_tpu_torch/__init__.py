@@ -9,8 +9,14 @@ and channel feed (serve, serve.llm, core.channel), the LLM serving path
 CUDA kernel in ops), training (models.transformer.build_train_step, with
 the flash backward kernels, remat and ZeRO-1), the training state in
 train (torch.distributed set-up, ZeRO-1, elastic, pytree and HF
-checkpoints), and on the in-process runtime the trainer
-(train.TorchTrainer, train.report) and Tune (tune.Tuner).
+checkpoints), the trainer (train.TorchTrainer, train.report) and Tune
+(tune.Tuner), and the cluster runtime on one machine (`init()`: a GCS, a
+raylet and worker processes over a shared-memory store, with CUDA devices
+leased to workers through CUDA_VISIBLE_DEVICES).
+
+Subpackages that need torch load on first use (PEP 562 `__getattr__`), so
+that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
+start without importing torch.
 """
 
 from . import exceptions  # noqa: F401
@@ -39,7 +45,17 @@ from .core.placement_group import (  # noqa: F401
     remove_placement_group,
 )
 from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError  # noqa: F401
-from . import train, tune  # noqa: F401,E402  (after api: both build on it)
+
+_LAZY_SUBMODULES = ("train", "tune", "serve", "models", "ops", "parallel", "air",
+                    "observability")
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBMODULES:
+        import importlib
+
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "BackpressureError",

@@ -11,11 +11,13 @@ The surface mirrors the JAX package's, so call sites port mechanically:
 
     rt.get(f.remote(1))
 
-Only the in-process runtime is ported (`init(local_mode=True)`, the JAX
-package's ray_tpu/api.py:115-118): tasks run on a thread pool, actors on
-their own threads, and nothing is pickled. `init()` without local_mode
-raises NotImplementedError until the cluster runtime is ported. Left out
-with it: DAG authoring (`bind`, InputNode), `broadcast` and runtime_env.
+Two runtimes, as in the JAX package: `init(local_mode=True)` runs tasks on a
+thread pool and actors on their own threads in this process, and nothing is
+pickled; `init()` starts a cluster on this machine (a GCS, a raylet, worker
+processes and a shared-memory object store; core/cluster_runtime.py), where
+functions and arguments travel through core/serialization.py. Left out: DAG
+authoring (`bind`, InputNode), `broadcast`, runtime_env and multi-host
+addresses.
 """
 
 from __future__ import annotations
@@ -85,23 +87,35 @@ def init(
     resources: Optional[Dict[str, float]] = None,
     local_mode: bool = False,
     ignore_reinit_error: bool = False,
+    namespace: Optional[str] = None,
+    object_store_memory: Optional[int] = None,
     **_kwargs,
 ):
-    """Initializes the per-process runtime. Only the in-process runtime is
-    ported: `local_mode=True` is required, and anything else raises
-    NotImplementedError, as the JAX package does without its cluster
-    runtime (ray_tpu/api.py:120-126)."""
+    """Initializes the per-process runtime (the JAX package's
+    ray_tpu/api.py init). local_mode=True runs the in-process runtime.
+    Otherwise it starts a head on this machine: a GCS, one raylet with
+    num_cpus CPUs and num_gpus GPUs (default: the CUDA devices the process
+    sees) and its worker processes. An address (attaching to a running
+    cluster, or another host's) is not ported yet."""
     if runtime_base.is_initialized():
         if ignore_reinit_error:
             return
         raise RuntimeError("ray_tpu_torch.init() called twice; pass ignore_reinit_error=True")
-    if not local_mode or address is not None:
-        raise NotImplementedError(
-            "the cluster runtime is not ported yet; use ray_tpu_torch.init(local_mode=True)"
-        )
-    from .core.local_runtime import LocalRuntime
+    if local_mode:
+        if address is not None:
+            raise ValueError("local_mode=True takes no address")
+        from .core.local_runtime import LocalRuntime
 
-    rt = LocalRuntime(resources=resources, num_cpus=num_cpus, num_gpus=num_gpus)
+        rt = LocalRuntime(resources=resources, num_cpus=num_cpus, num_gpus=num_gpus)
+    else:
+        if address is not None:
+            raise NotImplementedError(
+                "attaching to a running cluster and multi-host clusters are not ported yet "
+                "(ROADMAP Queue 1 item 3); init() starts a cluster on this machine")
+        from .core.cluster_runtime import ClusterRuntime
+
+        rt = ClusterRuntime.create(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources,
+                                   namespace=namespace, object_store_memory=object_store_memory)
     runtime_base.set_runtime(rt)
     return rt
 
@@ -148,6 +162,13 @@ def _build_sched_options(opts: Dict[str, Any], for_actor: bool = False) -> Sched
     bad = set(opts) - _VALID_OPTIONS
     if bad:
         raise ValueError(f"invalid option(s) {sorted(bad)}; valid: {sorted(_VALID_OPTIONS)}")
+    if opts.get("num_gpus"):
+        from .accelerators import get_accelerator_manager
+
+        ok, why = get_accelerator_manager("GPU").validate_resource_request_quantity(
+            opts["num_gpus"])
+        if not ok:
+            raise ValueError(why)
     strategy = opts.get("scheduling_strategy") or "DEFAULT"
     pg_id = None
     bundle_index = opts.get("placement_group_bundle_index", -1)

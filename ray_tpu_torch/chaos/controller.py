@@ -52,6 +52,9 @@ POINT_ACTIONS = {
     # `raise` fails the step (the engine fails the batch fast), `delay`
     # stretches the step.
     "serve.decode": ("kill", "raise", "delay"),
+    # Cluster worker task execution (core/worker_proc.py), once per task or
+    # actor call, detail = "<desc>@<attempt>".
+    "task.exec": ("kill", "raise", "delay"),
 }
 POINTS = tuple(POINT_ACTIONS)
 

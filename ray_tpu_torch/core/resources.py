@@ -134,18 +134,19 @@ def detect_node_resources(
     object_store_memory: Optional[int] = None,
 ) -> Dict[str, float]:
     """This host's resources: CPUs from os.cpu_count() and CUDA devices from
-    torch.cuda.device_count() (the JAX package asks its TPU accelerator
-    registry, ray_tpu/core/resources.py:160-185). Explicit num_cpus /
-    num_gpus override detection for their resource, as num_tpus= does
-    there."""
+    the GPU accelerator manager (ray_tpu_torch/accelerators/gpu.py; the JAX
+    package asks its TPU accelerator registry, ray_tpu/core/resources.py:
+    160-185). Explicit num_cpus / num_gpus override detection for their
+    resource, as num_tpus= does there."""
     import os
 
-    import torch
+    from ..accelerators import get_accelerator_manager
 
     res: Dict[str, float] = {CPU: float(num_cpus if num_cpus is not None else os.cpu_count() or 1)}
-    gpus = torch.cuda.device_count() if num_gpus is None else num_gpus
-    if gpus:
-        res[GPU] = float(gpus)
+    if num_gpus is None:
+        num_gpus = get_accelerator_manager(GPU).get_current_node_num_accelerators()
+    if num_gpus:
+        res[GPU] = float(num_gpus)
     if object_store_memory:
         res[OBJECT_STORE_MEMORY] = float(object_store_memory)
     return res

@@ -1,0 +1,216 @@
+"""Minimal RPC over Unix domain sockets: length-prefixed pickle messages,
+threaded server (the port of ray_tpu/core/rpc.py, UDS transport only).
+
+Stands in for the reference's gRPC layer (reference: src/ray/rpc/ — gRPC
+client/server wrappers). Same shape: named handler methods on a service
+object, request/reply with correlation ids, a retrying client. Addresses are
+socket paths: every daemon of the port's cluster runs on one machine. The
+JAX copy's TCP transport, its auth token and the chaos network partitions
+wait for multi-host (ROADMAP Queue 1 item 3).
+
+Payloads are plain pickle: task functions and arguments are already bytes
+made by core/serialization.py when they reach this layer.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import random
+import socket
+import socketserver
+import struct
+import threading
+import time
+import uuid
+from typing import Any, Optional
+
+from ..exceptions import RpcUnavailableError
+
+_HDR = struct.Struct("<I")
+
+
+def _send_msg(sock: socket.socket, payload: bytes) -> None:
+    sock.sendall(_HDR.pack(len(payload)) + payload)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("socket closed")
+        buf += chunk
+    return bytes(buf)
+
+
+def _recv_msg(sock: socket.socket) -> bytes:
+    (n,) = _HDR.unpack(_recv_exact(sock, _HDR.size))
+    return _recv_exact(sock, n)
+
+
+class RpcServer:
+    """Serves `service.<method>(*args, **kwargs)` calls over a UDS.
+
+    The service object's public methods are the RPC surface (mirrors the
+    reference's per-service gRPC handlers). A request with id None is a
+    one-way notification: executed, never answered."""
+
+    def __init__(self, path: str, service: Any):
+        self.path = path
+        self.service = service
+        if os.path.exists(path):
+            os.unlink(path)
+        server_self = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                sock = self.request
+                while True:
+                    try:
+                        raw = _recv_msg(sock)
+                    except (ConnectionError, OSError):
+                        return
+                    req_id, method, args, kwargs = pickle.loads(raw)
+                    if req_id is None:
+                        try:
+                            getattr(server_self.service, method)(*args, **kwargs)
+                        except BaseException:  # noqa: BLE001 - one-way: no caller to tell
+                            pass
+                        continue
+                    try:
+                        result = getattr(server_self.service, method)(*args, **kwargs)
+                        reply = pickle.dumps((req_id, True, result))
+                    except BaseException as e:  # noqa: BLE001 - the caller re-raises it
+                        try:
+                            reply = pickle.dumps((req_id, False, e))
+                        except Exception:
+                            reply = pickle.dumps((req_id, False, RuntimeError(repr(e))))
+                    try:
+                        _send_msg(sock, reply)
+                    except (ConnectionError, OSError):
+                        return
+
+        class Server(socketserver.ThreadingUnixStreamServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+        self._server = Server(path, Handler)
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name=f"rpc-{os.path.basename(path)}", daemon=True
+        )
+        self._thread.start()
+
+    def shutdown(self):
+        self._server.shutdown()
+        self._server.server_close()
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+
+
+class RpcClient:
+    """Client with per-thread connections, so a thread blocked in a
+    long-running call (e.g. a driver's `get`) never starves other threads'
+    requests. Retries connect (the daemon may still be booting): the
+    analogue of the reference's retryable gRPC client
+    (src/ray/rpc/retryable_grpc_client.h)."""
+
+    # Reconnect backoff: a flat fast phase (a booting daemon usually listens
+    # within a second), then doubling with full jitter to a bounded cap.
+    _BACKOFF_BASE_S = 0.02
+    _BACKOFF_CAP_S = 1.0
+    _FAST_ATTEMPTS = 50
+
+    def __init__(self, path: str, connect_timeout: float = 20.0):
+        self.path = path
+        self._connect_timeout = connect_timeout
+        self._tls = threading.local()
+        self._all: list = []
+        self._all_lock = threading.Lock()
+        self._rng = random.Random()
+        self._get_sock()  # fail fast if the server is absent at construction
+
+    def _new_sock(self, timeout: float) -> socket.socket:
+        """Connects with backoff until `timeout`, then raises
+        RpcUnavailableError (a ConnectionError)."""
+        start = time.monotonic()
+        deadline = start + timeout
+        last_err: Optional[Exception] = None
+        attempt = 0
+        while True:
+            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            try:
+                s.connect(self.path)
+                with self._all_lock:
+                    self._all.append(s)
+                return s
+            except OSError as e:
+                s.close()
+                last_err = e
+                attempt += 1
+            now = time.monotonic()
+            if now >= deadline:
+                raise RpcUnavailableError(self.path, now - start, attempt, last_err)
+            if attempt <= self._FAST_ATTEMPTS:
+                sleep = self._BACKOFF_BASE_S
+            else:
+                cap = min(self._BACKOFF_CAP_S,
+                          self._BACKOFF_BASE_S * (2 ** min(attempt - self._FAST_ATTEMPTS, 16)))
+                sleep = max(0.001, self._rng.uniform(0, cap))
+            time.sleep(min(sleep, deadline - now))
+
+    def _get_sock(self) -> socket.socket:
+        sock = getattr(self._tls, "sock", None)
+        if sock is None:
+            sock = self._new_sock(self._connect_timeout)
+            self._tls.sock = sock
+        return sock
+
+    def call(self, method: str, *args, timeout: Optional[float] = None, **kwargs) -> Any:
+        req_id = uuid.uuid4().hex
+        payload = pickle.dumps((req_id, method, args, kwargs))
+        sock = self._get_sock()
+        sock.settimeout(timeout)
+        try:
+            _send_msg(sock, payload)
+            raw = _recv_msg(sock)
+        except (ConnectionError, OSError):
+            # One reconnect attempt (daemon restarted), with the caller's
+            # timeout re-applied to the fresh socket.
+            sock.close()
+            sock = self._new_sock(5.0)
+            self._tls.sock = sock
+            sock.settimeout(timeout)
+            _send_msg(sock, payload)
+            raw = _recv_msg(sock)
+        rid, ok, result = pickle.loads(raw)
+        if rid != req_id:
+            raise RuntimeError("rpc correlation mismatch")
+        if not ok:
+            raise result
+        return result
+
+    def notify(self, method: str, *args, **kwargs) -> None:
+        """One-way call: no reply, no round-trip wait."""
+        payload = pickle.dumps((None, method, args, kwargs))
+        sock = self._get_sock()
+        sock.settimeout(None)
+        try:
+            _send_msg(sock, payload)
+        except (ConnectionError, OSError):
+            sock.close()
+            sock = self._new_sock(5.0)
+            self._tls.sock = sock
+            _send_msg(sock, payload)
+
+    def close(self):
+        with self._all_lock:
+            for s in self._all:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+            self._all = []
+        self._tls = threading.local()

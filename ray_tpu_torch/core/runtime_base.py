@@ -4,10 +4,10 @@ ray_tpu/core/runtime_base.py for the PyTorch port).
 The Runtime is the TPU-native analogue of the reference's CoreWorker
 (reference: src/ray/core_worker/core_worker.h:271): one per driver/worker
 process, owning object resolution, task submission, and actor management.
-The JAX package has two implementations: LocalRuntime (in-process threads,
-the analogue of the reference's local_mode) and ClusterRuntime (multi-process
-node(s) with a shared-memory store and socket RPC). The port has
-LocalRuntime; the cluster runtime is still to port.
+Two implementations, as in the JAX package: LocalRuntime (in-process
+threads, the analogue of the reference's local_mode) and ClusterRuntime
+(multi-process nodes on one machine with a shared-memory store and socket
+RPC, core/cluster_runtime.py).
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ def current_runtime() -> "Runtime":
     rt = _runtime
     if rt is None:
         raise RuntimeError(
-            "ray_tpu_torch has not been initialized; call "
-            "ray_tpu_torch.init(local_mode=True) first."
+            "ray_tpu_torch has not been initialized; call ray_tpu_torch.init() "
+            "(or init(local_mode=True)) first."
         )
     return rt
 

@@ -3,11 +3,12 @@ ray_tpu/core/task_spec.py for the PyTorch port).
 
 Condensed re-design of the reference's TaskSpecification
 (reference: src/ray/common/task/task_spec.h, protobuf common.proto TaskSpec):
-one dataclass covers normal tasks, actor creation, and actor calls. The JAX
-package ships function payloads as cloudpickle bytes keyed by content hash;
-the port has only the in-process runtime, where the payload is the callable
-itself and never leaves the process, so nothing is pickled and the table
-keys by object identity.
+one dataclass covers normal tasks, actor creation, and actor calls. The spec
+carries the callable itself. The in-process runtime runs it as is; the
+cluster runtime pickles it once per process with core/serialization.py
+(by reference when the worker can import it, by value otherwise: the
+port's own reducer, where the JAX package uses cloudpickle) and ships the
+bytes keyed by their hash (core/cluster_runtime.py `_entry_from_spec`).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class SchedulingOptions:
 class TaskSpec:
     task_id: TaskID
     task_type: TaskType
-    func_blob: Any                        # the fn / actor class itself
+    func_blob: Any                        # the fn / actor class itself (pickled on the wire)
     func_hash: str
     method_name: str                      # "" for normal tasks; "__init__" for creation
     args: Tuple[Any, ...]                 # values or ObjectID placeholders (see ArgRef)
@@ -84,8 +85,9 @@ class ArgRef:
 
 class FunctionTable:
     """The JAX package's content-addressed function cache, reduced to what
-    an in-process runtime needs: `dumps` hands back the callable with an
-    identity key and `loads` returns it unchanged."""
+    the API layer needs: `dumps` hands back the callable with an identity
+    key and `loads` returns it unchanged. The cluster runtime pickles the
+    callable itself when it builds the wire entry."""
 
     @staticmethod
     def dumps(fn: Any) -> Tuple[Any, str]:

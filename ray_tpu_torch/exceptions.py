@@ -43,9 +43,65 @@ class ActorDiedError(ActorError):
         self.reason = reason
         super().__init__(f"Actor {actor_id_hex[:12]} died: {reason}")
 
+    def __reduce__(self):
+        return (ActorDiedError, (self.actor_id_hex, self.reason))
+
 
 class GetTimeoutError(RayTpuError, TimeoutError):
     pass
+
+
+class ObjectLostError(RayTpuError):
+    def __init__(self, object_id_hex: str = ""):
+        super().__init__(f"Object {object_id_hex[:12]} was lost and could not be reconstructed")
+
+
+class ObjectStoreFullError(RayTpuError):
+    def __init__(self, msg: str = "", nbytes: int = 0):
+        self.nbytes = nbytes  # allocation size that failed (spill hint)
+        super().__init__(msg)
+
+    def __reduce__(self):
+        return (ObjectStoreFullError, (str(self), self.nbytes))
+
+
+class WorkerCrashedError(RayTpuError):
+    pass
+
+
+class RpcUnavailableError(RayTpuError, ConnectionError):
+    """A control-plane peer (GCS/raylet) stayed unreachable past the
+    reconnect deadline. Subclasses ConnectionError so transport handlers
+    keep catching it."""
+
+    def __init__(self, address: str = "", elapsed_s: float = 0.0, attempts: int = 0,
+                 last_error: Optional[BaseException] = None):
+        self.address = address
+        self.elapsed_s = elapsed_s
+        self.attempts = attempts
+        self.last_error = last_error
+        super().__init__(
+            f"rpc peer {address} unavailable after {elapsed_s:.1f}s "
+            f"({attempts} connect attempts): {last_error!r}"
+        )
+
+    def __reduce__(self):
+        return (RpcUnavailableError, (self.address, self.elapsed_s, self.attempts,
+                                      self.last_error))
+
+
+class TaskCancelledError(RayTpuError):
+    pass
+
+
+class PlacementGroupError(RayTpuError, RuntimeError):
+    """A placement group could not be created, was removed mid-wait, or a
+    bundle lease was refused."""
+
+
+class SchedulingError(RayTpuError, RuntimeError):
+    """No node can ever satisfy a task's or actor's resource or affinity
+    demand (a permanent infeasibility, not transient load)."""
 
 
 class ActorNameTakenError(RayTpuError, ValueError):

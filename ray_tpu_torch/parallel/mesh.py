@@ -148,7 +148,8 @@ def _axis_sizes(axis_sizes: Optional[Dict[str, int]], spec: Optional[MeshSpec],
 
 
 def build_device_mesh(spec: Optional[MeshSpec] = None, *,
-                      axis_sizes: Optional[Dict[str, int]] = None):
+                      axis_sizes: Optional[Dict[str, int]] = None,
+                      device_type: Optional[str] = None):
     """A DeviceMesh over every rank of the default process group (which
     must be initialised, e.g. by train.setup_torch_distributed), shaped by
     `spec` (MeshSpec().resolve: "data" absorbs the world) or `axis_sizes`
@@ -158,16 +159,19 @@ def build_device_mesh(spec: Optional[MeshSpec] = None, *,
     Its device type is "cuda" under NCCL, and under gloo where the process
     has a card (ranks sharing one GPU: DTensors keep their shards on it,
     and the port's collectives stage them through host memory); "cpu"
-    otherwise. It also makes every group over several of its dims
-    (`axes_group`), on every rank in one order."""
+    otherwise; `device_type` ("cuda" or "cpu") sets it instead. It also
+    makes every group over several of its dims (`axes_group`), on every rank
+    in one order."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError("build_device_mesh needs an initialised process group "
                            "(train.setup_torch_distributed)")
     sizes = _axis_sizes(axis_sizes, spec, dist.get_world_size())
-    cuda = dist.get_backend() == "nccl" or torch.cuda.is_available()
-    mesh = init_device_mesh("cuda" if cuda else "cpu", tuple(sizes[a] for a in AXIS_ORDER),
+    if device_type is None:
+        cuda = dist.get_backend() == "nccl" or torch.cuda.is_available()
+        device_type = "cuda" if cuda else "cpu"
+    mesh = init_device_mesh(device_type, tuple(sizes[a] for a in AXIS_ORDER),
                             mesh_dim_names=AXIS_ORDER)
     mesh._axes_groups = _make_axes_groups(mesh)
     return mesh

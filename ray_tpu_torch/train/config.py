@@ -25,11 +25,18 @@ class ScalingConfig:
     never trains on the CPU instead. The JAX package's `topology` names TPU
     slices and is left out.
 
-    `backend`, `elastic`, `min_workers` and `capacity_wait_s` are accepted
-    at their defaults so call sites port mechanically. Nothing reads them
-    under the in-process runtime (no multi-host rendezvous, no preemption),
-    so any other value raises NotImplementedError until the cluster runtime
-    lands (ROADMAP Queue 1 item 3).
+    `backend` (a TorchBackendConfig) is read on the cluster runtime: with it,
+    or with num_workers > 1, every worker is a process that joins one
+    torch.distributed group (NCCL on the card, gloo on the CPU) and builds
+    its DeviceMesh from `mesh` over the whole world. The in-process runtime
+    keeps each worker's local mesh, as the JAX package's does. On the
+    cluster runtime with use_gpu=True, a worker whose resources_per_worker
+    names no GPU asks for one whole GPU.
+
+    `elastic`, `min_workers` and `capacity_wait_s` are accepted at their
+    defaults so call sites port mechanically; what reads them (the
+    preemption, elastic-grow and capacity arms) is not ported yet, so any
+    other value raises NotImplementedError (ROADMAP Queue 1 item 3).
     """
 
     num_workers: int = 1
@@ -43,19 +50,19 @@ class ScalingConfig:
     capacity_wait_s: Optional[float] = None
 
     def __post_init__(self):
-        given = [name for name in _CLUSTER_ONLY if getattr(self, name) != _CLUSTER_ONLY[name]]
+        given = [name for name, default in _UNPORTED_FIELDS.items()
+                 if getattr(self, name) != default]
         if given:
             raise NotImplementedError(
-                f"ScalingConfig({', '.join(given)}=...) takes effect only with the cluster "
-                "runtime (ROADMAP Queue 1 item 3); the in-process runtime has no "
-                "multi-host rendezvous and no preemption"
+                f"ScalingConfig({', '.join(given)}=...) needs the trainer's preemption, "
+                "elastic-grow and capacity arms, which are not ported yet "
+                "(ROADMAP Queue 1 item 3)"
             )
 
 
-# ScalingConfig fields that only the cluster runtime reads, with the one
-# value the in-process runtime accepts.
-_CLUSTER_ONLY = {"backend": None, "elastic": False, "min_workers": None,
-                 "capacity_wait_s": None}
+# ScalingConfig fields whose readers are not ported yet, with the one value
+# accepted until then.
+_UNPORTED_FIELDS = {"elastic": False, "min_workers": None, "capacity_wait_s": None}
 
 
 @dataclasses.dataclass

@@ -13,10 +13,13 @@ the user's `train_loop_per_worker` runs in each worker's training thread.
 Results flow back through the size-1 session queue exactly as in the
 reference (TrainingIterator, train/trainer.py:124).
 
-Only the in-process runtime is ported, and under it the JAX trainer never
-leaves its local path: there is no GCS, so no preemption, elastic resize,
-capacity wait or node-drain watcher, and no multi-host rendezvous. Those
-branches come with the cluster runtime (ROADMAP Queue 1 item 3).
+On the cluster runtime (`init()`), with a backend config or more than one
+worker, each worker is an actor process that joins one torch.distributed
+group (NCCL on the card, gloo on the CPU) and builds its DeviceMesh over the
+world (`_use_distributed`; the JAX trainer's multi-host branch,
+ray_tpu/train/trainer.py:347-358 and :433-455). The trainer's preemption,
+elastic-grow, capacity-wait and node-drain arms are not ported yet (ROADMAP
+Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -97,7 +100,12 @@ class TorchTrainer:
     def fit(self) -> Result:
         # Raises without a CUDA device unless use_gpu=False: never train on
         # the CPU in place of the GPU.
-        n_devices = len(default_devices(self.scaling_config.use_gpu))
+        default_devices(self.scaling_config.use_gpu)
+        if self.scaling_config.backend is not None and _in_process():
+            raise NotImplementedError(
+                "ScalingConfig(backend=...) is read only on the cluster runtime "
+                "(init() without local_mode); the in-process runtime keeps each worker's "
+                "local mesh and would ignore it")
         name = self.run_config.name or f"TorchTrainer_{uuid.uuid4().hex[:8]}"
         storage = StorageContext(self.run_config.resolved_storage_path(), name)
         ckpt_cfg: CheckpointConfig = self.run_config.checkpoint_config
@@ -124,8 +132,7 @@ class TorchTrainer:
 
         while True:
             try:
-                metrics = self._run_attempt(storage, manager, resume_ckpt, n_devices,
-                                            rework=restored)
+                metrics = self._run_attempt(storage, manager, resume_ckpt, rework=restored)
                 last_error = None
                 break
             except (KeyboardInterrupt, SystemExit):
@@ -161,13 +168,31 @@ class TorchTrainer:
             error=last_error,
         )
 
+    def _use_distributed(self) -> bool:
+        """Workers rendezvous in one torch.distributed group when they are
+        processes (the cluster runtime) and there is a backend config or more
+        than one of them; the in-process runtime keeps the local mesh."""
+        sc = self.scaling_config
+        if sc.backend is None and sc.num_workers <= 1:
+            return False
+        return not _in_process()
+
+    def _resources_per_worker(self) -> Optional[Dict[str, float]]:
+        """On the cluster runtime a GPU worker asks for a whole GPU unless
+        resources_per_worker names its share: the raylet then starts it with
+        CUDA_VISIBLE_DEVICES naming its device."""
+        sc = self.scaling_config
+        res = dict(sc.resources_per_worker or {})
+        if sc.use_gpu and "GPU" not in res and not _in_process():
+            res["GPU"] = 1.0
+        return res or None
+
     # ---------------------------------------------------------------- inner
     def _run_attempt(
         self,
         storage: StorageContext,
         manager: CheckpointManager,
         resume_ckpt: Optional[Checkpoint],
-        n_devices: int,
         rework: bool = False,
     ) -> Dict[str, Any]:
         # Until the first fresh result lands, this attempt's wall time is
@@ -180,9 +205,10 @@ class TorchTrainer:
         ws = sc.num_workers
         trial = storage.trial_name or storage.experiment_name
         imet.TRAIN_WORLD_SIZE.set(float(ws), trial=trial)
+        res = self._resources_per_worker()
         pg = None
         if ws > 1:
-            bundles = [dict(sc.resources_per_worker or {"CPU": 1}) for _ in range(ws)]
+            bundles = [dict(res or {"CPU": 1}) for _ in range(ws)]
             pg = create_pg(bundles, strategy=sc.placement_strategy)
             if not pg.ready(timeout=60.0):
                 raise RuntimeError(
@@ -191,16 +217,26 @@ class TorchTrainer:
 
         group = WorkerGroup(
             ws,
-            resources_per_worker=sc.resources_per_worker,
+            resources_per_worker=res,
             placement_group=pg,
             target_world_size=sc.num_workers,
         )
         self._last_metrics: Dict[str, Any] = {}
         try:
-            # Each worker builds its mesh over the process's devices as it
-            # starts (the JAX package's single-host path; the multi-host
-            # rendezvous waits for the cluster runtime).
-            mesh_axes = sc.mesh.resolve(n_devices)
+            # Backend setup (reference: train/_internal/backend_executor.py:135
+            # -> Backend.on_start, torch/config.py:66). Distributed: every
+            # worker process joins the group and builds the world's
+            # DeviceMesh. Otherwise each worker builds its mesh over its own
+            # devices as it starts.
+            mesh_axes = sc.mesh
+            if self._use_distributed():
+                from .backend import TorchBackendConfig, coordinator_address
+
+                cfg = sc.backend or TorchBackendConfig()
+                coord = coordinator_address(cfg)
+                api.get([w.setup_distributed.remote(coord, sc.mesh, sc.use_gpu, cfg.backend,
+                                                    cfg.init_timeout_s)
+                         for w in group.workers])
             api.get(
                 [
                     w.start_training.remote(
@@ -242,3 +278,11 @@ class TorchTrainer:
             group.shutdown()
             if pg is not None:
                 remove_placement_group(pg)
+
+
+def _in_process() -> bool:
+    """Whether the current runtime is the in-process one (init(local_mode=True))."""
+    from ..core import runtime_base
+    from ..core.local_runtime import LocalRuntime
+
+    return isinstance(runtime_base.current_runtime(), LocalRuntime)

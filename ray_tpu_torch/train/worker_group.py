@@ -4,8 +4,9 @@ ray_tpu/train/worker_group.py for the PyTorch port).
 Mirrors the reference's WorkerGroup (reference:
 python/ray/train/_internal/worker_group.py:102, execute at :260): a generic
 "run this function on every worker" pool of actors, each hosting one
-training thread. The port's runtime shares one process and pickles
-nothing, so the callable is passed as itself.
+training thread. On the in-process runtime the callable is passed as itself;
+on the cluster runtime each worker is an actor process and the callable
+travels through core/serialization.py.
 """
 
 from __future__ import annotations
@@ -29,7 +30,36 @@ class _TrainWorker:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._mesh = None
+        self._device = None
         self._session = None
+
+    def setup_distributed(self, coordinator: str, mesh_spec, use_gpu: bool, backend=None,
+                          init_timeout_s: float = 60.0):
+        """The cluster backend's setup (the counterpart of the JAX worker's
+        jax.distributed rendezvous, ray_tpu/train/worker_group.py:48-74;
+        reference: train/torch/config.py:66 _setup_torch_process_group):
+        joins the torch.distributed group as this rank, then builds the
+        DeviceMesh of `mesh_spec` over the whole world. With use_gpu the
+        mesh is on this rank's CUDA device (under gloo too: ranks may share
+        a card), and a worker that finds no CUDA device raises instead of
+        training on the CPU; without it the mesh is on the CPU."""
+        import torch
+
+        from ..parallel.mesh import build_device_mesh, default_devices
+        from .backend import setup_torch_distributed
+
+        if use_gpu:
+            default_devices(True)  # raises without a CUDA device
+        info = setup_torch_distributed(self.rank, self.world_size, coordinator,
+                                       backend=backend, init_timeout_s=init_timeout_s)
+        if use_gpu:  # NCCL set it already; gloo ranks pick theirs alike
+            torch.cuda.set_device(self.rank % torch.cuda.device_count())
+        self._mesh = build_device_mesh(mesh_spec, device_type="cuda" if use_gpu else "cpu")
+        self._device = (torch.device("cuda", torch.cuda.current_device()) if use_gpu
+                        else torch.device("cpu"))
+        info["mesh_devices"] = int(self._mesh.mesh.numel())
+        info["device"] = str(self._device)
+        return info
 
     # generic execute (reference: worker_group.py execute)
     def execute(self, fn: Callable, *args, **kwargs):
@@ -41,19 +71,25 @@ class _TrainWorker:
         config: Dict[str, Any],
         trial_name: str,
         checkpoint_path: Optional[str],
-        mesh_axes: Optional[Dict[str, int]],
+        mesh_axes,
         use_gpu: bool,
     ):
         """Builds this worker's mesh (the process's CUDA devices, or the CPU
-        with use_gpu=False) and starts `fn` in the training thread. The mesh
-        is built here rather than in a method of its own: a concurrent actor
-        (max_concurrency>1) gives no cross-method ordering, and Tune launches
-        fire-and-forget."""
-        from ..parallel.mesh import build_mesh
+        with use_gpu=False; `mesh_axes` is axis sizes, or a MeshSpec resolved
+        against those devices) and starts `fn` in the training thread. The
+        mesh is built here rather than in a method of its own: a concurrent
+        actor (max_concurrency>1) gives no cross-method ordering, and Tune
+        launches fire-and-forget. After setup_distributed the world's
+        DeviceMesh is kept instead."""
+        from ..parallel.mesh import MeshSpec, build_mesh, default_devices
         from .checkpoint import Checkpoint
 
         try:
-            self._mesh = build_mesh(axis_sizes=mesh_axes, use_gpu=use_gpu)
+            if self._device is None:
+                if isinstance(mesh_axes, MeshSpec):
+                    mesh_axes = mesh_axes.resolve(len(default_devices(use_gpu)))
+                self._mesh = build_mesh(axis_sizes=mesh_axes, use_gpu=use_gpu)
+                self._device = self._mesh.devices.flat[0]
             ckpt = Checkpoint(checkpoint_path) if checkpoint_path else None
             session = init_session(
                 world_rank=self.rank,
@@ -69,7 +105,7 @@ class _TrainWorker:
             raise
         session.mesh = self._mesh
         self._session = session
-        device = self._mesh.devices.flat[0]
+        device = self._device
 
         def run():
             import torch
@@ -79,7 +115,7 @@ class _TrainWorker:
             session.attach_to_current_thread()
             try:
                 # The current CUDA device is per thread: the loop's default
-                # device is its mesh's first device.
+                # device is this worker's (its mesh's first device).
                 if device.type == "cuda":
                     torch.cuda.set_device(device)
                 # Every worker of the in-process runtime receives the SAME

@@ -44,6 +44,18 @@ def _group(mesh, axis: str):
     return dist.group.WORLD if mesh is None else mesh.get_group(axis)
 
 
+def _collective(fn, out: torch.Tensor, inp: torch.Tensor, group, **kw) -> None:
+    """fn(out, inp) over `group`. Gloo reads host memory only: under gloo a
+    CUDA tensor goes through a host copy (how ranks that share one GPU run
+    ZeRO over gloo, as parallel/collectives.py does)."""
+    if inp.device.type != "cpu" and dist.get_backend(group) == "gloo":
+        host_out = out.detach().cpu()
+        fn(host_out, inp.detach().cpu(), group=group, **kw)
+        out.copy_(host_out)
+    else:
+        fn(out, inp, group=group, **kw)
+
+
 def _optimizer_shards(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [p for g in optimizer.param_groups for p in g["params"]]
 
@@ -106,7 +118,7 @@ class ZeroSharder:
             for name, out in (("exp_avg", mu), ("exp_avg_sq", nu)):
                 shard = state[name] if state else torch.zeros_like(p)
                 full = shard.new_empty(self.padded[i])
-                dist.all_gather_into_tensor(full, shard.contiguous(), group=self.group)
+                _collective(dist.all_gather_into_tensor, full, shard.contiguous(), self.group)
                 out[str(i)] = full[: self.sizes[i]].reshape(self.shapes[i]).cpu()
         if len(counts) > 1:
             raise ValueError(f"shards were stepped unequally often: {sorted(counts)}")
@@ -156,7 +168,7 @@ class ZeroSharder:
             for i, (p, sh) in enumerate(zip(leaves, shards)):
                 sh.grad = None
                 full = sh.new_empty(self.padded[i])
-                dist.all_gather_into_tensor(full, sh, group=self.group)
+                _collective(dist.all_gather_into_tensor, full, sh, self.group)
                 p.copy_(full[: self.sizes[i]].view(self.shapes[i]))
 
 
@@ -195,12 +207,13 @@ def build_zero_step(
             g = t.grad if t.grad is not None else torch.zeros_like(t)
             t.grad = None
             out = g.new_empty(sharder.padded[i] // sharder.n)
-            dist.reduce_scatter_tensor(out, sharder._padded_flat(i, g), op=dist.ReduceOp.SUM,
-                                       group=sharder.group)
+            _collective(dist.reduce_scatter_tensor, out, sharder._padded_flat(i, g),
+                        sharder.group, op=dist.ReduceOp.SUM)
             grad_shards.append(out.div_(sharder.n))
         sharder._apply(params, optimizer, grad_shards)
         loss = loss.detach().clone()
-        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=sharder.group)
+        _collective(lambda out, _, **kw: dist.all_reduce(out, **kw), loss, loss, sharder.group,
+                    op=dist.ReduceOp.SUM)
         return loss.div_(sharder.n)
 
     return step, sharder

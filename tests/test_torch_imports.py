@@ -145,3 +145,27 @@ def test_flight_recorder_kinds_are_declared(path):
                 and getattr(node.func, "id", getattr(node.func, "attr", None)) in recorders
                 and "." in node.args[0].value):
             assert node.args[0].value.split(".", 1)[0] in KIND_PREFIXES, (path, node.lineno)
+
+
+def test_daemons_import_neither_torch_nor_jax():
+    """The cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
+    and its worker loop start without torch: they never touch a device, so
+    they pay neither torch's import nor a CUDA context."""
+    code = (
+        "import sys, time\n"
+        "t = time.perf_counter()\n"
+        "import ray_tpu_torch.core.gcs, ray_tpu_torch.core.raylet, ray_tpu_torch.core.rpc\n"
+        "import ray_tpu_torch.core.worker_proc, ray_tpu_torch.core.cluster_runtime\n"
+        "bad = sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'jax', 'jaxlib',\n"
+        "                                                      'ray_tpu', 'cloudpickle'})\n"
+        "assert not bad, bad\n"
+        "import ray_tpu_torch as rt\n"
+        "assert callable(rt.init) and 'torch' not in sys.modules\n"
+        "rt.train  # the lazy subpackages load on first use\n"
+        "assert 'torch' in sys.modules\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout

@@ -9,6 +9,7 @@ streaming cases included). Every wait has a deadline, and every runtime is
 shut down in a `finally`.
 """
 
+import os
 import threading
 import time
 
@@ -280,9 +281,26 @@ def test_stream_is_incremental(rt):
 
 
 def test_init_without_local_mode_is_refused_by_the_port():
+    """init() without local_mode starts the port's cluster, as the JAX
+    package's does (ray_tpu/api.py): a GCS, a raylet and worker processes,
+    torn down again by shutdown(). A multi-host address is refused: only one
+    machine's cluster is ported."""
+    from ray_tpu_torch.core.cluster_runtime import ClusterRuntime
+
     ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match="local_mode=True"):
-        ray_tpu_torch.init()
+    rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    try:
+        assert isinstance(rt, ClusterRuntime) and ray_tpu_torch.is_initialized()
+        assert ray_tpu_torch.cluster_resources() == {"CPU": 1.0}
+        pid = ray_tpu_torch.get(ray_tpu_torch.remote(os.getpid).remote(), timeout=60)
+        assert pid != os.getpid()
+        procs = list(rt._cluster._procs.values())
+    finally:
+        ray_tpu_torch.shutdown()
+    assert not ray_tpu_torch.is_initialized()
+    assert all(p.poll() is not None for p in procs)
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        ray_tpu_torch.init("tcp://127.0.0.1:6379")
     assert not ray_tpu_torch.is_initialized()
 
 

@@ -552,15 +552,32 @@ def test_torch_trainer_datasets_wait_for_data():
         TorchTrainer(lambda config: None, datasets={"train": [1, 2, 3]})
 
 
-@pytest.mark.parametrize("kw", [{"backend": object()}, {"elastic": True},
+@pytest.mark.parametrize("kw", [{"backend": "gloo"}, {"elastic": True},
                                 {"min_workers": 1}, {"capacity_wait_s": 5.0}],
                          ids=lambda kw: next(iter(kw)))
-def test_cluster_only_scaling_fields_are_refused(kw):
-    """Nothing under the in-process runtime reads these: a value other than
-    the default must fail loudly rather than be silently ignored."""
-    from ray_tpu_torch.train import ScalingConfig
+def test_cluster_only_scaling_fields_are_refused(kw, tmp_path):
+    """`backend` is read by the cluster runtime's distributed setup and is
+    accepted there (tests/test_torch_cluster_trainer.py runs it); the
+    in-process runtime would ignore it, so fit() refuses it there. What reads
+    the others (the trainer's preemption, elastic-grow and capacity arms) is
+    not ported: a value other than the default must fail loudly rather than
+    be silently ignored."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchBackendConfig, TorchTrainer
 
     ScalingConfig(backend=None, elastic=False, min_workers=None, capacity_wait_s=None)
+    if "backend" in kw:
+        sc = ScalingConfig(use_gpu=False, backend=TorchBackendConfig(backend=kw["backend"]))
+        assert sc.backend.backend == "gloo"
+        ray_tpu_torch.shutdown()
+        ray_tpu_torch.init(local_mode=True, num_cpus=2)
+        try:
+            with pytest.raises(NotImplementedError, match="cluster runtime"):
+                TorchTrainer(lambda config: None, scaling_config=sc,
+                             run_config=RunConfig(storage_path=str(tmp_path))).fit()
+            assert not os.listdir(tmp_path)  # refused before any attempt
+        finally:
+            ray_tpu_torch.shutdown()
+        return
     with pytest.raises(NotImplementedError, match="item 3"):
         ScalingConfig(**kw)
 
