@@ -32,7 +32,11 @@ Phases, each printing its own line, any failure exits non-zero:
      streaming handle and 8 through LLMClient's feed at once must give the
      greedy tokens of InferenceEngine driven directly, and a handle close()
      must free its request's pages within one decode step; TTFT and
-     decode tokens/s of handle, feed and direct engine;
+     decode tokens/s of handle, feed and direct engine; then the same on
+     init() with the replica an actor in a worker process leased GPU 0
+     (num_gpus=1): the same gates, flash_fwd's launches (>= 32 x 16, the
+     backward kernels 0) read in the replica's process, its pid,
+     CUDA_VISIBLE_DEVICES and start-up time, no process or pool left;
   8. train-parity: 3 AdamW steps at Llama-2-7B width, 2 layers, float32,
      through the kernels and through plain autograd from the same params,
      under remat "dots" and "hot": the first step's gradients and every
@@ -84,9 +88,12 @@ Phases, each printing its own line, any failure exits non-zero:
      y, x's gradient, the aux loss and every param's gradient shard, with
      the tokens dropped; peak memory per rank;
   15. cluster: the cluster runtime (init() with no arguments: a GCS, a
-     raylet and worker processes): (a) cluster_resources()["GPU"] from the
-     GPU manager; a num_gpus=1 task sees CUDA_VISIBLE_DEVICES="0" and the
-     card; two num_gpus=0.5 tasks held at once by a barrier actor share
+     raylet, its zygote and worker processes forked from it): (a)
+     cluster_resources()["GPU"] from the GPU manager; the time until the
+     zygote parks a child; a num_gpus=1 task on a parked child sees
+     CUDA_VISIBLE_DEVICES="0" and the card, is the zygote's child and not in
+     a bad fork, and its latency; the zygote is no compute process of the
+     card and never initialised CUDA; two num_gpus=0.5 tasks held at once by a barrier actor share
      device 0; a bf16 4096 x 11008 CUDA tensor through put, get and a GPU
      task and back, bitwise, twice (GB/s); flash_attention at the serve
      shape in an actor's process against its plain version; no-op tasks and
@@ -98,13 +105,18 @@ Phases, each printing its own line, any failure exits non-zero:
      MeshSpec(data=2), fp32: 3 AdamW steps against one process (first loss
      1e-6, trajectory 1e-5, every leaf 1e-5 of its norm), then ZeRO-1 over
      "data" against the plain two-rank run; no process and no
-     /dev/shm/rtpt_* pool left after shutdown.
+     /dev/shm/rtpt_* pool left after shutdown; (d) a head on
+     tcp://127.0.0.1:0 with an auth token and a worker node joined by
+     start_worker_node, this process a remote client (init(address=)): the
+     bf16 tensor through its put, a num_gpus=1 task on the joined node and
+     its get, bitwise; a connection without the token refused.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
 tune, parallel and cluster phases' model paths (ring, ulysses, pipeline, the
-TP meshes and TP x SP; the cluster's actor, NCCL trainer worker and gloo
-ranks) under "launches_by_path"), and the device line last.
+TP meshes and TP x SP; the deploy phase's cluster replica; the cluster's
+actor, NCCL trainer worker and gloo ranks) under "launches_by_path"), and the
+device line last.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -964,6 +976,8 @@ def phase_deploy():
     all_ttft, all_tps = _latency(runs, labels)
     mismatched = [lb for lb in labels if [t for _, t in runs[lb][1]] != [t for _, t in direct[lb][1]]]
     steps = after["decode_steps"] - before["decode_steps"]
+    local_line = (f"in-process deployment TTFT p50 {all_ttft:.1f} ms, decode {all_tps:.1f} tok/s; "
+                  f"direct engine TTFT p50 {direct_ttft:.1f} ms, decode {direct_tps:.1f} tok/s")
     print(f"[deploy] llama2_7b bf16 seed 0 via llm_deployment on init(local_mode=True), up in "
           f"{up_s:.1f} s; 16 requests at once, prompts {[len(p) for p in prompts]}, {n_new} new "
           f"tokens each; greedy tokens equal to InferenceEngine driven directly: "
@@ -982,6 +996,126 @@ def phase_deploy():
         _fail(f"deploy: flash_fwd launched {launches['flash_fwd']} times, want >= 32 x 16")
     if steps > 1:
         _fail(f"deploy: a closed stream's pages freed {steps} decode steps after close")
+    return {"deploy replica (cluster)": _deploy_on_cluster(
+        prompts, labels, n_new, geometry, cfg, direct, local_line, smi)}
+
+
+def _counted_llm_server():
+    """serve.llm's replica class with one method more, `kernel_launches`:
+    the flash kernels' launch counts of the replica's own process, zeroed
+    when asked, beside its pid and CUDA_VISIBLE_DEVICES."""
+    from ray_tpu_torch.serve.llm.deployment import LLMServer
+
+    class CountedLLMServer(LLMServer):
+        def kernel_launches(self, zero: bool = False):
+            counts = _launch_counts()
+            if zero:
+                _zero_launch_counts()
+            return {"launches": counts, "pid": os.getpid(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    return CountedLLMServer
+
+
+def _deploy_on_cluster(prompts, labels, n_new, geometry, cfg, direct, local_line, smi):
+    """The deploy phase's cluster part: the same llm_deployment, prompts and
+    geometry with the replica an actor in a worker process of init() leased
+    GPU 0 (ray_actor_options={"num_gpus": 1}). Its greedy tokens must equal
+    the direct engine's for all 16 requests, flash_fwd must launch >= 32 x 16
+    times and the backward kernels never, as counted in the replica's process
+    (the replica class gains `kernel_launches` for that, and nothing else),
+    and a closed stream must free its pages within one decode step. No
+    process and no pool of the cluster may outlive its shutdown."""
+    import gc
+    import glob
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.serve.deployment import Application, Deployment
+    from ray_tpu_torch.serve.llm import LLMClient, llama2_7b_paged_lm, llm_deployment
+
+    t0 = time.perf_counter()
+    rt.init()
+    init_s = time.perf_counter() - t0
+    session_dir = current_runtime()._cluster.session_dir
+    ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+    try:
+        t0 = time.perf_counter()
+        base = llm_deployment(llama2_7b_paged_lm, name="llama2-7b-cluster", engine_config=cfg,
+                              model_kwargs=dict(seed=0, device="cuda", **geometry),
+                              ray_actor_options={"num_gpus": 1})
+        app = Application(Deployment(_counted_llm_server(), base.deployment.name,
+                                     base.deployment.config), base.init_args, base.init_kwargs)
+        handle = serve.run(app, name="llama2-7b-cluster", http_port=None)
+        stream = handle.options(stream=True)
+        client = LLMClient("llama2-7b-cluster")
+        stats = handle.options(method_name="engine_stats")
+        counters = handle.options(method_name="kernel_launches")
+        try:
+            list(stream.remote([1, 2, 3, 4], 2))  # warm-up
+            list(client.generate([1, 2, 3, 4], 2))
+            up_s = time.perf_counter() - t0
+            replica = counters.remote(True).result(timeout=60)
+            runs = _drive([(lb, stream.remote if lb.startswith("handle") else client.generate)
+                           for lb in labels], prompts, n_new)
+            launches = counters.remote(False).result(timeout=60)["launches"]
+
+            gen = stream.remote(prompts[0], 400)
+            got = [next(gen), next(gen)]
+            gen.close()
+            before = stats.remote().result(timeout=60)
+            deadline = time.monotonic() + 60
+            while True:
+                after = stats.remote().result(timeout=60)
+                if after["running"] == 0 and after["kv"]["used_pages"] == 0:
+                    break
+                if time.monotonic() > deadline:
+                    _fail(f"deploy: on the cluster a closed stream kept its pages: {after}")
+                time.sleep(0.002)
+        finally:
+            client.close()
+    finally:
+        serve.shutdown()
+        t0 = time.perf_counter()
+        rt.shutdown()
+        down_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    h_ttft, h_tps = _latency(runs, labels[:8])
+    f_ttft, f_tps = _latency(runs, labels[8:])
+    all_ttft, all_tps = _latency(runs, labels)
+    mismatched = [lb for lb in labels if [t for _, t in runs[lb][1]] != [t for _, t in direct[lb][1]]]
+    steps = after["decode_steps"] - before["decode_steps"]
+    print(f"[deploy] cluster: init() {init_s:.2f} s; the 7B replica in worker pid "
+          f"{replica['pid']} (driver {os.getpid()}), CUDA_VISIBLE_DEVICES="
+          f"{replica['visible']!r}, up in {up_s:.1f} s; greedy tokens equal to the direct "
+          f"engine's: {16 - len(mismatched)}/16; launches counted in the replica's process "
+          f"{launches}", flush=True)
+    print(f"[deploy] cluster {smi}: handle TTFT p50 {h_ttft:.1f} ms, decode {h_tps:.1f} "
+          f"tok/s; feed TTFT p50 {f_ttft:.1f} ms, decode {f_tps:.1f} tok/s; all 16 TTFT p50 "
+          f"{all_ttft:.1f} ms, decode {all_tps:.1f} tok/s; {local_line}", flush=True)
+    print(f"[deploy] cluster: handle close() after 2 of 400 tokens ({got}): pages and slot "
+          f"freed {steps} decode step(s) after close returned; shutdown {down_s:.2f} s, "
+          f"processes left {left}, pools left {sorted(pools)}", flush=True)
+    if replica["pid"] == os.getpid() or replica["visible"] != "0":
+        _fail("deploy: the cluster replica is not a worker process that sees exactly device 0")
+    if mismatched:
+        _fail(f"deploy: on the cluster greedy tokens differ from the direct engine for "
+              f"{mismatched}")
+    if launches["flash_fwd"] < 32 * 16 or launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        _fail(f"deploy: the cluster replica launched {launches}, want flash_fwd >= 32 x 16 "
+              f"and no backward kernel")
+    if steps > 1:
+        _fail(f"deploy: on the cluster a closed stream's pages freed {steps} decode steps "
+              f"after close")
+    if left or pools:
+        _fail("deploy: processes or /dev/shm/rtpt_* pools outlived the cluster's shutdown")
+    return launches
 
 
 def _launch_counts():
@@ -2539,11 +2673,34 @@ CLUSTER_TIMEOUT_S = 300
 
 
 def _cluster_gpu_task():
-    """What a num_gpus=1 task sees from inside its worker process."""
+    """What a num_gpus=1 task sees from inside its worker process, and
+    whether torch calls its fork bad (a fork after CUDA was initialised in
+    the parent)."""
     import torch
 
     return (os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.device_count(),
-            torch.cuda.get_device_name(0), os.getpid())
+            torch.cuda.get_device_name(0), os.getpid(), os.getppid(),
+            torch.cuda._is_in_bad_fork())
+
+
+def _compute_app_pids():
+    """The pids nvidia-smi lists as the card's compute processes (in a
+    container whose pid namespace nvidia-smi cannot see into, not ours)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return [int(p) for p in out.split()]
+
+
+def _nvidia_fds(pid: int) -> int:
+    """How many of a process's open files are NVIDIA device nodes: a CUDA
+    context holds /dev/nvidiactl, /dev/nvidia<N> and /dev/nvidia-uvm open."""
+    n = 0
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+        except OSError:
+            pass
+    return n
 
 
 class _Barrier:
@@ -2577,6 +2734,99 @@ def _cluster_echo(x):
 
 def _cluster_noop():
     return None
+
+
+def _cluster_node_echo(x):
+    """Part (d)'s GPU task: the tensor it was given, where it arrived, and
+    the node and pid it ran in."""
+    import ray_tpu_torch as rt
+
+    return x, str(x.device), rt.get_runtime_context().get_node_id(), os.getpid()
+
+
+def _cluster_tcp(smi):
+    """Part (d): a head that other hosts can join, on tcp://127.0.0.1:0 with
+    an auth token, and a worker node joined through start_worker_node with
+    only that address (its own session dir and pool; the GPU is on it, none
+    on the head). This process is a remote client (init(address=)): the
+    86 MiB bf16 tensor goes through its put, a num_gpus=1 task on the joined
+    node and its get, bitwise; a connection without the token is refused.
+    No process and no pool of either node may outlive the shutdown."""
+    import glob
+    import secrets
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.cluster_runtime import Cluster, start_worker_node
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    os.environ["RAY_TPU_AUTH_TOKEN"] = secrets.token_hex(16)
+    joined = head = None
+    try:
+        t0 = time.perf_counter()
+        head = Cluster(num_gpus=0, head_port=0)
+        head_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        joined = start_worker_node(head.gcs_tcp_address)
+        join_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt.init(address=head.gcs_tcp_address)
+        attach_s = time.perf_counter() - t0
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            w_up = torch.randn(CLUSTER_TENSOR, generator=gen, device="cuda").to(torch.bfloat16)
+            task = rt.remote(num_gpus=1)(_cluster_node_echo)
+            rounds, same = [], True
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = rt.put(w_up)
+                put_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back_ref = task.remote(ref)
+                back, where, node, pid = rt.get(back_ref, timeout=CLUSTER_TIMEOUT_S)
+                torch.cuda.synchronize()
+                trip_s = time.perf_counter() - t0
+                same = same and where == "cuda:0" and node == joined["node_id"] and torch.equal(
+                    back.view(torch.int16), w_up.view(torch.int16))
+                rounds.append(f"put {put_s:.3f} s, through the task on node {node[:8]} (pid "
+                              f"{pid}, arrived on {where}) and get {trip_s:.3f} s")
+                del ref, back_ref, back
+            token = os.environ["RAY_TPU_AUTH_TOKEN"]
+            os.environ["RAY_TPU_AUTH_TOKEN"] = "not-the-token"
+            try:
+                RpcClient(head.gcs_tcp_address, connect_timeout=5.0).call("ping", timeout=5.0)
+                refused = False
+            except (ConnectionError, OSError):
+                refused = True
+            finally:
+                os.environ["RAY_TPU_AUTH_TOKEN"] = token
+        finally:
+            rt.shutdown()
+    finally:
+        t0 = time.perf_counter()
+        if joined is not None:
+            joined["shutdown"]()
+        if head is not None:
+            head.shutdown()
+        down_s = time.perf_counter() - t0
+        os.environ.pop("RAY_TPU_AUTH_TOKEN", None)
+    left = [p for d in (head.session_dir, joined["session_dir"]) for p in _cluster_processes(d)]
+    pools = [p for d in (head.session_dir, joined["session_dir"])
+             for p in glob.glob(f"/dev/shm/rtpt_{os.path.basename(d)}*")]
+    print(f"[cluster] (d) {smi}: a head on {head.gcs_tcp_address} with a token in "
+          f"{head_s:.2f} s, a worker node joined over TCP in {join_s:.2f} s, this process "
+          f"attached as a remote client in {attach_s:.2f} s; bf16 {CLUSTER_TENSOR} first / "
+          f"second: {' / '.join(rounds)}; bitwise on the joined node's GPU and back {same}; "
+          f"a connection without the token refused {refused}; shutdown {down_s:.2f} s, "
+          f"processes left {left}, pools left {sorted(pools)}", flush=True)
+    if not same:
+        _fail("cluster: over TCP the tensor did not come back bitwise from the joined node")
+    if not refused:
+        _fail("cluster: the head's TCP port served a connection without the token")
+    if left or pools:
+        _fail("cluster: processes or pools of the TCP cluster outlived its shutdown")
 
 
 class _FlashActor:
@@ -2819,29 +3069,58 @@ def phase_cluster():
         t0 = time.perf_counter()
         rt.init()
         boot_s = time.perf_counter() - t0
-        session_dir = current_runtime()._cluster.session_dir
+        runtime = current_runtime()
+        session_dir = runtime._cluster.session_dir
         # This cluster's pools and its driver's lock file.
         ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
         try:
             res = rt.cluster_resources()
-            print(f"[cluster] {smi}: init() {boot_s:.2f} s, cluster_resources {res}", flush=True)
+            # The raylet boots its zygote (an interpreter that imports the
+            # worker stack and torch) beside init(): the first launch forks
+            # a parked child once it is up.
+            deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+            while not ((pool := runtime._raylet.call("debug_state")["pool"])["zygote_alive"]
+                       and pool["preforked"] >= 1):
+                if time.monotonic() > deadline:
+                    _fail(f"cluster: the zygote never parked a child: {pool}")
+                time.sleep(0.01)
+            ready_s = time.perf_counter() - t0
+            zygote = pool["zygote_pid"]
+            print(f"[cluster] {smi}: init() {boot_s:.2f} s, the zygote up with "
+                  f"{pool['preforked']} children parked {ready_s:.2f} s after init() began; "
+                  f"cluster_resources {res}", flush=True)
             if res.get("GPU") != 1.0:
                 _fail(f"cluster: cluster_resources()['GPU'] is {res.get('GPU')}, want 1.0")
 
             # (a) device leases
             gpu_task = rt.remote(num_gpus=1)(_cluster_gpu_task)
             t0 = time.perf_counter()
-            visible, count, dev_name, pid = rt.get(gpu_task.remote(), timeout=CLUSTER_TIMEOUT_S)
+            visible, count, dev_name, pid, ppid, bad_fork = rt.get(gpu_task.remote(),
+                                                                    timeout=CLUSTER_TIMEOUT_S)
             first_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             rt.get(gpu_task.remote(), timeout=CLUSTER_TIMEOUT_S)
             again_s = time.perf_counter() - t0
-            print(f"[cluster] (a) num_gpus=1 task in pid {pid} (driver {os.getpid()}): "
-                  f"CUDA_VISIBLE_DEVICES={visible!r}, {count} device(s), {dev_name}; "
-                  f"{first_s:.2f} s on a new worker (its boot, torch's import, a CUDA "
-                  f"context), {again_s * 1e3:.1f} ms again", flush=True)
+            pool = runtime._raylet.call("debug_state")["pool"]
+            zstats = runtime._raylet.call("zygote_stats")
+            apps = _compute_app_pids()
+            fds = {"zygote": _nvidia_fds(zygote), "task's worker": _nvidia_fds(pid)}
+            print(f"[cluster] (a) num_gpus=1 task in pid {pid}, forked by the zygote (pid "
+                  f"{zygote}, the task's parent {ppid}; driver {os.getpid()}): "
+                  f"CUDA_VISIBLE_DEVICES={visible!r}, {count} device(s), {dev_name}, bad fork "
+                  f"{bad_fork}; {first_s:.3f} s on a parked child (its CUDA context; PR 10 "
+                  f"took 5.59 s to Popen one), {again_s * 1e3:.1f} ms again; pool hits "
+                  f"{pool['hits']}, misses {pool['misses']}; the card's compute processes "
+                  f"{apps}, the zygote among them {zygote in apps}, CUDA initialised in the "
+                  f"zygote {zstats.get('cuda_initialized')}, open /dev/nvidia* files {fds}",
+                  flush=True)
             if visible != "0" or count != 1 or dev_name != name or pid == os.getpid():
                 _fail("cluster: the num_gpus=1 task does not see exactly device 0")
+            if ppid != zygote or bad_fork or pool["hits"]["prefork"] < 1:
+                _fail("cluster: the num_gpus=1 task's worker is not a zygote child in a good fork")
+            if zygote in apps or zstats.get("cuda_initialized") is not False \
+                    or fds["zygote"] or not fds["task's worker"]:
+                _fail("cluster: the zygote holds a CUDA context (or the check cannot see one)")
             barrier = rt.remote(max_concurrency=2)(_Barrier).remote(2)
             half = rt.remote(num_gpus=0.5)(_cluster_half_gpu_task)
             t0 = time.perf_counter()
@@ -3008,9 +3287,11 @@ def phase_cluster():
         left = _cluster_processes(session_dir)
         pools = glob.glob(ours + "*")
         print(f"[cluster] shutdown {down_s:.2f} s; processes left {left}, pools left "
-              f"{sorted(pools)}; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+              f"{sorted(pools)}", flush=True)
         if left or pools:
             _fail("cluster: processes or /dev/shm/rtpt_* pools outlived shutdown")
+        _cluster_tcp(smi)
+        print(f"[cluster] phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
         return launches
     finally:
         os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
@@ -3043,12 +3324,13 @@ def main() -> int:
     for row, n in zip((fwd_row, dq_row, dkv_row), phase_gptj().values()):
         row["at_d256"]["launches"] = n
     fwd_row["launches"] = phase_serve(profile=args.profile)
-    phase_deploy()
+    by_path = phase_deploy()
     phase_train_parity()
     train_launches = phase_train(profile=args.profile)
     phase_zero()
     phase_checkpoint()
-    by_path, fit_step_ms = phase_fit(profile=args.profile)
+    fit_launches, fit_step_ms = phase_fit(profile=args.profile)
+    by_path.update(fit_launches)
     by_path.update(phase_tune(fit_step_ms))
     by_path.update(phase_parallel())
     by_path.update(phase_cluster())

@@ -89,14 +89,16 @@ def init(
     ignore_reinit_error: bool = False,
     namespace: Optional[str] = None,
     object_store_memory: Optional[int] = None,
+    num_workers: int = 0,
     **_kwargs,
 ):
     """Initializes the per-process runtime (the JAX package's
     ray_tpu/api.py init). local_mode=True runs the in-process runtime.
-    Otherwise it starts a head on this machine: a GCS, one raylet with
-    num_cpus CPUs and num_gpus GPUs (default: the CUDA devices the process
-    sees) and its worker processes. An address (attaching to a running
-    cluster, or another host's) is not ported yet."""
+    `address="tcp://host:port"` attaches to a running cluster's GCS as a
+    remote client (core/client_runtime.py; RAY_TPU_AUTH_TOKEN must hold the
+    cluster's token). Otherwise it starts a head on this machine: a GCS, one
+    raylet with num_cpus CPUs and num_gpus GPUs (default: the CUDA devices
+    the process sees), `num_workers` prestarted workers and their zygote."""
     if runtime_base.is_initialized():
         if ignore_reinit_error:
             return
@@ -107,15 +109,20 @@ def init(
         from .core.local_runtime import LocalRuntime
 
         rt = LocalRuntime(resources=resources, num_cpus=num_cpus, num_gpus=num_gpus)
+    elif address is not None:
+        if not address.startswith("tcp://"):
+            raise ValueError(f"address must be tcp://host:port (a head's GCS), got {address!r}")
+        from .core.client_runtime import ClientRuntime
+
+        rt = ClientRuntime.connect_tcp(address)
+        if namespace:
+            rt._namespace = namespace
     else:
-        if address is not None:
-            raise NotImplementedError(
-                "attaching to a running cluster and multi-host clusters are not ported yet "
-                "(ROADMAP Queue 1 item 3); init() starts a cluster on this machine")
         from .core.cluster_runtime import ClusterRuntime
 
         rt = ClusterRuntime.create(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources,
-                                   namespace=namespace, object_store_memory=object_store_memory)
+                                   namespace=namespace, object_store_memory=object_store_memory,
+                                   num_workers=num_workers)
     runtime_base.set_runtime(rt)
     return rt
 

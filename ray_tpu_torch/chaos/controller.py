@@ -55,6 +55,10 @@ POINT_ACTIONS = {
     # Cluster worker task execution (core/worker_proc.py), once per task or
     # actor call, detail = "<desc>@<attempt>".
     "task.exec": ("kill", "raise", "delay"),
+    # The raylet's spawn through its zygote (core/worker_pool.py), detail =
+    # "spawn:<worker id>" or "batch:<n>". `kill` SIGKILLs the zygote daemon
+    # (the spawn falls back to Popen and the pool manager respawns it).
+    "zygote.spawn": ("kill", "raise", "delay"),
 }
 POINTS = tuple(POINT_ACTIONS)
 

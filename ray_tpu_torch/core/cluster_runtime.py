@@ -28,9 +28,14 @@ a session dead when none of its daemon sockets accepts within 0.2 s
 that is starting or slow under load; the port does not copy that, and
 sweeps only rtpt_* pools.
 
-Left out (ROADMAP Queue 1 item 3): multi-host (TCP, `Cluster(head_port=)`,
-`start_worker_node`, the client runtime), GCS restart, runtime envs, the
-driver's log monitor and tracing spans.
+A cluster spans hosts over TCP (core/rpc.py, with its auth token):
+`Cluster(head_port=)` serves the GCS on a tcp:// port as well, every raylet
+advertises a tcp:// endpoint, `start_worker_node` joins a raylet on this
+host to a head elsewhere, and core/client_runtime.py is a driver outside the
+cluster. A worker node's driver-side caller holds that node's session lock.
+
+Left out (ROADMAP Queue 1 item 3): GCS restart, runtime envs, the driver's
+log monitor and tracing spans.
 """
 
 from __future__ import annotations
@@ -57,9 +62,10 @@ from typing import Any, Dict, List, Optional, Sequence
 from .. import exceptions as exc
 from ..utils import config
 from . import serialization
+from ..native.build import shm_pool_lib
 from .ids import ActorID, ObjectID, TaskID
 from .object_transport import StoredError
-from .rpc import RpcClient
+from .rpc import RpcClient, require_auth_token
 from .runtime_base import Runtime
 from .shm_store import SharedMemoryStore
 from .task_spec import ArgRef, TaskSpec, TaskType
@@ -245,11 +251,13 @@ class ClusterRuntime(Runtime):
     @classmethod
     def create(cls, num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
                resources: Optional[Dict[str, float]] = None, namespace: Optional[str] = None,
-               object_store_memory: Optional[int] = None) -> "ClusterRuntime":
+               object_store_memory: Optional[int] = None,
+               num_workers: int = 0) -> "ClusterRuntime":
         """Starts a head on this machine (a GCS and one raylet) and returns
         the driver's runtime on it."""
         rt = Cluster(num_cpus=num_cpus, num_gpus=num_gpus, resources=resources,
-                     object_store_memory=object_store_memory).runtime()
+                     object_store_memory=object_store_memory,
+                     num_workers=num_workers).runtime()
         if namespace:
             rt._namespace = namespace
         return rt
@@ -585,6 +593,17 @@ class ClusterRuntime(Runtime):
             rec.attempts += 1
             rec.last_submit = time.monotonic()
             entry = dict(rec.entry, attempt=rec.attempts)
+        # Rebuild lost dependencies first (lineage two or more deep), with
+        # their throttle lifted: the resubmitted task would wait on them.
+        for dep in entry.get("deps", []):
+            dep_oid = ObjectID.from_hex(dep)
+            if self._store.contains(dep_oid) or self._gcs.call("get_object_locations", dep):
+                continue
+            dep_rec = self._records.get(dep)
+            if dep_rec is not None:
+                with dep_rec.lock:
+                    dep_rec.last_submit = 0.0
+                self._maybe_recover(dep_oid, store_errors=store_errors)
         self._submit_entry(entry)
 
     def _store_error_object(self, entry: dict, err: BaseException) -> None:
@@ -812,7 +831,27 @@ class ClusterRuntime(Runtime):
         rec.entry["max_retries"] = 0  # a cancelled task is not retried
         if rec.entry.get("_fast"):
             self._cancelled_tids.add(tid)
-            self._raylet.call("cancel_lease_task", rec.entry["_fast"], tid, force)
+            try:
+                self._raylet.call("cancel_lease_task", rec.entry["_fast"], tid, force)
+            except Exception as e:  # noqa: BLE001 - the lease's EOF still fails the task
+                _log.debug("cancel_lease_task for %s failed: %r", tid[:8], e)
+            return
+        # Task events reach the GCS in batches: wait up to 1 s for the node
+        # that holds the task, and only if it stays unknown ask every raylet.
+        sock = None
+        deadline = time.monotonic() + 1.0
+        while True:
+            st = self._gcs.call("get_task_states", [tid]).get(tid)
+            if st is not None and st.get("node"):
+                node = self._gcs.call("node_info", st["node"])
+                if node is not None and node.get("alive"):
+                    sock = node["sock"]
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if sock is not None:
+            self._raylet_for(sock).call("cancel_task", tid, force)
             return
         for n in self._gcs.call("list_nodes"):
             if n.get("Alive"):
@@ -906,6 +945,34 @@ class ClusterRuntime(Runtime):
 # ------------------------------------------------------------------ sessions
 
 
+def _spawn_daemon(log_dir: str, cmd: List[str], name: str) -> subprocess.Popen:
+    """Spawns a daemon with stdout/stderr captured under `log_dir`, from the
+    directory that holds this package (so that `python -m ray_tpu_torch...`
+    finds it whatever the caller's cwd)."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    with open(os.path.join(log_dir, f"{name}.out"), "ab", buffering=0) as out, \
+            open(os.path.join(log_dir, f"{name}.err"), "ab", buffering=0) as err:
+        return subprocess.Popen(cmd, stdout=out, stderr=err, env=env)
+
+
+def _read_announced(path: str, prefix: str, timeout: float = 20.0) -> str:
+    """The value of a KEY=value line a daemon printed to its log: an
+    ephemeral port is known only after its bind."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(path) as f:
+                for line in f:
+                    if line.startswith(prefix):
+                        return line[len(prefix):].strip()
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise RuntimeError(f"the daemon never announced {prefix} in {path}")
+
+
 def _lock_path(session_base: str) -> str:
     return f"/dev/shm/{POOL_PREFIX}{session_base}.lock"
 
@@ -970,14 +1037,27 @@ def _pick_store_path(session_dir: str, node_id: str, capacity: int, claimed: int
 
 
 class Cluster:
-    """A cluster of nodes on this machine (reference:
+    """A cluster's head and its nodes on this machine (reference:
     python/ray/cluster_utils.py:135 Cluster, add_node :201, remove_node
     :282): one GCS process, one raylet process per node."""
 
     def __init__(self, num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
                  resources: Optional[Dict[str, float]] = None,
-                 object_store_memory: Optional[int] = None):
+                 object_store_memory: Optional[int] = None, num_workers: int = 0,
+                 head_port: Optional[int] = None, node_ip: str = "127.0.0.1"):
+        """`num_workers` idle workers are started on the head at boot (the
+        raylet's prestart floor). `head_port` makes a head other hosts can
+        join (reference: `ray start --head --port`): the GCS also listens on
+        tcp://node_ip:head_port (0: an ephemeral port; `gcs_tcp_address` is
+        the bound one), and every raylet serves and advertises a tcp://
+        endpoint. TCP needs RAY_TPU_AUTH_TOKEN (core/rpc.py); joiners and
+        remote clients must hold the same token."""
+        if head_port is not None:
+            require_auth_token(f"tcp://{node_ip}:{head_port}")
         sweep_orphaned_pools()
+        # The pool library is built here, before any raylet starts its
+        # zygote, so no fork races the g++ build.
+        shm_pool_lib()
         self.session_dir = tempfile.mkdtemp(prefix=f"{POOL_PREFIX}session_")
         # Liveness: held until shutdown (or this process's death).
         self._lock_file = _lock_path(os.path.basename(self.session_dir))
@@ -989,13 +1069,21 @@ class Cluster:
         self._store_paths: Dict[str, str] = {}
         self._shm_claimed = 0
         self._store_capacity = int(object_store_memory or config.OBJECT_STORE_MEMORY)
+        self._node_ip = node_ip
+        self._tcp_mode = head_port is not None
+        self.gcs_tcp_address: Optional[str] = None
         self._down = False
         atexit.register(self.shutdown)
         try:
-            self._procs["gcs"] = self._spawn(
-                [sys.executable, "-m", "ray_tpu_torch.core.gcs", self.gcs_sock], "gcs")
+            gcs_cmd = [sys.executable, "-m", "ray_tpu_torch.core.gcs", self.gcs_sock]
+            if self._tcp_mode:
+                gcs_cmd.append(f"tcp://{node_ip}:{int(head_port)}")
+            self._procs["gcs"] = _spawn_daemon(self.log_dir, gcs_cmd, "gcs")
             self._gcs = RpcClient(self.gcs_sock)
             self._gcs.call("ping")
+            if self._tcp_mode:
+                self.gcs_tcp_address = _read_announced(
+                    os.path.join(self.log_dir, "gcs.out"), "GCS_TCP_ADDRESS=")
             head_res = dict(resources or {})
             if num_cpus is not None:
                 head_res["CPU"] = float(num_cpus)
@@ -1006,22 +1094,10 @@ class Cluster:
                 num_gpus = get_accelerator_manager("GPU").get_current_node_num_accelerators()
             if num_gpus:
                 head_res["GPU"] = float(num_gpus)
-            self.head_node_id = self.add_node(resources=head_res)
+            self.head_node_id = self.add_node(resources=head_res, num_workers=num_workers)
         except BaseException:
             self.shutdown()
             raise
-
-    def _spawn(self, cmd: List[str], name: str) -> subprocess.Popen:
-        """Spawns a daemon with stdout/stderr captured under the session's
-        log dir, from the directory that holds this package (so that
-        `python -m ray_tpu_torch...` finds it whatever the caller's cwd)."""
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
-                                    else "")
-        with open(os.path.join(self.log_dir, f"{name}.out"), "ab", buffering=0) as out, \
-                open(os.path.join(self.log_dir, f"{name}.err"), "ab", buffering=0) as err:
-            return subprocess.Popen(cmd, stdout=out, stderr=err, env=env)
 
     def _sock_for(self, node_id: str) -> str:
         return os.path.join(self.session_dir, f"raylet_{node_id}.sock")
@@ -1037,8 +1113,9 @@ class Cluster:
         return path
 
     def add_node(self, num_cpus: Optional[float] = None,
-                 resources: Optional[Dict[str, float]] = None) -> str:
-        """Starts a raylet with these resources (CPU 1 unless given)."""
+                 resources: Optional[Dict[str, float]] = None, num_workers: int = 0) -> str:
+        """Starts a raylet with these resources (CPU 1 unless given) and
+        `num_workers` prestarted idle workers."""
         node_id = uuid.uuid4().hex[:12]
         res = dict(resources or {})
         if num_cpus is not None:
@@ -1046,8 +1123,10 @@ class Cluster:
         res.setdefault("CPU", 1.0)
         cmd = [sys.executable, "-m", "ray_tpu_torch.core.raylet", node_id,
                self._sock_for(node_id), self._store_for(node_id), self.gcs_sock,
-               json.dumps(res), str(self._store_capacity)]
-        self._procs[node_id] = self._spawn(cmd, f"raylet_{node_id}")
+               json.dumps(res), str(self._store_capacity), str(int(num_workers))]
+        if self._tcp_mode:
+            cmd.append(f"tcp://{self._node_ip}:0")
+        self._procs[node_id] = _spawn_daemon(self.log_dir, cmd, f"raylet_{node_id}")
         RpcClient(self._sock_for(node_id)).call("ping")
         return node_id
 
@@ -1119,3 +1198,84 @@ class Cluster:
             pass
         os.close(self._lock_fd)
         atexit.unregister(self.shutdown)
+
+
+def start_worker_node(gcs_address: str, node_ip: Optional[str] = None,
+                      num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
+                      resources: Optional[Dict[str, float]] = None,
+                      object_store_memory: Optional[int] = None) -> dict:
+    """Starts a raylet on THIS host that joins a head's GCS over TCP
+    (reference: `ray start --address=head:port`). The raylet serves its own
+    workers over a UDS in a session dir of its own, advertises
+    tcp://node_ip:<ephemeral port> to the cluster and holds its own pool.
+    node_ip defaults to this host's address on the route to the GCS. The
+    caller holds the node's session lock, as a driver holds its cluster's.
+    Returns {node_id, session_dir, sock, proc, shutdown}; `shutdown()` stops
+    the raylet (and its workers) and removes the pool and the session dir."""
+    import socket
+
+    from .rpc import parse_address
+
+    kind, target = parse_address(gcs_address)
+    if kind != "tcp":
+        raise ValueError("gcs_address must be tcp://host:port (the head's GCS endpoint)")
+    require_auth_token(f"a node joining {gcs_address}")
+    if node_ip is None:
+        with socket.create_connection(target, timeout=10.0) as probe:
+            node_ip = probe.getsockname()[0]
+    sweep_orphaned_pools()
+    shm_pool_lib()
+    session_dir = tempfile.mkdtemp(prefix=f"{POOL_PREFIX}worker_")
+    lock_file = _lock_path(os.path.basename(session_dir))
+    lock_fd = _hold_session_lock(lock_file)
+    log_dir = os.path.join(session_dir, "logs")
+    os.makedirs(log_dir, exist_ok=True)
+    node_id = uuid.uuid4().hex[:12]
+    res = dict(resources or {})
+    if num_cpus is not None:
+        res["CPU"] = float(num_cpus)
+    res.setdefault("CPU", float(os.cpu_count() or 1))
+    if num_gpus is None and "GPU" not in res:
+        from ..accelerators import get_accelerator_manager
+
+        num_gpus = get_accelerator_manager("GPU").get_current_node_num_accelerators()
+    if num_gpus:
+        res["GPU"] = float(num_gpus)
+    capacity = int(object_store_memory or config.OBJECT_STORE_MEMORY)
+    store = _pick_store_path(session_dir, node_id, capacity)
+    sock = os.path.join(session_dir, f"raylet_{node_id}.sock")
+    proc = _spawn_daemon(log_dir, [sys.executable, "-m", "ray_tpu_torch.core.raylet", node_id,
+                                   sock, store, gcs_address, json.dumps(res), str(capacity),
+                                   "0", f"tcp://{node_ip}:0"], "raylet")
+    done = []
+
+    def shutdown() -> None:
+        if done:
+            return
+        done.append(True)
+        try:
+            RpcClient(sock, connect_timeout=1.0).call("stop", timeout=10.0)
+        except Exception:  # noqa: BLE001 - killed below
+            pass
+        try:
+            proc.wait(timeout=15.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=5.0)
+        for path in (store, lock_file):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        shutil.rmtree(session_dir, ignore_errors=True)
+        os.close(lock_fd)
+        atexit.unregister(shutdown)
+
+    atexit.register(shutdown)
+    try:
+        RpcClient(sock).call("ping")
+    except BaseException:
+        shutdown()
+        raise
+    return {"node_id": node_id, "session_dir": session_dir, "sock": sock, "proc": proc,
+            "shutdown": shutdown}

@@ -33,7 +33,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from .. import exceptions as exc
-from .rpc import _recv_msg, _send_msg
+from .rpc import _recv_msg, _send_msg, parse_address
 
 # Tunables (modest defaults; the fast path must not starve the node).
 # Lease count is capped by host parallelism: on a small host extra leased
@@ -259,13 +259,14 @@ class FastPath:
         self._requesting = False
         self._cooldown_until = 0.0
         self._closed = False
-        # Every raylet of the port's cluster is on this machine, so direct
-        # sockets are always reachable; a test may set _disabled to force
-        # the raylet path.
-        self._disabled = False
-        threading.Thread(
-            target=self._janitor, daemon=True, name="fp-janitor"
-        ).start()
+        # Direct sockets are UDS paths on the raylet's host: a driver whose
+        # raylet is a tcp:// endpoint (a remote client) cannot reach them.
+        # A test may set _disabled to force the raylet path.
+        self._disabled = parse_address(runtime._raylet.path)[0] != "uds"
+        if not self._disabled:
+            threading.Thread(
+                target=self._janitor, daemon=True, name="fp-janitor"
+            ).start()
 
     def _janitor(self) -> None:
         """Returns idle leases: a burst of .remote() calls must not pin the
@@ -400,9 +401,9 @@ class FastPath:
                 lease_token=granted.get("token"),
             )
         spill = resp.get("spill")
-        if spill and hop < 2:
+        if spill and hop < 2 and parse_address(spill)[0] == "uds":
             return self._request_from(self._rt._raylet_for(spill), hop + 1)
-        return None
+        return None  # another host's raylet: its direct sockets are out of reach
 
     def _on_lease_dead(self, entries: List[dict]) -> None:
         self._rt._fastpath_failed(entries)
@@ -482,7 +483,7 @@ class ActorChannel:
         # Any miss (no entry, not ALIVE there yet, moved) falls through
         # to the authoritative GCS loop below.
         known = self._rt._actor_location.get(self.aid)
-        if known:
+        if known and parse_address(known)[0] == "uds":
             try:
                 dsock = self._rt._raylet_for(known).call(
                     "actor_direct_sock", self.aid
@@ -507,6 +508,9 @@ class ActorChannel:
             if not sock:  # RESTARTING/PENDING without a node yet
                 time.sleep(0.1)
                 continue
+            if parse_address(sock)[0] != "uds":
+                self._to_slow()  # another host: every call goes through its raylet
+                return
             if info.get("state") == "ALIVE":
                 try:
                     dsock = self._rt._raylet_for(sock).call(
@@ -563,6 +567,19 @@ class ActorChannel:
             # what was sent; re-buffer the rest and retry.
             self._buffer = buf[failed_at:] + self._buffer
         return False
+
+    def _to_slow(self) -> None:
+        with self._lock:
+            buf, self._buffer = self._buffer, []
+            self._state = "SLOW"
+        for e in buf:
+            # These results arrive through the raylet: drop the fast-path
+            # interest, or get() first waits out the ack wakeup.
+            self._rt._fast_sealed(e["return_ids"])
+            try:
+                self._rt._submit_actor_slow(e)
+            except Exception as err:  # noqa: BLE001 - stored for the caller's get
+                self._rt._store_error_object(e, err)
 
     def _to_dead(self, reason: str) -> None:
         with self._lock:

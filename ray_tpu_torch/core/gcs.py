@@ -77,6 +77,11 @@ class GcsService:
         self._raylet_clients: Dict[str, Any] = {}
         self._spread_rr = -1
         self._overflow_rr = -1
+        # Demand forecasts by source, {source: (launches expected, expiry)}:
+        # each heartbeat reply hands a node its share as `pool_hint`, so its
+        # warm pool is sized before the launches arrive; each actor
+        # registration consumes one unit.
+        self._demand_forecast: Dict[str, Tuple[int, float]] = {}
         self._stop = threading.Event()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
@@ -132,7 +137,32 @@ class GcsService:
             elif available is not None:
                 n["available"] = dict(available)
             n["last_hb"] = time.monotonic()
-        return {"ok": True, "nodes": alive}
+            now = n["last_hb"]
+            expected = sum(k for k, exp in self._demand_forecast.values() if k > 0 and now < exp)
+        pool_hint = -(-expected // alive) if expected > 0 and alive > 0 else 0
+        return {"ok": True, "nodes": alive, "pool_hint": pool_hint}
+
+    def report_demand_forecast(self, n: int, ttl_s: float = 15.0,
+                               source: str = "autoscaler") -> bool:
+        """Launches `source` expects soon, cluster-wide. A report replaces
+        that source's previous one, and it expires after `ttl_s`, so a
+        reporter that died leaves no pool pinned high."""
+        with self._lock:
+            self._demand_forecast[str(source)] = (max(0, int(n)),
+                                                  time.monotonic() + max(0.0, float(ttl_s)))
+        return True
+
+    def _consume_forecast(self, n: int) -> None:
+        """Registered launches are no longer expected: they draw the
+        forecasts down, sources in sorted order."""
+        with self._lock:
+            for src in sorted(self._demand_forecast):
+                if n <= 0:
+                    break
+                k, exp = self._demand_forecast[src]
+                take = min(k, n)
+                self._demand_forecast[src] = (k - take, exp)
+                n -= take
 
     @staticmethod
     def _node_entry(nid: str, n: dict) -> dict:
@@ -436,6 +466,7 @@ class GcsService:
                 results[i] = {"error": e}
                 continue
             placed.append((i, s, node))
+        self._consume_forecast(len(placed))
         for i, s, node in placed:
             rec = {
                 "state": "PENDING",
@@ -902,21 +933,27 @@ def exit_with_parent(stop: threading.Event) -> None:
     threading.Thread(target=watch, daemon=True, name="parent-watch").start()
 
 
-def main(sock_path: str) -> None:
-    """GCS daemon: serves the cluster's control plane on `sock_path`."""
+def main(sock_path: str, tcp_address: Optional[str] = None) -> None:
+    """GCS daemon: serves the cluster's control plane on `sock_path`, and on
+    `tcp_address` too for a cluster other hosts join (its bound address is
+    printed as GCS_TCP_ADDRESS=... for the head to read)."""
     from .rpc import RpcServer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s gcs %(levelname)s %(message)s")
     _log.info("gcs started (pid %d)", os.getpid())
     service = GcsService()
-    server = RpcServer(sock_path, service)
+    servers = [RpcServer(sock_path, service)]
+    if tcp_address:
+        servers.append(RpcServer(tcp_address, service))
+        print(f"GCS_TCP_ADDRESS={servers[-1].address}", flush=True)
     exit_with_parent(service._stop)
     try:
         while not service._stop.wait(0.5):
             pass
     finally:
-        server.shutdown()
+        for server in servers:
+            server.shutdown()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:3])

@@ -24,12 +24,14 @@ capacity of 1.0, as Ray does. Workers are pooled by the ids they see.
 
 Kept: task, actor and lease scheduling; the worker poll/step/done loop;
 local objects and `wait_objects`; `ensure_space` (frees and replica
-eviction); bundles; pulls between the raylets of one machine
-(`pull_object`, `fetch_object(_chunk)`, `object_size`). Workers are started
-with a plain Popen, the JAX raylet's own path when its zygote is down.
-Left out (ROADMAP Queue 1 item 3): the zygote and warm pool, runtime envs,
-spill to disk and broadcast, client put/get, push, drain, epoch fencing,
-profile, tail_logs and flight dumps. This module never imports torch.
+eviction); bundles; pulls between raylets (`pull_object`,
+`fetch_object(_chunk)`, `object_size`), over TCP when the cluster spans
+hosts (the raylet then also serves and advertises a tcp:// endpoint);
+`client_put` / `client_get` for remote client drivers; the warm pool, whose
+workers fork from a zygote (core/worker_pool.py, core/zygote.py), with Popen
+where the zygote cannot serve. Left out (ROADMAP Queue 1 item 3): runtime
+envs, spill to disk and broadcast, push, drain, epoch fencing, profile,
+tail_logs and flight dumps. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -51,12 +53,15 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from .. import exceptions as exc
 from ..accelerators import get_accelerator_manager
 from ..utils import config
+from ..utils import internal_metrics as imet
 from .heartbeat import HeartbeatCodec
 from .ids import ObjectID
 from .object_transport import StoredError
 from .placement_group import decode_node_affinity
 from .rpc import RpcClient, RpcServer
 from .shm_store import SharedMemoryStore
+from .worker_pool import WorkerPoolManager, ZygoteUnavailableError
+from .zygote import PidHandle, ZygoteClient
 
 POLL_TIMEOUT_S = config.WORKER_POLL_TIMEOUT_S
 _EPS = 1e-9
@@ -115,9 +120,14 @@ class RayletService:
         gcs_sock: str,
         resources: Dict[str, float],
         store_capacity: int,
+        prestart: int = 0,
+        advertise_address: Optional[str] = None,
     ):
         self.node_id = node_id
         self.sock_path = sock_path
+        # What other nodes and the GCS dial: on a cluster that spans hosts,
+        # a tcp:// endpoint; this node's own workers keep the UDS.
+        self.advertised = advertise_address or sock_path
         self.store_path = store_path
         self.store = SharedMemoryStore.create(store_path, store_capacity)
         self.gcs = RpcClient(gcs_sock)
@@ -185,7 +195,11 @@ class RayletService:
         self._last_reclaim = 0.0
         self._log_dir = os.path.join(os.path.dirname(sock_path) or ".", "logs")
         os.makedirs(self._log_dir, exist_ok=True)
-        reg = self.gcs.call("register_node", node_id, sock_path, store_path, self.total)
+        # The warm pool and its zygote (core/worker_pool.py): spawns fork
+        # from a daemon that already imported the worker stack and torch;
+        # until it is up, or when it is down, they Popen.
+        self._pool = WorkerPoolManager(self, prestart=prestart)
+        reg = self.gcs.call("register_node", node_id, self.advertised, store_path, self.total)
         self._cluster_size = reg.get("nodes", 1)
         self._threads = [
             threading.Thread(target=self._scheduler_loop, daemon=True, name="sched"),
@@ -195,6 +209,7 @@ class RayletService:
         ]
         for t in self._threads:
             t.start()
+        self._pool.start()
 
     # ----------------------------------------------- control-plane batching
     def _notify_sealed(self, oid_hexes: List[str], primary: bool = True) -> None:
@@ -569,6 +584,7 @@ class RayletService:
     # ------------------------------------------------------------- actors
     def create_actor(self, spec_blob: bytes, bundle_index: Optional[int] = None) -> bool:
         """Hosts an actor (the GCS already picked this node)."""
+        self._pool.note_demand()
         entry = pickle.loads(spec_blob)
         entry["type"] = "actor_creation"
         if bundle_index is not None and bundle_index >= 0:
@@ -677,6 +693,36 @@ class RayletService:
                     self._seal_cv.notify_all()
 
         threading.Thread(target=run, daemon=True).start()
+
+    # -------------------------------------------------- remote-client proxy
+    def client_put(self, oid_hex: str, blob: bytes) -> bool:
+        """Stores a framed object for a remote client driver, which has no
+        pool of its own (reference: ray client's server-side proxy,
+        util/client/server/); this node holds the primary copy."""
+        oid = ObjectID.from_hex(oid_hex)
+        try:
+            self.store.put_raw(oid, blob)
+        except exc.ObjectStoreFullError:
+            self.ensure_space(len(blob))
+            self.store.put_raw(oid, blob)
+        self._notify_sealed([oid_hex])
+        return True
+
+    def client_get(self, oid_hex: str, timeout: float = 30.0) -> Optional[bytes]:
+        """The framed object for a remote client driver, pulled here first
+        when another node holds it; None when it has not appeared within
+        `timeout` (the client then checks for a lost task and asks again)."""
+        oid = ObjectID.from_hex(oid_hex)
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.store.contains(oid):
+                raw = self.store.get_raw(oid)
+                if raw is not None:
+                    return raw
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return None
+            self.wait_objects([oid_hex], 1, min(remaining, 5.0), pull=True)
 
     def wait_objects(self, oid_hexes: List[str], num_returns: Optional[int] = None,
                      timeout: float = 10.0, pull: bool = False) -> List[str]:
@@ -1085,6 +1131,8 @@ class RayletService:
                         w.actor_id = entry["actor_id"]
                 if w is None:
                     w = self._spawn_worker(actor_id=entry["actor_id"], env_key=env_key)
+                else:
+                    self._pool.note_hit("idle")
                 with self._actor_lock:
                     a = self._actors.get(entry["actor_id"])
                     if a is not None:
@@ -1152,6 +1200,7 @@ class RayletService:
         with self._workers_lock:
             w = self._pop_idle_locked(env_key)
             if w is not None:
+                self._pool.note_hit("idle")
                 return w
             n_task_workers = sum(1 for w in self._workers.values() if w.actor_id is None)
             if n_task_workers < self._max_task_workers:
@@ -1169,7 +1218,9 @@ class RayletService:
         with self._workers_lock:
             return self._spawn_worker_locked(actor_id, env_key)
 
-    def _spawn_worker_locked(self, actor_id: Optional[str] = None, env_key: str = "") -> _Worker:
+    def _default_spawn_spec(self, env_key: str = "") -> Tuple[str, List[str], Dict[str, str], str]:
+        """(worker id, worker_proc argv, env, log base): the one assembly of a
+        worker's spawn, shared by the zygote and the Popen path."""
         worker_id = uuid.uuid4().hex[:12]
         env = dict(os.environ)
         env["RAY_TPU_WORKER"] = "1"
@@ -1177,11 +1228,101 @@ class RayletService:
             ids = json.loads(env_key)["gpu"] if env_key else []
             env.update(self._gpu_manager.worker_visibility_env(ids))
         log_base = os.path.join(self._log_dir, f"worker_{worker_id}")
-        argv = [sys.executable, "-m", "ray_tpu_torch.core.worker_proc", self.sock_path,
-                self.store_path, self.gcs_sock, worker_id, self.node_id]
-        with open(log_base + ".out", "ab", buffering=0) as out_f, \
-                open(log_base + ".err", "ab", buffering=0) as err_f:
-            proc = subprocess.Popen(argv, env=env, stdout=out_f, stderr=err_f)
+        argv = [self.sock_path, self.store_path, self.gcs_sock, worker_id, self.node_id]
+        return worker_id, argv, env, log_base
+
+    def _prestart_idle(self, n: int) -> int:
+        """Spawns `n` idle workers (the boot prestart and the pool's refill)
+        into the default pool: one batched request to the zygote, each
+        taking a parked child where one is, else Popen one by one. They
+        enter the idle pool, or they would count against the task-worker
+        cap while no checkout could find them."""
+        if n <= 0:
+            return 0
+        specs, wids = [], []
+        for _ in range(n):
+            wid, argv, env, log_base = self._default_spawn_spec()
+            specs.append(ZygoteClient.spawn_spec(argv, env, log_base + ".out",
+                                                 log_base + ".err"))
+            wids.append(wid)
+        try:
+            t0 = time.perf_counter()
+            results = self._pool.zygote_spawn_batch(specs)
+        except ZygoteUnavailableError as e:
+            _log.debug("batched prestart fell back to popen: %r", e)
+        else:
+            per_ms = (time.perf_counter() - t0) * 1e3 / max(1, len(results))
+            with self._workers_lock:
+                for wid, (pid, _warm) in zip(wids, results):
+                    self._workers[wid] = _Worker(wid, PidHandle(pid))
+                    self._idle.setdefault("", []).append(wid)
+            for _pid, warm in results:
+                mode = "prefork" if warm else "zygote"
+                imet.WORKER_SPAWN_TOTAL.inc(mode=mode)
+                imet.ZYGOTE_FORK_LATENCY.observe(per_ms, mode=mode)
+            self._sched_wake.set()
+            return len(results)
+        spawned = 0
+        for _ in range(n):
+            if self._stop.is_set():
+                break
+            with self._workers_lock:
+                w = self._spawn_worker_locked(_pool_refill=True)
+                self._idle.setdefault("", []).append(w.worker_id)
+            spawned += 1
+        if spawned:
+            self._sched_wake.set()
+        return spawned
+
+    def _retire_idle(self, k: int) -> int:
+        """Stops up to `k` idle workers, oldest first, taken out of the idle
+        lists under the lock so no checkout adopts one being stopped."""
+        retired = 0
+        with self._workers_lock:
+            for lst in self._idle.values():
+                while lst and retired < k:
+                    w = self._workers.get(lst.pop(0))
+                    if w is None or w.proc.poll() is not None:
+                        continue
+                    w.mailbox.put({"type": "stop"})
+                    retired += 1
+        return retired
+
+    def _spawn_worker(self, actor_id: Optional[str] = None, env_key: str = "") -> _Worker:
+        with self._workers_lock:
+            return self._spawn_worker_locked(actor_id, env_key)
+
+    def _spawn_worker_locked(self, actor_id: Optional[str] = None, env_key: str = "",
+                             _pool_refill: bool = False) -> _Worker:
+        """Forks the worker from the zygote (a parked child, else a fresh
+        fork); Popens it when the zygote cannot. The port has no runtime
+        envs, so every worker may fork: its environment differs from the
+        zygote's only in CUDA_VISIBLE_DEVICES, which CUDA reads at the
+        worker's first cuInit, not at import."""
+        worker_id, worker_args, env, log_base = self._default_spawn_spec(env_key)
+        t0 = time.perf_counter()
+        try:
+            pid, warm = self._pool.zygote_spawn(worker_args, env, log_base + ".out",
+                                                log_base + ".err")
+        except ZygoteUnavailableError:
+            with open(log_base + ".out", "ab", buffering=0) as out_f, \
+                    open(log_base + ".err", "ab", buffering=0) as err_f:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "ray_tpu_torch.core.worker_proc", *worker_args],
+                    env=env, stdout=out_f, stderr=err_f)
+            mode = "popen"
+            if not _pool_refill:
+                self._pool.note_miss("popen")
+        else:
+            proc = PidHandle(pid)
+            mode = "prefork" if warm else "zygote"
+            if not _pool_refill:
+                if warm:
+                    self._pool.note_hit("prefork")
+                else:
+                    self._pool.note_miss("zygote")
+        imet.ZYGOTE_FORK_LATENCY.observe((time.perf_counter() - t0) * 1e3, mode=mode)
+        imet.WORKER_SPAWN_TOTAL.inc(mode=mode)
         w = _Worker(worker_id, proc, env_key=env_key)
         w.actor_id = actor_id
         self._workers[worker_id] = w
@@ -1306,13 +1447,15 @@ class RayletService:
                 n_workers = len(self._workers)
             stats = {"bytes_in_use": self.store.bytes_in_use(),
                      "num_objects": self.store.num_objects(),
-                     "num_workers": n_workers, "wall_ts": time.time()}
+                     "num_workers": n_workers, "wall_ts": time.time(),
+                     "pool": self._pool.stats()}
             send_avail, send_stats = self._hb_codec.encode(avail, stats)
             try:
                 reply = self.gcs.call("heartbeat", self.node_id, send_avail, send_stats)
                 self._cluster_size = reply.get("nodes", self._cluster_size)
+                self._pool.set_hint(int(reply.get("pool_hint", 0) or 0))
                 if not reply.get("ok", True):
-                    self.gcs.call("register_node", self.node_id, self.sock_path,
+                    self.gcs.call("register_node", self.node_id, self.advertised,
                                   self.store_path, self.total)
                     self._hb_codec.force_full()
             except Exception as e:  # noqa: BLE001 - retried next tick
@@ -1342,7 +1485,12 @@ class RayletService:
                 "available": avail, "gpu_pool": gpu_pool,
                 "bundles": {f"{k[0][:8]}:{k[1]}": dict(v) for k, v in self._bundles.items()},
                 "waiting": [e.get("task_id") for e in self._waiting],
-                "pending_qsize": self._pending.qsize()}
+                "pending_qsize": self._pending.qsize(), "pool": self._pool.stats()}
+
+    def zygote_stats(self) -> dict:
+        """The zygote daemon's own answer: its pid, its parked children and
+        whether CUDA was ever initialised in it ({} while it is down)."""
+        return self._pool.zygote_stats()
 
     def stop(self) -> bool:
         """Stops every worker of this node and the raylet's loops."""
@@ -1364,26 +1512,35 @@ class RayletService:
                 w.proc.wait(timeout=5.0)
             except subprocess.TimeoutExpired:
                 _log.warning("worker %s (pid %d) did not exit", w.worker_id, w.proc.pid)
+        self._pool.stop()
         return True
 
 
 def main(argv: List[str]) -> None:
-    node_id, sock_path, store_path, gcs_sock, resources_json, capacity = argv
+    node_id, sock_path, store_path, gcs_sock, resources_json, capacity, prestart = argv[:7]
+    tcp_spec = argv[7] if len(argv) > 7 else None
     from .gcs import exit_with_parent
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s raylet %(levelname)s %(message)s")
     _log.info("raylet started (node %s, pid %d)", node_id[:12], os.getpid())
+    # On a cluster that spans hosts the TCP endpoint is bound first, so the
+    # service registers the port it got; connections wait for the service.
+    servers = [RpcServer(tcp_spec, None)] if tcp_spec else []
     service = RayletService(node_id, sock_path, store_path, gcs_sock,
-                            json.loads(resources_json), int(capacity))
-    server = RpcServer(sock_path, service)
+                            json.loads(resources_json), int(capacity), int(prestart),
+                            advertise_address=servers[0].address if servers else None)
+    for server in servers:
+        server.service = service
+    servers.append(RpcServer(sock_path, service))
     exit_with_parent(service._stop)
     try:
         while not service._stop.wait(0.5):
             pass
     finally:
         service.stop()
-        server.shutdown()
+        for server in servers:
+            server.shutdown()
         service.store.close()
 
 

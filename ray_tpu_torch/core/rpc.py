@@ -1,12 +1,21 @@
-"""Minimal RPC over Unix domain sockets: length-prefixed pickle messages,
-threaded server (the port of ray_tpu/core/rpc.py, UDS transport only).
+"""Minimal dual-transport RPC: length-prefixed pickle messages, threaded
+server (the port of ray_tpu/core/rpc.py).
 
 Stands in for the reference's gRPC layer (reference: src/ray/rpc/ — gRPC
 client/server wrappers). Same shape: named handler methods on a service
-object, request/reply with correlation ids, a retrying client. Addresses are
-socket paths: every daemon of the port's cluster runs on one machine. The
-JAX copy's TCP transport, its auth token and the chaos network partitions
-wait for multi-host (ROADMAP Queue 1 item 3).
+object, request/reply with correlation ids, a retrying client. Two transports
+behind one address string: a plain path is a Unix domain socket (a node's
+own traffic: workers to their raylet, daemons of one host), and
+`tcp://host:port` is TCP with TCP_NODELAY (the control plane between hosts:
+the GCS and raylets of other hosts, raylet-to-raylet transfers, a remote
+client).
+
+The control plane speaks pickle, so anyone who can reach an open TCP port
+can run code as this user. A TCP server therefore refuses to start without
+a shared secret in RAY_TPU_AUTH_TOKEN, and drops every connection whose
+first frame is not `RTPUAUTH:<token>`; a TCP client sends that frame first.
+(The JAX copy only warns when the token is missing.) Left out: the chaos
+network partitions (ROADMAP Queue 1 item 3.9).
 
 Payloads are plain pickle: task functions and arguments are already bytes
 made by core/serialization.py when they reach this layer.
@@ -14,6 +23,7 @@ made by core/serialization.py when they reach this layer.
 
 from __future__ import annotations
 
+import hmac
 import os
 import pickle
 import random
@@ -23,11 +33,32 @@ import struct
 import threading
 import time
 import uuid
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 from ..exceptions import RpcUnavailableError
 
 _HDR = struct.Struct("<I")
+AUTH_TOKEN_ENV = "RAY_TPU_AUTH_TOKEN"
+# The first frame of an authenticated TCP connection: RTPUAUTH:<token>.
+_AUTH_PREFIX = b"RTPUAUTH:"
+
+
+def require_auth_token(what: str) -> None:
+    """Raises unless RAY_TPU_AUTH_TOKEN is set: `what` would serve TCP."""
+    if not os.environ.get(AUTH_TOKEN_ENV):
+        raise ValueError(
+            f"refusing to serve the control plane on {what} without {AUTH_TOKEN_ENV}: "
+            "anyone who reaches the port could run code as this user")
+
+
+def parse_address(addr: str) -> Tuple[str, Any]:
+    """("tcp", (host, port)) for tcp://host:port, else ("uds", path)."""
+    if addr.startswith("tcp://"):
+        host, sep, port = addr[6:].rpartition(":")
+        if not sep or not host or not port.isdigit():
+            raise ValueError(f"tcp address must be tcp://host:port, got {addr!r}")
+        return "tcp", (host, int(port))
+    return "uds", addr
 
 
 def _send_msg(sock: socket.socket, payload: bytes) -> None:
@@ -50,22 +81,44 @@ def _recv_msg(sock: socket.socket) -> bytes:
 
 
 class RpcServer:
-    """Serves `service.<method>(*args, **kwargs)` calls over a UDS.
+    """Serves `service.<method>(*args, **kwargs)` calls on a UDS path or a
+    tcp://host:port address (port 0: an ephemeral one; `address` is then
+    the bound one, a wildcard host advertised as loopback).
 
     The service object's public methods are the RPC surface (mirrors the
     reference's per-service gRPC handlers). A request with id None is a
-    one-way notification: executed, never answered."""
+    one-way notification: executed, never answered. A server may be bound
+    before its service exists (a raylet learns the port it advertises
+    first): connections wait until `service` is set."""
 
     def __init__(self, path: str, service: Any):
         self.path = path
         self.service = service
-        if os.path.exists(path):
+        self._kind, target = parse_address(path)
+        if self._kind == "tcp":
+            require_auth_token(path)
+        self._auth = os.environ.get(AUTH_TOKEN_ENV)
+        if self._kind == "uds" and os.path.exists(path):
             os.unlink(path)
         server_self = self
 
         class Handler(socketserver.BaseRequestHandler):
+            def setup(self):
+                if server_self._kind == "tcp":  # a request/reply protocol must not Nagle
+                    self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
             def handle(self):
                 sock = self.request
+                while server_self.service is None:
+                    time.sleep(0.005)
+                if server_self._kind == "tcp":
+                    try:
+                        first = _recv_msg(sock)
+                    except (ConnectionError, OSError):
+                        return
+                    if not (first.startswith(_AUTH_PREFIX) and hmac.compare_digest(
+                            first[len(_AUTH_PREFIX):], server_self._auth.encode())):
+                        return  # not the shared secret: dropped unanswered
                 while True:
                     try:
                         raw = _recv_msg(sock)
@@ -91,11 +144,22 @@ class RpcServer:
                     except (ConnectionError, OSError):
                         return
 
-        class Server(socketserver.ThreadingUnixStreamServer):
-            daemon_threads = True
-            allow_reuse_address = True
+        if self._kind == "tcp":
+            class Server(socketserver.ThreadingTCPServer):
+                daemon_threads = True
+                allow_reuse_address = True
 
-        self._server = Server(path, Handler)
+            self._server = Server(target, Handler)
+            port = self._server.server_address[1]
+            host = target[0] if target[0] not in ("", "0.0.0.0", "::") else "127.0.0.1"
+            self.address = f"tcp://{host}:{port}"
+        else:
+            class Server(socketserver.ThreadingUnixStreamServer):  # type: ignore[no-redef]
+                daemon_threads = True
+                allow_reuse_address = True
+
+            self._server = Server(target, Handler)
+            self.address = path
         self._thread = threading.Thread(
             target=self._server.serve_forever, name=f"rpc-{os.path.basename(path)}", daemon=True
         )
@@ -104,10 +168,11 @@ class RpcServer:
     def shutdown(self):
         self._server.shutdown()
         self._server.server_close()
-        try:
-            os.unlink(self.path)
-        except OSError:
-            pass
+        if self._kind == "uds":
+            try:
+                os.unlink(self.path)
+            except OSError:
+                pass
 
 
 class RpcClient:
@@ -135,19 +200,28 @@ class RpcClient:
     def _new_sock(self, timeout: float) -> socket.socket:
         """Connects with backoff until `timeout`, then raises
         RpcUnavailableError (a ConnectionError)."""
+        kind, target = parse_address(self.path)
         start = time.monotonic()
         deadline = start + timeout
         last_err: Optional[Exception] = None
         attempt = 0
         while True:
-            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            s = None
             try:
-                s.connect(self.path)
+                if kind == "tcp":
+                    s = socket.create_connection(target, timeout=10.0)
+                    s.settimeout(None)
+                    s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                    _send_msg(s, _AUTH_PREFIX + os.environ.get(AUTH_TOKEN_ENV, "").encode())
+                else:
+                    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                    s.connect(target)
                 with self._all_lock:
                     self._all.append(s)
                 return s
             except OSError as e:
-                s.close()
+                if s is not None:
+                    s.close()
                 last_err = e
                 attempt += 1
             now = time.monotonic()

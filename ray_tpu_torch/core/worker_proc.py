@@ -15,12 +15,14 @@ concurrency_group_manager.h): an actor with max_concurrency > 1 runs its
 methods on a thread pool of that width, one with coroutine methods on a
 dedicated asyncio event loop.
 
-The raylet starts this process with CUDA_VISIBLE_DEVICES naming exactly the
-devices its task or actor leased (none for a CPU-only one). The worker
-imports no JAX, so the JAX worker's platform pin (worker_proc.py:171-180
-there) has no counterpart; torch is imported only by what the task itself
-runs. Left out: runtime envs and the compiled-graph and collective builtins
-(ROADMAP Queue 1 items 3 and 4).
+The raylet starts this process, forked from its zygote (core/zygote.py) or
+else by Popen, with CUDA_VISIBLE_DEVICES naming exactly the devices its task
+or actor leased (none for a CPU-only one). A forked worker holds torch
+already, imported by the zygote, and creates its CUDA context at its first
+use of the device. The worker imports no JAX, so the JAX worker's platform
+pin (worker_proc.py:171-180 there) has no counterpart. Left out: runtime
+envs and the compiled-graph and collective builtins (ROADMAP Queue 1 items 3
+and 4).
 """
 
 from __future__ import annotations
@@ -109,7 +111,9 @@ class _AsyncLoop:
 
 
 def _exit_with_raylet() -> None:
-    """A worker whose raylet is gone (killed node) exits, even mid-task."""
+    """A worker whose parent is gone exits, even mid-task: its raylet (a
+    killed node), or the zygote that forked it, which exits with its
+    raylet."""
     parent = os.getppid()
 
     def watch():

@@ -27,6 +27,7 @@ _DEFAULT_SIZE = 4096
 KIND_PREFIXES = {
     "chan",   # core/channel.py reads/writes/timeouts
     "chaos",  # chaos controller injections
+    "pool",   # core/worker_pool.py pops, misses, refills, zygote loss and respawn
     "train",  # trainer restores (train.restore)
 }
 

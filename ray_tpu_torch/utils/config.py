@@ -12,6 +12,11 @@ WORKER_MONITOR_INTERVAL_S = 0.2  # the raylet's worker-death poll period
 
 # --- worker pool
 WORKER_POLL_TIMEOUT_S = 30.0  # a worker's long poll before an empty round trip
+WORKER_POOL_MAX = 64  # cap on the idle pool's demand-sized target
+WORKER_POOL_HORIZON_S = 0.5  # launch rate x this = the idle pool's demand
+WORKER_POOL_PREFORK = 2  # the zygote's parked pre-forks when idle
+WORKER_POOL_PREFORK_MAX = 16  # cap on the parked pool's target
+WORKER_POOL_INTERVAL_S = 0.25  # the pool loop's period
 
 # --- object store
 OBJECT_STORE_MEMORY = 256 << 20  # a node's shared-memory pool

@@ -316,6 +316,53 @@ CHECKPOINTS_RESTORED = Counter(
     "Training attempts resumed from a checkpoint after a gang failure",
     component="train",
 )
+# --- worker pool and zygote (core/worker_pool.py, core/zygote.py) ----------
+WORKER_POOL_HITS = Counter(
+    "raytpu_worker_pool_hits_total",
+    "Worker demand served warm, by tier: idle (a live pooled worker adopted) "
+    "or prefork (a zygote's parked child assigned)",
+    component="worker_pool",
+    tag_keys=("tier",),
+)
+WORKER_POOL_MISSES = Counter(
+    "raytpu_worker_pool_misses_total",
+    "Worker demand that paid a cold spawn, by mechanism (zygote fork or popen)",
+    component="worker_pool",
+    tag_keys=("mode",),
+)
+WORKER_POOL_SIZE = Gauge(
+    "raytpu_worker_pool_size",
+    "Warm-pool inventory by tier: idle live workers, zygote parked pre-forks",
+    component="worker_pool",
+    tag_keys=("tier",),
+)
+WORKER_POOL_TARGET = Gauge(
+    "raytpu_worker_pool_target",
+    "Demand-sized idle-pool target the refill loop maintains",
+    component="worker_pool",
+)
+WORKER_POOL_REFILL_LAG = Gauge(
+    "raytpu_worker_pool_refill_lag",
+    "Workers the idle pool is short of its target",
+    component="worker_pool",
+)
+WORKER_SPAWN_TOTAL = Counter(
+    "raytpu_worker_spawn_total",
+    "Worker processes spawned, by mechanism",
+    component="zygote",
+    tag_keys=("mode",),
+)
+ZYGOTE_RESPAWNS = Counter(
+    "raytpu_zygote_respawns_total",
+    "Zygote daemons respawned after death (the parked pool is rebuilt)",
+    component="zygote",
+)
+ZYGOTE_FORK_LATENCY = Histogram(
+    "raytpu_zygote_fork_latency_ms",
+    "Worker spawn latency, by mechanism (prefork, zygote fork, popen)",
+    component="zygote",
+    tag_keys=("mode",),
+)
 # --- chaos ------------------------------------------------------------------
 CHAOS_INJECTIONS = Counter(
     "raytpu_chaos_injections_total",

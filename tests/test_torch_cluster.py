@@ -398,15 +398,18 @@ def test_duplicate_submit_is_deduped(c, tmp_path):
 
 
 def test_cluster_task_imports_no_jax(clusters):
-    """The port's worker processes load neither jax nor ray_tpu, and a task
-    that touches no tensor does not load torch either."""
+    """The port's worker processes load neither jax nor ray_tpu. They fork
+    from the zygote, which imported torch without initialising CUDA."""
     rt = clusters["torch"].rt
 
     @rt.remote
     def modules():
-        return sorted({m.split(".")[0] for m in sys.modules} & {"jax", "ray_tpu", "torch"})
+        import torch
 
-    assert rt.get(modules.remote(), timeout=60) == []
+        loaded = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "ray_tpu", "torch"})
+        return loaded, torch.cuda.is_initialized()
+
+    assert rt.get(modules.remote(), timeout=60) == (["torch"], False)
 
 
 def test_a_ref_collected_under_the_ref_lock_does_not_deadlock(clusters):

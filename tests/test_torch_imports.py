@@ -150,12 +150,16 @@ def test_flight_recorder_kinds_are_declared(path):
 def test_daemons_import_neither_torch_nor_jax():
     """The cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
     and its worker loop start without torch: they never touch a device, so
-    they pay neither torch's import nor a CUDA context."""
+    they pay neither torch's import nor a CUDA context. The zygote imports
+    torch when it runs (for the workers it forks), not when its module, the
+    pool manager's or the remote client's is imported."""
     code = (
         "import sys, time\n"
         "t = time.perf_counter()\n"
         "import ray_tpu_torch.core.gcs, ray_tpu_torch.core.raylet, ray_tpu_torch.core.rpc\n"
         "import ray_tpu_torch.core.worker_proc, ray_tpu_torch.core.cluster_runtime\n"
+        "import ray_tpu_torch.core.zygote, ray_tpu_torch.core.worker_pool\n"
+        "import ray_tpu_torch.core.client_runtime\n"
         "bad = sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'jax', 'jaxlib',\n"
         "                                                      'ray_tpu', 'cloudpickle'})\n"
         "assert not bad, bad\n"

@@ -1,21 +1,23 @@
 """The port's LLM deployment, feed and engine drills side by side with the
 JAX package's (tests/test_serve_llm.py:278-520), and the whole slice.
 
-Every drill runs twice, on the JAX package and on the port, each over its
-own `init(local_mode=True)`, with the same StubModel deployments, and
-asserts the same outcome: a chaos decode fault fails the batch typed and
+Every drill runs four times, on the JAX package and on the port, each over
+its own `init(local_mode=True)` and over a cluster whose replicas are actors
+in worker processes (tests/torch_modes.py), with the same StubModel
+deployments, and asserts the same outcome: a chaos decode fault fails the batch typed and
 the loop recovers, deployment streaming, a handle close() frees the
 request's pages, the feed's round trip and cancel, a client's death, a
 replica's death, concurrent clients, and per-item batch errors. The whole
 slice: `tiny_paged_lm` deployed in both packages with the same weights
 (the JAX package's init, carried across by models/convert.py) gives
 exactly the same greedy tokens through the streaming handle and through
-the LLMClient feed. Every wait has a deadline; every fixture shuts Serve
+the LLMClient feed, in process and on a cluster. Every wait has a deadline; every fixture shuts Serve
 and the runtime down in a `finally`; nothing binds a fixed port.
 """
 
 import functools
 import importlib
+import sys
 import threading
 from types import SimpleNamespace
 
@@ -27,7 +29,11 @@ import torch
 
 import ray_tpu
 import ray_tpu_torch
+import torch_modes
+from ray_tpu_torch.core import serialization
 from torch_waits import bounded, wait_for
+
+serialization.register_pickle_by_value(sys.modules[__name__])
 
 PACKAGES = {"jax": ray_tpu, "torch": ray_tpu_torch}
 
@@ -42,18 +48,25 @@ def _modules(name):
         model=mod(f"{pkg.__name__}.serve.llm.model"))
 
 
-@pytest.fixture(params=sorted(PACKAGES))
-def pk(request):
-    m = _modules(request.param)
-    m.rt.shutdown()
-    m.rt.init(local_mode=True, num_cpus=8)
+@pytest.fixture(scope="module")
+def clusters():
+    booted = torch_modes.Clusters(num_cpus=8)
     try:
-        yield m
+        yield booted
     finally:
+        booted.shutdown()
+
+
+@pytest.fixture(params=torch_modes.PARAMS, ids=torch_modes.IDS)
+def pk(request):
+    name, mode = request.param
+    clusters = request.getfixturevalue("clusters") if mode == "cluster" else None
+    with torch_modes.runtime_for(clusters, name, mode, num_cpus=8):
+        m = _modules(name)
         try:
-            m.serve.shutdown()
+            yield m
         finally:
-            m.rt.shutdown()
+            m.serve.shutdown()
 
 
 def _stub_tokens(prompt, n, vocab=256):
@@ -262,46 +275,53 @@ def _twin_builders():
     }
 
 
-def _serve_both_ways(name, builder, n_new=6):
+def _serve_both_ways(name, builder, mode, clusters, n_new=6):
     """Greedy tokens of PROMPTS through the streaming handle and through the
     LLMClient feed of one tiny_paged_lm deployment, all in flight at once."""
     m = _modules(name)
-    m.rt.shutdown()
-    m.rt.init(local_mode=True, num_cpus=8)
-    try:
-        app = m.llm.llm_deployment(builder, name="tiny",
-                                   engine_config=m.llm.EngineConfig(page_tokens=8, pool_pages=32))
-        handle = m.serve.run(app, name="tiny", http_port=None)
-        client = m.llm.LLMClient("tiny")
+    with torch_modes.runtime_for(clusters, name, mode, num_cpus=8):
         try:
-            out = {}
+            app = m.llm.llm_deployment(
+                builder, name="tiny",
+                engine_config=m.llm.EngineConfig(page_tokens=8, pool_pages=32))
+            handle = m.serve.run(app, name="tiny", http_port=None)
+            client = m.llm.LLMClient("tiny")
+            try:
+                out = {}
 
-            def run(key, fn, prompt):
-                out[key] = list(fn(prompt, n_new))
+                def run(key, fn, prompt):
+                    out[key] = list(fn(prompt, n_new))
 
-            threads = [threading.Thread(target=run, args=((via, i), fn, p))
-                       for via, fn in (("handle", handle.options(stream=True).remote),
-                                       ("feed", client.generate))
-                       for i, p in enumerate(PROMPTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=120)
-            assert not any(t.is_alive() for t in threads)
+                threads = [threading.Thread(target=run, args=((via, i), fn, p))
+                           for via, fn in (("handle", handle.options(stream=True).remote),
+                                           ("feed", client.generate))
+                           for i, p in enumerate(PROMPTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                assert not any(t.is_alive() for t in threads)
+            finally:
+                client.close()
+            return out
         finally:
-            client.close()
-        return out
-    finally:
-        try:
             m.serve.shutdown()
-        finally:
-            m.rt.shutdown()
 
 
-def test_tiny_paged_lm_deployed_in_both_packages_gives_the_same_tokens():
+def _assert_same_tokens(mode, clusters=None):
     builders = _twin_builders()
-    got = {name: _serve_both_ways(name, b) for name, b in builders.items()}
+    got = {name: _serve_both_ways(name, b, mode, clusters) for name, b in builders.items()}
     assert got["torch"] == got["jax"]
     for i in range(len(PROMPTS)):
         assert got["torch"][("handle", i)] == got["torch"][("feed", i)]
         assert len(got["torch"][("handle", i)]) == 6
+
+
+def test_tiny_paged_lm_deployed_in_both_packages_gives_the_same_tokens():
+    _assert_same_tokens("local")
+
+
+def test_tiny_paged_lm_deployed_on_a_cluster_gives_the_same_tokens(clusters):
+    """The same, with each package's replica an actor in a worker process:
+    the builder and its weights travel by value."""
+    _assert_same_tokens("cluster", clusters)

@@ -283,8 +283,9 @@ def test_stream_is_incremental(rt):
 def test_init_without_local_mode_is_refused_by_the_port():
     """init() without local_mode starts the port's cluster, as the JAX
     package's does (ray_tpu/api.py): a GCS, a raylet and worker processes,
-    torn down again by shutdown(). A multi-host address is refused: only one
-    machine's cluster is ported."""
+    torn down again by shutdown(). An address attaches to a running head as
+    a remote client (tests/test_torch_tcp_cluster.py), and only a tcp://
+    one: anything else is refused."""
     from ray_tpu_torch.core.cluster_runtime import ClusterRuntime
 
     ray_tpu_torch.shutdown()
@@ -299,8 +300,9 @@ def test_init_without_local_mode_is_refused_by_the_port():
         ray_tpu_torch.shutdown()
     assert not ray_tpu_torch.is_initialized()
     assert all(p.poll() is not None for p in procs)
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        ray_tpu_torch.init("tcp://127.0.0.1:6379")
+    with pytest.raises(ValueError, match="tcp://host:port"):
+        ray_tpu_torch.init("/tmp/not-a-head.sock")
+    assert not ray_tpu_torch.is_initialized()
     assert not ray_tpu_torch.is_initialized()
 
 

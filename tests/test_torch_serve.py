@@ -1,14 +1,16 @@
 """The port's Serve side by side with the JAX package's.
 
-Every test runs twice, on `ray_tpu.serve` over `ray_tpu.init(local_mode=
-True)` and on `ray_tpu_torch.serve` over `ray_tpu_torch.init(local_mode=
-True)`, with the same deployments and inputs, and asserts the same
-outcome: the cases of tests/test_serve.py that need no HTTP or gRPC proxy
+Every test runs four times, on `ray_tpu.serve` and on `ray_tpu_torch.serve`,
+each over its package's `init(local_mode=True)` and over a cluster whose
+controller and replicas are actors in worker processes (tests/torch_modes.py),
+with the same deployments and inputs, and asserts the same outcome: the cases of tests/test_serve.py that need no HTTP or gRPC proxy
 (the port has neither yet). Every wait has a deadline; every fixture shuts
 Serve and the runtime down in a `finally`; nothing binds a fixed port.
 """
 
 import importlib
+import os
+import sys
 import threading
 import time
 from types import SimpleNamespace
@@ -17,25 +19,35 @@ import pytest
 
 import ray_tpu
 import ray_tpu_torch
+import torch_modes
+from ray_tpu_torch.core import serialization
 from torch_waits import bounded
+
+serialization.register_pickle_by_value(sys.modules[__name__])
 
 PACKAGES = {"jax": ray_tpu, "torch": ray_tpu_torch}
 
 
-@pytest.fixture(params=sorted(PACKAGES))
-def pk(request):
-    pkg = PACKAGES[request.param]
-    serve = importlib.import_module(f"{pkg.__name__}.serve")
-    controller = importlib.import_module(f"{pkg.__name__}.serve.controller")
-    pkg.shutdown()
-    pkg.init(local_mode=True, num_cpus=8)
+@pytest.fixture(scope="module")
+def clusters():
+    booted = torch_modes.Clusters(num_cpus=8)
     try:
-        yield SimpleNamespace(rt=pkg, serve=serve, controller=controller)
+        yield booted
     finally:
+        booted.shutdown()
+
+
+@pytest.fixture(params=torch_modes.PARAMS, ids=torch_modes.IDS)
+def pk(request):
+    name, mode = request.param
+    clusters = request.getfixturevalue("clusters") if mode == "cluster" else None
+    with torch_modes.runtime_for(clusters, name, mode, num_cpus=8) as pkg:
+        serve = importlib.import_module(f"{pkg.__name__}.serve")
+        controller = importlib.import_module(f"{pkg.__name__}.serve.controller")
         try:
-            serve.shutdown()
+            yield SimpleNamespace(rt=pkg, serve=serve, controller=controller, mode=mode)
         finally:
-            pkg.shutdown()
+            serve.shutdown()
 
 
 def _num_replicas(pk, app):
@@ -73,7 +85,9 @@ def test_function_deployment_replicas_and_p2c_spread(pk):
     @serve.deployment(num_replicas=2)
     class Which:
         def __call__(self, _x=None):
-            return id(self)
+            # Replicas forked from one zygote can hold their instance at the
+            # same address: the pid tells two processes apart.
+            return os.getpid(), id(self)
 
     handle = serve.run(square.bind(), name="sq", http_port=None)
     assert [handle.remote(i).result(timeout=30) for i in range(10)] == [i * i for i in range(10)]
@@ -275,6 +289,9 @@ def test_serve_spans_match(pk):
     """With tracing on, one call through the handle opens the router's
     `serve.request <app>` span and the replica's `serve.replica <app>` span
     in both packages."""
+    if pk.mode == "cluster":
+        pytest.skip("the replica's span is recorded in its worker process, and gathering "
+                    "spans across processes is not ported (ROADMAP Queue 1 item 3.10)")
     tracing = importlib.import_module(f"{pk.rt.__name__}.tracing")
 
     @pk.serve.deployment

@@ -1,7 +1,8 @@
 """The port's Tune (ray_tpu_torch.tune) side by side with the JAX package's.
 
-tests/test_tune.py's nine cases run on both packages'
-`init(local_mode=True)` with the same objectives and assertions (the
+tests/test_tune.py's nine cases run on both packages' `init(local_mode=True)`
+and on a cluster of each, whose trials are actors in worker processes
+(tests/torch_modes.py), with the same objectives and assertions (the
 trainer-wrapping case wraps a TorchTrainer with ScalingConfig(use_gpu=False)
 on the port's side). Across the packages, seeded searchers suggest the same
 trial configs, and ASHA, the median stopping rule and PBT, fed the same
@@ -10,18 +11,29 @@ the same perturbed config). Every wait has a deadline
 (tests/torch_waits.py).
 """
 
+import importlib
 import json
 import os
 import sys
 import tempfile
 import threading
+import time
 import types
 
 import pytest
 
+import cloudpickle
+
 import ray_tpu
 import ray_tpu_torch
+import torch_modes
+from ray_tpu_torch.core import serialization
 from torch_waits import bounded
+
+# The trial functions below are module-level: on a cluster both packages
+# send them by value to worker processes that cannot import this file.
+serialization.register_pickle_by_value(sys.modules[__name__])
+cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 PACKAGES = ("jax", "torch")
 FIT_TIMEOUT = 120.0
@@ -58,16 +70,23 @@ def _jax_flight_ring_left_as_found():
     frec.RECORDER._buf[:] = saved
 
 
-@pytest.fixture(params=PACKAGES)
-def pkg(request):
-    ns = _ns(request.param)
-    ns.name = request.param
-    ns.rt.shutdown()
-    ns.rt.init(local_mode=True, num_cpus=8)
+@pytest.fixture(scope="module")
+def clusters():
+    booted = torch_modes.Clusters(num_cpus=8)
     try:
-        yield ns
+        yield booted
     finally:
-        ns.rt.shutdown()
+        booted.shutdown()
+
+
+@pytest.fixture(params=torch_modes.PARAMS, ids=torch_modes.IDS)
+def pkg(request):
+    name, mode = request.param
+    clusters = request.getfixturevalue("clusters") if mode == "cluster" else None
+    with torch_modes.runtime_for(clusters, name, mode, num_cpus=8):
+        ns = _ns(name)
+        ns.name, ns.mode = name, mode
+        yield ns
 
 
 def _fit(tuner):
@@ -94,7 +113,7 @@ def test_grid_and_random_spaces(name):
 
 
 def _quadratic(config):
-    tune = sys.modules[config["tune"]]
+    tune = importlib.import_module(config["tune"])
     tune.report({"score": -((config["x"] - 3) ** 2)})
 
 
@@ -113,7 +132,7 @@ def test_tuner_grid_search_end_to_end(pkg, tmp_path):
 
 
 def _climb(config):
-    tune = sys.modules[config["tune"]]
+    tune = importlib.import_module(config["tune"])
     for step in range(20):
         tune.report({"acc": config["quality"] * (step + 1)})
 
@@ -139,11 +158,12 @@ def test_asha_stops_bad_trials(pkg, tmp_path):
 
 
 def _accumulate(config):
-    tune = sys.modules[config["tune"]]
-    train = sys.modules[config["train"]]
+    tune = importlib.import_module(config["tune"])
+    train = importlib.import_module(config["train"])
     ck = tune.get_checkpoint()
     w = float(train.load_pytree(ck.path)["w"]) if ck else 0.0
     for _ in range(12):
+        time.sleep(config["pause"])
         w += config["lr"]
         d = tempfile.mkdtemp(prefix="pbt-")
         train.save_pytree({"w": w}, d)
@@ -158,8 +178,12 @@ def test_pbt_exploits_checkpoints(pkg, tmp_path):
     )
     results = _fit(tune.Tuner(
         _accumulate,
+        # A trial exploits a peer only while both run: on a cluster each
+        # starts in its own worker process, so their steps are paced to
+        # overlap whatever the start-up times.
         param_space={"lr": tune.grid_search([0.001, 1.0]), "tune": tune.__name__,
-                     "train": pkg.train.__name__},
+                     "train": pkg.train.__name__,
+                     "pause": 0.25 if pkg.mode == "cluster" else 0.0},
         tune_config=tune.TuneConfig(metric="w", mode="max", scheduler=pbt, **pkg.gpu_kw),
         run_config=pkg.train.RunConfig(name="pbt", storage_path=str(tmp_path)),
     ))
@@ -170,7 +194,7 @@ def test_pbt_exploits_checkpoints(pkg, tmp_path):
 
 
 def _scaled(config):
-    train = sys.modules[config["train"]]
+    train = importlib.import_module(config["train"])
     train.report({"final": config["scale"] * 10})
 
 
@@ -194,7 +218,7 @@ def test_tuner_wraps_the_trainer(pkg, tmp_path):
 
 
 def _constant(config):
-    tune = sys.modules[config["tune"]]
+    tune = importlib.import_module(config["tune"])
     tune.report({"v": 1})
 
 
@@ -235,7 +259,7 @@ def test_function_trial_without_cuda_fails_unless_asked_for_the_cpu(tmp_path):
 
 
 def _hundredfold(config):
-    tune = sys.modules[config["tune"]]
+    tune = importlib.import_module(config["tune"])
     tune.report({"v": config["x"] * 100})
 
 
@@ -294,7 +318,7 @@ def test_tpe_searcher_concentrates(name):
 
 
 def _tpe_objective(config):
-    tune = sys.modules[config["tune"]]
+    tune = importlib.import_module(config["tune"])
     tune.report({"score": -((config["lr"] - 0.3) ** 2)})
 
 

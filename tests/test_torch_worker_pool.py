@@ -1,0 +1,434 @@
+"""The port's warm worker pool and zygote (ray_tpu_torch/core/{zygote,
+worker_pool}.py) against the JAX package's, case by case: tests/
+test_worker_pool.py's cases, each run on both packages against its own
+zygote daemon or pool cluster (the parked pool's fill, pop and reset, a
+batch in one round trip, the pool's shrink, the launch-rate window, a warm
+hit with its refill, env-key sub-pools, a forecast presizing the pool,
+batched actor registration, pool stats on the heartbeat, and the zygote's
+death, respawn and rebuild).
+
+`test_instance_manager_relays_forecast` waits for the autoscaler (ROADMAP
+Queue 1 item 8); `test_on_fence_drains_prefork` for epoch fencing (item
+3.9), the only caller of the pool's fence hook.
+
+The port's env-key case differs by what an env key is: the JAX package keys
+workers by runtime_env, and a worker with user env_vars Popens; the port has
+no runtime envs and keys workers by the GPU ids they see, and such a worker
+forks from the zygote like any other (CUDA reads CUDA_VISIBLE_DEVICES at its
+first cuInit). Either way the worker starts in its own sub-pool and the
+default pool's warm workers stay where they are. One more case proves the
+port's zygote imports torch without initialising CUDA.
+"""
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import types
+
+import pytest
+
+from ray_tpu_torch.core import serialization
+from torch_waits import wait_for
+
+serialization.register_pickle_by_value(sys.modules[__name__])
+
+PKGS = ("jax", "torch")
+_ROOT = {"jax": "ray_tpu", "torch": "ray_tpu_torch"}
+
+
+def _children_of(pid):
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(p) for p in f.read().split()]
+    except OSError:
+        return []
+
+
+def _alive(pid):
+    """Running and not a zombie waiting for the zygote's reap."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            return f.read().rsplit(b") ", 1)[1].split()[0] != b"Z"
+    except OSError:
+        return False
+
+
+# ---------------------------------------------------------------- zygote unit
+@pytest.fixture(params=PKGS)
+def zygote_daemon(request):
+    """A zygote daemon of each package on a private socket (no cluster)."""
+    name = request.param
+    zmod = importlib.import_module(f"{_ROOT[name]}.core.zygote")
+    d = tempfile.mkdtemp(prefix="zyg_test_")
+    sock = os.path.join(d, "zyg.sock")
+    with open(os.path.join(d, "zyg.log"), "ab") as log:
+        proc = subprocess.Popen([sys.executable, "-m", f"{_ROOT[name]}.core.zygote", sock],
+                                stdout=log, stderr=log)
+    try:
+        client = zmod.ZygoteClient(sock)
+
+        def probe():
+            try:
+                return os.path.exists(sock) and client.stats()
+            except OSError:
+                return None
+
+        assert wait_for(probe, timeout=60, interval=0.1), "zygote never answered"
+        yield types.SimpleNamespace(name=name, proc=proc, client=client, dir=d, zmod=zmod)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=5)
+
+
+def _spawn_spec(z, tag):
+    # argv that worker_proc cannot use: the assigned child exits at once.
+    # These cases check the fork protocol (pids, warm flags, the pool's
+    # accounting), not a worker's boot.
+    return z.zmod.ZygoteClient.spawn_spec(
+        ["nonexistent.sock", "nonexistent_store", "nonexistent_gcs", tag, "node"],
+        {"PATH": os.environ.get("PATH", "")},
+        os.path.join(z.dir, f"{tag}.out"), os.path.join(z.dir, f"{tag}.err"))
+
+
+def _unpack(spec):
+    return spec["argv"], spec["env"], spec["out"], spec["err"]
+
+
+def test_prefork_pool_fill_pop_and_reset(zygote_daemon):
+    z = zygote_daemon
+    reply = z.client.ensure_pool(3)
+    assert reply["parked"] == 3 and reply["forked"] == 3
+    parked = _children_of(z.proc.pid)
+    assert len(parked) >= 3
+    pid, warm = z.client.spawn(*_unpack(_spawn_spec(z, "w1")))  # a pop, not a fork
+    assert warm is True and pid in parked
+    assert z.client.stats()["parked"] == 2
+    assert z.client.ensure_pool(3)["parked"] == 3
+    assert z.client.reset() == 3  # every parked child drained
+    assert z.client.stats()["parked"] == 0
+    assert wait_for(lambda: not any(_alive(p) for p in _children_of(z.proc.pid)),
+                    timeout=15), f"parked children survived reset: {_children_of(z.proc.pid)}"
+
+
+def test_batch_spawn_one_round_trip(zygote_daemon):
+    z = zygote_daemon
+    z.client.ensure_pool(2)
+    results = z.client.spawn_batch([_spawn_spec(z, f"b{i}") for i in range(4)])
+    assert len(results) == 4
+    assert [w for _, w in results].count(True) == 2  # the parked two, then cold forks
+    assert len({pid for pid, _ in results}) == 4
+    assert z.client.stats()["parked"] == 0
+
+
+def test_pool_shrink(zygote_daemon):
+    z = zygote_daemon
+    assert z.client.ensure_pool(4)["parked"] == 4
+    assert z.client.ensure_pool(1)["parked"] == 1
+
+
+def test_zygote_imports_torch_without_initialising_cuda():
+    """The port's zygote holds torch (what it saves a worker) and has never
+    initialised CUDA, so none of its children is in a bad fork."""
+    from ray_tpu_torch.core.zygote import ZygoteClient
+
+    d = tempfile.mkdtemp(prefix="zyg_cuda_")
+    sock = os.path.join(d, "zyg.sock")
+    with open(os.path.join(d, "zyg.log"), "ab") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch.core.zygote", sock],
+                                stdout=log, stderr=log)
+    try:
+        client = ZygoteClient(sock)
+        assert wait_for(lambda: os.path.exists(sock), timeout=60, interval=0.1)
+        stats = client.stats()
+        assert stats["cuda_initialized"] is False
+        maps = open(f"/proc/{stats['pid']}/maps").read()
+        assert "libtorch" in maps  # torch is imported before any fork
+    finally:
+        proc.kill()
+        proc.wait(timeout=5)
+
+
+# ------------------------------------------------------------- manager units
+@pytest.mark.parametrize("name", PKGS)
+def test_launch_rate_window(name):
+    LaunchRate = importlib.import_module(f"{_ROOT[name]}.core.worker_pool").LaunchRate
+    r = LaunchRate(window_s=0.3)
+    assert r.per_s() == 0.0
+    for _ in range(6):
+        r.note()
+    assert r.per_s() == pytest.approx(6 / 0.3)
+    time.sleep(0.4)
+    assert r.per_s() == 0.0
+
+
+# ------------------------------------------------------------ cluster-backed
+def _boot(name, **kw):
+    """A cluster of `name`'s package with a prestarted pool; its runtime is
+    the package's current one."""
+    rt = importlib.import_module(_ROOT[name])
+    base = importlib.import_module(f"{_ROOT[name]}.core.runtime_base")
+    Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
+    if name == "torch":
+        kw["num_gpus"] = 2  # device ids to lease; no CUDA device is touched
+    cluster = Cluster(num_cpus=4, object_store_memory=192 << 20, **kw)
+    runtime = cluster.runtime()
+    base.set_runtime(runtime)
+    return types.SimpleNamespace(name=name, rt=rt, cluster=cluster, runtime=runtime, base=base,
+                                 exc=importlib.import_module(f"{_ROOT[name]}.exceptions"))
+
+
+def _stop(c):
+    try:
+        c.runtime.shutdown()
+    finally:
+        c.cluster.shutdown()
+        if c.base.maybe_runtime() is c.runtime:
+            c.base.set_runtime(None)
+
+
+def _pool(c):
+    return c.runtime._raylet.call("debug_state")["pool"]
+
+
+@pytest.fixture(scope="module")
+def pool_clusters():
+    booted = {}
+    for name in PKGS:
+        importlib.import_module(_ROOT[name]).shutdown()
+    try:
+        for name in PKGS:
+            booted[name] = _boot(name, num_workers=2)
+        for c in booted.values():
+            # Let the zygote and the prestart settle, so the cases measure
+            # the pool and not its boot.
+            assert wait_for(lambda: (p := _pool(c)).get("ready", 0) >= 2
+                            and p.get("zygote_alive"), timeout=120, interval=0.25), (
+                f"{c.name}: prestart pool never settled")
+        yield booted
+    finally:
+        for c in booted.values():
+            _stop(c)
+
+
+@pytest.fixture(params=PKGS)
+def pc(request, pool_clusters):
+    c = pool_clusters[request.param]
+    c.base.set_runtime(c.runtime)
+    return c
+
+
+def test_warm_hit_and_async_refill(pc):
+    rt = pc.rt
+    before = _pool(pc)
+
+    @rt.remote
+    class A:
+        def ping(self):
+            return 1
+
+    a = A.remote()
+    try:
+        assert rt.get(a.ping.remote(), timeout=60) == 1
+        after = _pool(pc)
+        assert after["hits"]["idle"] > before["hits"]["idle"]  # adopted a pooled worker
+        assert wait_for(lambda: _pool(pc)["ready"] >= 2, timeout=60, interval=0.25), (
+            f"pool never refilled: {_pool(pc)}")
+    finally:
+        rt.kill(a)
+
+
+def test_env_key_subpool_isolation(pc):
+    rt = pc.rt
+    before = _pool(pc)
+    if pc.name == "jax":
+        opts = {"runtime_env": {"env_vars": {"POOL_ISOLATION_PROBE": "1"}}}
+        var, want = "POOL_ISOLATION_PROBE", "1"
+    else:
+        opts = {"num_gpus": 1}
+        var, want = "CUDA_VISIBLE_DEVICES", "0"
+
+    @rt.remote(**opts)
+    class E:
+        def probe(self, var):
+            return os.environ.get(var)
+
+    e = E.remote()
+    try:
+        assert rt.get(e.probe.remote(var), timeout=120) == want
+        after = _pool(pc)
+        if pc.name == "jax":
+            assert after["misses"]["popen"] > before["misses"]["popen"], (before, after)
+        else:
+            forks = lambda p: p["hits"]["prefork"] + p["misses"]["zygote"]  # noqa: E731
+            assert forks(after) > forks(before), (before, after)
+        assert after["hits"]["idle"] == before["hits"]["idle"], (before, after)
+    finally:
+        rt.kill(e)
+
+
+def test_forecast_presizes_pool(pc):
+    rt = pc.rt
+    pc.runtime._gcs.call("report_demand_forecast", 5, 90.0)
+    assert wait_for(lambda: _pool(pc)["target"] >= 5, timeout=30, interval=0.25), (
+        f"forecast never reached the pool target: {_pool(pc)}")
+    assert wait_for(lambda: _pool(pc)["ready"] >= 5, timeout=120, interval=0.25), (
+        f"pool never pre-sized: {_pool(pc)}")
+
+    @rt.remote
+    class A:
+        def ping(self):
+            return 1
+
+    before = _pool(pc)
+    actors = [A.remote() for _ in range(5)]
+    try:
+        assert rt.get([a.ping.remote() for a in actors], timeout=120) == [1] * 5
+        after = _pool(pc)
+        assert after["hits"]["idle"] >= before["hits"]["idle"] + 5  # rode the pool warm
+        # Registrations consumed the forecast: the target decays.
+        assert wait_for(lambda: _pool(pc)["target"] <= 4, timeout=30, interval=0.25), (
+            f"forecast never decayed: {_pool(pc)}")
+    finally:
+        for a in actors:
+            rt.kill(a)
+
+
+def test_batched_registration_and_name_errors(pc):
+    rt = pc.rt
+
+    @rt.remote(name="pool-named-actor")
+    class N:
+        def ping(self):
+            return 1
+
+    n = N.remote()
+    try:
+        assert rt.get(n.ping.remote(), timeout=60) == 1
+        with pytest.raises(pc.exc.ActorNameTakenError):
+            N.remote()
+    finally:
+        rt.kill(n)
+
+
+def test_pool_stats_ride_heartbeat(pc):
+    def has_pool():
+        for n in pc.runtime._gcs.call("list_nodes"):
+            pool = (n.get("Stats") or {}).get("pool")
+            if pool and "ready" in pool and "hits" in pool:
+                return pool
+        return None
+
+    assert wait_for(has_pool, timeout=30, interval=0.25)
+
+
+def test_forked_worker_is_not_in_a_bad_fork(pool_clusters):
+    """A worker forked from the port's zygote may use CUDA: the zygote never
+    initialised it, so torch does not flag the child's fork as bad."""
+    c = pool_clusters["torch"]
+    c.base.set_runtime(c.runtime)
+
+    @c.rt.remote
+    def state():
+        import torch
+
+        return os.getppid(), torch.cuda.is_initialized(), torch.cuda._is_in_bad_fork()
+
+    ppid, initialised, bad = c.rt.get(state.remote(), timeout=60)
+    assert ppid == _pool(c)["zygote_pid"]  # forked from the zygote
+    assert (initialised, bad) == (False, False)
+
+
+# ----------------------------------------------------- zygote death (chaos)
+@pytest.mark.parametrize("name", PKGS)
+def test_zygote_death_respawn_rebuild(name):
+    """A chaos `zygote.spawn` kill point SIGKILLs the daemon at a spawn
+    request: that launch falls back to Popen and succeeds, the pool manager
+    finds the corpse, respawns the zygote and rebuilds the parked pool."""
+    saved = {k: os.environ.get(k) for k in ("RAY_TPU_CHAOS", "RAY_TPU_CHAOS_SEED")}
+    os.environ["RAY_TPU_CHAOS"] = json.dumps(
+        [{"point": "zygote.spawn", "action": "kill", "times": 1}])
+    os.environ["RAY_TPU_CHAOS_SEED"] = "0"
+    c = None
+    try:
+        c = _boot(name, num_workers=0)
+        for k, v in saved.items():  # the raylet has read them
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        rt = c.rt
+        assert wait_for(lambda: _pool(c).get("zygote_alive"), timeout=120, interval=0.25), (
+            "zygote never came up")
+
+        @rt.remote
+        class A:
+            def ping(self):
+                return 1
+
+        a = A.remote()  # its spawn trips the kill point
+        assert rt.get(a.ping.remote(), timeout=180) == 1
+        pool = wait_for(lambda: (p := _pool(c)).get("zygote_respawns", 0) >= 1
+                        and p.get("zygote_alive") and p, timeout=120, interval=0.25)
+        assert pool, "zygote never respawned after the chaos kill"
+        b = A.remote()  # the new daemon serves forks again
+        assert rt.get(b.ping.remote(), timeout=180) == 1
+        assert wait_for(lambda: _pool(c).get("preforked", 0) >= 1, timeout=120,
+                        interval=0.25), "parked pool never rebuilt after the respawn"
+        rt.kill(a)
+        rt.kill(b)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if c is not None:
+            _stop(c)
+
+
+# ------------------------------------------------- the zygote outlives nothing
+def test_zygote_exits_when_its_raylet_dies_during_its_imports(tmp_path):
+    """The raylet passes its pid to the zygote, which exits once that is no
+    longer its parent: a raylet that dies while the zygote still imports
+    (or before its first line ran) leaves no zygote behind."""
+    sock = str(tmp_path / "zyg.sock")
+    parent = subprocess.run(
+        [sys.executable, "-c",
+         "import os, subprocess, sys; "
+         f"p = subprocess.Popen([sys.executable, '-m', 'ray_tpu_torch.core.zygote', {sock!r}, "
+         "str(os.getpid())], stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL); "
+         "print(p.pid)"],
+        capture_output=True, text=True, timeout=60, check=True)
+    zpid = int(parent.stdout.split()[-1])  # the parent has exited: the zygote is an orphan
+    try:
+        assert wait_for(lambda: not _alive(zpid), timeout=60, interval=0.2), (
+            "the zygote outlived the process that started it")
+    finally:
+        if _alive(zpid):
+            os.kill(zpid, 9)
+
+
+def test_pool_stop_before_the_zygote_boots_starts_none(tmp_path):
+    """stop() and the maintenance thread's boot are ordered: once stop()
+    has begun, no zygote is started for the raylet that is going away."""
+    import threading
+
+    from ray_tpu_torch.core.worker_pool import WorkerPoolManager
+
+    class _Raylet:
+        node_id = "stubnode00000"
+        sock_path = str(tmp_path / "raylet.sock")
+        _log_dir = str(tmp_path)
+        _workers_lock = threading.Lock()
+        _idle = {}
+        _workers = {}
+
+    mgr = WorkerPoolManager(_Raylet())
+    mgr.stop()
+    assert mgr._boot_zygote() is False
+    assert mgr._zygote_proc is None
