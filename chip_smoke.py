@@ -109,13 +109,38 @@ Phases, each printing its own line, any failure exits non-zero:
      tcp://127.0.0.1:0 with an auth token and a worker node joined by
      start_worker_node, this process a remote client (init(address=)): the
      bf16 tensor through its put, a num_gpus=1 task on the joined node and
-     its get, bitwise; a connection without the token refused.
+     its get, bitwise; a connection without the token refused;
+  16. elastic: node drain and preemption on a fresh init() whose head leases
+     GPU 0, nodes added (Cluster.add_node(num_gpus=1)) and removed, notices
+     through the GCS's report_preemption: (a) TorchTrainer with one NCCL
+     worker on an added node, the fit phase's model, an elastic checkpoint
+     every 2 steps and one more on train.drain_requested(),
+     max_failures=0: preempted after its second checkpoint (removed at a
+     20 s deadline, a replacement node added), restored in a new process
+     on the replacement; losses and params_sha256 bitwise equal to
+     build_train_step driven directly, every step once, drain-wait time,
+     no process of the removed node left, K1-K3 in both processes; notice
+     to drain seen, checkpoint landed, restore done and first fresh step;
+     (b) two gloo ranks on two added nodes, elastic (min_workers=1,
+     capacity_wait_s=3), fp32 as cluster part (c) but 1 layer, 5 steps with
+     a checkpoint after each but the last: one node preempted after the
+     first with no replacement (world 1, the whole global batch), a node
+     added once the first step at world 1 is checkpointed (world 2 again at
+     the next checkpoint, two steps at world 1 on):
+     worlds 2..1..2, each step once, one downsize and one growback,
+     degraded time, losses and final params within part (c)'s tolerance of
+     one process, K1-K3 at every world; (c) a num_gpus=0.5 deployment running flash_attention at
+     the serve shape per request, its node given a 60 s notice while a
+     client calls all along: a new replica on another node, no failed
+     request, K1 in both replicas' processes; nothing left after shutdown.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
-tune, parallel and cluster phases' model paths (ring, ulysses, pipeline, the
-TP meshes and TP x SP; the deploy phase's cluster replica; the cluster's
-actor, NCCL trainer worker and gloo ranks) under "launches_by_path"), and the
+tune, parallel, cluster and elastic phases' model paths (ring, ulysses,
+pipeline, the TP meshes and TP x SP; the deploy phase's cluster replica; the
+cluster's actor, NCCL trainer worker and gloo ranks; the preempted and
+restored workers, each elastic world, the old and new Serve replicas) under
+"launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -2964,25 +2989,28 @@ def _cluster_data_loop(config):
     train.report(out)
 
 
-def _cluster_reference_data():
+def _cluster_reference_data(n_steps: int = CLUSTER_DATA_STEPS, make_cfg=None):
     """Part (c)'s reference: one fp32 process (this one) on the same global
-    batches: losses and final params on the host."""
+    batches, `n_steps` AdamW steps of `make_cfg()` (part (c)'s config unless
+    given): losses, final params on the host and their key paths."""
     import torch
 
     from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.models.convert import flatten
 
     was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        cfg = _cluster_data_cfg()
+        cfg = (make_cfg or _cluster_data_cfg)()
         init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
         params, opt = init(torch.Generator(device="cuda").manual_seed(0))
         losses = [step(params, opt, _cluster_data_batch(i, cfg.vocab_size)).item()
-                  for i in range(CLUSTER_DATA_STEPS)]
+                  for i in range(n_steps)]
         leaves = _host_leaves(params)
+        paths = flatten(params)[0]
         del params, opt
         torch.cuda.empty_cache()
-        return losses, leaves
+        return losses, leaves, paths
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
 
@@ -3058,7 +3086,7 @@ def phase_cluster():
                     run_config=RunConfig(name="cluster_local", storage_path=tmp)).fit()
             finally:
                 rt.shutdown()
-            ref_losses, ref_leaves = _cluster_reference_data()
+            ref_losses, ref_leaves, _ = _cluster_reference_data()
         if local.error is not None:
             _fail(f"cluster: the in-process trainer failed: {local.error!r}")
         torch.cuda.empty_cache()
@@ -3298,6 +3326,649 @@ def phase_cluster():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The elastic phase: node drain and preemption on the cluster runtime.
+ELASTIC_STEPS = 8  # (a): steps of the preempted and restored run
+ELASTIC_EVERY = 2  # (a): a checkpoint every 2 steps, and one more on a drain
+ELASTIC_DEADLINE_S = 20.0  # (a): notice to the node's death; a final checkpoint fits
+# (b): world 2 for 2 steps, 1 for 2, then 2 again, a checkpoint after each
+# step but the last. fp32 data parallelism drifts from one process by its sums'
+# order, ~1.5e-6 of a leaf's norm per AdamW step (PR 12's 10-step run read
+# 1.51e-5): 5 steps keep it inside part (c)'s 1e-5.
+ELASTIC_DATA_STEPS = 5
+ELASTIC_DATA_DEADLINE_S = 30.0
+ELASTIC_WAIT_S = 3.0  # (b): capacity_wait_s, then the gang downsizes
+ELASTIC_SERVE_DEADLINE_S = 60.0  # (c)
+ELASTIC_TIMEOUT_S = 300
+
+
+def _worker_device():
+    """A worker's card: its current CUDA device (the one its lease shows)."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _local_tree(params, opt):
+    """The params' tree with each leaf replaced by the tensor the step's
+    optimizer updates (a DTensor's local shard, the whole leaf under a
+    data-only mesh; a plain leaf itself), which build_train_step hands the
+    optimizer in the tree's own key order."""
+    storage = iter([p for g in opt.param_groups for p in g["params"]])
+
+    def rebuild(tree):
+        return {k: rebuild(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else next(storage)
+
+    return rebuild(params)
+
+
+def _restore_state(path, local, opt):
+    """Loads an elastic checkpoint's params and AdamW state into `local`
+    (the step's own tensors) and `opt`; returns (its step, its meta)."""
+    import torch
+
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.train import elastic_checkpoint as ec
+
+    state = ec.load_state(path)
+    with torch.no_grad():
+        for p, src in zip(convert.flatten(local)[1], convert.flatten(state["params"])[1]):
+            p.copy_(src)
+    convert.opt_state_from_numpy(state["opt_state"], opt, local)
+    return state["step"], state["meta"]
+
+
+def _save_state(scratch, local, opt, step, record):
+    """An elastic checkpoint of params and AdamW state, the run's record in
+    its meta, in a new directory under `scratch`."""
+    import tempfile
+
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.train import elastic_checkpoint as ec
+
+    d = tempfile.mkdtemp(prefix="elastic-", dir=scratch)
+    ec.save_state(d, local, convert.opt_state_to_torch(opt, local), step=step,
+                  meta={"record": record})
+    return d
+
+
+def _drop_copied(sources, step):
+    """Deletes the loop's own checkpoint directories that the trainer has
+    copied: report() returns once its payload is queued and the trainer
+    copies a checkpoint after taking it off the size-1 queue, so only the
+    report two steps later proves that copy done."""
+    import shutil
+
+    for s in [s for s in sources if s <= step - 2]:
+        shutil.rmtree(sources.pop(s))
+
+
+def _elastic_loop(config):
+    """Part (a)'s loop, as a user writes it for preemptible capacity: the
+    fit phase's model and batches, deterministic, on this worker's card; an
+    elastic checkpoint every ELASTIC_EVERY steps, and when
+    train.drain_requested() one more and a return; restored from
+    train.get_checkpoint(). The checkpoint's meta carries the run's record
+    (each step's loss; each attempt's pid, node, launches, restore seconds
+    and wall times), and the last report all of it with params_sha256."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.use_deterministic_algorithms(True)
+    device = _worker_device()
+    cfg = _fit_cfg()
+    init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device)
+    params, opt = init(torch.Generator(device=device).manual_seed(0))
+    attempt = {"pid": os.getpid(), "node": rt.get_runtime_context().get_node_id(),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    record, start, ck = {"losses": [], "attempts": []}, 0, train.get_checkpoint()
+    if ck is not None:
+        t = time.perf_counter()
+        last, meta = _restore_state(ck.path, params, opt)  # pageable copies: synchronous
+        attempt["restore_s"] = time.perf_counter() - t
+        attempt["restored_wall"] = time.time()
+        record, start = meta["record"], last + 1
+    record["attempts"].append(attempt)
+    _zero_launch_counts()
+    sources = {}
+    for i in range(start, config["steps"]):
+        loss = step(params, opt, _fit_batch(i, cfg.vocab_size)).item()
+        attempt.setdefault("first_step_wall", time.time())
+        record["losses"].append([i, loss])
+        attempt["launches"] = _launch_counts()
+        drain = train.drain_requested()
+        ckpt = None
+        if drain or (i % ELASTIC_EVERY == ELASTIC_EVERY - 1 and i < config["steps"] - 1):
+            t = time.perf_counter()
+            sources[i] = _save_state(config["scratch"], params, opt, i, record)
+            attempt.setdefault("save_s", []).append(time.perf_counter() - t)
+            ckpt = train.Checkpoint(sources[i])
+        metrics = {"step": i, "loss": loss}
+        if i == config["steps"] - 1:
+            metrics.update(record=record, params_sha256=_params_sha256(params))
+        train.report(metrics, checkpoint=ckpt)
+        _drop_copied(sources, i)
+        if drain:
+            return  # the final checkpoint is reported: a clean drain
+
+
+def _elastic_data_cfg():
+    """Part (b)'s model: the cluster phase's fp32 config at Llama-2-7B's
+    width, depth cut to 1 layer for the phase's time (5.6 GiB of state)."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    return tfm.llama2_7b(n_layers=1, dtype=torch.float32, remat_policy="hot")
+
+
+def _elastic_data_loop(config):
+    """Part (b)'s loop, one rank of a gloo world on the card (world 2, then
+    1, then 2): the cluster phase's fp32 data-parallel step on the global
+    batch, deterministic, TF32 off. Rank 0 checkpoints after every step but
+    the last and saves its final params to config["out"]. Before each step
+    the ranks agree on drain_requested() (a rank that stopped alone would
+    hang its peers' next gradient sum) and on a drain return: the last
+    checkpoint is the final one. Every rank's last report carries the record
+    (each step's loss and world; each attempt's world, pid and launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    device = _worker_device()
+    cfg = _elastic_data_cfg()
+    init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device,
+                                      mesh=train.get_mesh())
+    params, opt = init(torch.Generator(device=device).manual_seed(0))
+    local = _local_tree(params, opt)
+    record, start, ck = {"losses": [], "attempts": []}, 0, train.get_checkpoint()
+    if ck is not None:
+        last, meta = _restore_state(ck.path, local, opt)
+        record, start = meta["record"], last + 1
+    attempt = {"world": world, "pid": os.getpid(), "backend": dist.get_backend()}
+    record["attempts"].append(attempt)
+    _zero_launch_counts()
+    sources = {}
+    for i in range(start, config["steps"]):
+        flag = torch.tensor([float(train.drain_requested())])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if flag.item():
+            return  # the checkpoint of step i - 1 is the final one
+        loss = step(params, opt, _cluster_data_batch(i, cfg.vocab_size)).item()
+        record["losses"].append([i, loss, world])
+        attempt["launches"] = _launch_counts()
+        ckpt = None
+        if rank == 0 and i < config["steps"] - 1:
+            sources[i] = _save_state(config["scratch"], local, opt, i, record)
+            ckpt = train.Checkpoint(sources[i])
+        metrics = {"step": i, "loss": loss, "world": world}
+        if i == config["steps"] - 1:
+            if rank == 0:
+                torch.save(_host_leaves(params), config["out"])
+            metrics["record"] = record
+        train.report(metrics, checkpoint=ckpt)
+        _drop_copied(sources, i)
+
+
+def _elastic_flash_request(i):
+    """Part (c)'s deployment: request `i` runs flash_attention at the serve
+    shape in the replica's process on the kernel phase's inputs (seed 0)
+    and holds it against its plain version; returns the error, that
+    process's pid and its K1 launches so far."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o = fa.flash_attention(q, k, v, causal=True)
+    o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=d ** -0.5)
+    return {"i": i, "err": entry_err(o, o_ref), "pid": os.getpid(),
+            "launches": _launch_counts(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _first_event(kind, since_us):
+    """Wall seconds of the first `kind` event of this process's flight ring
+    at or after `since_us`, or None."""
+    from ray_tpu_torch.observability.flight_recorder import RECORDER
+
+    ts = [t for t, k, _ in RECORDER.snapshot() if k == kind and t >= since_us]
+    return min(ts) / 1e6 if ts else None
+
+
+def _dt(later, earlier) -> float:
+    """later - earlier in seconds; nan where either never happened."""
+    return float("nan") if later is None or earlier is None else later - earlier
+
+
+def _count(metric, **tags) -> float:
+    return metric.labels(**tags).read()
+
+
+def _wait_until(pred, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            _fail(f"elastic: {what} did not happen in {timeout_s:.0f} s")
+        time.sleep(0.05)
+
+
+def _checkpoints(trial_dir) -> int:
+    """How many checkpoints the trainer has persisted into `trial_dir` (it
+    numbers them across attempts; keep-K deletes the older ones)."""
+    try:
+        return max((int(d.split("_")[1]) + 1 for d in os.listdir(trial_dir)
+                    if d.startswith("checkpoint_")), default=0)
+    except OSError:
+        return 0
+
+
+def _in_background(fn, *args):
+    """fn(*args) in a daemon thread; the thread, and a box holding its
+    value or its error."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, box
+
+
+def _joined(t, box, what):
+    t.join(ELASTIC_TIMEOUT_S)
+    if t.is_alive():
+        _fail(f"elastic: {what} did not end in {ELASTIC_TIMEOUT_S} s")
+    if "error" in box:
+        raise box["error"]
+    return box.get("value")
+
+
+def _elastic_preempt(cluster, smi, tmp, direct):
+    """Part (a): a one-worker NCCL trainer on an added node, preempted after
+    its second checkpoint and restored on a replacement node."""
+    from ray_tpu_torch.core.cluster_runtime import _node_processes, _running
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig, RunConfig,
+                                     ScalingConfig, TorchBackendConfig, TorchTrainer)
+
+    direct_losses, direct_sha = direct
+    gcs = current_runtime()._gcs
+    first = cluster.add_node(num_gpus=1, resources={"train_slot": 1.0})
+    trial_dir = os.path.join(tmp, "elastic_preempt")
+    times = {}
+
+    def orchestrate():
+        _wait_until(lambda: _checkpoints(trial_dir) >= 2 or "end" in times,
+                    ELASTIC_TIMEOUT_S, "(a)'s second checkpoint")
+        if "end" in times:
+            return
+        times["notice"] = time.time()
+        gcs.call("report_preemption", first, ELASTIC_DEADLINE_S, "spot preemption (smoke)")
+        time.sleep(ELASTIC_DEADLINE_S)
+        procs = _node_processes(cluster.session_dir, first)
+        cluster.remove_node(first)
+        times["removed"] = time.time()
+        times["left"] = [p for p in procs if _running(p)]
+        times["replacement"] = cluster.add_node(num_gpus=1, resources={"train_slot": 1.0})
+
+    t, box = _in_background(orchestrate)
+    since = time.time_ns() // 1000
+    fit_t0 = time.perf_counter()
+    result = TorchTrainer(
+        _elastic_loop,
+        train_loop_config={"lr": 1e-4, "steps": ELASTIC_STEPS, "scratch": tmp},
+        scaling_config=ScalingConfig(num_workers=1, backend=TorchBackendConfig(),
+                                     resources_per_worker={"GPU": 1, "train_slot": 1}),
+        run_config=RunConfig(name="elastic_preempt", storage_path=tmp,
+                             failure_config=FailureConfig(max_failures=0),
+                             checkpoint_config=CheckpointConfig(num_to_keep=1))).fit()
+    fit_s = time.perf_counter() - fit_t0
+    times["end"] = True
+    _joined(t, box, "(a)'s preemption")
+    if result.error is not None:
+        _fail(f"elastic: (a) spent its failure budget: {result.error!r}")
+    m = result.metrics
+    record = m["record"]
+    steps = [s for s, _ in record["losses"]]
+    losses = [x for _, x in record["losses"]]
+    old, new = record["attempts"][0], record["attempts"][-1]
+    drain_t = _first_event("train.drain", since)
+    restore_t = _first_event("train.restore", since)
+    notice = times.get("notice")
+    gp = m["goodput_seconds"]
+    print(f"[elastic] (a) {smi}: TorchTrainer, 1 NCCL worker process on an added node, "
+          f"llama2_7b width, 2 layers, bf16, remat hot, b=1 s={FIT_SEQ}, deterministic, "
+          f"max_failures=0, a checkpoint every {ELASTIC_EVERY} steps: fit {fit_s:.1f} s; "
+          f"attempts {len(record['attempts'])} (pids {old['pid']} -> {new['pid']}, nodes "
+          f"{old['node']} -> {new['node']}, replacement {times.get('replacement')}); steps "
+          f"{steps}; losses equal to the direct run {losses == direct_losses}, params_sha256 "
+          f"equal {m['params_sha256'] == direct_sha}; goodput {m['goodput']:.3f}, seconds "
+          f"{ {k: round(v, 2) for k, v in gp.items()} }", flush=True)
+    print(f"[elastic] (a) {smi}: notice -> drain seen {_dt(drain_t, notice):.2f} s, -> final "
+          f"checkpoint landed and the gang stopped {_dt(restore_t, notice):.2f} s, -> node "
+          f"removed {_dt(times.get('removed'), notice):.2f} s (deadline "
+          f"{ELASTIC_DEADLINE_S:.0f} s), -> restore done "
+          f"{_dt(new.get('restored_wall'), notice):.2f} s (load "
+          f"{new.get('restore_s', float('nan')):.2f} s), -> first fresh step "
+          f"{_dt(new.get('first_step_wall'), notice):.2f} s; checkpoint saves "
+          f"{[round(x, 2) for a in record['attempts'] for x in a.get('save_s', [])]} s; the "
+          f"removed node's processes left {times.get('left')}; launches old "
+          f"{old['launches']} new {new['launches']}", flush=True)
+    if len(record["attempts"]) != 2 or old["pid"] == new["pid"] \
+            or new["node"] != times.get("replacement"):
+        _fail("elastic: (a) was not restored once, in a new process on the replacement node")
+    if steps != list(range(ELASTIC_STEPS)):
+        _fail(f"elastic: (a) steps {steps}, want each of 0..{ELASTIC_STEPS - 1} once")
+    if losses != direct_losses or m["params_sha256"] != direct_sha:
+        _fail("elastic: (a)'s losses or params are not bitwise the uninterrupted run's")
+    if gp["drain_wait"] <= 0 or times.get("left"):
+        _fail("elastic: (a) no drain-wait time, or the removed node's processes outlived it")
+    for a in (old, new):
+        if not all(a["launches"].values()):
+            _fail(f"elastic: (a) an attempt did not launch every kernel: {a['launches']}")
+    cluster.remove_node(times["replacement"])
+    return {"elastic (a) preempted worker": old["launches"],
+            "elastic (a) restored worker": new["launches"]}
+
+
+def _elastic_resize(cluster, smi, tmp, ref):
+    """Part (b): two gloo ranks on two added nodes, elastic; one node is
+    preempted after the first checkpoint with no replacement inside
+    capacity_wait_s (world 1), and a node comes back once the first step at
+    world 1 is checkpointed (world 2 again at the next checkpoint)."""
+    import torch
+
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig, RunConfig,
+                                     ScalingConfig, TorchBackendConfig, TorchTrainer)
+    from ray_tpu_torch.utils import internal_metrics as imet
+
+    ref_losses, ref_leaves, ref_paths = ref
+    gcs = current_runtime()._gcs
+    slot = {"elastic_slot": 1.0}
+    nodes = [cluster.add_node(num_gpus=1, resources=slot) for _ in range(2)]
+    trial_dir = os.path.join(tmp, "elastic_resize")
+    down0 = _count(imet.TRAIN_ELASTIC_RESIZES, direction="downsize")
+    grow0 = _count(imet.TRAIN_ELASTIC_RESIZES, direction="growback")
+    times = {}
+
+    out = os.path.join(tmp, "elastic_rank0_params.pt")
+    trainer = TorchTrainer(
+        _elastic_data_loop,
+        train_loop_config={"lr": 1e-4, "steps": ELASTIC_DATA_STEPS, "scratch": tmp,
+                           "out": out},
+        scaling_config=ScalingConfig(num_workers=2, mesh=MeshSpec(data=-1),
+                                     backend=TorchBackendConfig(backend="gloo"),
+                                     resources_per_worker={"GPU": 0.5, **slot},
+                                     elastic=True, min_workers=1,
+                                     capacity_wait_s=ELASTIC_WAIT_S),
+        run_config=RunConfig(name="elastic_resize", storage_path=tmp,
+                             failure_config=FailureConfig(max_failures=0),
+                             checkpoint_config=CheckpointConfig(num_to_keep=1)))
+    def kept(index):
+        """True once checkpoint `index` is registered (keep-1 deletes the one
+        before it then, just before the trainer checks for a grow-back)."""
+        try:
+            names = set(os.listdir(trial_dir))
+        except OSError:
+            names = set()
+        return (f"checkpoint_{index:06d}" in names
+                and f"checkpoint_{index - 1:06d}" not in names) or "end" in times
+
+    def orchestrate():
+        _wait_until(lambda: _checkpoints(trial_dir) >= 1 or "end" in times,
+                    ELASTIC_TIMEOUT_S, "(b)'s first checkpoint")
+        if "end" in times:
+            return
+        times["notice"] = time.time()
+        gcs.call("report_preemption", nodes[0], ELASTIC_DATA_DEADLINE_S,
+                 "spot preemption (smoke)")
+        # No replacement: the wait runs out and the gang downsizes. Once the
+        # first step at world 1 is checkpointed a node comes back, and the
+        # gang grows back at the next checkpoint, two steps at world 1 on.
+        _wait_until(lambda: _count(imet.TRAIN_ELASTIC_RESIZES, direction="downsize") > down0
+                    or "end" in times, ELASTIC_TIMEOUT_S, "(b)'s downsize")
+        first = _checkpoints(trial_dir)  # the number of the first at world 1
+        _wait_until(lambda: kept(first), ELASTIC_TIMEOUT_S,
+                    "(b)'s first checkpoint at world 1")
+        if "end" in times:
+            return
+        times["added"] = time.time()
+        nodes.append(cluster.add_node(num_gpus=1, resources=slot))
+        _wait_until(lambda: time.time() >= times["notice"] + ELASTIC_DATA_DEADLINE_S,
+                    ELASTIC_TIMEOUT_S, "(b)'s deadline")
+        cluster.remove_node(nodes[0])
+
+    t, box = _in_background(orchestrate)
+    since = time.time_ns() // 1000
+    fit_t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - fit_t0
+    times["end"] = True
+    _joined(t, box, "(b)'s preemption")
+    if result.error is not None:
+        _fail(f"elastic: (b) failed: {result.error!r}")
+    m = result.metrics
+    record = m["record"]
+    steps = [s for s, _, _ in record["losses"]]
+    losses = [x for _, x, _ in record["losses"]]
+    worlds = [w for _, _, w in record["losses"]]
+    got = torch.load(out)
+    diffs = _leaf_rel_diffs(got, ref_leaves)
+    first = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    traj = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    downs = _count(imet.TRAIN_ELASTIC_RESIZES, direction="downsize") - down0
+    grows = _count(imet.TRAIN_ELASTIC_RESIZES, direction="growback") - grow0
+    notice = times.get("notice")
+    grow_t = _first_event("train.elastic_growback", since)
+    down_t = _first_event("train.elastic_downsize", since)
+    drain_t = _first_event("train.drain", since)
+    gp = m["goodput_seconds"]
+    worst = max(range(len(diffs)), key=diffs.__getitem__)
+    print(f"[elastic] (b) {smi}: 2 gloo ranks sharing the card on 2 added nodes, elastic "
+          f"(min_workers 1, capacity_wait_s {ELASTIC_WAIT_S:.0f}), llama2_7b width, 1 layer, "
+          f"fp32, TF32 off, MeshSpec(data=-1), global batch 2 x {FIT_SEQ}: fit {fit_s:.1f} s; "
+          f"worlds by step {worlds}; attempts "
+          f"{[(a['world'], a['pid']) for a in record['attempts']]}; resizes downsize {downs} "
+          f"growback {grows}; goodput {m['goodput']:.3f}, seconds "
+          f"{ {k: round(v, 2) for k, v in gp.items()} }", flush=True)
+    print(f"[elastic] (b) {smi}: losses {losses} vs one process {ref_losses}: first rel "
+          f"{first:.3g} (tol 1e-6), trajectory rel {traj:.3g} (tol 1e-5); final params, worst "
+          f"leaf ||d|| / ||ref|| {diffs[worst]:.3g} ({'/'.join(ref_paths[worst])}; tol 1e-5); "
+          f"notice -> drain seen "
+          f"{_dt(drain_t, notice):.2f} s, -> downsize {_dt(down_t, notice):.2f} s, downsize -> "
+          f"node added {_dt(times.get('added'), down_t):.2f} s, downsize -> growback "
+          f"{_dt(grow_t, down_t):.2f} s; launches by attempt "
+          f"{[(a['world'], a['launches']) for a in record['attempts']]}", flush=True)
+    first_one, last_one = worlds.index(1) if 1 in worlds else -1, \
+        len(worlds) - 1 - worlds[::-1].index(1) if 1 in worlds else -1
+    if steps != list(range(ELASTIC_DATA_STEPS)) or worlds[0] != 2 or worlds[-1] != 2 \
+            or first_one < 0 or set(worlds[first_one:last_one + 1]) != {1}:
+        _fail(f"elastic: (b) steps {steps} at worlds {worlds}, want each step once, 2..1..2")
+    if (downs, grows) != (1, 1) or gp["degraded"] <= 0:
+        _fail("elastic: (b) did not downsize and grow back once each with degraded time")
+    if not (first <= 1e-6 and traj <= 1e-5 and max(diffs) <= 1e-5):
+        _fail("elastic: (b) is not within its tolerance of one process")
+    launches = {}
+    for i, a in enumerate(record["attempts"]):
+        if not all(a["launches"].values()):
+            _fail(f"elastic: (b) an attempt at world {a['world']} did not launch every "
+                  f"kernel: {a['launches']}")
+        launches[f"elastic (b) attempt {i + 1} world {a['world']} (rank 0)"] = a["launches"]
+    for nid in nodes[1:]:
+        cluster.remove_node(nid)
+    return launches
+
+
+def _elastic_serve(cluster, smi):
+    """Part (c): a num_gpus=0.5 deployment whose replica runs K1 on every
+    request; its node gets a notice with a 60 s deadline while a client
+    calls all along."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.utils.node_events import actor_locations
+
+    gcs = current_runtime()._gcs
+    slots = [cluster.add_node(num_gpus=1, resources={"serve_slot": 1.0}) for _ in range(2)]
+    app = serve.deployment(num_replicas=1, ray_actor_options={
+        "num_gpus": 0.5, "resources": {"serve_slot": 1.0}})(_elastic_flash_request)
+    t0 = time.perf_counter()
+    handle = serve.run(app.bind(), name="elastic_flash", http_port=None)
+    first = handle.remote(0).result(timeout=ELASTIC_TIMEOUT_S)
+    up_s = time.perf_counter() - t0
+    controller = get_or_create_controller()
+
+    def replica_ids():
+        _, replicas = rt.get(controller.get_replicas.remote("elastic_flash"), timeout=60)
+        return [r._actor_id.hex() for r in replicas]
+
+    before = replica_ids()
+    victim = actor_locations(gcs)[before[0]]
+    stop, answers, failures = threading.Event(), [], []
+
+    def client():
+        i = 1
+        while not stop.is_set():
+            try:
+                r = handle.remote(i).result(timeout=60)
+                answers.append((time.time(), r))
+            except Exception as e:  # noqa: BLE001 - counted, and a gate
+                failures.append(repr(e))
+            i += 1
+
+    caller = threading.Thread(target=client, daemon=True)
+    caller.start()
+    time.sleep(1.0)
+    notice = time.time()
+    gcs.call("report_preemption", victim, ELASTIC_SERVE_DEADLINE_S, "spot preemption (smoke)")
+    _wait_until(lambda: any(r["pid"] != first["pid"] for _, r in list(answers)),
+                ELASTIC_TIMEOUT_S, "(c)'s replacement serving")
+    served = min(ts for ts, r in list(answers) if r["pid"] != first["pid"])
+    time.sleep(1.0)
+    stop.set()
+    caller.join(120)
+    after = replica_ids()
+    where = actor_locations(gcs).get(after[0]) if after else None
+    by_pid = {}
+    for _, r in answers:
+        by_pid[r["pid"]] = r
+    tol = FWD_TOL["bfloat16"][0]
+    worst = max(r["err"] for _, r in answers)
+    serve.shutdown()
+    print(f"[elastic] (c) {smi}: a num_gpus=0.5 deployment running flash_attention at "
+          f"{CLUSTER_SERVE_SHAPE} bf16 causal per request: up {up_s:.2f} s; {len(answers)} "
+          f"requests during the drain, failed {len(failures)}; notice -> new replica serving "
+          f"{served - notice:.2f} s; replicas {before} -> {after}, node {victim} -> {where}; "
+          f"worst per-entry error {worst:.3g} (tol {tol:.3g}); K1 launches by replica process "
+          f"{ {pid: r['launches']['flash_fwd'] for pid, r in by_pid.items()} }", flush=True)
+    if failures:
+        _fail(f"elastic: (c) requests failed during the replica swap: {failures[:3]}")
+    if after == before or where in (None, victim) or len(by_pid) != 2:
+        _fail("elastic: (c) the replica was not replaced by a new actor on another node")
+    if not (math.isfinite(worst) and worst <= tol):
+        _fail("elastic: (c) flash_attention in a replica failed its check")
+    out = {}
+    for n, (pid, r) in enumerate(sorted(by_pid.items(), key=lambda kv: kv[0] != first["pid"])):
+        if r["launches"]["flash_fwd"] < 1:
+            _fail(f"elastic: (c) the replica in pid {pid} launched no K1")
+        out[f"elastic (c) {'old' if n == 0 else 'new'} replica"] = r["launches"]
+    for nid in slots:
+        if nid != victim:
+            cluster.remove_node(nid)
+    return out
+
+
+def phase_elastic():
+    """Node drain and preemption on the cluster runtime (init(): a head
+    leasing GPU 0, nodes added and removed with Cluster.add_node /
+    remove_node, a notice through the GCS's report_preemption): (a) a
+    one-worker NCCL TorchTrainer with max_failures=0 preempted after its
+    second checkpoint and restored on a replacement node, bitwise equal to
+    build_train_step driven directly; (b) an elastic two-rank gloo trainer
+    (fp32, 1 layer) downsized to one rank when no capacity comes back within
+    capacity_wait_s and grown back to two at a checkpoint once a node is
+    added, within part (c) of the cluster phase's tolerance of one process;
+    (c) a Serve replica on a draining node replaced on another node while a
+    client calls all along. K1-K3 in every new process; no process or pool
+    left. Returns the launches of each path."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    # Checkpoints go to memory: the card machine caps what a run writes to
+    # its disk (45 GiB, freed blocks included), and this phase's 3.7 and
+    # 8 GiB states, each saved by a worker and copied by the trainer, would
+    # write ~80 GiB there.
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-elastic-",
+                           dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    try:
+        with _deterministic():
+            direct_losses, _, direct_sha = _direct_run(1e-4, ELASTIC_STEPS)
+            ref = _cluster_reference_data(ELASTIC_DATA_STEPS, _elastic_data_cfg)
+        torch.cuda.empty_cache()
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        rt.init()
+        runtime = current_runtime()
+        cluster = runtime._cluster
+        session_dir = cluster.session_dir
+        ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+        launches = {}
+        try:
+            t0 = time.perf_counter()
+            launches.update(_elastic_preempt(cluster, smi, tmp, (direct_losses, direct_sha)))
+            a_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches.update(_elastic_resize(cluster, smi, tmp, ref))
+            b_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches.update(_elastic_serve(cluster, smi))
+            c_s = time.perf_counter() - t0
+        finally:
+            rt.shutdown()
+        left = _cluster_processes(session_dir)
+        pools = glob.glob(ours + "*")
+        print(f"[elastic] parts (a) {a_s:.1f} s, (b) {b_s:.1f} s, (c) {c_s:.1f} s; processes "
+              f"left {left}, pools left {sorted(pools)}; phase "
+              f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+        if left or pools:
+            _fail("elastic: processes or /dev/shm/rtpt_* pools outlived shutdown")
+        return launches
+    finally:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
@@ -3334,6 +4005,7 @@ def main() -> int:
     by_path.update(phase_tune(fit_step_ms))
     by_path.update(phase_parallel())
     by_path.update(phase_cluster())
+    by_path.update(phase_elastic())
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     for row in (fwd_row, dq_row, dkv_row):

@@ -51,6 +51,7 @@ import logging
 import os
 import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -945,6 +946,36 @@ class ClusterRuntime(Runtime):
 # ------------------------------------------------------------------ sessions
 
 
+def _node_processes(session_dir: str, node_id: str) -> List[int]:
+    """pids of one node's processes on this machine: its raylet and Popen'd
+    workers name the raylet's socket on their command line, its zygote and
+    the workers forked from it (which keep the zygote's command line) the
+    zygote's socket."""
+    marks = [os.path.join(session_dir, f"raylet_{node_id}.sock").encode(),
+             os.path.join(session_dir, f"zyg_{node_id[:8]}.sock").encode()]
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if any(m in cmd for m in marks):
+            out.append(int(entry))
+    return out
+
+
+def _running(pid: int) -> bool:
+    """Whether `pid` exists and has not exited (a zombie holds no memory)."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            return f.read().rsplit(b")", 1)[1].split()[0] != b"Z"
+    except (OSError, IndexError):
+        return False
+
+
 def _spawn_daemon(log_dir: str, cmd: List[str], name: str) -> subprocess.Popen:
     """Spawns a daemon with stdout/stderr captured under `log_dir`, from the
     directory that holds this package (so that `python -m ray_tpu_torch...`
@@ -1113,13 +1144,20 @@ class Cluster:
         return path
 
     def add_node(self, num_cpus: Optional[float] = None,
-                 resources: Optional[Dict[str, float]] = None, num_workers: int = 0) -> str:
+                 resources: Optional[Dict[str, float]] = None, num_workers: int = 0,
+                 num_gpus: Optional[float] = None) -> str:
         """Starts a raylet with these resources (CPU 1 unless given) and
-        `num_workers` prestarted idle workers."""
+        `num_workers` prestarted idle workers. With `num_gpus` the node
+        leases that many CUDA device ids ("0".., or the ids this process's
+        CUDA_VISIBLE_DEVICES names) and starts each worker with
+        CUDA_VISIBLE_DEVICES set to its lease, as the head does; nodes added
+        on one machine lease the same ids, so they share its cards."""
         node_id = uuid.uuid4().hex[:12]
         res = dict(resources or {})
         if num_cpus is not None:
             res["CPU"] = float(num_cpus)
+        if num_gpus is not None:
+            res["GPU"] = float(num_gpus)
         res.setdefault("CPU", 1.0)
         cmd = [sys.executable, "-m", "ray_tpu_torch.core.raylet", node_id,
                self._sock_for(node_id), self._store_for(node_id), self.gcs_sock,
@@ -1132,11 +1170,23 @@ class Cluster:
 
     def remove_node(self, node_id: str) -> None:
         """Simulated node failure (reference: cluster_utils remove_node): the
-        raylet is killed (its workers exit with it) and the GCS is told."""
+        node's processes die at once, as a machine's do (the raylet, its
+        zygote and every worker; a forked worker would otherwise outlive the
+        raylet for up to the zygote's 2 s parent check, holding its CUDA
+        context and the card's memory), and the GCS is told."""
+        pids = _node_processes(self.session_dir, node_id)
         proc = self._procs.pop(node_id, None)
         if proc is not None:
             proc.kill()
             proc.wait(timeout=5.0)
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        deadline = time.monotonic() + 5.0
+        while any(_running(pid) for pid in pids) and time.monotonic() < deadline:
+            time.sleep(0.01)
         self._gcs.call("mark_node_dead", node_id)
         self._unlink_store(node_id)
 

@@ -15,13 +15,16 @@ the GCS holds membership, actors, placement groups, the object directory,
 task states, the KV and the resource view used for spillback decisions.
 
 Kept from the JAX copy: the node table and heartbeats, resources and
-`pick_node`, the actor table (create, started, died, get, named), object
-locations with frees and borrows and `node_sync`, task states, the KV,
-placement groups (PACK, SPREAD, STRICT_PACK, STRICT_SPREAD), ping and stop.
-Left out: the snapshot/WAL persistence and GCS restart, epoch fencing,
-metrics history and alerts, demand forecast, preemption and drain,
-incidents, `debug_harvest`, flight dumps and pubsub, and the TPU slice
-strategy SLICE_GANG. This module never imports torch.
+`pick_node`, the actor table (create, started, died, get, named, list),
+object locations with frees and borrows and `node_sync`, task states, the
+KV, placement groups (PACK, SPREAD, STRICT_PACK, STRICT_SPREAD), the
+general-purpose pubsub log, preemption notices and the DRAINING node state
+(`report_preemption`; `node_draining` / `node_dead` / `node_added` on the
+`node_events` channel, read by utils/node_events.py), ping and stop.
+Left out: the snapshot/WAL persistence and GCS restart, epoch fencing and
+`node_fenced` (ROADMAP Queue 1 item 3.9), the `node_table` delta channel,
+metrics history and alerts, incidents, `debug_harvest`, flight dumps, and
+the TPU slice strategy SLICE_GANG. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from . import heartbeat as _hb
 from ..exceptions import ActorNameTakenError, PlacementGroupError, SchedulingError
 from ..utils import config
+from ..utils import internal_metrics as imet
 
 _log = logging.getLogger("ray_tpu_torch.gcs")
 
@@ -82,6 +86,10 @@ class GcsService:
         # warm pool is sized before the launches arrive; each actor
         # registration consumes one unit.
         self._demand_forecast: Dict[str, Tuple[int, float]] = {}
+        # The pubsub log: channel -> [(seq, message)], a bounded ring per
+        # channel; subscribers long-poll with their cursor.
+        self._pubsub: Dict[str, List[Tuple[int, Any]]] = {}
+        self._pubsub_cv = threading.Condition()
         self._stop = threading.Event()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
@@ -121,25 +129,37 @@ class GcsService:
                 "epoch": epoch,
                 "last_hb": time.monotonic(),
             }
+            nodes = self._alive_count
         self._kick_stranded_restarts()
-        return {"ok": True, "nodes": self._alive_count, "epoch": epoch}
+        # Capacity waiters (TorchTrainer's renegotiation) block on
+        # node_events: a join is as much a lifecycle event as a drain.
+        self.pubsub_publish("node_events", {"event": "node_added", "node_id": node_id,
+                                            "epoch": epoch, "ts": time.time()})
+        return {"ok": True, "nodes": nodes, "epoch": epoch}
 
     def heartbeat(self, node_id: str, available: Optional[dict] = None,
                   stats: Optional[dict] = None) -> dict:
         """The 1 Hz fan-in. Payloads are deltas (core/heartbeat.py)."""
         alive = self._alive_count
+        raylet_drained = False
         with self._lock:
             n = self._nodes.get(node_id)
             if n is None or not n["alive"]:
                 return {"ok": False, "nodes": alive}
             if stats:
                 _hb.apply_heartbeat(n, available, dict(stats))
+                if (n.get("stats") or {}).get("draining") and not n.get("draining"):
+                    raylet_drained = True
             elif available is not None:
                 n["available"] = dict(available)
             n["last_hb"] = time.monotonic()
             now = n["last_hb"]
             expected = sum(k for k, exp in self._demand_forecast.values() if k > 0 and now < exp)
         pool_hint = -(-expected // alive) if expected > 0 and alive > 0 else 0
+        if raylet_drained:
+            # A drain the raylet started (an operator's `drain` RPC) is
+            # adopted through the same path as a notice the GCS received.
+            self.report_preemption(node_id, 0.0, "raylet-initiated drain")
         return {"ok": True, "nodes": alive, "pool_hint": pool_hint}
 
     def report_demand_forecast(self, n: int, ttl_s: float = 15.0,
@@ -164,13 +184,59 @@ class GcsService:
                 self._demand_forecast[src] = (k - take, exp)
                 n -= take
 
+    # ---------------------------------------------------- preemption/drain
+    def report_preemption(self, node_id: str, deadline_s: float = 30.0,
+                          reason: str = "preempted") -> bool:
+        """A preemption notice for `node_id` (from a cloud's metadata server,
+        an operator, or a test). The node enters the DRAINING state: it stays
+        alive and keeps running in-flight work, but new placement avoids it,
+        its raylet spills default-placement work and worker leases, and
+        `node_draining` is published once on `node_events`, so gang
+        supervisors (the trainer, the Serve controller) checkpoint or replace
+        before the machine dies at the deadline."""
+        with self._lock:
+            n = self._nodes.get(node_id)
+            if n is None:
+                return False
+            already = bool(n.get("draining"))
+            n["draining"] = True
+            n["drain_reason"] = reason
+            n["drain_deadline"] = time.time() + max(0.0, deadline_s)
+            sock = n["sock"] if n["alive"] else None
+        if already:
+            return True
+        imet.NODES_DRAINED.inc()
+        _log.warning("node %s draining (%s; deadline %.1f s)", node_id[:12], reason, deadline_s)
+        self.pubsub_publish("node_events", {"event": "node_draining", "node_id": node_id,
+                                            "deadline_s": deadline_s, "reason": reason,
+                                            "ts": time.time()})
+        # Best effort: on a real preemption the machine may already be
+        # unreachable; the notice above is what subscribers rely on.
+        if sock:
+            try:
+                self._raylet_call(sock, "drain", deadline_s)
+            except Exception as e:  # noqa: BLE001 - the node may already be gone
+                _log.debug("drain RPC to %s failed: %r", sock, e)
+        return True
+
     @staticmethod
-    def _node_entry(nid: str, n: dict) -> dict:
+    def _node_state(n: dict) -> str:
+        """ALIVE -> DRAINING (a preemption notice) -> DEAD; a rejoin
+        registers anew."""
+        if n["alive"]:
+            return "DRAINING" if n.get("draining") else "ALIVE"
+        return "DEAD"
+
+    @classmethod
+    def _node_entry(cls, nid: str, n: dict) -> dict:
         return {
             "NodeID": nid, "Alive": n["alive"], "Resources": dict(n["resources"]),
             "Available": dict(n["available"]), "Stats": dict(n.get("stats") or {}),
+            "Draining": bool(n.get("draining")),
+            "DrainReason": n.get("drain_reason"),
+            "DrainDeadline": n.get("drain_deadline"),
             "Epoch": n.get("epoch"),
-            "State": "ALIVE" if n["alive"] else "DEAD",
+            "State": cls._node_state(n),
             "sock": n["sock"], "store": n["store"],
         }
 
@@ -179,6 +245,17 @@ class GcsService:
         with self._lock:
             out.extend(self._node_entry(nid, n) for nid, n in self._nodes.items())
         return out
+
+    def node_table_snapshot(self) -> dict:
+        """The resync point of a node_events subscriber whose cursor fell
+        behind the pubsub ring: every node's membership state (the JAX
+        copy's slim rows; the port has no `node_table` channel, so `seq` is
+        that channel's, always 0)."""
+        with self._lock:
+            nodes = [{"NodeID": nid, "Alive": bool(n["alive"]),
+                      "Draining": bool(n.get("draining")), "Epoch": n.get("epoch"),
+                      "State": self._node_state(n)} for nid, n in self._nodes.items()]
+        return {"seq": 0, "nodes": nodes}
 
     def node_info(self, node_id: str) -> Optional[dict]:
         with self._lock:
@@ -210,7 +287,9 @@ class GcsService:
         feasible: List[dict] = []
         with self._lock:
             for nid, n in self._nodes.items():
-                if nid in exclude or not n["alive"]:
+                if nid in exclude or not n["alive"] or n.get("draining"):
+                    # A draining node is leaving: work placed there would
+                    # be lost at the preemption deadline.
                     continue
                 avail = n["available"]
                 if all(avail.get(k, 0.0) >= v for k, v in resources.items()):
@@ -263,6 +342,10 @@ class GcsService:
         running tasks fail, its actors restart elsewhere or die (reference:
         gcs_node_manager death handling -> gcs_actor_manager restart :548)."""
         _log.warning("node %s declared dead", node_id[:12])
+        # Death is a node event too: supervisors subscribed for drain
+        # notices learn of a failure without one from the same stream.
+        self.pubsub_publish("node_events", {"event": "node_dead", "node_id": node_id,
+                                            "ts": time.time()})
         dead_sock = self._node_sock(node_id, alive_only=False)
         with self._lock:
             cli = self._raylet_clients.pop(dead_sock, None) if dead_sock else None
@@ -430,8 +513,8 @@ class GcsService:
                 feasible.extend(
                     {"node_id": nid, "sock": n["sock"], "store": n["store"]}
                     for nid, n in self._nodes.items()
-                    if n["alive"] and all(n["resources"].get(k, 0.0) >= v
-                                          for k, v in resources.items()))
+                    if n["alive"] and not n.get("draining")
+                    and all(n["resources"].get(k, 0.0) >= v for k, v in resources.items()))
             if feasible:
                 feasible.sort(key=lambda f: f["node_id"])
                 with self._lock:
@@ -555,6 +638,18 @@ class GcsService:
     def lookup_named_actor(self, name: str, namespace: Optional[str]) -> Optional[str]:
         with self._lock:
             return self._named.get((namespace or "default", name))
+
+    def list_actors(self, limit: int = 1000) -> List[dict]:
+        """The actor table's summary (reference: the state API's
+        list_actors); supervisors map actors to nodes with it."""
+        with self._lock:
+            out = [{"actor_id": aid, "state": a["state"], "node_id": a.get("node_id"),
+                    "name": a.get("name"), "namespace": a.get("namespace"),
+                    "num_restarts": a.get("num_restarts", 0),
+                    "max_restarts": a.get("max_restarts", 0), "pg_id": a.get("pg_id"),
+                    "death_reason": a.get("death_reason", "")}
+                   for aid, a in self._actors.items()]
+        return out[-limit:]
 
     # ------------------------------------------------------------ objects
     def remove_object_location(self, oid_hex: str, node_id: str) -> bool:
@@ -720,7 +815,7 @@ class GcsService:
         avail: Dict[str, dict] = {}
         with self._lock:
             avail.update((nid, dict(n["available"])) for nid, n in self._nodes.items()
-                         if n["alive"] and nid not in banned)
+                         if n["alive"] and nid not in banned and not n.get("draining"))
         order = sorted(avail, key=lambda nid: -sum(avail[nid].values()))
 
         def fits(nid, b):
@@ -909,6 +1004,51 @@ class GcsService:
         with self._lock:
             pg = self._pgs.get(pg_id)
             return dict(pg) if pg else None
+
+    # ------------------------------------------------------------- pubsub
+    # General-purpose channels (reference: src/ray/pubsub/publisher.h, the
+    # long-poll publisher): a bounded sequence log per channel; a
+    # subscriber is a cursor that long-polls for entries after it.
+    _PUBSUB_RETAIN = 1024
+
+    def pubsub_publish(self, channel: str, message: Any) -> int:
+        with self._pubsub_cv:
+            log = self._pubsub.setdefault(channel, [])
+            seq = (log[-1][0] + 1) if log else 1
+            log.append((seq, message))
+            del log[:-self._PUBSUB_RETAIN]
+            self._pubsub_cv.notify_all()
+        return seq
+
+    def pubsub_poll(self, channel: str, after_seq: int = 0,
+                    timeout: float = 10.0) -> List[Tuple[int, Any]]:
+        """Entries with seq > after_seq; blocks up to `timeout` while there
+        are none."""
+        deadline = time.monotonic() + max(0.0, timeout)
+        with self._pubsub_cv:
+            while True:
+                out = [(q, m) for q, m in self._pubsub.get(channel, []) if q > after_seq]
+                remaining = deadline - time.monotonic()
+                if out or remaining <= 0:
+                    return out
+                self._pubsub_cv.wait(timeout=min(remaining, 1.0))
+
+    def pubsub_poll2(self, channel: str, after_seq: int = 0, timeout: float = 10.0) -> dict:
+        """Gap-aware poll: {"entries": [(seq, msg), ...], "gap": bool}. A gap
+        means the cursor fell behind the ring (entries after it were
+        trimmed): the subscriber resyncs from a snapshot. A gap returns at
+        once."""
+        deadline = time.monotonic() + max(0.0, timeout)
+        with self._pubsub_cv:
+            while True:
+                log = self._pubsub.get(channel, [])
+                if after_seq > 0 and log and log[0][0] > after_seq + 1:
+                    return {"entries": [], "gap": True}
+                out = [(q, m) for q, m in log if q > after_seq]
+                remaining = deadline - time.monotonic()
+                if out or remaining <= 0:
+                    return {"entries": out, "gap": False}
+                self._pubsub_cv.wait(timeout=min(remaining, 1.0))
 
     # ---------------------------------------------------------- lifecycle
     def ping(self) -> str:

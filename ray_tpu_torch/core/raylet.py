@@ -29,9 +29,11 @@ eviction); bundles; pulls between raylets (`pull_object`,
 hosts (the raylet then also serves and advertises a tcp:// endpoint);
 `client_put` / `client_get` for remote client drivers; the warm pool, whose
 workers fork from a zygote (core/worker_pool.py, core/zygote.py), with Popen
-where the zygote cannot serve. Left out (ROADMAP Queue 1 item 3): runtime
-envs, spill to disk and broadcast, push, drain, epoch fencing, profile,
-tail_logs and flight dumps. This module never imports torch.
+where the zygote cannot serve; `drain` (a preemption notice: default-
+placement tasks and worker leases go to surviving nodes while in-flight and
+bundle-pinned work runs on). Left out (ROADMAP Queue 1 item 3): runtime
+envs, spill to disk and broadcast, push, epoch fencing, profile, tail_logs
+and flight dumps. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -174,6 +176,7 @@ class RayletService:
         self._actor_lock = threading.Lock()
         self._remote_raylets: Dict[str, RpcClient] = {}
         self._stop = threading.Event()
+        self._draining = False
         self._hb_codec = HeartbeatCodec()
         self._seal_cv = threading.Condition()
         self._pulling: Set[str] = set()
@@ -478,6 +481,11 @@ class RayletService:
                     f"hard NodeAffinity to {target_id[:12]}: node cannot ever satisfy "
                     f"{resources}"))
                 return entry["return_ids"]
+        elif self._draining:
+            # Draining (a preemption notice): fresh default-placement work
+            # goes to a node that outlives the grace window; a node-pinned
+            # task keeps its pin.
+            return background(self._place_elsewhere, entry, blob())
         elif strategy == "SPREAD":
             return background(self._place_spread, entry, blob())
         if not self._fits_total(resources):
@@ -880,7 +888,9 @@ class RayletService:
                 return {"spill": target["sock"]}
             return {"retry": True}
 
-        if not self._fits_total(resources):
+        if self._draining or not self._fits_total(resources):
+            # A draining node sheds fast-path owners toward a surviving
+            # node (they submit through the raylet if none has room).
             return spill_or_retry()
         if (self._waiting or self._pending.qsize()) and not self._can_run_soon(
                 {k: 2 * v for k, v in resources.items()}):
@@ -1449,6 +1459,10 @@ class RayletService:
                      "num_objects": self.store.num_objects(),
                      "num_workers": n_workers, "wall_ts": time.time(),
                      "pool": self._pool.stats()}
+            if self._draining:
+                # A drain started here reaches the GCS's node record this
+                # way; one the GCS started is already there.
+                stats["draining"] = True
             send_avail, send_stats = self._hb_codec.encode(avail, stats)
             try:
                 reply = self.gcs.call("heartbeat", self.node_id, send_avail, send_stats)
@@ -1464,6 +1478,21 @@ class RayletService:
 
     def ping(self) -> str:
         return "pong"
+
+    def drain(self, deadline_s: float = 30.0) -> bool:
+        """Preemption-notice handling (reference: the DrainNode RPC): new
+        default-placement tasks are placed elsewhere and worker-lease
+        requests spill to surviving nodes, while in-flight and bundle-pinned
+        work keeps running through the grace window (gang supervisors own
+        their members' checkpoint and stop). Idempotent."""
+        if not self._draining:
+            self._draining = True
+            _log.warning("node %s draining (deadline %.1f s)", self.node_id[:12], deadline_s)
+        self._sched_wake.set()
+        return True
+
+    def is_draining(self) -> bool:
+        return self._draining
 
     def node_resources(self) -> Tuple[Dict[str, float], Dict[str, float]]:
         with self._res_lock:

@@ -1,5 +1,5 @@
-"""The port's copies of the exception types that the in-process runtime,
-Serve and the LLM engine raise (ray_tpu/exceptions.py)."""
+"""The port's copies of the exception types that the runtimes, Serve, the
+trainer and the LLM engine raise (ray_tpu/exceptions.py)."""
 
 from __future__ import annotations
 
@@ -88,6 +88,45 @@ class RpcUnavailableError(RayTpuError, ConnectionError):
     def __reduce__(self):
         return (RpcUnavailableError, (self.address, self.elapsed_s, self.attempts,
                                       self.last_error))
+
+
+class PreemptionError(RayTpuError):
+    """A gang lost capacity to a (possibly synthetic) preemption notice:
+    the node drained, workers checkpointed and stopped. Supervisors catch
+    this to restore on replacement capacity instead of counting it as a
+    training failure."""
+
+    def __init__(self, node_ids: Optional[list] = None, reason: str = "preempted"):
+        self.node_ids = list(node_ids or [])
+        self.reason = reason
+        nodes = ", ".join(n[:12] for n in self.node_ids) or "?"
+        super().__init__(f"gang preempted (node(s) {nodes} draining): {reason}")
+
+    def __reduce__(self):
+        return (PreemptionError, (self.node_ids, self.reason))
+
+
+class CapacityTimeoutError(RayTpuError, TimeoutError):
+    """The capacity wait after a preemption expired and no feasible gang
+    exists (non-elastic run, or feasible world below min_workers). Raised
+    INSTEAD of launching a doomed attempt that would burn a retry against
+    an empty cluster."""
+
+    def __init__(self, needed: int, feasible: int, waited_s: float, min_workers: int = 0):
+        self.needed = needed
+        self.feasible = feasible
+        self.waited_s = waited_s
+        self.min_workers = min_workers
+        super().__init__(
+            f"no capacity for a {needed}-worker gang after {waited_s:.0f}s "
+            f"(largest feasible world: {feasible}"
+            + (f", elastic floor {min_workers}" if min_workers else "")
+            + ")"
+        )
+
+    def __reduce__(self):
+        return (CapacityTimeoutError,
+                (self.needed, self.feasible, self.waited_s, self.min_workers))
 
 
 class TaskCancelledError(RayTpuError):

@@ -4,7 +4,8 @@ PyTorch port).
 
 `record()` is one counter bump and one slot store, no lock and no IO, so
 the channel's reads and writes, the chaos controller's injections and the
-trainer's restores can afford it unconditionally; `snapshot()` reads the
+trainer's and the Serve controller's reactions can afford it
+unconditionally; `snapshot()` reads the
 ring back in order.
 The JAX package's dumps, crash hooks and trace merge are not ported.
 
@@ -28,7 +29,8 @@ KIND_PREFIXES = {
     "chan",   # core/channel.py reads/writes/timeouts
     "chaos",  # chaos controller injections
     "pool",   # core/worker_pool.py pops, misses, refills, zygote loss and respawn
-    "train",  # trainer restores (train.restore)
+    "serve",  # the Serve controller's drain replacements (serve.drain_replace)
+    "train",  # trainer drains, restores and elastic resizes
 }
 
 

@@ -10,10 +10,11 @@ replica count), reconciles actual replica actors toward it on a control
 loop, and serves the replica directory that handles long-poll against
 (version counter instead of the reference's LongPollHost).
 
-Left out: the node-drain watcher (ray_tpu/serve/controller.py:410-424,
-:600-640), which reacts to node_draining notices from the GCS; the
-in-process runtime has no GCS and no nodes to drain. It comes back with
-the cluster runtime.
+On the cluster runtime the controller also watches node events
+(utils/node_events.py): a replica on a node that got a preemption notice is
+replaced on another node, and the swapped replica set is published before
+the old replica is drained and killed. The in-process runtime has no nodes
+to drain.
 """
 
 from __future__ import annotations
@@ -410,6 +411,20 @@ class ServeController:
         self._version = 0
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        # Preemption awareness: replicas on a departing node are replaced
+        # (and de-routed) before the machine dies, not found dead after.
+        self._node_watcher = None
+        self._handled_draining: set = set()
+        self._drain_thread: Optional[threading.Thread] = None
+        try:
+            from ..core import runtime_base
+            from ..utils.node_events import NodeEventWatcher
+
+            gcs = getattr(runtime_base.current_runtime(), "_gcs", None)
+            if gcs is not None:
+                self._node_watcher = NodeEventWatcher(gcs)
+        except Exception:  # noqa: BLE001 - no watcher: replicas are found dead instead
+            self._node_watcher = None
         self._loop = threading.Thread(target=self._control_loop, daemon=True)
         self._loop.start()
         self._last_scale_action: Dict[str, float] = {}
@@ -563,12 +578,109 @@ class ServeController:
     def _control_loop(self) -> None:
         while not self._stop.wait(0.25):
             try:
+                self._kick_drain_replacement()
                 self._autoscale()
                 self._reconcile()
             except Exception:
                 # One bad tick must not kill the loop, but a silently
                 # failing controller is how serve apps rot: say what broke.
                 _log.warning("serve control-loop tick failed", exc_info=True)
+
+    # ---------------------------------------------------- preemption drain
+    def _kick_drain_replacement(self) -> None:
+        """Runs the drain migration (replacement construction and health
+        checks: slow) in its own thread, so a replacement waiting for
+        capacity stalls no other app's autoscaling or reconciliation. At
+        most one pass at a time."""
+        watcher = self._node_watcher
+        if watcher is None:
+            return
+        if not (watcher.draining_nodes() - self._handled_draining):
+            return
+        t = self._drain_thread
+        if t is not None and t.is_alive():
+            return
+        self._drain_thread = threading.Thread(target=self._replace_draining_replicas,
+                                              daemon=True)
+        self._drain_thread.start()
+
+    def _replace_draining_replicas(self) -> None:
+        """Preemption reaction (reference: deployment_state's drain-node
+        replica migration): for every replica on a DRAINING node, build its
+        replacement first (placement already avoids draining nodes), publish
+        the swapped replica list so routers move new traffic over, and only
+        then drain and kill the old replica, which serves until the
+        replacement is routable."""
+        from ..core import runtime_base
+        from ..observability.flight_recorder import record as _frec_record
+        from ..utils.node_events import actor_locations
+
+        watcher = self._node_watcher
+        if watcher is None:
+            return
+        draining = watcher.draining_nodes() - self._handled_draining
+        if not draining:
+            return
+        gcs = getattr(runtime_base.current_runtime(), "_gcs", None)
+        locations = actor_locations(gcs) if gcs is not None else {}
+        if not locations:
+            return
+        with self._lock:
+            apps = dict(self._apps)
+            gens = dict(self._app_gen)
+        handled_all = True
+        for name, spec in apps.items():
+            with self._lock:
+                current = list(self._replicas.get(name, []))
+            victims = [r for r in current if locations.get(r._actor_id.hex()) in draining]
+            if not victims:
+                continue
+            _frec_record("serve.drain_replace",
+                         (name, len(victims), tuple(sorted(draining))[:4]))
+            opts = {"max_concurrency": spec["max_ongoing"], **spec["actor_options"]}
+            replica_cls = api.remote(**opts)(Replica)
+            replacements = []
+            try:
+                for _ in victims:
+                    replacements.append(replica_cls.remote(
+                        spec["cls_blob"], spec["init_args"], spec["init_kwargs"], name))
+                # Constructed before the victims are de-routed: a router
+                # switching to a booting replica would stall requests the
+                # old one could still serve.
+                api.get([r.health_check.remote() for r in replacements], timeout=60)
+            except Exception:  # noqa: BLE001 - no capacity yet: retried next tick
+                for r in replacements:
+                    try:
+                        api.kill(r)
+                    except Exception:  # noqa: BLE001 - may already be dead
+                        pass
+                handled_all = False
+                continue
+            with self._lock:
+                stale = self._app_gen.get(name, 0) != gens.get(name, 0) or name not in self._apps
+                if not stale:
+                    # Against the LIVE list: reconcile kept ticking while the
+                    # replacements booted, and a swap on the earlier snapshot
+                    # would drop (and leak) a replica it added meanwhile.
+                    self._replicas[name] = [r for r in self._replicas.get(name, [])
+                                            if r not in victims] + replacements
+                    # A reconcile pass that snapshotted the pre-swap list
+                    # must discard its write-back, not resurrect the victims.
+                    self._app_gen[name] = self._app_gen.get(name, 0) + 1
+                    self._version += 1
+            if stale:
+                for r in replacements:
+                    try:
+                        api.kill(r)
+                    except Exception:  # noqa: BLE001 - may already be dead
+                        pass
+                continue
+            # The old replicas finish their in-flight requests, then die.
+            for victim in victims:
+                threading.Thread(target=self._drain_then_kill, args=(victim,),
+                                 daemon=True).start()
+        if handled_all:
+            self._handled_draining |= draining
 
     # ---------------------------------------------------------- autoscale
     def _autoscale(self) -> None:
@@ -625,6 +737,8 @@ class ServeController:
 
     def shutdown(self) -> bool:
         self._stop.set()
+        if self._node_watcher is not None:
+            self._node_watcher.stop()
         for name in list(self._replicas):
             self.delete_app(name)
         return True

@@ -33,10 +33,16 @@ class ScalingConfig:
     cluster runtime with use_gpu=True, a worker whose resources_per_worker
     names no GPU asks for one whole GPU.
 
-    `elastic`, `min_workers` and `capacity_wait_s` are accepted at their
-    defaults so call sites port mechanically; what reads them (the
-    preemption, elastic-grow and capacity arms) is not ported yet, so any
-    other value raises NotImplementedError (ROADMAP Queue 1 item 3).
+    `elastic`, `min_workers` and `capacity_wait_s` are read on the cluster
+    runtime, after a preemption notice drained the gang: fit() waits up to
+    `capacity_wait_s` (None: trainer.CAPACITY_WAIT_S) for capacity for
+    num_workers workers; when the wait runs out, an elastic run re-forms at
+    the largest feasible world >= min_workers and resumes from its last
+    checkpoint (world-size independent), then grows back to num_workers at a
+    checkpoint boundary once capacity returns; a run that is not elastic, or
+    whose feasible world is below the floor, fails with
+    CapacityTimeoutError. The in-process runtime has no nodes to lose: there
+    the three are accepted and change nothing.
     """
 
     num_workers: int = 1
@@ -46,23 +52,16 @@ class ScalingConfig:
     placement_strategy: str = "PACK"
     backend: Optional[Any] = None
     elastic: bool = False
-    min_workers: Optional[int] = None
+    min_workers: Optional[int] = None  # elastic floor; None -> 1
     capacity_wait_s: Optional[float] = None
 
-    def __post_init__(self):
-        given = [name for name, default in _UNPORTED_FIELDS.items()
-                 if getattr(self, name) != default]
-        if given:
-            raise NotImplementedError(
-                f"ScalingConfig({', '.join(given)}=...) needs the trainer's preemption, "
-                "elastic-grow and capacity arms, which are not ported yet "
-                "(ROADMAP Queue 1 item 3)"
-            )
+    @property
+    def total_workers(self) -> int:
+        return max(1, self.num_workers)
 
-
-# ScalingConfig fields whose readers are not ported yet, with the one value
-# accepted until then.
-_UNPORTED_FIELDS = {"elastic": False, "min_workers": None, "capacity_wait_s": None}
+    @property
+    def elastic_floor(self) -> int:
+        return max(1, self.min_workers if self.min_workers is not None else 1)
 
 
 @dataclasses.dataclass

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -64,6 +65,12 @@ def shard_bounds(n_elems: int, world_size: int, rank: int) -> Tuple[int, int]:
     if world_size < 1 or not (0 <= rank < world_size):
         raise ValueError(f"bad shard coords rank={rank} world={world_size}")
     return (n_elems * rank) // world_size, (n_elems * (rank + 1)) // world_size
+
+
+def _observe(op: str, t0: float) -> None:
+    from ..utils import internal_metrics as imet
+
+    imet.TRAIN_RESHARD_TIME.observe((time.perf_counter() - t0) * 1e3, op=op)
 
 
 def _shard_file(kind: str, rank: int, world_size: int) -> str:
@@ -95,6 +102,7 @@ def save_shards(
     """Writes `rank`'s shard of `tree` (and, from rank 0, the manifest and
     the structure file). Pass the full logical tree: only this rank's
     [start, stop) bytes of each leaf are written."""
+    t0 = time.perf_counter()
     os.makedirs(directory, exist_ok=True)
     paths, leaves = flatten(tree)
     arrays: Dict[str, np.ndarray] = {}
@@ -115,6 +123,7 @@ def save_shards(
         })
         _write_json(os.path.join(directory, f"{kind}_structure.json"),
                     {"format": FORMAT, "paths": [list(p) for p in paths]})
+    _observe("save", t0)
 
 
 def read_manifest(directory: str, kind: str = "params") -> Dict[str, Any]:
@@ -181,6 +190,7 @@ def _paths(directory: str, kind: str, like) -> List[Tuple[str, ...]]:
 def load_full(directory: str, kind: str = "params", like=None) -> Tuple[Any, Dict[str, Any]]:
     """Reassembles the full tree (CPU tensors) from all saved shards, at any
     saved world size; structure from the structure file or from `like`."""
+    t0 = time.perf_counter()
     manifest = read_manifest(directory, kind)
     paths = _paths(directory, kind, like)
     if len(paths) != len(manifest["leaves"]):
@@ -189,6 +199,7 @@ def load_full(directory: str, kind: str = "params", like=None) -> Tuple[Any, Dic
     with _SavedShards(directory, kind, manifest) as saved:
         leaves = [saved.slice(i, 0, e["size"]).reshape(e["shape"])
                   for i, e in enumerate(manifest["leaves"])]
+    _observe("load", t0)
     return unflatten(paths, leaves), manifest
 
 
@@ -197,10 +208,12 @@ def load_shard(directory: str, *, world_size: int, rank: int,
     """Rank `rank` of a NEW `world_size`'s flat slice of every leaf, reading
     only the overlapping bytes of the saved shard files: (flat slices, one
     per leaf, and the manifest)."""
+    t0 = time.perf_counter()
     manifest = read_manifest(directory, kind)
     with _SavedShards(directory, kind, manifest) as saved:
         slices = [saved.slice(i, *shard_bounds(e["size"], world_size, rank))
                   for i, e in enumerate(manifest["leaves"])]
+    _observe("load", t0)
     return slices, manifest
 
 
@@ -214,6 +227,7 @@ def _copy_file(src: str, dst: str) -> None:
 def reshard(src: str, dst: str, new_world_size: int, kind: str = "params") -> None:
     """Rewrites a saved kind at another world size, one new rank's slice at a
     time, without building the whole tree in one buffer."""
+    t0 = time.perf_counter()
     manifest = read_manifest(src, kind)
     os.makedirs(dst, exist_ok=True)
     with _SavedShards(src, kind, manifest) as saved:
@@ -228,6 +242,7 @@ def reshard(src: str, dst: str, new_world_size: int, kind: str = "params") -> No
                 dict(manifest, world_size=int(new_world_size)))
     for name in (f"{kind}_structure.json", f"{kind}_treedef.pkl"):
         _copy_file(os.path.join(src, name), os.path.join(dst, name))
+    _observe("reshard", t0)
 
 
 # --------------------------------------------------- trainer-facing bundle

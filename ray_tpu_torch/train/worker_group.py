@@ -32,6 +32,7 @@ class _TrainWorker:
         self._mesh = None
         self._device = None
         self._session = None
+        self._drain_flag = False
 
     def setup_distributed(self, coordinator: str, mesh_spec, use_gpu: bool, backend=None,
                           init_timeout_s: float = 60.0):
@@ -104,6 +105,10 @@ class _TrainWorker:
             self._error = e
             raise
         session.mesh = self._mesh
+        if self._drain_flag:
+            # A drain notice landed before the session existed (a restart
+            # racing the notice): the new session starts drained.
+            session.request_drain()
         self._session = session
         device = self._device
 
@@ -140,8 +145,13 @@ class _TrainWorker:
         self._thread.start()
         return True
 
-    def next_result(self):
-        """One reported result, or None once training finished."""
+    def next_result(self, timeout_s=None):
+        """One reported result, None once training finished, or the
+        `{"__pending__": True}` sentinel when `timeout_s` elapsed with
+        nothing reported: the bounded form keeps the trainer's supervision
+        loop responsive (it must see a drain notice while every worker is
+        mid-step). The actor serves other calls meanwhile (max_concurrency
+        4), so a request_drain is never queued behind this wait."""
         import time as _time
 
         # The launch is fire-and-forget and this actor runs methods on a
@@ -155,7 +165,10 @@ class _TrainWorker:
             if _time.monotonic() > deadline:
                 return None
             _time.sleep(0.02)
-        out = self._session.next_result()
+        try:
+            out = self._session.next_result(timeout=timeout_s)
+        except TimeoutError:
+            return {"__pending__": True}
         if out is None and self._error is not None:
             raise self._error
         if out is not None and out.get("checkpoint") is not None:
@@ -169,6 +182,15 @@ class _TrainWorker:
         threads blocked on the size-1 queue)."""
         if self._session is not None:
             self._session.cancel()
+        return True
+
+    def request_drain(self):
+        """Relays a preemption notice into the session: the loop's next
+        `train.drain_requested()` returns True, asking for a final
+        checkpoint and a clean return before the node dies."""
+        self._drain_flag = True
+        if self._session is not None:
+            self._session.request_drain()
         return True
 
     def join(self):

@@ -1,13 +1,15 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
-the feed's channel, the chaos controller and the trainer record into.
+the feed's channel, the chaos controller, the cluster runtime and the
+trainer record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
 lane that hot paths cache. The JAX package flushes deltas to its GCS
-every second; the port has no control plane yet (the cluster runtime is
-still to port), so values stay in the process and `snapshot()` reads
-them. `RAY_TPU_INTERNAL_METRICS=0` turns every instrument into a no-op.
+every second; the port's flush is not ported yet (ROADMAP Queue 1 item
+3.8), so values stay in the process that recorded them (a counter the GCS
+daemon bumps is read in that daemon) and `snapshot()` reads them.
+`RAY_TPU_INTERNAL_METRICS=0` turns every instrument into a no-op.
 """
 
 from __future__ import annotations
@@ -311,10 +313,28 @@ TRAIN_WORLD_SIZE = Gauge(
     component="train",
     tag_keys=("trial",),
 )
+TRAIN_RESHARD_TIME = Histogram(
+    "raytpu_train_reshard_ms",
+    "Elastic checkpoint save/load/reshard durations, by operation",
+    component="train",
+    boundaries=[1, 5, 10, 50, 100, 500, 1000, 5000, 10000, 60000],
+    tag_keys=("op",),
+)
+TRAIN_ELASTIC_RESIZES = Counter(
+    "raytpu_train_elastic_resizes_total",
+    "Elastic gang renegotiations, by direction (downsize / growback)",
+    component="train",
+    tag_keys=("direction",),
+)
 CHECKPOINTS_RESTORED = Counter(
     "raytpu_checkpoints_restored_total",
     "Training attempts resumed from a checkpoint after a gang failure",
     component="train",
+)
+NODES_DRAINED = Counter(
+    "raytpu_nodes_drained_total",
+    "Nodes that entered the draining state on a preemption notice",
+    component="gcs",
 )
 # --- worker pool and zygote (core/worker_pool.py, core/zygote.py) ----------
 WORKER_POOL_HITS = Counter(

@@ -552,20 +552,37 @@ def test_torch_trainer_datasets_wait_for_data():
         TorchTrainer(lambda config: None, datasets={"train": [1, 2, 3]})
 
 
-@pytest.mark.parametrize("kw", [{"backend": "gloo"}, {"elastic": True},
-                                {"min_workers": 1}, {"capacity_wait_s": 5.0}],
-                         ids=lambda kw: next(iter(kw)))
-def test_cluster_only_scaling_fields_are_refused(kw, tmp_path):
+def _three_step_loop(config):
+    import importlib
+
+    train = importlib.import_module(config["train"])
+    for step in range(3):
+        train.report({"step": step})
+
+
+# The port's ids keep their names; the JAX package's run the same fields.
+_SCALING_FIELDS = [({"backend": "gloo"}, "torch"), ({"elastic": True}, "torch"),
+                   ({"min_workers": 1}, "torch"), ({"capacity_wait_s": 5.0}, "torch"),
+                   ({"elastic": True}, "jax"), ({"min_workers": 1}, "jax"),
+                   ({"capacity_wait_s": 5.0}, "jax")]
+
+
+@pytest.mark.parametrize("kw,name", _SCALING_FIELDS,
+                         ids=[next(iter(kw)) + ("-jax" if name == "jax" else "")
+                              for kw, name in _SCALING_FIELDS])
+def test_cluster_only_scaling_fields_are_refused(kw, name, tmp_path):
     """`backend` is read by the cluster runtime's distributed setup and is
     accepted there (tests/test_torch_cluster_trainer.py runs it); the
-    in-process runtime would ignore it, so fit() refuses it there. What reads
-    the others (the trainer's preemption, elastic-grow and capacity arms) is
-    not ported: a value other than the default must fail loudly rather than
-    be silently ignored."""
+    in-process runtime would ignore it, so fit() refuses it there. The
+    elastic fields (`elastic`, `min_workers`, `capacity_wait_s`) are read on
+    the cluster runtime after a preemption (tests/test_torch_elastic.py); the
+    in-process runtime has no nodes to lose, so both packages accept them
+    there and fit a one-worker run to the end: `_feasible_workers` reports
+    the target and `_wait_for_capacity` returns True at once."""
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchBackendConfig, TorchTrainer
 
-    ScalingConfig(backend=None, elastic=False, min_workers=None, capacity_wait_s=None)
     if "backend" in kw:
+        ScalingConfig(backend=None, elastic=False, min_workers=None, capacity_wait_s=None)
         sc = ScalingConfig(use_gpu=False, backend=TorchBackendConfig(backend=kw["backend"]))
         assert sc.backend.backend == "gloo"
         ray_tpu_torch.shutdown()
@@ -578,8 +595,30 @@ def test_cluster_only_scaling_fields_are_refused(kw, tmp_path):
         finally:
             ray_tpu_torch.shutdown()
         return
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ScalingConfig(**kw)
+    ns = _ns(name)
+    if name == "jax":
+        from ray_tpu.parallel import MeshSpec
+    else:
+        from ray_tpu_torch.parallel import MeshSpec
+
+        kw = dict(kw, use_gpu=False)
+    sc = ns.train.ScalingConfig(num_workers=1, mesh=MeshSpec(data=-1), **kw)
+    ns.rt.shutdown()
+    ns.rt.init(local_mode=True, num_cpus=2)
+    try:
+        trainer = ns.Trainer(_three_step_loop, train_loop_config={"train": ns.train.__name__},
+                             scaling_config=sc,
+                             run_config=ns.train.RunConfig(name="elastic_fields",
+                                                           storage_path=str(tmp_path)))
+        assert trainer._feasible_workers() == 1
+        assert trainer._wait_for_capacity(1, timeout_s=0.1) is True
+        result = _fit(trainer)
+    finally:
+        ns.rt.shutdown()
+    assert result.error is None
+    assert result.metrics["step"] == 2
+    seconds = result.metrics["goodput_seconds"]
+    assert seconds["drain_wait"] == 0 and seconds["degraded"] == 0
 
 
 def test_torch_trainer_without_cuda_raises_unless_asked_for_the_cpu(tmp_path):
