@@ -102,7 +102,7 @@ Phases, each printing its own line, any failure exits non-zero:
      bitwise equal to the in-process trainer's and build_train_step's,
      launches 8 / 8 / 8 in the worker, step p50 beside the in-process
      trainer's; (c) two worker processes sharing the card over gloo,
-     MeshSpec(data=2), fp32: 3 AdamW steps against one process (first loss
+     MeshSpec(data=2), fp32, 1 layer: 3 AdamW steps against one process (first loss
      1e-6, trajectory 1e-5, every leaf 1e-5 of its norm), then ZeRO-1 over
      "data" against the plain two-rank run; no process and no
      /dev/shm/rtpt_* pool left after shutdown; (d) a head on
@@ -122,7 +122,7 @@ Phases, each printing its own line, any failure exits non-zero:
      no process of the removed node left, K1-K3 in both processes; notice
      to drain seen, checkpoint landed, restore done and first fresh step;
      (b) two gloo ranks on two added nodes, elastic (min_workers=1,
-     capacity_wait_s=3), fp32 as cluster part (c) but 1 layer, 5 steps with
+     capacity_wait_s=3), fp32 as cluster part (c) (1 layer), 5 steps with
      a checkpoint after each but the last: one node preempted after the
      first with no replacement (world 1, the whole global batch), a node
      added once the first step at world 1 is checkpointed (world 2 again at
@@ -133,13 +133,34 @@ Phases, each printing its own line, any failure exits non-zero:
      the serve shape per request, its node given a 60 s notice while a
      client calls all along: a new replica on another node, no failed
      request, K1 in both replicas' processes; nothing left after shutdown.
+  17. objects: the object plane and what rides it, on a fresh init() with a
+     2 GiB pool per node; one layer = Llama-2-7B's seven block matrices as a
+     dict of bf16 CUDA tensors (404.8 MB): (a) 16 layers (3.0x the pool) put
+     and read back onto the card bitwise through spill to disk, num_spilled
+     in the GCS's stats, a num_gpus=1 task on a spilled layer (sha256), the
+     spill dir empty and the pool's bytes back once the refs drop; (b) 3
+     nodes added (num_gpus=1), a layer broadcast to them (returns 3, 4
+     locations), an actor pinned to each gets it onto its card bitwise with
+     no bytes pulled, a layer not broadcast as the control; (c) three GPU
+     actors in a collective group: an fp32 allreduce of w_up's size within
+     1e-6 of a float64 sum, reduce_scatter equal to its shard, broadcast and
+     allgather bitwise, bf16 back as float32, no GCS key after the destroy;
+     (d) combine.bind(a.attend.bind(x), b.attend.bind(x)) compiled and run 4
+     times (two actors' wq/wk/wv projections and K1, causal, summed by a GPU
+     task) within 2^-6 per entry of the driver's plain sum, K1 4 times in
+     each actor's process, and MultiOutputNode once; (e) a GPU task with
+     runtime_env env_vars and a working_dir: its variable, CUDA_VISIBLE_DEVICES
+     "0", the helper module, K1 against its plain version, one Popen; a
+     plain GPU task after it forked, without the variable; an unknown field
+     refused; nothing left after shutdown.
 Then one JSON line with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
 tune, parallel, cluster and elastic phases' model paths (ring, ulysses,
 pipeline, the TP meshes and TP x SP; the deploy phase's cluster replica; the
 cluster's actor, NCCL trainer worker and gloo ranks; the preempted and
-restored workers, each elastic world, the old and new Serve replicas) under
+restored workers, each elastic world, the old and new Serve replicas; the
+objects phase's two DAG actors and its runtime-env task) under
 "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
@@ -2693,6 +2714,10 @@ CLUSTER_TENSOR = (4096, 11008)  # Llama-2-7B's w_up
 CLUSTER_SERVE_SHAPE = (1, 1024, 32, 128)  # b, s, heads, head_dim: the serve phase's
 CLUSTER_STEPS = 4
 CLUSTER_DATA_STEPS = 3
+# Parts (c) of the cluster phase and (b) of the elastic phase: Llama-2-7B's
+# width in fp32 at depth 1 (cut from 2 in PR 13 for the smoke's time: the
+# fp32 gloo steps, their reference and ZeRO were the cluster phase's most).
+CLUSTER_DATA_LAYERS = 1
 CLUSTER_HOST_CALLS = 1000
 CLUSTER_TIMEOUT_S = 300
 
@@ -2913,7 +2938,8 @@ def _cluster_data_cfg():
 
     from ray_tpu_torch.models import transformer as tfm
 
-    return tfm.llama2_7b(n_layers=2, dtype=torch.float32, remat_policy="hot")
+    return tfm.llama2_7b(n_layers=CLUSTER_DATA_LAYERS, dtype=torch.float32,
+                         remat_policy="hot")
 
 
 def _cluster_data_batch(step: int, vocab: int):
@@ -2989,10 +3015,10 @@ def _cluster_data_loop(config):
     train.report(out)
 
 
-def _cluster_reference_data(n_steps: int = CLUSTER_DATA_STEPS, make_cfg=None):
+def _cluster_reference_data(n_steps: int = CLUSTER_DATA_STEPS):
     """Part (c)'s reference: one fp32 process (this one) on the same global
-    batches, `n_steps` AdamW steps of `make_cfg()` (part (c)'s config unless
-    given): losses, final params on the host and their key paths."""
+    batches, `n_steps` AdamW steps of part (c)'s config: losses, final params
+    on the host and their key paths."""
     import torch
 
     from ray_tpu_torch.models import transformer as tfm
@@ -3001,7 +3027,7 @@ def _cluster_reference_data(n_steps: int = CLUSTER_DATA_STEPS, make_cfg=None):
     was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        cfg = (make_cfg or _cluster_data_cfg)()
+        cfg = _cluster_data_cfg()
         init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
         params, opt = init(torch.Generator(device="cuda").manual_seed(0))
         losses = [step(params, opt, _cluster_data_batch(i, cfg.vocab_size)).item()
@@ -3285,7 +3311,8 @@ def phase_cluster():
                                                          g["plain"]["losses"]))
             print(f"[cluster] (c) {smi}: 2 worker processes sharing the card over "
                   f"{g['backend']} (not multi-GPU speed), each CUDA_VISIBLE_DEVICES="
-                  f"{g['visible']!r}, MeshSpec(data=2), llama2_7b width, 2 layers, fp32, TF32 "
+                  f"{g['visible']!r}, MeshSpec(data=2), llama2_7b width, "
+                  f"{CLUSTER_DATA_LAYERS} layer(s), fp32, TF32 "
                   f"off, global batch 2 x {FIT_SEQ}, {CLUSTER_DATA_STEPS} AdamW steps: fit "
                   f"{fit_s:.1f} s; losses {g['plain']['losses']} vs one process {ref_losses}: "
                   f"first rel {first:.3g} (tol 1e-6), trajectory rel {traj:.3g} (tol 1e-5); "
@@ -3303,7 +3330,7 @@ def phase_cluster():
             if not (g["zero_bitwise"] or g["zero_worst"][1] <= 1e-6):
                 _fail(f"cluster: ZeRO-1 differs from the plain run: {g['zero_worst']}")
             for mode in ("plain", "zero"):
-                want = {k: 2 * CLUSTER_DATA_STEPS for k in g[mode]["launches"]}
+                want = {k: CLUSTER_DATA_LAYERS * CLUSTER_DATA_STEPS for k in g[mode]["launches"]}
                 if g[mode]["launches"] != want:
                     _fail(f"cluster: rank 0's {mode} run launched {g[mode]['launches']}, "
                           f"want {want}")
@@ -3455,16 +3482,6 @@ def _elastic_loop(config):
             return  # the final checkpoint is reported: a clean drain
 
 
-def _elastic_data_cfg():
-    """Part (b)'s model: the cluster phase's fp32 config at Llama-2-7B's
-    width, depth cut to 1 layer for the phase's time (5.6 GiB of state)."""
-    import torch
-
-    from ray_tpu_torch.models import transformer as tfm
-
-    return tfm.llama2_7b(n_layers=1, dtype=torch.float32, remat_policy="hot")
-
-
 def _elastic_data_loop(config):
     """Part (b)'s loop, one rank of a gloo world on the card (world 2, then
     1, then 2): the cluster phase's fp32 data-parallel step on the global
@@ -3486,7 +3503,7 @@ def _elastic_data_loop(config):
     ctx = train.get_context()
     rank, world = ctx.get_world_rank(), ctx.get_world_size()
     device = _worker_device()
-    cfg = _elastic_data_cfg()
+    cfg = _cluster_data_cfg()
     init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device,
                                       mesh=train.get_mesh())
     params, opt = init(torch.Generator(device=device).manual_seed(0))
@@ -3935,7 +3952,7 @@ def phase_elastic():
     try:
         with _deterministic():
             direct_losses, _, direct_sha = _direct_run(1e-4, ELASTIC_STEPS)
-            ref = _cluster_reference_data(ELASTIC_DATA_STEPS, _elastic_data_cfg)
+            ref = _cluster_reference_data(ELASTIC_DATA_STEPS)
         torch.cuda.empty_cache()
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
         rt.init()
@@ -3966,6 +3983,530 @@ def phase_elastic():
         return launches
     finally:
         os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------- objects
+OBJ_POOL = 2 << 30  # the phase's object store per node
+OBJ_LAYERS = 16  # layers put in (a): 6.48 GB, 3.0x the pool
+# One Llama-2-7B block's seven weight matrices (Meta's published config:
+# d_model 4096, d_ff 11008), bf16: 202.4 M params, 404.8 MB.
+OBJ_LAYER_SHAPES = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
+                    "wo": (4096, 4096), "w_gate": (4096, 11008), "w_up": (4096, 11008),
+                    "w_down": (11008, 4096)}
+OBJ_GRAD_SHAPE = (4096, 11008)  # (c): w_up's gradient, fp32, 180.4 MB
+OBJ_DAG_RUNS = 4  # (d): executions of the compiled DAG, x from seeds 0-3
+OBJ_K1_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
+OBJ_TIMEOUT_S = 300
+
+
+def _obj_layer(seed: int):
+    """One Llama-2-7B layer's weights as a dict of bf16 CUDA tensors."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for k, shape in OBJ_LAYER_SHAPES.items()}
+
+
+def _tensor_sha(tree) -> str:
+    """sha256 over a tensor's (or a dict of tensors', by key) raw bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    items = sorted(tree.items()) if isinstance(tree, dict) else [("", tree)]
+    for _, t in items:
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _layers_equal(a, b) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(
+        a[k].device == b[k].device and torch.equal(a[k].view(torch.int16), b[k].view(torch.int16))
+        for k in a)
+
+
+def _obj_spilled_sha(layer):
+    """(a)'s GPU task: the spilled layer it was given, on its card."""
+    import torch
+
+    return _tensor_sha(layer), str(layer["wq"].device), torch.cuda.device_count()
+
+
+class _ObjGetter:
+    """(b)'s actor on an added node: gets a layer onto its card."""
+
+    def node(self):
+        import ray_tpu_torch as rt
+
+        return rt.get_runtime_context().get_node_id()
+
+    def get_layer(self, refs):
+        import torch
+
+        import ray_tpu_torch as rt
+
+        t0 = time.perf_counter()
+        layer = rt.get(refs[0], timeout=OBJ_TIMEOUT_S)
+        torch.cuda.synchronize()
+        return {"s": time.perf_counter() - t0, "sha": _tensor_sha(layer),
+                "device": str(layer["wq"].device)}
+
+
+class _ObjRank:
+    """(c)'s group member: w_up's gradient size in fp32 from seed = rank."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+    def run(self, group: str):
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch import collective
+
+        gen = torch.Generator(device="cuda").manual_seed(self.rank)
+        grad = torch.randn(OBJ_GRAD_SHAPE, generator=gen, device="cuda")
+        small = torch.randn(1024, generator=gen, device="cuda")
+        bf = torch.randn(4096, generator=gen, device="cuda").to(torch.bfloat16)
+        collective.barrier(group_name=group)
+        t0 = time.perf_counter()
+        summed = collective.allreduce(grad, group_name=group)
+        ar_s = time.perf_counter() - t0
+        shard = collective.reduce_scatter(grad, group_name=group)
+        want_shard = np.array_split(summed.reshape(-1), 3)[(self.rank + 1) % 3]
+        bcast = collective.broadcast(grad, src_rank=0, group_name=group)
+        gathered = collective.allgather(small, group_name=group)
+        bf_gathered = collective.allgather(bf, group_name=group)
+        return {"allreduce": summed, "allreduce_s": ar_s, "device": str(grad.device),
+                "rs_equal": bool(np.array_equal(shard, want_shard)),
+                "bcast_sha": _tensor_sha(torch.from_numpy(bcast)),
+                "gathered": gathered, "bf_gathered": bf_gathered,
+                "dtypes": [str(summed.dtype), str(bf_gathered[0].dtype)]}
+
+
+class _ObjAttend:
+    """(d)'s actor: Llama-2-7B's wq, wk, wv from its seed; attend(x)
+    projects with torch.matmul and runs K1 (causal), holding each output
+    against the plain version in this process."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.w = [torch.randn((4096, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(3)]
+        self.worst = 0.0
+        _zero_launch_counts()
+
+    def attend(self, x):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        b, s, h, d = CLUSTER_SERVE_SHAPE
+        q, k, v = (x.matmul(w).view(b, s, h, d) for w in self.w)
+        o = fa.flash_attention(q, k, v, causal=True)
+        o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=d ** -0.5)
+        self.worst = max(self.worst, entry_err(o, o_ref))
+        return o.reshape(b, s, h * d)
+
+    def report(self):
+        return {"launches": _launch_counts(), "worst": self.worst, "pid": os.getpid()}
+
+
+def _obj_combine(o1, o2):
+    """(d)'s GPU task: the sum of the two attention outputs."""
+    return o1 + o2
+
+
+def _obj_reference_attend(x, seed):
+    """(d)'s plain version on the driver: the actor's projections and K1's
+    plain PyTorch version."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = [torch.randn((4096, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+         for _ in range(3)]
+    q, k, v = (x.matmul(wi).view(b, s, h, d) for wi in w)
+    o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=d ** -0.5)
+    return o_ref.reshape(b, s, h * d)
+
+
+def _obj_x(seed: int):
+    import torch
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    return torch.randn((b, s, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _obj_env_task():
+    """(e)'s GPU task: what its runtime env gave it, and K1 at the serve
+    shape against its plain version in this process."""
+    import rtpt_objects_helper  # from the working_dir package
+
+    _zero_launch_counts()
+    out = {"probe": os.environ.get("RTPT_PROBE"),
+           "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "helper": rtpt_objects_helper.VALUE, "pid": os.getpid(), "cwd": os.getcwd()}
+    out.update(_elastic_flash_request(0))
+    return out
+
+
+def _obj_plain_task():
+    """(e)'s control: a plain GPU task after the env's."""
+    return {"probe": os.environ.get("RTPT_PROBE"),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "pid": os.getpid(),
+            "ppid": os.getppid()}
+
+
+def _obj_stats(cluster, node_id):
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    return RpcClient(cluster._sock_for(node_id)).call("debug_state")["objects"]
+
+
+def _wait_until_obj(pred, what, timeout_s=60.0):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            _fail(f"objects: {what} within {timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
+def _objects_spill(rt, runtime, cluster, smi):
+    """(a): 16 layers through a 2 GiB pool and back, bitwise, with a GPU
+    task on a spilled one; everything gone once the refs drop."""
+    import torch
+
+    head = cluster.head_node_id
+    spill_dir = os.path.join(cluster.session_dir, f"spill_{head}")
+    before = _obj_stats(cluster, head)
+    kept = [_obj_layer(i) for i in range(OBJ_LAYERS)]
+    nbytes = sum(t.numel() * t.element_size() for layer in kept for t in layer.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = [rt.put(layer) for layer in kept]
+    put_s = time.perf_counter() - t0
+    held = _obj_stats(cluster, head)
+    num_spilled = _wait_until_obj(
+        lambda: runtime._gcs.call("stats")["store"]["num_spilled"], "num_spilled > 0 in the "
+        "GCS's node stats while the layers are held")
+    t0 = time.perf_counter()
+    for i, ref in enumerate(refs):
+        got = rt.get(ref, timeout=OBJ_TIMEOUT_S)
+        if not _layers_equal(got, kept[i]):
+            _fail(f"objects (a): layer {i} did not come back onto the card bitwise")
+        del got
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    on_disk = set(os.listdir(spill_dir))
+    spilled = [i for i, ref in enumerate(refs) if ref.hex() in on_disk]
+    if not spilled:
+        _fail("objects (a): no layer is spilled after reading all back")
+    j = spilled[0]
+    task = rt.remote(num_gpus=1)(_obj_spilled_sha)
+    sha, dev, count = rt.get(task.remote(refs[j]), timeout=OBJ_TIMEOUT_S)
+    if sha != _tensor_sha(kept[j]) or not dev.startswith("cuda"):
+        _fail(f"objects (a): the GPU task's spilled layer {j} differs ({dev})")
+    after = _obj_stats(cluster, head)
+    del refs, ref, kept, task
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _wait_until_obj(lambda: not os.listdir(spill_dir), "the spill dir empties after the refs "
+                    f"drop (left: {sorted(os.listdir(spill_dir))[:4]})")
+    _wait_until_obj(lambda: _obj_stats(cluster, head)["bytes_in_use"] == before["bytes_in_use"],
+                    f"the pool back to {before['bytes_in_use']} bytes "
+                    f"({_obj_stats(cluster, head)['bytes_in_use']})")
+    spill_bytes = after["spill_bytes"] - before["spill_bytes"]
+    print(f"[objects] (a) {smi}: {OBJ_LAYERS} layers of {nbytes / OBJ_LAYERS / 1e6:.1f} MB "
+          f"({nbytes / 1e9:.2f} GB, {nbytes / OBJ_POOL:.2f}x the pool): put {put_s:.2f} s "
+          f"({nbytes / put_s / 1e9:.2f} GB/s), get back bitwise {get_s:.2f} s "
+          f"({nbytes / get_s / 1e9:.2f} GB/s); num_spilled {num_spilled} in the GCS's stats "
+          f"while held ({held['num_spilled']} on the head after the puts); spills "
+          f"{after['spill_total'] - before['spill_total']:.0f}, restores "
+          f"{after['restore_total'] - before['restore_total']:.0f}, {spill_bytes / 1e9:.2f} GB "
+          f"written to disk; a GPU task on spilled layer {j} bitwise ({dev}); spill dir "
+          f"empty and the pool back to {before['bytes_in_use']} bytes after the refs drop",
+          flush=True)
+    return nbytes / OBJ_LAYERS
+
+
+def _objects_broadcast(rt, runtime, cluster, smi, nodes, layer_bytes):
+    """(b): one layer broadcast to 3 added nodes; an actor on each gets it
+    with no pull; a second layer not broadcast as the control."""
+    from ray_tpu_torch import NodeAffinitySchedulingStrategy
+
+    layer, control = _obj_layer(100), _obj_layer(101)
+    sha, control_sha = _tensor_sha(layer), _tensor_sha(control)
+    ref, control_ref = rt.put(layer), rt.put(control)
+    getters = [rt.remote(num_gpus=0.25, scheduling_strategy=NodeAffinitySchedulingStrategy(
+        nid, soft=False))(_ObjGetter).remote() for nid in nodes]
+    where = rt.get([g.node.remote() for g in getters], timeout=OBJ_TIMEOUT_S)
+    if where != nodes:
+        _fail(f"objects (b): the getters run on {where}, not on {nodes}")
+    t0 = time.perf_counter()
+    n = rt.broadcast(ref, timeout=OBJ_TIMEOUT_S)
+    bcast_s = time.perf_counter() - t0
+    locs = runtime._gcs.call("get_object_locations", ref.hex())
+    if n != 3 or len(locs) != 4:
+        _fail(f"objects (b): broadcast returned {n}, the GCS lists {len(locs)} locations")
+    bytes_in = {nid: _obj_stats(cluster, nid)["bytes_in"] for nid in nodes}
+    got = rt.get([g.get_layer.remote([ref]) for g in getters], timeout=OBJ_TIMEOUT_S)
+    pulled = {nid: _obj_stats(cluster, nid)["bytes_in"] - bytes_in[nid] for nid in nodes}
+    if any(g["sha"] != sha or not g["device"].startswith("cuda") for g in got):
+        _fail(f"objects (b): a broadcast layer differs on an added node's card: {got}")
+    if any(pulled.values()):
+        _fail(f"objects (b): a node pulled after the broadcast: {pulled}")
+    t0 = time.perf_counter()
+    got_c = rt.get([g.get_layer.remote([control_ref]) for g in getters], timeout=OBJ_TIMEOUT_S)
+    control_s = time.perf_counter() - t0
+    pulled_c = {nid: _obj_stats(cluster, nid)["bytes_in"] - bytes_in[nid] for nid in nodes}
+    if any(g["sha"] != control_sha for g in got_c):
+        _fail("objects (b): the control layer differs on an added node's card")
+    got_s = ", ".join(f"{g['s']:.3f}" for g in got)
+    control_each = ", ".join(f"{g['s']:.3f}" for g in got_c)
+    print(f"[objects] (b) {smi}: broadcast of one layer ({layer_bytes / 1e6:.1f} MB) to 3 "
+          f"added nodes {bcast_s:.2f} s, returned {n}, {len(locs)} locations; each node's "
+          f"actor got it onto its card bitwise in {got_s} s with 0 bytes pulled; the control "
+          f"layer (not broadcast): {control_each} s per actor, {control_s:.2f} s for all 3, "
+          f"bytes pulled {sorted(pulled_c.values())}", flush=True)
+    for g in getters:
+        rt.kill(g)
+
+
+def _objects_collective(rt, runtime, smi):
+    """(c): three GPU actors in a ring group: allreduce against a float64
+    sum, reduce_scatter, broadcast and allgather bitwise, the bf16 rule;
+    destroyed with no GCS key left."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import collective
+
+    ranks = [rt.remote(num_gpus=0.25)(_ObjRank).remote(i) for i in range(3)]
+    collective.create_collective_group(ranks, "objects")
+    outs = rt.get([r.run.remote("objects") for r in ranks], timeout=OBJ_TIMEOUT_S)
+    grads, smalls, bfs = [], [], []
+    for i in range(3):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        grads.append(torch.randn(OBJ_GRAD_SHAPE, generator=gen, device="cuda"))
+        smalls.append(torch.randn(1024, generator=gen, device="cuda").cpu().numpy())
+        bfs.append(torch.randn(4096, generator=gen, device="cuda").to(torch.bfloat16))
+    want = (grads[0].double() + grads[1].double() + grads[2].double()).cpu().numpy()
+    scale = np.abs(want).max()
+    errs = [float(np.abs(o["allreduce"].astype(np.float64) - want).max() / scale) for o in outs]
+    if max(errs) > 1e-6:
+        _fail(f"objects (c): allreduce off the float64 sum by {max(errs):.3g} of its max")
+    sha0 = _tensor_sha(grads[0])
+    for o in outs:
+        if not o["rs_equal"] or o["bcast_sha"] != sha0 or not o["device"].startswith("cuda"):
+            _fail(f"objects (c): reduce_scatter {o['rs_equal']}, broadcast sha "
+                  f"{o['bcast_sha'] == sha0}, device {o['device']}")
+        if not all(np.array_equal(g, s) for g, s in zip(o["gathered"], smalls)):
+            _fail("objects (c): allgather is not bitwise")
+        if o["dtypes"] != ["float32", "float32"] or not all(
+                np.array_equal(g, b.float().cpu().numpy()) for g, b in zip(o["bf_gathered"], bfs)):
+            _fail(f"objects (c): the bf16 rule broke (dtypes {o['dtypes']})")
+    nbytes = grads[0].numel() * 4
+    ar_s = max(o["allreduce_s"] for o in outs)
+    collective.destroy_collective_group_on(ranks, "objects")
+    left = runtime._gcs.call("kv_keys", "__collective__/")
+    if left:
+        _fail(f"objects (c): GCS keys left after the destroy: {left}")
+    print(f"[objects] (c) {smi}: 3 GPU actors, fp32 {OBJ_GRAD_SHAPE[0]}x{OBJ_GRAD_SHAPE[1]} "
+          f"({nbytes / 1e6:.1f} MB) per rank: allreduce {ar_s:.3f} s ({nbytes / ar_s / 1e9:.3f} "
+          f"GB/s of the buffer), off the float64 sum by {max(errs):.3g} of its max; "
+          "reduce_scatter = the allreduce's shard, broadcast and allgather bitwise, a bf16 "
+          "tensor back as float32 bitwise; no __collective__/ key left", flush=True)
+    for r in ranks:
+        rt.kill(r)
+
+
+def _objects_dag(rt, smi):
+    """(d): combine(a.attend(x), b.attend(x)) compiled and executed 4 times,
+    each against the plain version on the driver; MultiOutputNode once."""
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode
+
+    a, b = (rt.remote(num_gpus=0.25)(_ObjAttend).remote(seed) for seed in (7, 8))
+    combine = rt.remote(num_gpus=0.25)(_obj_combine)
+    with InputNode() as inp:
+        dag = combine.bind(a.attend.bind(inp), b.attend.bind(inp))
+    compiled = dag.compile()
+    worst, times = 0.0, []
+    for i in range(OBJ_DAG_RUNS):
+        x = _obj_x(i)
+        t0 = time.perf_counter()
+        got = rt.get(compiled.execute(x), timeout=OBJ_TIMEOUT_S)
+        times.append(time.perf_counter() - t0)
+        ref = _obj_reference_attend(x, 7) + _obj_reference_attend(x, 8)
+        if not str(got.device).startswith("cuda"):
+            _fail(f"objects (d): the DAG's result arrived on {got.device}")
+        worst = max(worst, entry_err(got, ref))
+    reports = rt.get([a.report.remote(), b.report.remote()], timeout=OBJ_TIMEOUT_S)
+    launches = [r["launches"]["flash_fwd"] for r in reports]
+    if worst > OBJ_K1_TOL or launches != [OBJ_DAG_RUNS] * 2:
+        _fail(f"objects (d): per entry {worst:.4g} (bound {OBJ_K1_TOL}), K1 launches {launches} "
+              f"(want {OBJ_DAG_RUNS} in each actor)")
+    in_actor = max(r["worst"] for r in reports)
+    if in_actor > OBJ_K1_TOL:
+        _fail(f"objects (d): K1 in an actor off its plain version by {in_actor:.4g}")
+    with InputNode() as inp:
+        multi = MultiOutputNode([a.attend.bind(inp), b.attend.bind(inp)])
+    x = _obj_x(0)
+    o1, o2 = rt.get(multi.execute(x), timeout=OBJ_TIMEOUT_S)
+    multi_err = max(entry_err(o1, _obj_reference_attend(x, 7)),
+                    entry_err(o2, _obj_reference_attend(x, 8)))
+    if multi_err > OBJ_K1_TOL:
+        _fail(f"objects (d): MultiOutputNode per entry {multi_err:.4g}")
+    reports = rt.get([a.report.remote(), b.report.remote()], timeout=OBJ_TIMEOUT_S)
+    print(f"[objects] (d) {smi}: combine(a.attend(x), b.attend(x)) compiled, {OBJ_DAG_RUNS} "
+          f"runs in {', '.join(f'{t:.3f}' for t in times)} s, per entry {worst:.4g} of the "
+          f"driver's plain sum (bound {OBJ_K1_TOL}); K1 {launches} in the actors' processes "
+          f"(pids {[r['pid'] for r in reports]}), each within {in_actor:.4g} of its plain "
+          f"version there; MultiOutputNode per entry {multi_err:.4g}", flush=True)
+    out = {f"objects DAG actor {n}": {"flash_fwd": r["launches"]["flash_fwd"],
+                                       "flash_bwd_dq": r["launches"]["flash_bwd_dq"],
+                                       "flash_bwd_dkv": r["launches"]["flash_bwd_dkv"]}
+           for n, r in zip("ab", reports)}
+    rt.kill(a)
+    rt.kill(b)
+    return out
+
+
+def _objects_runtime_env(rt, cluster, smi, tmp):
+    """(e): a GPU task with env_vars and a working_dir runs K1; it Popens,
+    and a plain GPU task after it still forks and sees no RTPT_PROBE."""
+    from ray_tpu_torch import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    wd = os.path.join(tmp, "wd")
+    os.makedirs(wd)
+    with open(os.path.join(wd, "rtpt_objects_helper.py"), "w") as f:
+        f.write("VALUE = 'helper-ok'\n")
+    head = cluster.head_node_id
+    raylet = RpcClient(cluster._sock_for(head))
+    pin = NodeAffinitySchedulingStrategy(head, soft=False)
+    try:
+        rt.remote(runtime_env={"no_such_plugin": 1})(_obj_plain_task).remote()
+        _fail("objects (e): an unknown runtime_env field was accepted")
+    except ValueError as e:
+        if "no plugin" not in str(e):
+            _fail(f"objects (e): the unknown field's error does not say so: {e}")
+    pool0 = raylet.call("debug_state")["pool"]
+    env_task = rt.remote(num_gpus=0.5, scheduling_strategy=pin, runtime_env={
+        "env_vars": {"RTPT_PROBE": "on"}, "working_dir": wd})(_obj_env_task)
+    t0 = time.perf_counter()
+    out = rt.get(env_task.remote(), timeout=OBJ_TIMEOUT_S)
+    env_s = time.perf_counter() - t0
+    pool1 = raylet.call("debug_state")["pool"]
+    plain = rt.remote(num_gpus=0.5, scheduling_strategy=pin)(_obj_plain_task)
+    t0 = time.perf_counter()
+    ctl = rt.get(plain.remote(), timeout=OBJ_TIMEOUT_S)
+    plain_s = time.perf_counter() - t0
+    pool2 = raylet.call("debug_state")["pool"]
+    forks = lambda p: p["hits"]["prefork"] + p["misses"]["zygote"]  # noqa: E731
+    popens = pool1["misses"]["popen"] - pool0["misses"]["popen"]
+    if (out["probe"], out["visible"], out["helper"]) != ("on", "0", "helper-ok"):
+        _fail(f"objects (e): the env task saw {out}")
+    if out["err"] > OBJ_K1_TOL or out["launches"]["flash_fwd"] != 1:
+        _fail(f"objects (e): K1 per entry {out['err']:.4g}, launches {out['launches']}")
+    if popens != 1 or forks(pool1) != forks(pool0):
+        _fail(f"objects (e): the env task's spawn was not one Popen: {pool0} -> {pool1}")
+    # The plain task's worker came from the zygote: a fork now, or an idle
+    # worker of the same key that an earlier part forked.
+    if ctl["probe"] is not None or ctl["visible"] != "0" or \
+            pool2["misses"]["popen"] != pool1["misses"]["popen"] or \
+            ctl["ppid"] != pool2["zygote_pid"]:
+        _fail(f"objects (e): the plain task after it: {ctl}, pool {pool1} -> {pool2}")
+    how = "a fresh fork" if forks(pool2) > forks(pool1) else "an idle forked worker"
+    print(f"[objects] (e) {smi}: a num_gpus=0.5 task with env_vars and a working_dir: "
+          f"RTPT_PROBE={out['probe']}, CUDA_VISIBLE_DEVICES={out['visible']}, helper "
+          f"{out['helper']!r}, K1 per entry {out['err']:.4g} of its plain version, launches "
+          f"{out['launches']['flash_fwd']}, Popen'd (popen +{popens}), first result "
+          f"{env_s:.2f} s; a plain GPU task after it in {how} of the zygote, no RTPT_PROBE, "
+          f"first result {plain_s:.2f} s; an unknown field refused at submission", flush=True)
+    return {"objects runtime-env task": dict(out["launches"])}
+
+
+def phase_objects():
+    """The object plane and what rides it on the cluster runtime (a fresh
+    init() with a 2 GiB pool per node, GPU 0 on every node; Llama-2-7B
+    layers as dicts of bf16 CUDA tensors from seeds): (a) 16 layers (3.0x
+    the pool) put and read back bitwise through spill to disk, a GPU task
+    on a spilled layer, nothing left once the refs drop; (b) broadcast of a
+    layer to 3 added nodes, each node's actor gets it with no pull, a layer
+    not broadcast as the control; (c) a collective group of three GPU
+    actors on w_up's fp32 gradient; (d) a compiled bind() DAG of two
+    actors running K1 and a combining GPU task, and MultiOutputNode; (e) a
+    GPU task with a runtime env (env_vars, working_dir) running K1, Popen'd,
+    and a plain task after it forked. No process or pool left. Returns the
+    launches of each path."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-objects-")
+    launches = {}
+    try:
+        rt.init(object_store_memory=OBJ_POOL)
+        runtime = current_runtime()
+        cluster = runtime._cluster
+        session_dir = cluster.session_dir
+        ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+        parts = {}
+        try:
+            if rt.cluster_resources().get("GPU") != 1.0:
+                _fail(f"objects: cluster_resources {rt.cluster_resources()}")
+            t0 = time.perf_counter()
+            layer_bytes = _objects_spill(rt, runtime, cluster, smi)
+            parts["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            nodes = [cluster.add_node(num_gpus=1) for _ in range(3)]
+            _objects_broadcast(rt, runtime, cluster, smi, nodes, layer_bytes)
+            parts["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _objects_collective(rt, runtime, smi)
+            parts["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches.update(_objects_dag(rt, smi))
+            parts["d"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches.update(_objects_runtime_env(rt, cluster, smi, tmp))
+            parts["e"] = time.perf_counter() - t0
+        finally:
+            rt.shutdown()
+        torch.cuda.empty_cache()
+        left = _cluster_processes(session_dir)
+        pools = glob.glob(ours + "*")
+        print(f"[objects] parts {', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; "
+              f"processes left {left}, pools left {sorted(pools)}; phase "
+              f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+        if left or pools:
+            _fail("objects: processes or /dev/shm/rtpt_* pools outlived shutdown")
+        return launches
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4006,6 +4547,7 @@ def main() -> int:
     by_path.update(phase_parallel())
     by_path.update(phase_cluster())
     by_path.update(phase_elastic())
+    by_path.update(phase_objects())
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     for row in (fwd_row, dq_row, dkv_row):

@@ -12,7 +12,9 @@ train (torch.distributed set-up, ZeRO-1, elastic, pytree and HF
 checkpoints), the trainer (train.TorchTrainer, train.report) and Tune
 (tune.Tuner), and the cluster runtime on one machine (`init()`: a GCS, a
 raylet and worker processes over a shared-memory store, with CUDA devices
-leased to workers through CUDA_VISIBLE_DEVICES).
+leased to workers through CUDA_VISIBLE_DEVICES), with spill to disk,
+`broadcast`, runtime envs, out-of-band collective groups (collective) and
+DAG authoring (dag).
 
 Subpackages that need torch load on first use (PEP 562 `__getattr__`), so
 that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
@@ -23,6 +25,7 @@ from . import exceptions  # noqa: F401
 from .api import (  # noqa: F401
     ObjectRef,
     available_resources,
+    broadcast,
     cancel,
     cluster_resources,
     get,
@@ -47,7 +50,7 @@ from .core.placement_group import (  # noqa: F401
 from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError  # noqa: F401
 
 _LAZY_SUBMODULES = ("train", "tune", "serve", "models", "ops", "parallel", "air",
-                    "observability")
+                    "observability", "collective", "dag")
 
 
 def __getattr__(name):
@@ -65,6 +68,7 @@ __all__ = [
     "PlacementGroupSchedulingStrategy",
     "RayTpuError",
     "available_resources",
+    "broadcast",
     "cancel",
     "cluster_resources",
     "exceptions",

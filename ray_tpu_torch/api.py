@@ -15,9 +15,12 @@ Two runtimes, as in the JAX package: `init(local_mode=True)` runs tasks on a
 thread pool and actors on their own threads in this process, and nothing is
 pickled; `init()` starts a cluster on this machine (a GCS, a raylet, worker
 processes and a shared-memory object store; core/cluster_runtime.py), where
-functions and arguments travel through core/serialization.py. Left out: DAG
-authoring (`bind`, InputNode), `broadcast`, runtime_env and multi-host
-addresses.
+functions and arguments travel through core/serialization.py;
+`init(address="tcp://host:port")` attaches to a cluster's head as a remote
+client. Also here: `broadcast` (one object to every node through the
+raylets' push tree), DAG authoring (`fn.bind`, `actor.method.bind`; dag.py)
+and the `runtime_env` option (core/runtime_env.py). Left out: an address
+that names a local session dir or "auto".
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ __all__ = [
     "wait",
     "kill",
     "cancel",
+    "broadcast",
     "get_actor",
     "cluster_resources",
     "available_resources",
@@ -75,6 +79,7 @@ _VALID_OPTIONS = {
     "scheduling_strategy",
     "placement_group",
     "placement_group_bundle_index",
+    "runtime_env",
     "concurrency_groups",
 }
 
@@ -165,10 +170,46 @@ def _validate_concurrency_groups(groups):
     return dict(groups)
 
 
+def _validate_runtime_env(renv) -> None:
+    """Unsupported runtime-env fields raise instead of being dropped
+    (reference: _private/runtime_env/validation.py); the built-in fields'
+    values are type-checked."""
+    if not renv:
+        return
+    from .core.runtime_env import _PLUGINS, _load_external_plugins
+
+    _load_external_plugins()
+    supported = set(_PLUGINS)  # built-in + registered/env-loaded plugins
+    bad_env = set(renv) - supported
+    if bad_env:
+        raise ValueError(
+            f"runtime_env field(s) {sorted(bad_env)} have no plugin registered in this "
+            f"driver process; supported: {sorted(supported)}. Custom plugins must be "
+            "registered here too (register_plugin, or RAY_TPU_RUNTIME_ENV_PLUGINS exported "
+            "before the driver starts).")
+    ev = renv.get("env_vars")
+    if ev is not None and (not isinstance(ev, dict) or not all(
+            isinstance(k, str) and isinstance(v, str) for k, v in ev.items())):
+        raise TypeError("runtime_env['env_vars'] must be a Dict[str, str]")
+    wd = renv.get("working_dir")
+    if wd is not None and not isinstance(wd, str):
+        raise TypeError("runtime_env['working_dir'] must be a path string")
+    mods = renv.get("py_modules")
+    if mods is not None and (not isinstance(mods, (list, tuple))
+                             or not all(isinstance(m, str) for m in mods)):
+        raise TypeError("runtime_env['py_modules'] must be a list of paths")
+    pip = renv.get("pip")
+    if pip is not None and not (isinstance(pip, str) or (
+            isinstance(pip, (list, tuple)) and all(isinstance(p, str) for p in pip))):
+        raise TypeError("runtime_env['pip'] must be a requirements list or a "
+                        "requirements.txt path")
+
+
 def _build_sched_options(opts: Dict[str, Any], for_actor: bool = False) -> SchedulingOptions:
     bad = set(opts) - _VALID_OPTIONS
     if bad:
         raise ValueError(f"invalid option(s) {sorted(bad)}; valid: {sorted(_VALID_OPTIONS)}")
+    _validate_runtime_env(opts.get("runtime_env"))
     if opts.get("num_gpus"):
         from .accelerators import get_accelerator_manager
 
@@ -220,6 +261,7 @@ def _build_sched_options(opts: Dict[str, Any], for_actor: bool = False) -> Sched
         name=opts.get("name"),
         namespace=opts.get("namespace"),
         lifetime=opts.get("lifetime"),
+        runtime_env=opts.get("runtime_env"),
         actor_placement_bias=for_actor and opts.get("num_cpus") is None,
     )
 
@@ -248,6 +290,13 @@ class RemoteFunction:
         rf = RemoteFunction(self._fn, merged)
         rf._blob, rf._hash = self._blob, self._hash
         return rf
+
+    def bind(self, *args, **kwargs):
+        """A lazy DAG node for this function (reference: python/ray/dag,
+        fn.bind(...))."""
+        from .dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         rt = current_runtime()
@@ -304,6 +353,12 @@ class ActorMethod:
             opts.get("concurrency_group", self._concurrency_group),
         )
         return m
+
+    def bind(self, *args, **kwargs):
+        """A lazy DAG node for this actor method (reference: ray.dag)."""
+        from .dag import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         return self._handle._invoke(
@@ -511,6 +566,47 @@ def kill(actor: ActorHandle, *, no_restart: bool = True):
 
 def cancel(ref: ObjectRef, *, force: bool = False):
     current_runtime().cancel(ref.id(), force=force)
+
+
+def broadcast(ref: ObjectRef, *, timeout: Optional[float] = 60.0) -> int:
+    """Replicates an object to every alive node through the raylets' binary
+    push tree, the weight-sync fan-out: N nodes get a B-byte object in about
+    log2(N) relay rounds instead of N serial pulls from the owner
+    (reference: push_manager.h:30). Blocks until every alive node holds a
+    copy (or `timeout`); returns the number of target nodes, 0 in local
+    mode."""
+    import time as _time
+
+    rt = current_runtime()
+    raylet = getattr(rt, "_raylet", None)
+    gcs = getattr(rt, "_gcs", None)
+    if raylet is None or gcs is None:
+        return 0  # local mode: nothing to replicate
+    deadline = None if timeout is None else _time.monotonic() + timeout
+    oid = ref.id()
+    # The object must be in this node's store to root the tree (the one
+    # deadline covers both phases).
+    rt.get([oid], timeout=timeout)
+    h = oid.hex()
+    if h in getattr(rt, "_memstore", {}):
+        rt.mark_escaped(oid)  # an inline result goes to the store first
+    n = raylet.call("start_broadcast", h)
+    if n <= 0:
+        return 0
+    while True:
+        # Done when every node alive now holds a copy: a target that dies
+        # mid-broadcast does not fail a fan-out that reached the rest.
+        try:
+            locs = {loc["node_id"] for loc in gcs.call("get_object_locations", h)}
+            alive = {node["NodeID"] for node in gcs.call("list_nodes") if node.get("Alive")}
+        except Exception:  # noqa: BLE001 - checked again next round
+            locs, alive = set(), {None}
+        if alive and alive <= locs:
+            return n
+        if deadline is not None and _time.monotonic() >= deadline:
+            raise exc.GetTimeoutError(
+                f"broadcast of {h[:12]} reached {len(locs & alive)}/{len(alive)} alive nodes")
+        _time.sleep(0.1)
 
 
 def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:

@@ -1,7 +1,7 @@
 """Seeded, deterministic fault injection (copy of
 ray_tpu/chaos/controller.py for the PyTorch port, trimmed to the points
-the port has: the channel's reads and writes and the LLM engine's decode
-step).
+the port has: the channel's reads and writes, the LLM engine's decode
+step, task execution, the zygote's spawn and the collective groups).
 
 Every injection site calls ``maybe_inject(point, detail)``; with no
 controller armed that is one global load and a ``None`` check. Each rule
@@ -59,6 +59,11 @@ POINT_ACTIONS = {
     # "spawn:<worker id>" or "batch:<n>". `kill` SIGKILLs the zygote daemon
     # (the spawn falls back to Popen and the pool manager respawns it).
     "zygote.spawn": ("kill", "raise", "delay"),
+    # collective.py: a group's rendezvous (detail "<group>:<rank>") and each
+    # ring op (detail "<op>:<group>:<rank>"); `raise` fails them as a dead
+    # member would, `delay` stretches an op.
+    "coll.rendezvous": ("raise",),
+    "coll.op": ("raise", "delay"),
 }
 POINTS = tuple(POINT_ACTIONS)
 

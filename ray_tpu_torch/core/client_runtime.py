@@ -9,7 +9,9 @@ object plane is proxied, through the gateway's `client_put` / `client_get`
 instead of a pool mapped on this host. Ownership, reference counting, task
 records and retries run in the client as in a driver inside the cluster. The
 fast path is off (the workers' direct sockets are on their own hosts): tasks
-and actor calls go through the gateway raylet.
+and actor calls go through the gateway raylet. A runtime env's working_dir
+and py_modules directories on the client's host upload through the same GCS
+KV as a driver's (ClusterRuntime._process_renv), so any node can fetch them.
 
 Usage: ``ray_tpu_torch.init(address="tcp://head:port")`` against a head
 started with `Cluster(head_port=...)`, with the cluster's

@@ -34,8 +34,14 @@ advertises a tcp:// endpoint, `start_worker_node` joins a raylet on this
 host to a head elsewhere, and core/client_runtime.py is a driver outside the
 cluster. A worker node's driver-side caller holds that node's session lock.
 
-Left out (ROADMAP Queue 1 item 3): GCS restart, runtime envs, the driver's
-log monitor and tracing spans.
+Runtime envs: a task's or actor's `runtime_env` is normalised here at
+submission (core/runtime_env.py `process_runtime_env`: local working_dir and
+py_modules directories become content-addressed packages in the GCS KV,
+once per distinct env) and travels in the task's entry; the raylet
+materialises it before it spawns the worker.
+
+Left out (ROADMAP Queue 1 item 3): GCS restart, the driver's log monitor and
+tracing spans.
 """
 
 from __future__ import annotations
@@ -127,6 +133,7 @@ def _entry_from_spec(spec: TaskSpec, blobs: _FunctionBlobs) -> dict:
         "max_concurrency": spec.options.max_concurrency,
         "concurrency_groups": spec.options.concurrency_groups,
         "concurrency_group": spec.concurrency_group,
+        "runtime_env": spec.options.runtime_env,
         "attempt": 0,
         "strategy": spec.options.scheduling_strategy,
         "pg_id": spec.options.placement_group_id,
@@ -247,6 +254,7 @@ class ClusterRuntime(Runtime):
         self._memstore: Dict[str, bytes] = {}
         self._memstore_bytes = 0
         self._stream_tasks: set = set()
+        self._renv_cache: Dict[str, dict] = {}
 
     # ------------------------------------------------------ construction
     @classmethod
@@ -741,7 +749,23 @@ class ClusterRuntime(Runtime):
         with self._fast_seal_cv:
             self._stream_tasks.discard(prefix)
 
+    def _process_renv(self, spec: TaskSpec) -> None:
+        """Driver-side runtime-env normalisation: local working_dir and
+        py_modules directories become content-addressed GCS packages,
+        cached per env, so a task loop zips once and not per call."""
+        renv = spec.options.runtime_env
+        if not renv:
+            return
+        key = json.dumps(renv, sort_keys=True, default=str)
+        cached = self._renv_cache.get(key)
+        if cached is None:
+            from .runtime_env import process_runtime_env
+
+            cached = self._renv_cache[key] = process_runtime_env(renv, self._gcs)
+        spec.options.runtime_env = cached
+
     def submit_task(self, spec: TaskSpec) -> List[ObjectID]:
+        self._process_renv(spec)
         entry = _entry_from_spec(spec, self._blobs)
         spec.return_ids = [ObjectID.from_hex(h) for h in entry["return_ids"]]
         if entry["streaming"]:
@@ -754,6 +778,7 @@ class ClusterRuntime(Runtime):
     def create_actor(self, spec: TaskSpec) -> ActorID:
         actor_id = spec.actor_id or ActorID.from_random()
         spec.actor_id = actor_id
+        self._process_renv(spec)
         entry = _entry_from_spec(spec, self._blobs)
         with self._ref_lock:
             for dep in entry.get("deps", []):

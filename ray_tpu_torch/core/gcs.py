@@ -20,7 +20,9 @@ object locations with frees and borrows and `node_sync`, task states, the
 KV, placement groups (PACK, SPREAD, STRICT_PACK, STRICT_SPREAD), the
 general-purpose pubsub log, preemption notices and the DRAINING node state
 (`report_preemption`; `node_draining` / `node_dead` / `node_added` on the
-`node_events` channel, read by utils/node_events.py), ping and stop.
+`node_events` channel, read by utils/node_events.py), the cluster-wide
+`stats` (the stores' bytes, objects and spilled objects summed over the
+nodes' heartbeats), ping and stop.
 Left out: the snapshot/WAL persistence and GCS restart, epoch fencing and
 `node_fenced` (ROADMAP Queue 1 item 3.9), the `node_table` delta channel,
 metrics history and alerts, incidents, `debug_harvest`, flight dumps, and
@@ -245,6 +247,27 @@ class GcsService:
         with self._lock:
             out.extend(self._node_entry(nid, n) for nid, n in self._nodes.items())
         return out
+
+    def stats(self) -> dict:
+        """Cluster-wide counters (reference: src/ray/stats/metric.h, the
+        aggregate half): tasks and actors by state, and the object stores
+        summed over the alive nodes' heartbeats."""
+        tasks: Dict[str, int] = {}
+        actors: Dict[str, int] = {}
+        store = {"bytes_in_use": 0, "num_objects": 0, "num_spilled": 0}
+        with self._lock:
+            for rec in self._tasks.values():
+                tasks[rec["state"]] = tasks.get(rec["state"], 0) + 1
+            for a in self._actors.values():
+                actors[a["state"]] = actors.get(a["state"], 0) + 1
+            for n in self._nodes.values():
+                if n["alive"]:
+                    s = n.get("stats") or {}
+                    for k in store:
+                        store[k] += int(s.get(k, 0))
+            return {"tasks": tasks, "actors": actors, "objects_indexed": len(self._objects),
+                    "store": store, "nodes_alive": self._alive_count,
+                    "placement_groups": len(self._pgs)}
 
     def node_table_snapshot(self) -> dict:
         """The resync point of a node_events subscriber whose cursor fell

@@ -20,20 +20,26 @@ to every task, actor and bundle that asks for GPUs, and starts its worker
 with CUDA_VISIBLE_DEVICES set to exactly those ids; a worker that asked for
 none sees none. A whole request takes whole ids; a fractional request
 (num_gpus=0.5) shares one id with other fractional requests up to its
-capacity of 1.0, as Ray does. Workers are pooled by the ids they see.
+capacity of 1.0, as Ray does. Workers are pooled by their env key: the
+runtime env they run in and the ids they see.
 
 Kept: task, actor and lease scheduling; the worker poll/step/done loop;
-local objects and `wait_objects`; `ensure_space` (frees and replica
-eviction); bundles; pulls between raylets (`pull_object`,
-`fetch_object(_chunk)`, `object_size`), over TCP when the cluster spans
-hosts (the raylet then also serves and advertises a tcp:// endpoint);
-`client_put` / `client_get` for remote client drivers; the warm pool, whose
-workers fork from a zygote (core/worker_pool.py, core/zygote.py), with Popen
-where the zygote cannot serve; `drain` (a preemption notice: default-
+local objects and `wait_objects`; `ensure_space` (pending frees, then
+pulled replicas evicted and primaries spilled to disk in seal order, and
+restored on demand; the monitor loop spills above SPILL_THRESHOLD);
+bundles; pulls between raylets (`pull_object`, `fetch_object(_chunk)`,
+`object_size`, a spilled object served from its file), over TCP when the
+cluster spans hosts (the raylet then also serves and advertises a tcp://
+endpoint); the broadcast push tree (`start_broadcast`, `push_object`);
+`client_put` / `client_get` for remote client drivers; runtime envs (a
+worker's env materialised before its spawn, core/runtime_env.py); the warm
+pool, whose workers fork from a zygote (core/worker_pool.py,
+core/zygote.py), with Popen where the zygote cannot serve or the env sets
+variables or an interpreter; `drain` (a preemption notice: default-
 placement tasks and worker leases go to surviving nodes while in-flight and
-bundle-pinned work runs on). Left out (ROADMAP Queue 1 item 3): runtime
-envs, spill to disk and broadcast, push, epoch fencing, profile, tail_logs
-and flight dumps. This module never imports torch.
+bundle-pinned work runs on). Left out (ROADMAP Queue 1 item 3): epoch
+fencing, profile, tail_logs and flight dumps. This module never imports
+torch.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import logging
 import os
 import pickle
 import queue
+import shutil
 import signal
 import subprocess
 import sys
@@ -191,10 +198,19 @@ class RayletService:
         self._buf_wake = threading.Event()
         self._deferred_deletes: Set[str] = set()
         # Local objects in seal order (True = primary, False = a pulled
-        # replica that eviction may drop).
+        # replica that eviction may drop), and the files of spilled
+        # primaries; _objects_lock guards both (reference: plasma
+        # eviction_policy.h:160 LRU, raylet/local_object_manager.h:41).
         self._local_objects: "collections.OrderedDict[str, bool]" = collections.OrderedDict()
+        self._spilled: Dict[str, str] = {}
         self._objects_lock = threading.Lock()
+        # Serialises whole evict/spill/restore sequences: concurrent
+        # ensure_space calls must not unlink each other's fresh files.
         self._evict_lock = threading.Lock()
+        # Spills land next to the raylet socket, in the session dir on
+        # disk: spilling into tmpfs would not relieve the pool's memory.
+        self._spill_dir = os.path.join(os.path.dirname(sock_path) or ".", f"spill_{node_id}")
+        os.makedirs(self._spill_dir, exist_ok=True)
         self._last_reclaim = 0.0
         self._log_dir = os.path.join(os.path.dirname(sock_path) or ".", "logs")
         os.makedirs(self._log_dir, exist_ok=True)
@@ -663,12 +679,17 @@ class RayletService:
     # ------------------------------------------------------- object plane
     def pull_object(self, oid_hex: str, timeout: float = 30.0) -> bool:
         """Ensures the object is in the local store, fetching it from another
-        node if needed (reference: pull_manager.h:52)."""
+        node if needed; a spilled object comes back from its file
+        (reference: pull_manager.h:52)."""
         oid = ObjectID.from_hex(oid_hex)
-        if self.store.contains(oid):
+        if self.store.contains(oid) or self._restore(oid_hex):
             return True
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
+            if self._restore(oid_hex):
+                # A transiently full pool can fail the first restore; the
+                # file stays the local copy.
+                return True
             for loc in self.gcs.call("get_object_locations", oid_hex):
                 if loc["node_id"] == self.node_id:
                     continue
@@ -723,7 +744,7 @@ class RayletService:
         oid = ObjectID.from_hex(oid_hex)
         deadline = time.monotonic() + timeout
         while True:
-            if self.store.contains(oid):
+            if self.store.contains(oid) or self._restore(oid_hex):
                 raw = self.store.get_raw(oid)
                 if raw is not None:
                     return raw
@@ -735,9 +756,10 @@ class RayletService:
     def wait_objects(self, oid_hexes: List[str], num_returns: Optional[int] = None,
                      timeout: float = 10.0, pull: bool = False) -> List[str]:
         """Long-poll until >= num_returns of the objects are available.
-        pull=True (the get path) counts only local objects and fetches remote
-        ones in; pull=False (the wait path) counts an object that exists
-        anywhere in the cluster. Wakes on local seals."""
+        pull=True (the get path) counts only objects in the local pool,
+        restoring spilled ones and fetching remote ones in; pull=False (the
+        wait path) counts an object that exists anywhere in the cluster, a
+        spilled one included. Wakes on local seals."""
         if num_returns is None:
             num_returns = len(oid_hexes)
         deadline = time.monotonic() + max(0.0, timeout)
@@ -745,11 +767,16 @@ class RayletService:
         last_loc_check = 0.0
         while True:
             ready = [h for h in oid_hexes
-                     if h in exists_remote or self.store.contains(ObjectID.from_hex(h))]
+                     if h in exists_remote or self.store.contains(ObjectID.from_hex(h))
+                     or (not pull and h in self._spilled)]
             now = time.monotonic()
             if len(ready) >= num_returns or now >= deadline:
                 return ready
             missing = [h for h in oid_hexes if h not in ready]
+            if pull:
+                for h in missing:
+                    if h in self._spilled:
+                        self._restore(h)
             if missing and now - last_loc_check >= 0.05:
                 last_loc_check = now
                 try:
@@ -786,6 +813,7 @@ class RayletService:
                 except exc.ObjectStoreFullError:
                     self.ensure_space(len(raw))
                     self.store.put_raw(oid, raw)
+                imet.OBJECT_BYTES_IN.inc(len(raw))
                 return True
             try:
                 pool_off = self.store.begin_put_raw(oid, size)
@@ -805,26 +833,172 @@ class RayletService:
                     pos += len(piece)
                 self.store.finish_put_raw(oid)
                 sealed = True
+                imet.OBJECT_BYTES_IN.inc(size)
                 return True
             finally:
                 if not sealed:
                     self.store.delete(oid)  # never seal a truncated payload
 
+    # ---------------------------------------------------- tree broadcast
+    def push_object(self, oid_hex: str, src_sock: str, targets: List[str]) -> bool:
+        """Receives a broadcast relay: fetches the object from `src_sock`,
+        then fans the remaining targets out as two subtrees rooted at their
+        first nodes, so N nodes get it in O(log N) rounds with every node
+        uploading at most twice (reference: push_manager.h:30)."""
+        threading.Thread(target=self._do_push, args=(oid_hex, src_sock, list(targets)),
+                         daemon=True).start()
+        return True
+
+    def _do_push(self, oid_hex: str, src_sock: str, targets: List[str]) -> None:
+        oid = ObjectID.from_hex(oid_hex)
+        try:
+            if not self.store.contains(oid):
+                if not self._pull_from(src_sock, oid) and not self.store.contains(oid):
+                    # The source lost the object mid-broadcast: the
+                    # directory's pull path serves this subtree.
+                    if not self.pull_object(oid_hex, timeout=30.0):
+                        return
+                self._notify_sealed([oid_hex], primary=False)
+        except Exception as e:  # noqa: BLE001 - the subtree heals through pulls
+            _log.debug("broadcast relay of %s failed: %r", oid_hex[:12], e)
+            return
+        self._relay_push(oid_hex, targets)
+
+    def _relay_push(self, oid_hex: str, targets: List[str]) -> None:
+        """Splits the targets into two subtrees and notifies their roots."""
+        targets = [t for t in targets if t not in (self.advertised, self.sock_path)]
+        if not targets:
+            return
+        mid = (len(targets) + 1) // 2
+        for half in (targets[:mid], targets[mid:]):
+            if not half:
+                continue
+            try:
+                self._remote(half[0]).notify("push_object", oid_hex, self.advertised, half[1:])
+            except Exception as e:  # noqa: BLE001 - the subtree heals through pulls
+                _log.debug("broadcast notify of %s failed: %r", half[0], e)
+
+    def start_broadcast(self, oid_hex: str) -> int:
+        """Pushes a local object to every other alive node through the tree;
+        returns the number of targets (their advertised addresses)."""
+        try:
+            nodes = self.gcs.call("list_nodes")
+        except Exception:  # noqa: BLE001 - nothing to push to
+            return 0
+        targets = [n["sock"] for n in nodes if n.get("Alive") and n["NodeID"] != self.node_id]
+        self._relay_push(oid_hex, targets)
+        return len(targets)
+
+    def _spill_path(self, oid_hex: str) -> Optional[str]:
+        with self._objects_lock:
+            return self._spilled.get(oid_hex)
+
+    def _read_spilled(self, oid_hex: str, offset: int = 0, length: int = -1) -> Optional[bytes]:
+        """Bytes of a spilled object's file (None when it has none)."""
+        path = self._spill_path(oid_hex)
+        if path is None:
+            return None
+        try:
+            with open(path, "rb") as f:
+                f.seek(offset)
+                return f.read(length)
+        except OSError:
+            return None
+
     def object_size(self, oid_hex: str) -> Optional[int]:
-        return self.store.raw_size(ObjectID.from_hex(oid_hex))
+        size = self.store.raw_size(ObjectID.from_hex(oid_hex))
+        if size is not None:
+            return size
+        path = self._spill_path(oid_hex)
+        try:
+            return os.path.getsize(path) if path is not None else None
+        except OSError:
+            return None
 
     def fetch_object_chunk(self, oid_hex: str, offset: int, length: int) -> Optional[bytes]:
-        """Serves one chunk of the framed payload to a pulling raylet."""
+        """Serves one chunk of the framed payload to a pulling raylet, a
+        spilled object's from its file without restoring it."""
         with self._serve_sem:
-            return self.store.read_raw_chunk(ObjectID.from_hex(oid_hex), offset, length)
+            piece = self.store.read_raw_chunk(ObjectID.from_hex(oid_hex), offset, length)
+        if piece is None:
+            piece = self._read_spilled(oid_hex, offset, length)
+        if piece is not None:
+            imet.OBJECT_BYTES_OUT.inc(len(piece))
+        return piece
 
     def fetch_object(self, oid_hex: str) -> Optional[bytes]:
-        return self.store.get_raw(ObjectID.from_hex(oid_hex))
+        raw = self.store.get_raw(ObjectID.from_hex(oid_hex))
+        if raw is None:
+            raw = self._read_spilled(oid_hex)
+        if raw is not None:
+            imet.OBJECT_BYTES_OUT.inc(len(raw))
+        return raw
+
+    # ---------------------------------------------------- eviction / spill
+    def _spill_to(self, target_bytes: int) -> bool:
+        with self._evict_lock:
+            return self._spill_to_locked(target_bytes)
+
+    def _spill_to_locked(self, target_bytes: int) -> bool:
+        """Evicts pulled replicas and spills primaries, in seal order (the
+        oldest first), until the pool holds at most `target_bytes`: one
+        snapshot, one forward scan. True when the target is met."""
+        if self.store.bytes_in_use() <= target_bytes:
+            return True
+        with self._objects_lock:
+            candidates = list(self._local_objects.items())
+        for h, primary in candidates:
+            if self.store.bytes_in_use() <= target_bytes:
+                return True
+            self._try_evict_one_locked(h, primary)
+        return self.store.bytes_in_use() <= target_bytes
+
+    def _try_evict_one_locked(self, h: str, primary: bool) -> bool:
+        oid = ObjectID.from_hex(h)
+        if not self.store.contains(oid):
+            with self._objects_lock:
+                self._local_objects.pop(h, None)
+            return False
+        if not primary:
+            # A pulled replica: another node holds the primary, so a plain
+            # delete is safe once the directory forgets this copy.
+            if not self.store.delete(oid):
+                return False  # pinned by a reader
+            with self._objects_lock:
+                self._local_objects.pop(h, None)
+            try:
+                self.gcs.call("remove_object_location", h, self.node_id)
+            except Exception:  # noqa: BLE001 - the directory heals on the next sync
+                pass
+            return True
+        raw = self.store.get_raw(oid)
+        if raw is None:
+            with self._objects_lock:
+                self._local_objects.pop(h, None)
+            return False
+        path = os.path.join(self._spill_dir, h)
+        try:
+            with open(path + ".tmp", "wb") as f:
+                f.write(raw)
+            os.replace(path + ".tmp", path)
+        except OSError:
+            return False  # disk full or unwritable
+        if self.store.delete(oid):
+            with self._objects_lock:
+                self._spilled[h] = path
+                self._local_objects.pop(h, None)
+            imet.OBJECT_SPILL_TOTAL.inc()
+            imet.OBJECT_SPILL_BYTES.inc(len(raw))
+            return True
+        try:
+            os.unlink(path)  # pinned after all: the pool copy stays
+        except OSError:
+            pass
+        return False
 
     def ensure_space(self, nbytes: int) -> bool:
         """Makes room for an allocation of `nbytes`: the owners' pending frees
-        first, then pulled replicas in seal order (LRU). Primary copies stay:
-        spill to disk is not ported (ROADMAP Queue 1 item 3)."""
+        first, then replicas evicted and primaries spilled to disk."""
         target = max(0, int(self.store.capacity() * 0.95) - int(nbytes))
         try:
             self.gcs.call("flush_frees")
@@ -832,20 +1006,54 @@ class RayletService:
             pass
         if self.store.bytes_in_use() <= target:
             return True
+        return self._spill_to(target)
+
+    def _restore(self, oid_hex: str) -> bool:
+        """Brings a spilled object back into the pool, under the evict lock
+        so a concurrent spill cannot unlink the file mid-read."""
         with self._evict_lock:
+            raw = self._read_spilled(oid_hex)
+            if raw is None:
+                return False
+            oid = ObjectID.from_hex(oid_hex)
+            try:
+                self.store.put_raw(oid, raw)
+            except exc.ObjectStoreFullError:
+                self._spill_to_locked(max(0, int(self.store.capacity() * 0.95) - len(raw)))
+                try:
+                    self.store.put_raw(oid, raw)
+                except exc.ObjectStoreFullError:
+                    return False
             with self._objects_lock:
-                replicas = [h for h, primary in self._local_objects.items() if not primary]
-            for h in replicas:
-                if self.store.bytes_in_use() <= target:
-                    break
-                if self.store.delete(ObjectID.from_hex(h)):
-                    with self._objects_lock:
-                        self._local_objects.pop(h, None)
-                    try:
-                        self.gcs.call("remove_object_location", h, self.node_id)
-                    except Exception:  # noqa: BLE001 - the directory heals on the next sync
-                        pass
-        return self.store.bytes_in_use() <= target
+                path = self._spilled.pop(oid_hex)  # held: no delete can race
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        imet.OBJECT_RESTORE_TOTAL.inc()
+        self._notify_sealed([oid_hex])
+        return True
+
+    def _object_stats(self) -> dict:
+        """This node's object-plane counters (the catalog's values live in
+        the process that bumps them) and what its pool and spill dir hold:
+        debug_state's "objects"."""
+        def total(metric) -> float:
+            return sum(metric.values().values())
+
+        with self._objects_lock:
+            n_spilled = len(self._spilled)
+        try:
+            spill_files = len(os.listdir(self._spill_dir))
+        except OSError:
+            spill_files = 0
+        return {"bytes_in_use": self.store.bytes_in_use(),
+                "num_objects": self.store.num_objects(), "num_spilled": n_spilled,
+                "spill_files": spill_files, "spill_total": total(imet.OBJECT_SPILL_TOTAL),
+                "spill_bytes": total(imet.OBJECT_SPILL_BYTES),
+                "restore_total": total(imet.OBJECT_RESTORE_TOTAL),
+                "bytes_in": total(imet.OBJECT_BYTES_IN),
+                "bytes_out": total(imet.OBJECT_BYTES_OUT)}
 
     def notify_object(self, oid_hex: str) -> bool:
         self._notify_sealed([oid_hex])
@@ -858,8 +1066,16 @@ class RayletService:
         freed = 0
         for h in oid_hexes:
             oid = ObjectID.from_hex(h)
-            with self._objects_lock:
+            # The evict lock: an in-flight spill of h records its file
+            # before this decides what to remove.
+            with self._evict_lock, self._objects_lock:
                 self._local_objects.pop(h, None)
+                spill_path = self._spilled.pop(h, None)
+            if spill_path is not None:
+                try:
+                    os.unlink(spill_path)
+                except OSError:
+                    pass
             if self.store.delete(oid):
                 freed += 1
             elif self.store.contains(oid):
@@ -1129,20 +1345,29 @@ class RayletService:
                 self._maybe_reclaim_leases(entry["resources"])
                 return False
             env_key = self._env_key(entry)
-            if kind == "task":
-                w = self._checkout_worker(env_key)
-                if w is None:
-                    self._release_entry(entry)
-                    return False
-            else:
-                with self._workers_lock:
-                    w = self._pop_idle_locked(env_key)
-                    if w is not None:
-                        w.actor_id = entry["actor_id"]
-                if w is None:
-                    w = self._spawn_worker(actor_id=entry["actor_id"], env_key=env_key)
+            try:
+                if kind == "task":
+                    w = self._checkout_worker(env_key)
                 else:
-                    self._pool.note_hit("idle")
+                    with self._workers_lock:
+                        w = self._pop_idle_locked(env_key)
+                        if w is not None:
+                            w.actor_id = entry["actor_id"]
+                    if w is None:
+                        w = self._spawn_worker(actor_id=entry["actor_id"], env_key=env_key)
+                    else:
+                        self._pool.note_hit("idle")
+            except BaseException:
+                # A runtime env that failed to materialise: the scheduler
+                # stores the error on this entry; its resources go back.
+                self._release_entry(entry)
+                if kind == "actor_creation":
+                    self._actor_creation_failed(entry, "runtime_env setup failed")
+                raise
+            if w is None:
+                self._release_entry(entry)
+                return False
+            if kind == "actor_creation":
                 with self._actor_lock:
                     a = self._actors.get(entry["actor_id"])
                     if a is not None:
@@ -1185,10 +1410,15 @@ class RayletService:
             _log.warning("actor_died report failed: %r", e)
 
     def _env_key(self, entry: dict) -> str:
-        """The pool key of the worker an entry needs: the device ids it was
-        leased (workers are pooled by the devices they see)."""
-        gpus = entry.get("_gpus")
-        return json.dumps({"gpu": sorted(gpus)}) if gpus else ""
+        """The pool key of the worker an entry needs: its runtime env and
+        the device ids it was leased (reference: worker_pool PopWorker
+        matching the runtime_env hash and the accelerator visibility)."""
+        desc: Dict[str, Any] = {}
+        if entry.get("runtime_env"):
+            desc["runtime_env"] = entry["runtime_env"]
+        if entry.get("_gpus"):
+            desc["gpu"] = sorted(entry["_gpus"])
+        return json.dumps(desc, sort_keys=True) if desc else ""
 
     def _pop_idle_locked(self, env_key: str) -> Optional[_Worker]:
         """Pops a live idle worker for this env key (callers hold
@@ -1224,10 +1454,6 @@ class RayletService:
                     return self._spawn_worker_locked(env_key=env_key)
         return None
 
-    def _spawn_worker(self, actor_id: Optional[str] = None, env_key: str = "") -> _Worker:
-        with self._workers_lock:
-            return self._spawn_worker_locked(actor_id, env_key)
-
     def _default_spawn_spec(self, env_key: str = "") -> Tuple[str, List[str], Dict[str, str], str]:
         """(worker id, worker_proc argv, env, log base): the one assembly of a
         worker's spawn, shared by the zygote and the Popen path."""
@@ -1235,7 +1461,7 @@ class RayletService:
         env = dict(os.environ)
         env["RAY_TPU_WORKER"] = "1"
         if self._has_gpus:
-            ids = json.loads(env_key)["gpu"] if env_key else []
+            ids = json.loads(env_key).get("gpu", []) if env_key else []
             env.update(self._gpu_manager.worker_visibility_env(ids))
         log_base = os.path.join(self._log_dir, f"worker_{worker_id}")
         argv = [self.sock_path, self.store_path, self.gcs_sock, worker_id, self.node_id]
@@ -1304,39 +1530,80 @@ class RayletService:
 
     def _spawn_worker_locked(self, actor_id: Optional[str] = None, env_key: str = "",
                              _pool_refill: bool = False) -> _Worker:
-        """Forks the worker from the zygote (a parked child, else a fresh
-        fork); Popens it when the zygote cannot. The port has no runtime
-        envs, so every worker may fork: its environment differs from the
-        zygote's only in CUDA_VISIBLE_DEVICES, which CUDA reads at the
-        worker's first cuInit, not at import."""
+        """Materialises the key's runtime env (packages fetched, a venv
+        built; raises on failure, which the scheduler stores on the entry),
+        then forks the worker from the zygote (a parked child, else a fresh
+        fork). It Popens when the zygote cannot serve, and when the env sets
+        variables, another interpreter or a command prefix: the zygote
+        imported torch and the worker stack already, so variables read at
+        import would not take effect in a fork. CUDA_VISIBLE_DEVICES alone
+        may fork: CUDA reads it at the worker's first cuInit."""
         worker_id, worker_args, env, log_base = self._default_spawn_spec(env_key)
+        renv = (json.loads(env_key) if env_key else {}).get("runtime_env")
+        py_exe, prefix = sys.executable, None
+        if renv:
+            from .runtime_env import materialize_runtime_env
+
+            py_exe, renv = materialize_runtime_env(renv, self.gcs)
+            for k, v in (renv.get("env_vars") or {}).items():
+                env[str(k)] = str(v)
+            env["RAY_TPU_RUNTIME_ENV"] = json.dumps(renv)
+            prefix = renv.get("_command_prefix")
         t0 = time.perf_counter()
-        try:
-            pid, warm = self._pool.zygote_spawn(worker_args, env, log_base + ".out",
-                                                log_base + ".err")
-        except ZygoteUnavailableError:
+        proc = None
+        if py_exe == sys.executable and not prefix and not (renv or {}).get("env_vars"):
+            try:
+                pid, warm = self._pool.zygote_spawn(worker_args, env, log_base + ".out",
+                                                    log_base + ".err")
+            except ZygoteUnavailableError:
+                # A timed-out request may still be forked once the daemon
+                # moves again. That child carries this worker id, so the
+                # Popen takes a new one: the raylet never adopts the old id,
+                # and answers the stray child's first poll with "stop".
+                worker_id = uuid.uuid4().hex[:12]
+                worker_args[3] = worker_id
+                log_base = os.path.join(self._log_dir, f"worker_{worker_id}")
+            else:
+                proc = PidHandle(pid)
+                mode = "prefork" if warm else "zygote"
+                if not _pool_refill:
+                    if warm:
+                        self._pool.note_hit("prefork")
+                    else:
+                        self._pool.note_miss("zygote")
+        if proc is None:
+            argv = [py_exe, "-m", "ray_tpu_torch.core.worker_proc", *worker_args]
+            if prefix:
+                argv = self._expand_prefix(prefix, env) + argv
             with open(log_base + ".out", "ab", buffering=0) as out_f, \
                     open(log_base + ".err", "ab", buffering=0) as err_f:
-                proc = subprocess.Popen(
-                    [sys.executable, "-m", "ray_tpu_torch.core.worker_proc", *worker_args],
-                    env=env, stdout=out_f, stderr=err_f)
+                proc = subprocess.Popen(argv, env=env, stdout=out_f, stderr=err_f)
             mode = "popen"
             if not _pool_refill:
                 self._pool.note_miss("popen")
-        else:
-            proc = PidHandle(pid)
-            mode = "prefork" if warm else "zygote"
-            if not _pool_refill:
-                if warm:
-                    self._pool.note_hit("prefork")
-                else:
-                    self._pool.note_miss("zygote")
         imet.ZYGOTE_FORK_LATENCY.observe((time.perf_counter() - t0) * 1e3, mode=mode)
         imet.WORKER_SPAWN_TOTAL.inc(mode=mode)
         w = _Worker(worker_id, proc, env_key=env_key)
         w.actor_id = actor_id
         self._workers[worker_id] = w
         return w
+
+    @staticmethod
+    def _expand_prefix(prefix: List[str], env: Dict[str, str]) -> List[str]:
+        """A container plugin's command prefix (image_uri), with its
+        sentinel replaced by `--env K=V` for every variable this spawn set
+        beyond the inherited environment (docker has no --env-host)."""
+        from .runtime_env import ImageUriPlugin
+
+        out: List[str] = []
+        for part in prefix:
+            if part == ImageUriPlugin.ENV_ARGS_SENTINEL:
+                for k, v in env.items():
+                    if os.environ.get(k) != v:
+                        out += ["--env", f"{k}={v}"]
+            else:
+                out.append(part)
+        return out
 
     def _store_error_for(self, entry: dict, error: BaseException) -> None:
         sealed = []
@@ -1411,6 +1678,10 @@ class RayletService:
                 retry, self._deferred_deletes = list(self._deferred_deletes), set()
             if retry:
                 self.delete_objects(retry)
+            # Background relief: spill ahead of allocation failures.
+            cap = self.store.capacity()
+            if self.store.bytes_in_use() > config.SPILL_THRESHOLD * cap:
+                self._spill_to(int(0.75 * config.SPILL_THRESHOLD * cap))
 
     def _on_actor_worker_death(self, w: _Worker, tail_note: str = "") -> None:
         aid = w.actor_id
@@ -1453,10 +1724,12 @@ class RayletService:
         while not self._stop.wait(config.HEARTBEAT_INTERVAL_S):
             with self._res_lock:
                 avail = dict(self.available)
-            with self._workers_lock:
-                n_workers = len(self._workers)
+            # No workers lock: a spawn holds it while the zygote answers.
+            n_workers = len(self._workers)
+            with self._objects_lock:
+                n_spilled = len(self._spilled)
             stats = {"bytes_in_use": self.store.bytes_in_use(),
-                     "num_objects": self.store.num_objects(),
+                     "num_objects": self.store.num_objects(), "num_spilled": n_spilled,
                      "num_workers": n_workers, "wall_ts": time.time(),
                      "pool": self._pool.stats()}
             if self._draining:
@@ -1499,7 +1772,8 @@ class RayletService:
             return dict(self.total), dict(self.available)
 
     def debug_state(self) -> dict:
-        """Scheduler and worker-pool introspection (first stop for a hang)."""
+        """Scheduler, worker-pool and object-plane introspection (first stop
+        for a hang)."""
         with self._workers_lock:
             workers = {wid: {"actor": w.actor_id, "busy": (w.busy_with or {}).get("task_id"),
                              "env_key": w.env_key, "alive": w.proc.poll() is None,
@@ -1514,7 +1788,8 @@ class RayletService:
                 "available": avail, "gpu_pool": gpu_pool,
                 "bundles": {f"{k[0][:8]}:{k[1]}": dict(v) for k, v in self._bundles.items()},
                 "waiting": [e.get("task_id") for e in self._waiting],
-                "pending_qsize": self._pending.qsize(), "pool": self._pool.stats()}
+                "pending_qsize": self._pending.qsize(), "pool": self._pool.stats(),
+                "objects": self._object_stats()}
 
     def zygote_stats(self) -> dict:
         """The zygote daemon's own answer: its pid, its parked children and
@@ -1542,6 +1817,9 @@ class RayletService:
             except subprocess.TimeoutExpired:
                 _log.warning("worker %s (pid %d) did not exit", w.worker_id, w.proc.pid)
         self._pool.stop()
+        with self._evict_lock, self._objects_lock:
+            self._spilled.clear()
+        shutil.rmtree(self._spill_dir, ignore_errors=True)
         return True
 
 

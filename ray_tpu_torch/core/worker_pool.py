@@ -234,7 +234,17 @@ class WorkerPoolManager:
 
     def _note_zygote_failure(self, err: Exception) -> None:
         """A request found the daemon gone: the maintenance loop respawns
-        it and rebuilds the pool."""
+        it and rebuilds the pool. A request that timed out found it slow,
+        not gone (a loaded machine): it stays, and the caller Popens this
+        one spawn, since killing it would take every worker it forked with
+        it (they die with their parent, pdeathsig). The daemon drops that
+        request once it reads it past its deadline; and should it fork it
+        all the same, the Popen went under another worker id, so the stray
+        child is never adopted."""
+        if isinstance(err, TimeoutError):
+            _log.warning("zygote daemon slow (%r); this request falls back", err)
+            _flight_record("pool.zygote_slow", repr(err)[:80])
+            return
         _log.warning("zygote daemon unreachable (%r); scheduling respawn", err)
         _flight_record("pool.zygote_lost", repr(err)[:80])
         self._zygote = None
@@ -290,14 +300,14 @@ class WorkerPoolManager:
     # ---------------------------------------------------------------- stats
     def stats(self) -> dict:
         """The pool's health (heartbeat stats, debug_state). Cached state
-        only: the heartbeat never waits on the daemon."""
+        only, read without the raylet's workers lock: a spawn holds that lock
+        while the daemon answers, and the heartbeat must not wait on the
+        daemon (a slow fork would cost the node its liveness)."""
         r = self._raylet
-        with r._workers_lock:
-            idle = ready = 0
-            for lst in r._idle.values():
-                idle += len(lst)
-                ready += sum(1 for wid in lst
-                             if (w := r._workers.get(wid)) is not None and w.ready)
+        idle_lists = [list(lst) for lst in list(r._idle.values())]
+        idle = sum(len(lst) for lst in idle_lists)
+        ready = sum(1 for lst in idle_lists for wid in lst
+                    if (w := r._workers.get(wid)) is not None and w.ready)
         with self._lock:
             hits, misses = dict(self._hits), dict(self._misses)
             respawns, parked = self._respawns, self._parked

@@ -20,14 +20,19 @@ else by Popen, with CUDA_VISIBLE_DEVICES naming exactly the devices its task
 or actor leased (none for a CPU-only one). A forked worker holds torch
 already, imported by the zygote, and creates its CUDA context at its first
 use of the device. The worker imports no JAX, so the JAX worker's platform
-pin (worker_proc.py:171-180 there) has no counterpart. Left out: runtime
-envs and the compiled-graph and collective builtins (ROADMAP Queue 1 items 3
-and 4).
+pin (worker_proc.py:171-180 there) has no counterpart. A worker with a
+runtime env finds it resolved in RAY_TPU_RUNTIME_ENV (its env_vars already
+in its environment) and applies its working_dir and py_modules at boot. An
+actor also answers the collective builtins `__ray_tpu_collective_init__` and
+`__ray_tpu_collective_destroy__` (collective.py's create_collective_group
+and destroy_collective_group_on). Left out: the compiled-graph builtins
+`__ray_dag_*__` (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import inspect
+import json
 import logging
 import os
 import pickle
@@ -73,6 +78,42 @@ def _resolve_args(store, args_blob: bytes, raylet=None):
         return a
 
     return tuple(fetch(a) for a in args), {k: fetch(v) for k, v in kwargs.items()}
+
+
+def _apply_working_dir(runtime_env: dict) -> None:
+    """Applies the node-resolved runtime env: the working dir becomes the
+    cwd and an import path, and py_modules go on sys.path (reference:
+    working_dir.py chdir, py_modules.py sys.path entries; the raylet
+    extracted any package before the spawn)."""
+    wd = (runtime_env or {}).get("working_dir")
+    if wd:
+        os.chdir(wd)
+        sys.path.insert(0, wd)
+    for p in reversed((runtime_env or {}).get("py_modules") or []):
+        if isinstance(p, str) and p not in sys.path:
+            sys.path.insert(0, p)
+
+
+def _bind_method(inst, name: str):
+    """The user method, or a framework builtin for a reserved name: the
+    collective group's join and leave ride the actor-task path."""
+    if name == "__ray_tpu_collective_init__":
+        from ..collective import init_collective_group
+
+        def _collective_init(ws, rank, gname):
+            init_collective_group(ws, rank, gname)
+            return True
+
+        return _collective_init
+    if name == "__ray_tpu_collective_destroy__":
+        from ..collective import destroy_collective_group
+
+        def _collective_destroy(gname):
+            destroy_collective_group(gname)
+            return True
+
+        return _collective_destroy
+    return getattr(inst, name)
 
 
 class _AsyncLoop:
@@ -135,6 +176,7 @@ def main(argv: List[str]) -> None:
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s worker {worker_id} %(levelname)s %(message)s")
     _exit_with_raylet()
+    _apply_working_dir(json.loads(os.environ.get("RAY_TPU_RUNTIME_ENV", "{}") or "{}"))
 
     store = SharedMemoryStore(store_path)
     raylet = RpcClient(raylet_sock)
@@ -270,7 +312,7 @@ def main(argv: List[str]) -> None:
                 inst = actor_instance.get(entry["actor_id"])
                 if inst is None:
                     raise RuntimeError("actor instance missing in worker")
-                fn = getattr(inst, entry["method_name"])
+                fn = _bind_method(inst, entry["method_name"])
             args, kwargs = _resolve_args(store, entry["args_blob"], raylet)
             result = fn(*args, **kwargs)
             if inspect.iscoroutine(result):
@@ -385,7 +427,7 @@ def main(argv: List[str]) -> None:
             set_task_context(entry.get("task_id"), entry.get("actor_id"))
             args, kwargs = await asyncio.get_running_loop().run_in_executor(
                 None, _resolve_args, store, entry["args_blob"], raylet)
-            result = getattr(inst, entry["method_name"])(*args, **kwargs)
+            result = _bind_method(inst, entry["method_name"])(*args, **kwargs)
             if inspect.iscoroutine(result):
                 result = await result
             return result

@@ -274,6 +274,10 @@ def _handle(req: dict) -> Optional[dict]:
         while len(_PARKED) > target:  # shrink, newest first
             _kill_parked(*_PARKED.pop())
         return {"parked": len(_PARKED), "forked": forked}
+    if req.get("deadline", float("inf")) < time.time():
+        # Its client timed out and went on without it (a Popen under a new
+        # worker id): a fork now would only start a worker nobody adopts.
+        return {"error": "spawn request expired before the daemon read it"}
     if "batch" in req:
         return {"spawns": [_do_spawn(r) for r in req["batch"]]}
     return _do_spawn(req)
@@ -384,10 +388,13 @@ class ZygoteClient:
     def spawn_spec(argv: List[str], env: dict, out: str, err: str) -> dict:
         return {"argv": argv, "env": env, "out": out, "err": err}
 
-    def spawn(self, argv: List[str], env: dict, out: str, err: str) -> Tuple[int, bool]:
+    def spawn(self, argv: List[str], env: dict, out: str, err: str,
+              timeout: float = 10.0) -> Tuple[int, bool]:
         """Forks one worker; (pid, warm), warm when a parked child took the
-        assignment. Raises ZygoteSpawnError when the fork itself failed."""
-        reply = self._request(self.spawn_spec(argv, env, out, err))
+        assignment. Raises ZygoteSpawnError when the fork itself failed. The
+        request carries its deadline: a daemon that reads it later drops it."""
+        req = dict(self.spawn_spec(argv, env, out, err), deadline=time.time() + timeout)
+        reply = self._request(req, timeout=timeout)
         if "error" in reply:
             raise ZygoteSpawnError(reply["error"])
         return int(reply["pid"]), bool(reply.get("warm"))
@@ -396,7 +403,7 @@ class ZygoteClient:
         """N forks in one round trip. Any failed fork raises
         ZygoteSpawnError; the batch's forked workers are then never adopted,
         and each exits on the raylet's stop reply to its first poll."""
-        reply = self._request({"batch": specs}, timeout=30.0)
+        reply = self._request({"batch": specs, "deadline": time.time() + 30.0}, timeout=30.0)
         errors = [r["error"] for r in reply["spawns"] if "error" in r]
         if errors:
             raise ZygoteSpawnError("; ".join(errors))

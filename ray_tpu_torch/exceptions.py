@@ -90,6 +90,29 @@ class RpcUnavailableError(RayTpuError, ConnectionError):
                                       self.last_error))
 
 
+class CollectiveTimeoutError(RayTpuError, TimeoutError):
+    """A collective rendezvous (or ring establishment, or a ring op)
+    exceeded its deadline. Names the group, this member's rank, and which
+    ranks never registered: the difference between "socket timeout" and an
+    actionable gang post-mortem."""
+
+    def __init__(self, group: str = "", rank: int = -1, world_size: int = 0,
+                 missing: Optional[list] = None, detail: str = ""):
+        self.group = group
+        self.rank = rank
+        self.world_size = world_size
+        self.missing = sorted(missing or [])
+        self.detail = detail
+        miss = f"; ranks never joined: {self.missing}" if self.missing else ""
+        super().__init__(
+            f"collective group {group!r} (rank {rank}/{world_size}) "
+            f"rendezvous timed out{miss}" + (f" — {detail}" if detail else ""))
+
+    def __reduce__(self):
+        return (CollectiveTimeoutError,
+                (self.group, self.rank, self.world_size, self.missing, self.detail))
+
+
 class PreemptionError(RayTpuError):
     """A gang lost capacity to a (possibly synthetic) preemption notice:
     the node drained, workers checkpointed and stopped. Supervisors catch

@@ -28,6 +28,7 @@ _DEFAULT_SIZE = 4096
 KIND_PREFIXES = {
     "chan",   # core/channel.py reads/writes/timeouts
     "chaos",  # chaos controller injections
+    "coll",   # collective.py rendezvous, ring up, ops, timeouts and destroys
     "pool",   # core/worker_pool.py pops, misses, refills, zygote loss and respawn
     "serve",  # the Serve controller's drain replacements (serve.drain_replace)
     "train",  # trainer drains, restores and elastic resizes

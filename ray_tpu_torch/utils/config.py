@@ -27,6 +27,9 @@ TRANSFER_CHUNK_BYTES = 8 << 20
 # and concurrent outbound chunk streams a node serves.
 MAX_CONCURRENT_PULLS = 4
 MAX_CONCURRENT_SERVES = 4
+# Pool-usage fraction above which the raylet's monitor loop spills sealed
+# primaries to disk ahead of allocation failures.
+SPILL_THRESHOLD = 0.8
 
 # --- scheduling
 # How long a raylet retries cluster placement before failing a task no node

@@ -1,7 +1,7 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
-the feed's channel, the chaos controller, the cluster runtime and the
-trainer record into.
+the feed's channel, the chaos controller, the cluster runtime (its object
+plane included) and the trainer record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
@@ -335,6 +335,32 @@ NODES_DRAINED = Counter(
     "raytpu_nodes_drained_total",
     "Nodes that entered the draining state on a preemption notice",
     component="gcs",
+)
+# --- object transport / shm store (core/raylet.py) ---------------------------
+OBJECT_BYTES_IN = Counter(
+    "raytpu_object_bytes_in_total",
+    "Bytes pulled into this node's store from remote nodes",
+    component="object_transport",
+)
+OBJECT_BYTES_OUT = Counter(
+    "raytpu_object_bytes_out_total",
+    "Bytes served from this node's store to remote nodes",
+    component="object_transport",
+)
+OBJECT_SPILL_TOTAL = Counter(
+    "raytpu_object_spill_total",
+    "Objects spilled from the shm pool to disk",
+    component="object_transport",
+)
+OBJECT_SPILL_BYTES = Counter(
+    "raytpu_object_spill_bytes_total",
+    "Bytes spilled from the shm pool to disk",
+    component="object_transport",
+)
+OBJECT_RESTORE_TOTAL = Counter(
+    "raytpu_object_restore_total",
+    "Spilled objects restored into the shm pool",
+    component="object_transport",
 )
 # --- worker pool and zygote (core/worker_pool.py, core/zygote.py) ----------
 WORKER_POOL_HITS = Counter(

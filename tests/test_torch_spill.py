@@ -1,0 +1,187 @@
+"""Spill to disk and the broadcast push tree on the port's cluster runtime
+against the JAX package's, case by case: tests/test_spill.py's three cases
+(3x the pool through a 64 MiB pool and back, task outputs that spill, a
+24 MiB object pulled across nodes in chunks),
+tests/test_cluster.py::test_broadcast_tree_replicates_to_all_nodes, a
+spilled primary pulled by another node from its file, and spill files
+unlinked when the ref is freed; on the port also CPU torch tensors through
+a spill, bitwise.
+
+Each package boots one cluster for the file (every JAX `Cluster()` sweeps
+/dev/shm, ROADMAP Queue 3): a head and three nodes, each with a 64 MiB pool
+(256 MiB across the nodes), one node holding a "far" resource. A case swaps
+the package's runtime in and out.
+"""
+
+import importlib
+import os
+import sys
+import types
+
+import numpy as np
+import pytest
+
+from ray_tpu_torch.core import serialization
+from torch_waits import wait_for
+
+serialization.register_pickle_by_value(sys.modules[__name__])
+
+PKGS = ("jax", "torch")
+_ROOT = {"jax": "ray_tpu", "torch": "ray_tpu_torch"}
+POOL = 64 << 20
+
+
+def _boot(name):
+    rt = importlib.import_module(_ROOT[name])
+    Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
+    kw = {"num_gpus": 0} if name == "torch" else {}
+    cluster = Cluster(num_cpus=2, num_workers=2, object_store_memory=POOL, **kw)
+    far = cluster.add_node(num_cpus=2, resources={"far": 1.0}, num_workers=0)
+    others = [cluster.add_node(num_cpus=1, num_workers=0) for _ in range(2)]
+    return types.SimpleNamespace(name=name, rt=rt, cluster=cluster, runtime=cluster.runtime(),
+                                 far=far, nodes=[far] + others,
+                                 base=importlib.import_module(f"{_ROOT[name]}.core.runtime_base"))
+
+
+@pytest.fixture(scope="module")
+def clusters():
+    booted = {}
+    for name in PKGS:
+        importlib.import_module(_ROOT[name]).shutdown()
+    try:
+        yield booted
+    finally:
+        for c in booted.values():
+            try:
+                c.runtime.shutdown()
+            finally:
+                c.cluster.shutdown()
+                c.base.set_runtime(None)
+
+
+@pytest.fixture(params=PKGS)
+def c(request, clusters):
+    name = request.param
+    if name not in clusters:
+        clusters[name] = _boot(name)
+    cl = clusters[name]
+    cl.base.set_runtime(cl.runtime)
+    yield cl
+    cl.base.set_runtime(None)
+
+
+def _spill_dir(c, node_id=None):
+    return os.path.join(c.cluster.session_dir, f"spill_{node_id or c.cluster.head_node_id}")
+
+
+def _spill_files(c):
+    try:
+        return [f for f in os.listdir(_spill_dir(c)) if not f.endswith(".tmp")]
+    except FileNotFoundError:
+        return []
+
+
+def test_put_3x_capacity_and_read_back(c):
+    rt = c.rt
+    n, size = 24, 8 << 20  # 192 MiB through a 64 MiB pool
+    refs = [rt.put(np.full(size, i % 251, dtype=np.uint8)) for i in range(n)]
+    for i, ref in enumerate(refs):
+        v = rt.get(ref, timeout=60)
+        assert v[0] == i % 251 and v[-1] == i % 251 and v.nbytes == size
+        del v
+
+
+def test_task_outputs_spill(c):
+    rt = c.rt
+
+    @rt.remote
+    def big(i):
+        return np.full(8 << 20, i, dtype=np.uint8)
+
+    refs = [big.remote(i) for i in range(16)]  # 128 MiB of outputs
+    for i, ref in enumerate(refs):
+        v = rt.get(ref, timeout=120)
+        assert v[0] == i and v[-1] == i
+        del v
+
+
+def test_chunked_cross_node_transfer(c):
+    """A 24 MiB object (three 8 MiB chunks) made on the far node is pulled
+    to the head in chunks."""
+    rt = c.rt
+
+    @rt.remote(resources={"far": 1.0})
+    def produce():
+        return np.arange(24 << 20, dtype=np.uint8)
+
+    v = rt.get(produce.remote(), timeout=120)
+    assert v.nbytes == 24 << 20
+    np.testing.assert_array_equal(v, np.arange(24 << 20, dtype=np.uint8))
+
+
+def test_broadcast_tree_replicates_to_all_nodes(c):
+    rt = c.rt
+    payload = np.arange(2_000_000, dtype=np.float64)  # 16 MB
+    ref = rt.put(payload)
+    assert rt.broadcast(ref, timeout=60) == 3
+    locs = c.runtime._gcs.call("get_object_locations", ref.hex())
+    assert len(locs) == 4, locs
+
+
+def test_spilled_primary_pulled_from_disk(c):
+    """Another node pulls a primary the head has spilled: the head serves it
+    from its file (the file stays; no restore into the pool)."""
+    rt = c.rt
+    refs = [rt.put(np.full(8 << 20, i, dtype=np.uint8)) for i in range(12)]
+    first = refs[0].hex()
+    assert wait_for(lambda: first in _spill_files(c), timeout=30), _spill_files(c)
+    assert wait_for(lambda: c.runtime._gcs.call("stats")["store"]["num_spilled"] > 0,
+                    timeout=30), c.runtime._gcs.call("stats")
+
+    @rt.remote(resources={"far": 1.0})
+    def summary(arr):
+        return int(arr[0]), int(arr[-1]), arr.nbytes
+
+    assert rt.get(summary.remote(refs[0]), timeout=120) == (0, 0, 8 << 20)
+    assert first in _spill_files(c)  # served from disk, not restored
+    locs = {loc["node_id"] for loc in c.runtime._gcs.call("get_object_locations", first)}
+    assert c.far in locs and c.cluster.head_node_id in locs, locs
+
+
+def test_spill_files_unlinked_when_refs_freed(c):
+    rt = c.rt
+    refs = [rt.put(np.full(8 << 20, i, dtype=np.uint8)) for i in range(16)]
+    hexes = {r.hex() for r in refs}
+    assert wait_for(lambda: hexes & set(_spill_files(c)), timeout=30)
+    del refs
+    assert wait_for(lambda: not (hexes & set(_spill_files(c))), timeout=60), (
+        sorted(hexes & set(_spill_files(c))))
+
+
+def test_torch_tensors_bitwise_through_a_spill(clusters):
+    """CPU torch tensors (bf16 and fp32) come back bitwise after a spill
+    to disk and a restore."""
+    import torch
+
+    if "torch" not in clusters:
+        clusters["torch"] = _boot("torch")
+    c = clusters["torch"]
+    c.base.set_runtime(c.runtime)
+    try:
+        rt = c.rt
+        gen = torch.Generator().manual_seed(0)
+        kept = [torch.randn(2048, 1024, generator=gen).to(torch.bfloat16 if i % 2 else
+                                                          torch.float32)
+                for i in range(24)]  # 4 or 8 MiB each, 144 MiB in all
+        before = c.runtime._raylet.call("debug_state")["objects"]
+        refs = [rt.put(t) for t in kept]
+        stats = c.runtime._raylet.call("debug_state")["objects"]
+        assert stats["spill_total"] > before["spill_total"], (before, stats)
+        for t, ref in zip(kept, refs):
+            got = rt.get(ref, timeout=60)
+            assert got.dtype == t.dtype and torch.equal(got, t)
+            del got
+        after = c.runtime._raylet.call("debug_state")["objects"]
+        assert after["restore_total"] > stats["restore_total"], (stats, after)
+    finally:
+        c.base.set_runtime(None)

@@ -11,13 +11,13 @@ death, respawn and rebuild).
 Queue 1 item 8); `test_on_fence_drains_prefork` for epoch fencing (item
 3.9), the only caller of the pool's fence hook.
 
-The port's env-key case differs by what an env key is: the JAX package keys
-workers by runtime_env, and a worker with user env_vars Popens; the port has
-no runtime envs and keys workers by the GPU ids they see, and such a worker
-forks from the zygote like any other (CUDA reads CUDA_VISIBLE_DEVICES at its
-first cuInit). Either way the worker starts in its own sub-pool and the
-default pool's warm workers stay where they are. One more case proves the
-port's zygote imports torch without initialising CUDA.
+Env keys: both packages key workers by their runtime env, and a worker
+with user env_vars Popens (a fork from the zygote would keep the zygote's
+imports), in its own sub-pool, while the default pool's warm workers stay
+where they are. The port's key also holds the GPU ids a worker sees, and
+such a worker still forks from the zygote (CUDA reads CUDA_VISIBLE_DEVICES
+at its first cuInit): a case of its own. One more case proves the port's
+zygote imports torch without initialising CUDA.
 """
 
 import importlib
@@ -55,6 +55,38 @@ def _alive(pid):
             return f.read().rsplit(b") ", 1)[1].split()[0] != b"Z"
     except OSError:
         return False
+
+
+def _children(ppid):
+    """Live (not zombie) processes whose parent is `ppid`."""
+    kids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat", "rb") as f:
+                fields = f.read().rsplit(b") ", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == ppid and fields[0] != b"Z":
+            kids.append(int(d))
+    return kids
+
+
+def _pids_with_arg(arg):
+    """Pids of the processes that have `arg` among their command line's words."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                words = f.read().split(b"\0")
+        except OSError:
+            continue
+        if arg.encode() in words:
+            pids.append(int(d))
+    return pids
 
 
 # ---------------------------------------------------------------- zygote unit
@@ -243,29 +275,47 @@ def test_warm_hit_and_async_refill(pc):
 
 
 def test_env_key_subpool_isolation(pc):
+    """A runtime env with user env_vars: its worker Popens into a sub-pool
+    of its own, and no warm worker of the default pool is taken."""
     rt = pc.rt
     before = _pool(pc)
-    if pc.name == "jax":
-        opts = {"runtime_env": {"env_vars": {"POOL_ISOLATION_PROBE": "1"}}}
-        var, want = "POOL_ISOLATION_PROBE", "1"
-    else:
-        opts = {"num_gpus": 1}
-        var, want = "CUDA_VISIBLE_DEVICES", "0"
 
-    @rt.remote(**opts)
+    @rt.remote(runtime_env={"env_vars": {"POOL_ISOLATION_PROBE": "1"}})
     class E:
         def probe(self, var):
             return os.environ.get(var)
 
     e = E.remote()
     try:
-        assert rt.get(e.probe.remote(var), timeout=120) == want
+        assert rt.get(e.probe.remote("POOL_ISOLATION_PROBE"), timeout=120) == "1"
         after = _pool(pc)
-        if pc.name == "jax":
-            assert after["misses"]["popen"] > before["misses"]["popen"], (before, after)
-        else:
-            forks = lambda p: p["hits"]["prefork"] + p["misses"]["zygote"]  # noqa: E731
-            assert forks(after) > forks(before), (before, after)
+        assert after["misses"]["popen"] > before["misses"]["popen"], (before, after)
+        assert after["hits"]["idle"] == before["hits"]["idle"], (before, after)
+    finally:
+        rt.kill(e)
+
+
+def test_gpu_ids_subpool_forks(pool_clusters):
+    """The port's GPU-id key: a num_gpus=1 worker sees its lease in
+    CUDA_VISIBLE_DEVICES and still forks from the zygote, in its own
+    sub-pool."""
+    c = pool_clusters["torch"]
+    c.base.set_runtime(c.runtime)
+    rt = c.rt
+    before = _pool(c)
+
+    @rt.remote(num_gpus=1)
+    class E:
+        def probe(self, var):
+            return os.environ.get(var)
+
+    e = E.remote()
+    try:
+        assert rt.get(e.probe.remote("CUDA_VISIBLE_DEVICES"), timeout=120) == "0"
+        after = _pool(c)
+        forks = lambda p: p["hits"]["prefork"] + p["misses"]["zygote"]  # noqa: E731
+        assert forks(after) > forks(before), (before, after)
+        assert after["misses"]["popen"] == before["misses"]["popen"], (before, after)
         assert after["hits"]["idle"] == before["hits"]["idle"], (before, after)
     finally:
         rt.kill(e)
@@ -389,6 +439,77 @@ def test_zygote_death_respawn_rebuild(name):
                 os.environ[k] = v
         if c is not None:
             _stop(c)
+
+
+# ------------------------------------------------- a slow zygote stays up
+def test_slow_zygote_keeps_its_workers():
+    """A zygote that answers a spawn too late (SIGSTOPped here, a loaded
+    machine in the suite) is slow, not dead: that one spawn Popens, and the
+    daemon and every worker it forked live on. Killing it took its forked
+    actors' workers with it (pdeathsig), which failed Tune trials under load
+    (ROADMAP Queue 3)."""
+    import signal
+
+    c = _boot("torch", num_workers=0)
+    try:
+        rt = c.rt
+        assert wait_for(lambda: _pool(c).get("zygote_alive") and _pool(c)["preforked"] >= 1,
+                        timeout=120, interval=0.25), "zygote never came up"
+
+        @rt.remote
+        class A:
+            def __init__(self):
+                self.n = 0
+
+            def ppid(self):
+                return os.getppid()
+
+            def pid(self):
+                return os.getpid()
+
+            def incr(self):
+                self.n += 1
+                return self.n
+
+        a = A.remote()
+        zpid = _pool(c)["zygote_pid"]
+        assert rt.get(a.ppid.remote(), timeout=60) == zpid  # forked from the zygote
+        before = _pool(c)
+        os.kill(zpid, signal.SIGSTOP)
+        try:
+            b = A.remote()  # its spawn request times out: a Popen
+            assert rt.get(b.ppid.remote(), timeout=120) != zpid
+        finally:
+            os.kill(zpid, signal.SIGCONT)
+        assert rt.get(a.ppid.remote(), timeout=60) == zpid  # the forked actor lives
+        after = _pool(c)
+        assert after["misses"]["popen"] == before["misses"]["popen"] + 1, (before, after)
+        assert after["zygote_pid"] == zpid and after["zygote_respawns"] == 0, after
+
+        # The timed-out request was still queued on the daemon's socket. It
+        # serves requests in order, so once this one is answered that one
+        # has been read; it must start no second worker for b.
+        c.runtime._raylet.call("zygote_stats")
+        b_pid = rt.get(b.pid.remote(), timeout=60)
+        b_wid = next(wid for wid, w in c.runtime._raylet.call("debug_state")["workers"].items()
+                     if w["pid"] == b_pid)
+        assert _pids_with_arg(b_wid) == [b_pid]
+        assert rt.get(a.pid.remote(), timeout=60) in _children(zpid)
+
+        def unadopted():
+            """The zygote's children the raylet does not know, beyond its
+            parked ones (an in-flight refill shows here for a moment)."""
+            known = {w["pid"] for w in c.runtime._raylet.call("debug_state")["workers"].values()}
+            parked = c.runtime._raylet.call("zygote_stats").get("parked", 0)
+            return len([p for p in _children(zpid) if p not in known]) - parked
+
+        assert wait_for(lambda: unadopted() == 0, timeout=30, interval=0.5), (
+            _children(zpid), c.runtime._raylet.call("debug_state")["workers"])
+        assert [rt.get(b.incr.remote(), timeout=60) for _ in range(10)] == list(range(1, 11))
+        rt.kill(a)
+        rt.kill(b)
+    finally:
+        _stop(c)
 
 
 # ------------------------------------------------- the zygote outlives nothing
