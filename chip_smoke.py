@@ -80,7 +80,7 @@ Phases, each printing its own line, any failure exits non-zero:
      every leaf's gradient and launches; (c) tensor parallelism at
      llama2_7b(n_layers=2)'s full width on params from shard_tree, tensor=4
      and fsdp=2 x tensor=2: in fp32 the first step's loss and every rank's
-     gradient shard of every leaf against the unsplit model, then 3 AdamW
+     gradient shard of every leaf against the unsplit model, then 2 AdamW
      steps' losses; TP x SP (tensor=2 x seq=2, ring and Ulysses); in bf16
      one forward and backward with each kernel's launches; (d) the Switch
      MoE at Switch-Base's expert width (768 / 3072, 128 experts, capacity
@@ -102,7 +102,7 @@ Phases, each printing its own line, any failure exits non-zero:
      bitwise equal to the in-process trainer's and build_train_step's,
      launches 8 / 8 / 8 in the worker, step p50 beside the in-process
      trainer's; (c) two worker processes sharing the card over gloo,
-     MeshSpec(data=2), fp32, 1 layer: 3 AdamW steps against one process (first loss
+     MeshSpec(data=2), fp32, 1 layer: 2 AdamW steps against one process (first loss
      1e-6, trajectory 1e-5, every leaf 1e-5 of its norm), then ZeRO-1 over
      "data" against the plain two-rank run; no process and no
      /dev/shm/rtpt_* pool left after shutdown; (d) a head on
@@ -135,7 +135,7 @@ Phases, each printing its own line, any failure exits non-zero:
      request, K1 in both replicas' processes; nothing left after shutdown.
   17. objects: the object plane and what rides it, on a fresh init() with a
      2 GiB pool per node; one layer = Llama-2-7B's seven block matrices as a
-     dict of bf16 CUDA tensors (404.8 MB): (a) 16 layers (3.0x the pool) put
+     dict of bf16 CUDA tensors (404.8 MB): (a) 12 layers (2.3x the pool) put
      and read back onto the card bitwise through spill to disk, num_spilled
      in the GCS's stats, a num_gpus=1 task on a spilled layer (sha256), the
      spill dir empty and the pool's bytes back once the refs drop; (b) 3
@@ -153,15 +153,31 @@ Phases, each printing its own line, any failure exits non-zero:
      "0", the helper module, K1 against its plain version, one Popen; a
      plain GPU task after it forked, without the variable; an unknown field
      refused; nothing left after shutdown.
-Then one JSON line with every kernel's numbers (the backward kernels'
+  18. ops: the operator surface on a fresh init() whose head leases GPU 0:
+     (a) a utils.Queue fed by a producer task with 16 (seed, request index)
+     items; (b) a utils.ActorPool of two num_gpus=0.5 actors maps them, each
+     building q/k/v from the seed at Llama-2-7B's serve shape and running K1
+     (causal), held within 2^-6 per entry of its plain version in the
+     actor's process, K1 launched once per call there; (c) each call records
+     a utils.metrics Counter and Histogram (K1 ms by CUDA events) and
+     publishes one message: the driver's state.user_metrics() shows the
+     counter at 16 and the histogram's counts summing to 16 within two
+     flush intervals, its subscription gets the 16 messages in each
+     publisher's order, state.internal_metrics() holds raytpu_* records
+     reported by a raylet and a worker process, state.list_tasks() shows
+     the 16 calls FINISHED on the GPU node and state.timeline() one X span
+     each; the flush lag, publish -> poll and each state call's ms; (d)
+     nothing left after shutdown.
+Then a line of each phase's wall seconds and the whole smoke's, one JSON line
+with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
 tune, parallel, cluster and elastic phases' model paths (ring, ulysses,
 pipeline, the TP meshes and TP x SP; the deploy phase's cluster replica; the
 cluster's actor, NCCL trainer worker and gloo ranks; the preempted and
 restored workers, each elastic world, the old and new Serve replicas; the
-objects phase's two DAG actors and its runtime-env task) under
-"launches_by_path"), and the
+objects phase's two DAG actors and its runtime-env task; the ops phase's
+pool actors) under "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -2218,7 +2234,9 @@ def _par_model(rank, n, mesh_seq, mesh_stage):
 TP_MESHES = {"tensor=4": {"tensor": 4}, "fsdp=2 x tensor=2": {"fsdp": 2, "tensor": 2}}
 TP_SP_MESH = {"seq": 2, "tensor": 2}
 TP_BATCH = (2, 2048)
-TP_STEPS = 3
+# 2 AdamW steps (3 before the ops phase came: the smoke's time; the first step
+# holds every gradient shard, the second the update that used them).
+TP_STEPS = 2
 TP_LR = 1e-4
 # (d): the Switch MoE layer at Switch-Base's expert width (Fedus et al. 2021,
 # Table 9: d_model 768, d_ff 3072, 128 experts, capacity factor 1.25) on
@@ -2311,10 +2329,10 @@ def _tp_shards(params, mesh, full):
 
 def _par_tensor(rank, n, meshes, mesh_sp):
     """(c): llama2_7b(n_layers=2) at full width, fp32 with TF32 off, remat
-    "hot", b x s = TP_BATCH. The unsplit model's 3 AdamW steps (one rank at a
-    time); on each TP mesh, build_train_step on params from shard_tree:
-    the first step's loss and this rank's gradient shard of every leaf
-    against the unsplit model's, then the 3 steps' losses; on TP_SP_MESH,
+    "hot", b x s = TP_BATCH. The unsplit model's TP_STEPS AdamW steps (one
+    rank at a time); on each TP mesh, build_train_step on params from
+    shard_tree: the first step's loss and this rank's gradient shard of every
+    leaf against the unsplit model's, then the TP_STEPS steps' losses; on TP_SP_MESH,
     next_token_loss with ring and Ulysses against the same. Then in bf16 one
     forward and backward per TP mesh, with each kernel's launches. Returns
     ({path: launches}, log lines, seconds)."""
@@ -2713,7 +2731,9 @@ def phase_parallel():
 CLUSTER_TENSOR = (4096, 11008)  # Llama-2-7B's w_up
 CLUSTER_SERVE_SHAPE = (1, 1024, 32, 128)  # b, s, heads, head_dim: the serve phase's
 CLUSTER_STEPS = 4
-CLUSTER_DATA_STEPS = 3
+# 2 steps (3 before the ops phase came: the smoke's time; the trajectory
+# and ZeRO-1's bitwise check still span an update).
+CLUSTER_DATA_STEPS = 2
 # Parts (c) of the cluster phase and (b) of the elastic phase: Llama-2-7B's
 # width in fp32 at depth 1 (cut from 2 in PR 13 for the smoke's time: the
 # fp32 gloo steps, their reference and ZeRO were the cluster phase's most).
@@ -2966,8 +2986,9 @@ def _leaf_rel_diffs(got, want):
 
 def _cluster_data_loop(config):
     """Part (c)'s loop, one rank of a gloo world sharing the card: fp32 with
-    TF32 off, deterministic; 3 AdamW steps of the plain data-parallel step on
-    the global batch, then 3 of ZeRO-1 over "data" on this rank's row from
+    TF32 off, deterministic; CLUSTER_DATA_STEPS AdamW steps of the plain
+    data-parallel step on the global batch, then as many of ZeRO-1 over
+    "data" on this rank's row from
     the same init. Rank 0 saves the plain run's final params to
     config["out"]. Reports losses, launches, peak memory, and how far the
     ZeRO run's params are from the plain run's."""
@@ -3077,7 +3098,7 @@ def phase_cluster():
     phase's model, 4 steps, bitwise equal to the in-process TorchTrainer and
     to build_train_step driven directly, K1/K2/K3 8 / 8 / 8 in the worker;
     (c) two worker processes sharing the card over gloo, MeshSpec(data=2),
-    fp32, 3 AdamW steps against one fp32 process, then ZeRO-1 over "data"
+    fp32, 2 AdamW steps against one fp32 process, then ZeRO-1 over "data"
     against the plain two-rank run. Every process of the cluster and every
     /dev/shm/rtpt_* file must be gone after its shutdown. Returns the
     launches of each path."""
@@ -3988,7 +4009,9 @@ def phase_elastic():
 
 # ----------------------------------------------------------------- objects
 OBJ_POOL = 2 << 30  # the phase's object store per node
-OBJ_LAYERS = 16  # layers put in (a): 6.48 GB, 3.0x the pool
+# Layers put in (a): 4.86 GB, 2.26x the pool (16 before the ops phase came:
+# the smoke's time; 12 still spill most of them).
+OBJ_LAYERS = 12
 # One Llama-2-7B block's seven weight matrices (Meta's published config:
 # d_model 4096, d_ff 11008), bf16: 202.4 M params, 404.8 MB.
 OBJ_LAYER_SHAPES = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
@@ -4187,7 +4210,7 @@ def _wait_until_obj(pred, what, timeout_s=60.0):
 
 
 def _objects_spill(rt, runtime, cluster, smi):
-    """(a): 16 layers through a 2 GiB pool and back, bitwise, with a GPU
+    """(a): 12 layers through a 2 GiB pool and back, bitwise, with a GPU
     task on a spilled one; everything gone once the refs drop."""
     import torch
 
@@ -4446,7 +4469,7 @@ def _objects_runtime_env(rt, cluster, smi, tmp):
 def phase_objects():
     """The object plane and what rides it on the cluster runtime (a fresh
     init() with a 2 GiB pool per node, GPU 0 on every node; Llama-2-7B
-    layers as dicts of bf16 CUDA tensors from seeds): (a) 16 layers (3.0x
+    layers as dicts of bf16 CUDA tensors from seeds): (a) 12 layers (2.3x
     the pool) put and read back bitwise through spill to disk, a GPU task
     on a spilled layer, nothing left once the refs drop; (b) broadcast of a
     layer to 3 added nodes, each node's actor gets it with no pull, a layer
@@ -4510,6 +4533,323 @@ def phase_objects():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+
+# ---------------------------------------------------------------------- ops
+OPS_ITEMS = 16  # (a): work items, (seed, request index), one K1 call each
+OPS_K1_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
+OPS_CHANNEL = "ops_pool_calls"  # (c): one message per item, from the actor that ran it
+# (c): the pool actors' K1 ms per call (CUDA events), the histogram's buckets.
+OPS_MS_BOUNDARIES = [0.03, 0.04, 0.05, 0.06, 0.07, 0.08, 0.1, 0.15, 0.25, 0.5, 1.0, 10.0,
+                     100.0, 1000.0]
+OPS_TIMEOUT_S = 120
+
+
+def _ops_producer(q, n):
+    """(a)'s task: puts n work items, (seed, request index), on the queue."""
+    for i in range(n):
+        q.put((2000 + i, i))
+    return n
+
+
+def _ops_qkv(seed: int):
+    import torch
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+class _OpsAttend:
+    """(b)'s pool actor (num_gpus=0.5): builds q/k/v from an item's seed on
+    its card, runs K1 (causal) timed by CUDA events, holds the output against
+    the plain version in this process, records a Counter and a Histogram
+    with utils/metrics and publishes one message per item."""
+
+    def __init__(self):
+        _zero_launch_counts()
+        self.worst = 0.0
+        self.calls = 0
+
+    def ready(self):
+        """This process's CUDA context made (no kernel launched): the pool's
+        map then times the calls, not the actors' start."""
+        import torch
+
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        return os.getpid()
+
+    def run(self, item):
+        import torch
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.utils import metrics, pubsub
+
+        seed, index = item
+        q, k, v = _ops_qkv(seed)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = fa.flash_attention(q, k, v, causal=True)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        d = q.shape[-1]
+        o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=d ** -0.5)
+        err = entry_err(o, o_ref)
+        self.worst = max(self.worst, err)
+        metrics.Counter("ops_pool_calls", "K1 calls of the ops phase's pool").inc()
+        metrics.Histogram("ops_pool_k1_ms", "K1 ms per call (CUDA events)",
+                          boundaries=OPS_MS_BOUNDARIES).observe(ms)
+        recorded = time.time()
+        pubsub.publish(OPS_CHANNEL, {"pid": os.getpid(), "seq": self.calls, "index": index,
+                                     "published": time.time()})
+        self.calls += 1
+        return {"index": index, "err": err, "ms": ms, "pid": os.getpid(),
+                "task_id": rt.get_runtime_context().get_task_id(), "recorded": recorded}
+
+    def report(self):
+        return {"launches": _launch_counts(), "worst": self.worst, "pid": os.getpid(),
+                "calls": self.calls}
+
+
+def _hist_p50(counts, boundaries):
+    """The upper bound of the bucket that holds the median."""
+    half, seen = sum(counts) / 2.0, 0
+    for i, n in enumerate(counts):
+        seen += n
+        if seen >= half:
+            return boundaries[i] if i < len(boundaries) else float("inf")
+    return float("nan")
+
+
+def _ops_pool(rt, runtime, smi):
+    """(a)-(b): the queue fed by a producer task, the pool of two GPU actors
+    mapping its items through K1. Returns what (c) checks."""
+    import threading
+
+    from ray_tpu_torch.utils import ActorPool, Queue, pubsub
+
+    # The driver's subscriber polls while the pool runs: (message, receipt).
+    sub, received = pubsub.subscribe(OPS_CHANNEL), []
+
+    def collect():
+        deadline = time.monotonic() + OPS_TIMEOUT_S
+        while len(received) < OPS_ITEMS and time.monotonic() < deadline:
+            received.extend((m, time.time()) for m in sub.poll(timeout=1.0))
+
+    collector = threading.Thread(target=collect, daemon=True, name="ops-subscriber")
+    collector.start()
+    t0 = time.perf_counter()
+    q = Queue()
+    producer = rt.remote(_ops_producer).remote(q, OPS_ITEMS)
+    actors = [rt.remote(num_gpus=0.5)(_OpsAttend).remote() for _ in range(2)]
+    rt.get([a.ready.remote() for a in actors], timeout=OPS_TIMEOUT_S)
+    pool = ActorPool(actors)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    items = (q.get(timeout=OPS_TIMEOUT_S) for _ in range(OPS_ITEMS))
+    results = list(pool.map(lambda a, item: a.run.remote(item), items))
+    map_s = time.perf_counter() - t0
+    if rt.get(producer, timeout=OPS_TIMEOUT_S) != OPS_ITEMS or not q.empty():
+        _fail("ops: the producer's items did not all pass through the queue")
+    reports = rt.get([a.report.remote() for a in actors], timeout=OPS_TIMEOUT_S)
+    if [r["index"] for r in results] != list(range(OPS_ITEMS)):
+        _fail(f"ops: the map's results out of order: {[r['index'] for r in results]}")
+    pids = sorted({r["pid"] for r in results})
+    per_pid = {rep["pid"]: rep for rep in reports}
+    if len(pids) != 2 or set(per_pid) != set(pids) or os.getpid() in pids:
+        _fail(f"ops: the pool's calls ran in {pids}, its actors are {sorted(per_pid)}")
+    for rep in reports:
+        if rep["launches"]["flash_fwd"] != rep["calls"] or rep["calls"] == 0:
+            _fail(f"ops: K1 launched {rep['launches']} in actor pid {rep['pid']} for "
+                  f"{rep['calls']} calls")
+        if not rep["worst"] <= OPS_K1_TOL:
+            _fail(f"ops: K1 in actor pid {rep['pid']} off its plain version by "
+                  f"{rep['worst']:.4g} per entry (tol {OPS_K1_TOL})")
+    print(f"[ops] (a)-(b) {smi}: a Queue fed by a producer task with {OPS_ITEMS} items, an "
+          f"ActorPool of 2 num_gpus=0.5 actors (pids {pids}) mapping them through K1 at "
+          f"{CLUSTER_SERVE_SHAPE} bf16 causal: map {map_s:.3f} s ({OPS_ITEMS / map_s:.1f} "
+          f"items/s; the queue, the producer and both actors up, their CUDA contexts made, in "
+          f"{setup_s:.2f} s before it); K1 launches by "
+          f"actor {({r['pid']: r['launches']['flash_fwd'] for r in reports})}, worst "
+          f"per-entry error by actor {({r['pid']: round(r['worst'], 6) for r in reports})} "
+          f"(tol {OPS_K1_TOL})", flush=True)
+    return {"collector": collector, "received": received, "results": results,
+            "reports": reports, "pids": pids, "map_s": map_s}
+
+
+def _ops_operator_view(rt, runtime, smi, pool):
+    """(c): what an operator reads from the driver: the pool's user metrics,
+    its messages, the runtime's catalog, the task table and the timeline."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.utils import metrics, pubsub, state
+
+    flush_s = metrics._FLUSH_INTERVAL_S  # each actor's flusher: the counter is due in two
+    results = pool["results"]
+    last_record = max(r["recorded"] for r in results)
+
+    def counted():
+        found = {m["name"]: m for m in state.user_metrics()}
+        calls, hist = found.get("ops_pool_calls"), found.get("ops_pool_k1_ms")
+        if calls and hist and calls["value"] == OPS_ITEMS and sum(hist["counts"]) == OPS_ITEMS:
+            return calls, hist
+        return None
+
+    deadline = last_record + 2 * flush_s
+    got = counted()
+    while got is None and time.time() < deadline:
+        time.sleep(0.01)
+        got = counted()
+    flush_lag = time.time() - last_record
+    if got is None:
+        found = {m["name"]: (m["value"], m.get("counts")) for m in state.user_metrics()}
+        _fail(f"ops: user_metrics did not show the counter at {OPS_ITEMS} and the histogram's "
+              f"counts summing to {OPS_ITEMS} within two flush intervals: {found}")
+    calls, hist = got
+    hist_p50 = _hist_p50(hist["counts"], hist["boundaries"])
+    ms_p50 = sorted(r["ms"] for r in results)[OPS_ITEMS // 2]
+    q, k, v = _ops_qkv(2000)
+    driver_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    pool["collector"].join(30)
+    msgs = [m for m, _ in pool["received"]]
+    t_poll = sorted(t - m["published"] for m, t in pool["received"])
+    by_pid = {}
+    for m in msgs:
+        by_pid.setdefault(m["pid"], []).append(m["seq"])
+    if (len(msgs) != OPS_ITEMS or sorted(m["index"] for m in msgs) != list(range(OPS_ITEMS))
+            or any(seqs != list(range(len(seqs))) for seqs in by_pid.values())):
+        _fail(f"ops: the subscription got {len(msgs)} of {OPS_ITEMS} messages, per publisher "
+              f"{by_pid}")
+    # Publish -> poll latency of a lone message on an idle channel.
+    lone = []
+    for i in range(20):
+        sub = pubsub.subscribe("ops_probe")
+        t0 = time.perf_counter()
+        pubsub.publish("ops_probe", i)
+        if sub.poll(timeout=5.0) != [i]:
+            _fail("ops: a probe message did not come back")
+        lone.append((time.perf_counter() - t0) * 1e3)
+    lone.sort()
+
+    internal = state.internal_metrics()
+    reporters = {r for m in internal if m["name"].startswith("raytpu_")
+                 for r in m.get("reporters", [])}
+    raylets = sorted(r for r in reporters if r.startswith("raylet_"))
+    workers = sorted(r for r in reporters
+                     if not r.startswith(("raylet_", "driver-", "gcs")))
+    if not raylets or not workers:
+        _fail(f"ops: internal_metrics' raytpu_* records come from {sorted(reporters)}: want a "
+              f"raylet and a worker process")
+
+    ids = {r["task_id"] for r in results}
+    node = runtime.node_id()
+
+    def finished():
+        recs = [t for t in state.list_tasks(limit=100_000) if t["task_id"] in ids]
+        return recs if len(recs) == OPS_ITEMS and all(
+            t["state"] == "FINISHED" for t in recs) else None
+
+    deadline = time.monotonic() + 30
+    recs = finished()
+    while recs is None and time.monotonic() < deadline:
+        time.sleep(0.1)
+        recs = finished()
+    if recs is None:
+        _fail("ops: list_tasks() does not show the pool's calls FINISHED within 30 s")
+    if any(t["node"] != node for t in recs):
+        _fail(f"ops: the pool's calls ran on {sorted({t['node'] for t in recs})}, the GPU "
+              f"node is {node}")
+    spans = [e for e in state.timeline() if e["args"]["task_id"] in ids]
+    if len(spans) != OPS_ITEMS or any(e["ph"] != "X" for e in spans):
+        _fail(f"ops: the timeline holds {len(spans)} spans of the pool's {OPS_ITEMS} calls")
+
+    calls_ms = {}
+    for name, fn in (("list_nodes", state.list_nodes), ("node_summary", state.node_summary),
+                     ("list_actors", state.list_actors), ("list_tasks", state.list_tasks),
+                     ("list_objects", state.list_objects), ("cluster_stats", state.cluster_stats),
+                     ("user_metrics", state.user_metrics),
+                     ("internal_metrics", state.internal_metrics),
+                     ("cluster_errors", state.cluster_errors), ("timeline", state.timeline)):
+        t0 = time.perf_counter()
+        fn()
+        calls_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+    print(f"[ops] (c) {smi}: user_metrics: ops_pool_calls {calls['value']:.0f}, "
+          f"ops_pool_k1_ms counts summing to {sum(hist['counts'])}, {flush_lag:.3f} s after the "
+          f"last record (flush interval {flush_s} s); K1 ms p50 from the histogram <= "
+          f"{hist_p50} (bucket bound), from the actors' events {ms_p50:.4f}, this process's "
+          f"CUDA-event timing {driver_ms:.4f}; the subscription got {len(msgs)} messages, in "
+          f"each publisher's order ({ {p: len(v) for p, v in by_pid.items()} }), an actor's "
+          f"publish -> the driver's poll p50 {t_poll[len(t_poll) // 2] * 1e3:.2f} ms while the "
+          f"pool ran, the driver's own publish + poll p50 {lone[len(lone) // 2]:.3f} ms; "
+          f"internal_metrics: "
+          f"{sum(m['name'].startswith('raytpu_') for m in internal)} raytpu_* series from "
+          f"raylets {raylets} and workers {workers}; list_tasks: {OPS_ITEMS} calls FINISHED "
+          f"on node {node[:12]}; timeline: {len(spans)} X spans; state call ms at "
+          f"{len(state.list_nodes())} node(s), {len(state.list_tasks(limit=100_000))} task "
+          f"records: {calls_ms}", flush=True)
+
+
+def phase_ops():
+    """The operator surface of the cluster runtime around K1, on a fresh
+    init() that leases GPU 0: (a) a Queue fed by a producer task with 16
+    (seed, request index) items; (b) an ActorPool of two num_gpus=0.5
+    actors mapping them through K1 at Llama-2-7B's serve shape, each
+    holding its output against the plain version in its process; (c) a
+    Counter and a Histogram per call through utils/metrics, one pubsub
+    message per item, and from the driver: user_metrics within two flush
+    intervals, all 16 messages in each publisher's order, raytpu_* records
+    of a raylet and a worker, the calls FINISHED in list_tasks and as X
+    spans in the timeline; (d) no process and no pool left after shutdown.
+    Returns the launches of the pool's actors."""
+    import glob
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    parts = {}
+    rt.init()
+    runtime = current_runtime()
+    session_dir = runtime._cluster.session_dir
+    ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            _fail(f"ops: cluster_resources {rt.cluster_resources()}")
+        t0 = time.perf_counter()
+        pool = _ops_pool(rt, runtime, smi)
+        parts["a-b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _ops_operator_view(rt, runtime, smi, pool)
+        parts["c"] = time.perf_counter() - t0
+    finally:
+        t0 = time.perf_counter()
+        rt.shutdown()
+        parts["shutdown"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    print(f"[ops] (d) {smi}: parts {', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; "
+          f"processes left {left}, pools left {sorted(pools)}; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if left or pools:
+        _fail("ops: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for rep in pool["reports"]:
+        for k, n in rep["launches"].items():
+            launches[k] += n
+    return {"ops pool actors": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -4529,25 +4869,34 @@ def main() -> int:
         _parallel_rank(int(rank), int(world), url, out)
         return 0
 
-    name = phase_device()
-    phase_build()
-    fwd_row, dq_row, dkv_row = phase_kernel()
-    phase_paged()
-    for row, n in zip((fwd_row, dq_row, dkv_row), phase_gptj().values()):
+    t_main, phase_s = time.perf_counter(), {}
+
+    def timed(phase, *a, **kw):
+        """Runs one phase; keeps its wall seconds for the line before the JSON."""
+        t0 = time.perf_counter()
+        out = phase(*a, **kw)
+        phase_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 1)
+        return out
+
+    name = timed(phase_device)
+    timed(phase_build)
+    fwd_row, dq_row, dkv_row = timed(phase_kernel)
+    timed(phase_paged)
+    for row, n in zip((fwd_row, dq_row, dkv_row), timed(phase_gptj).values()):
         row["at_d256"]["launches"] = n
-    fwd_row["launches"] = phase_serve(profile=args.profile)
-    by_path = phase_deploy()
-    phase_train_parity()
-    train_launches = phase_train(profile=args.profile)
-    phase_zero()
-    phase_checkpoint()
-    fit_launches, fit_step_ms = phase_fit(profile=args.profile)
+    fwd_row["launches"] = timed(phase_serve, profile=args.profile)
+    by_path = timed(phase_deploy)
+    timed(phase_train_parity)
+    train_launches = timed(phase_train, profile=args.profile)
+    timed(phase_zero)
+    timed(phase_checkpoint)
+    fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
     by_path.update(fit_launches)
-    by_path.update(phase_tune(fit_step_ms))
-    by_path.update(phase_parallel())
-    by_path.update(phase_cluster())
-    by_path.update(phase_elastic())
-    by_path.update(phase_objects())
+    by_path.update(timed(phase_tune, fit_step_ms))
+    for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops):
+        by_path.update(timed(phase))
+    print(f"[smoke] seconds by phase {phase_s}; whole smoke "
+          f"{time.perf_counter() - t_main:.1f} s", flush=True)
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     for row in (fwd_row, dq_row, dkv_row):

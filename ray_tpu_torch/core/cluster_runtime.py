@@ -214,6 +214,11 @@ class ClusterRuntime(Runtime):
         self._cluster: Optional["Cluster"] = None
         self._worker_id = f"driver-{os.getpid()}" if driver else f"worker-{os.getpid()}"
         self._namespace = "default"
+        # This process's `raytpu_*` records carry its node and go to this GCS
+        # (a worker names itself again once it knows its raylet-given id).
+        from ..utils import internal_metrics as imet
+
+        imet.configure(node_id=node_id, reporter=self._worker_id)
         self._blobs = _FunctionBlobs()
         self._actor_location: Dict[str, str] = {}  # actor_id -> raylet sock
         self._raylet_clients: Dict[str, RpcClient] = {}

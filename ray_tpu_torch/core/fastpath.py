@@ -33,6 +33,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from .. import exceptions as exc
+from ..utils import internal_metrics as imet
 from .rpc import _recv_msg, _send_msg, parse_address
 
 # Tunables (modest defaults; the fast path must not starve the node).
@@ -102,6 +103,7 @@ class DirectConn:
         blob = pickle.dumps(frame)
         tid = entry["task_id"]
         self.last_used = time.monotonic()
+        entry["_send_ts"] = self.last_used  # the round trip's start
         with self._iflock:
             self.inflight[tid] = entry
         try:
@@ -150,8 +152,10 @@ class DirectConn:
                 self.last_used = time.monotonic()
                 self.acked += 1
                 with self._iflock:
-                    self.inflight.pop(msg[1], None)
+                    done_entry = self.inflight.pop(msg[1], None)
                     drained = self.draining and not self.inflight
+                if done_entry is not None and "_send_ts" in done_entry:
+                    imet.FASTPATH_RTT.observe((self.last_used - done_entry["_send_ts"]) * 1e3)
                 if self._on_sealed is not None:
                     # Wake the owner's get() directly — the in-band ack
                     # beats the raylet's batched seal notification by ~ms.

@@ -18,15 +18,19 @@ Kept from the JAX copy: the node table and heartbeats, resources and
 `pick_node`, the actor table (create, started, died, get, named, list),
 object locations with frees and borrows and `node_sync`, task states, the
 KV, placement groups (PACK, SPREAD, STRICT_PACK, STRICT_SPREAD), the
-general-purpose pubsub log, preemption notices and the DRAINING node state
+general-purpose pubsub log with its gap-aware poll and the `node_table`
+delta channel, preemption notices and the DRAINING node state
 (`report_preemption`; `node_draining` / `node_dead` / `node_added` on the
 `node_events` channel, read by utils/node_events.py), the cluster-wide
 `stats` (the stores' bytes, objects and spilled objects summed over the
-nodes' heartbeats), ping and stop.
+nodes' heartbeats), the state API's tables (`list_tasks` with each task's
+transition history, `list_objects`, `node_summary`), the user and internal
+metrics tables (`report_metrics`, `report_internal_metrics`), the error
+table (`report_error`, published on `error_reports`), ping and stop.
 Left out: the snapshot/WAL persistence and GCS restart, epoch fencing and
-`node_fenced` (ROADMAP Queue 1 item 3.9), the `node_table` delta channel,
-metrics history and alerts, incidents, `debug_harvest`, flight dumps, and
-the TPU slice strategy SLICE_GANG. This module never imports torch.
+`node_fenced` (ROADMAP Queue 1 item 3.9), metrics history and alerts,
+incidents, `debug_harvest`, flight dumps (item 10), and the TPU slice
+strategy SLICE_GANG. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -92,6 +96,11 @@ class GcsService:
         # channel; subscribers long-poll with their cursor.
         self._pubsub: Dict[str, List[Tuple[int, Any]]] = {}
         self._pubsub_cv = threading.Condition()
+        # Metrics tables, (name, sorted tags) -> aggregate (reference:
+        # src/ray/stats/metric.h registry + exporter), and the error ring.
+        self._user_metrics: Dict[Tuple, dict] = {}
+        self._internal_metrics: Dict[Tuple, dict] = {}
+        self._errors: List[dict] = []
         self._stop = threading.Event()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
@@ -137,6 +146,7 @@ class GcsService:
         # node_events: a join is as much a lifecycle event as a drain.
         self.pubsub_publish("node_events", {"event": "node_added", "node_id": node_id,
                                             "epoch": epoch, "ts": time.time()})
+        self._publish_node_delta(node_id)
         return {"ok": True, "nodes": nodes, "epoch": epoch}
 
     def heartbeat(self, node_id: str, available: Optional[dict] = None,
@@ -212,6 +222,7 @@ class GcsService:
         self.pubsub_publish("node_events", {"event": "node_draining", "node_id": node_id,
                                             "deadline_s": deadline_s, "reason": reason,
                                             "ts": time.time()})
+        self._publish_node_delta(node_id)
         # Best effort: on a real preemption the machine may already be
         # unreachable; the notice above is what subscribers rely on.
         if sock:
@@ -242,11 +253,34 @@ class GcsService:
             "sock": n["sock"], "store": n["store"],
         }
 
-    def list_nodes(self) -> List[dict]:
-        out: List[dict] = []
+    def list_nodes(self, limit: Optional[int] = None) -> List[dict]:
+        """Every node's record; `limit` bounds the reply, in node-id order."""
         with self._lock:
-            out.extend(self._node_entry(nid, n) for nid, n in self._nodes.items())
-        return out
+            nids = sorted(self._nodes) if limit is not None else list(self._nodes)
+            if limit is not None:
+                nids = nids[:max(0, int(limit))]
+            return [self._node_entry(nid, self._nodes[nid]) for nid in nids]
+
+    def node_summary(self) -> dict:
+        """Membership counts by state and the summed capacity and availability
+        of the alive nodes: the rollup that does not ship every record."""
+        by_state: Dict[str, int] = {}
+        resources: Dict[str, float] = {}
+        available: Dict[str, float] = {}
+        draining = 0
+        with self._lock:
+            for n in self._nodes.values():
+                st = self._node_state(n)
+                by_state[st] = by_state.get(st, 0) + 1
+                draining += bool(n.get("draining"))
+                if n["alive"]:
+                    for k, v in n["resources"].items():
+                        resources[k] = resources.get(k, 0.0) + v
+                    for k, v in n["available"].items():
+                        available[k] = available.get(k, 0.0) + v
+            return {"total": len(self._nodes), "alive": self._alive_count,
+                    "draining": draining, "by_state": by_state, "resources": resources,
+                    "available": available}
 
     def stats(self) -> dict:
         """Cluster-wide counters (reference: src/ray/stats/metric.h, the
@@ -269,16 +303,38 @@ class GcsService:
                     "store": store, "nodes_alive": self._alive_count,
                     "placement_groups": len(self._pgs)}
 
-    def node_table_snapshot(self) -> dict:
-        """The resync point of a node_events subscriber whose cursor fell
-        behind the pubsub ring: every node's membership state (the JAX
-        copy's slim rows; the port has no `node_table` channel, so `seq` is
-        that channel's, always 0)."""
+    # The `node_table` channel: one slim row per membership or lifecycle
+    # change (registered, draining, dead), so a subscriber mirrors the table
+    # by applying rows in seq order instead of polling list_nodes. The
+    # per-heartbeat `available` and `stats` stay out of the rows.
+    @classmethod
+    def _slim_node(cls, nid: str, n: dict) -> dict:
+        return {"op": "upsert", "NodeID": nid, "Alive": bool(n["alive"]),
+                "Draining": bool(n.get("draining")), "Fenced": False,
+                "Epoch": n.get("epoch", 0), "State": cls._node_state(n),
+                "Labels": {}, "Resources": dict(n["resources"]),
+                "sock": n["sock"], "store": n["store"]}
+
+    def _publish_node_delta(self, node_id: str) -> None:
         with self._lock:
-            nodes = [{"NodeID": nid, "Alive": bool(n["alive"]),
-                      "Draining": bool(n.get("draining")), "Epoch": n.get("epoch"),
-                      "State": self._node_state(n)} for nid, n in self._nodes.items()]
-        return {"seq": 0, "nodes": nodes}
+            n = self._nodes.get(node_id)
+            row = self._slim_node(node_id, n) if n is not None else None
+        if row is not None:
+            self.pubsub_publish("node_table", row)
+
+    def node_table_snapshot(self) -> dict:
+        """The resync point of a `node_table` (or `node_events`) subscriber
+        whose cursor fell behind the ring: every node's slim row, and the
+        `node_table` seq to resume from. The seq is read before the table, so
+        a row published meanwhile is delivered again (upserts are
+        idempotent), never lost."""
+        with self._pubsub_cv:
+            log = self._pubsub.get("node_table", [])
+            seq = log[-1][0] if log else 0
+        with self._lock:
+            nodes = [self._slim_node(nid, n) for nid, n in self._nodes.items()]
+        imet.GCS_PUBSUB_RESYNCS.inc(channel="node_table.snapshot")
+        return {"seq": seq, "nodes": nodes}
 
     def node_info(self, node_id: str) -> Optional[dict]:
         with self._lock:
@@ -369,6 +425,7 @@ class GcsService:
         # notices learn of a failure without one from the same stream.
         self.pubsub_publish("node_events", {"event": "node_dead", "node_id": node_id,
                                             "ts": time.time()})
+        self._publish_node_delta(node_id)
         dead_sock = self._node_sock(node_id, alive_only=False)
         with self._lock:
             cli = self._raylet_clients.pop(dead_sock, None) if dead_sock else None
@@ -675,6 +732,15 @@ class GcsService:
         return out[-limit:]
 
     # ------------------------------------------------------------ objects
+    def list_objects(self, limit: int = 1000) -> List[dict]:
+        """The object directory: each object's locations, borrows and whether
+        its free waits on a borrower."""
+        with self._lock:
+            return [{"object_id": h, "locations": sorted(locs),
+                     "borrows": self._borrows.get(h, 0),
+                     "pending_free": h in self._deferred_free}
+                    for h, locs in list(self._objects.items())[-limit:]]
+
     def remove_object_location(self, oid_hex: str, node_id: str) -> bool:
         """A node dropped its copy (replica eviction)."""
         with self._lock:
@@ -801,13 +867,37 @@ class GcsService:
                     for k in ("name", "reason"):
                         if evt.get(k):
                             rec[k] = evt[k]
+                    if evt.get("retry"):
+                        rec["retries"] = evt["retry"]
+                    # The last 8 transitions, (state, ts, node): the timeline
+                    # export reads RUNNING -> FINISHED/FAILED spans from them.
+                    hist = rec.setdefault("history", [])
+                    hist.append((evt["state"], rec["ts"], node_id))
+                    del hist[:-8]
         if stale:
             self._delete_on_nodes([(h, [node_id]) for h in stale])
         return True
 
+    @staticmethod
+    def _task_copy(rec: dict) -> dict:
+        # The history list is copied under the lock: the RPC layer pickles
+        # the reply while node_sync may append to it.
+        out = dict(rec)
+        if "history" in out:
+            out["history"] = list(out["history"])
+        return out
+
     def get_task_states(self, task_ids: List[str]) -> Dict[str, dict]:
         with self._lock:
-            return {tid: dict(self._tasks[tid]) for tid in task_ids if tid in self._tasks}
+            return {tid: self._task_copy(self._tasks[tid]) for tid in task_ids
+                    if tid in self._tasks}
+
+    def list_tasks(self, limit: int = 1000) -> List[dict]:
+        """The task table, oldest first: state, node, name, retries and the
+        transition history."""
+        with self._lock:
+            out = [self._task_copy(rec) for rec in self._tasks.values()]
+        return out[-limit:]
 
     # ----------------------------------------------------------------- KV
     def kv_put(self, key: str, value: bytes) -> bool:
@@ -1028,6 +1118,95 @@ class GcsService:
             pg = self._pgs.get(pg_id)
             return dict(pg) if pg else None
 
+    # ------------------------------------------------------------ metrics
+    def _merge_metric_records(self, table: Dict[Tuple, dict], worker_id: str,
+                              records: List[dict]) -> bool:
+        """Aggregates flushed records per (name, tags): counters add their
+        deltas, gauges keep the last value per reporter, histograms add their
+        sums and bucket counts. Each aggregate also names its latest 64
+        reporters (a raylet, a worker id, a driver, the GCS), which the JAX
+        copy does not keep: an operator sees which processes feed a series."""
+        with self._lock:
+            for rec in records:
+                tags = dict(rec.get("tags") or {})
+                entry = table.setdefault((rec["name"], tuple(sorted(tags.items()))), {
+                    "name": rec["name"], "kind": rec["kind"], "tags": tags,
+                    "value": 0.0, "gauges": {}, "reporters": {}})
+                reporters = entry["reporters"]
+                reporters.pop(worker_id, None)
+                reporters[worker_id] = True
+                while len(reporters) > 64:
+                    reporters.pop(next(iter(reporters)))
+                if rec["kind"] == "counter":
+                    entry["value"] += float(rec["value"])
+                elif rec["kind"] == "gauge":
+                    entry["gauges"][worker_id] = (float(rec["value"]), time.monotonic())
+                elif rec["kind"] == "histogram":
+                    entry["value"] += float(rec["value"])
+                    counts = rec.get("counts") or []
+                    have = entry.setdefault("counts", [0] * len(counts))
+                    if len(have) == len(counts):
+                        entry["counts"] = [a + b for a, b in zip(have, counts)]
+                    entry.setdefault("boundaries", rec.get("boundaries"))
+        return True
+
+    def _metrics_view(self, table: Dict[Tuple, dict]) -> List[dict]:
+        """Every aggregate; a gauge is the sum over its reporters heard from
+        in the last 30 s (a dead worker's last value is pruned)."""
+        now = time.monotonic()
+        out: List[dict] = []
+        with self._lock:
+            for v in table.values():
+                if v["kind"] == "gauge":
+                    for w in [w for w, (_, ts) in v["gauges"].items() if now - ts >= 30.0]:
+                        del v["gauges"][w]
+                    v["value"] = sum(val for val, _ in v["gauges"].values())
+                entry = dict(v)
+                entry["reporters"] = list(v["reporters"])
+                if entry["kind"] == "gauge":
+                    entry["gauges"] = {w: val for w, (val, _) in v["gauges"].items()}
+                elif "counts" in entry:
+                    entry["counts"] = list(entry["counts"])
+                out.append(entry)
+        return out
+
+    def report_metrics(self, worker_id: str, records: List[dict]) -> bool:
+        """User-defined application metrics (utils/metrics.py)."""
+        return self._merge_metric_records(self._user_metrics, worker_id, records)
+
+    def user_metrics(self) -> List[dict]:
+        return self._metrics_view(self._user_metrics)
+
+    def report_internal_metrics(self, worker_id: str, records: List[dict]) -> bool:
+        """The runtime's `raytpu_*` catalog (utils/internal_metrics.py),
+        flushed by raylets, workers, drivers and this daemon itself."""
+        return self._merge_metric_records(self._internal_metrics, worker_id, records)
+
+    def internal_metrics(self) -> List[dict]:
+        return self._metrics_view(self._internal_metrics)
+
+    # ------------------------------------------------------- error reports
+    # Workers report uncaught task exceptions and raylets worker crashes
+    # (with the dying process's output tail): a bounded ring, also published
+    # on the `error_reports` channel.
+    _ERRORS_RETAIN = 256
+
+    def report_error(self, payload: dict) -> bool:
+        if not isinstance(payload, dict):
+            return False
+        payload = dict(payload)
+        payload.setdefault("ts", time.time())
+        with self._lock:
+            self._errors.append(payload)
+            del self._errors[:-self._ERRORS_RETAIN]
+        imet.ERROR_REPORTS.inc()
+        self.pubsub_publish("error_reports", payload)
+        return True
+
+    def cluster_errors(self, limit: int = 100) -> List[dict]:
+        with self._lock:
+            return list(self._errors)[-limit:]
+
     # ------------------------------------------------------------- pubsub
     # General-purpose channels (reference: src/ray/pubsub/publisher.h, the
     # long-poll publisher): a bounded sequence log per channel; a
@@ -1040,7 +1219,9 @@ class GcsService:
             seq = (log[-1][0] + 1) if log else 1
             log.append((seq, message))
             del log[:-self._PUBSUB_RETAIN]
+            backlog = sum(len(entries) for entries in self._pubsub.values())
             self._pubsub_cv.notify_all()
+        imet.GCS_PUBSUB_BACKLOG.set(backlog)
         return seq
 
     def pubsub_poll(self, channel: str, after_seq: int = 0,
@@ -1066,12 +1247,18 @@ class GcsService:
             while True:
                 log = self._pubsub.get(channel, [])
                 if after_seq > 0 and log and log[0][0] > after_seq + 1:
-                    return {"entries": [], "gap": True}
-                out = [(q, m) for q, m in log if q > after_seq]
+                    out, gap = [], True
+                    break
+                out, gap = [(q, m) for q, m in log if q > after_seq], False
                 remaining = deadline - time.monotonic()
                 if out or remaining <= 0:
-                    return {"entries": out, "gap": False}
+                    break
                 self._pubsub_cv.wait(timeout=min(remaining, 1.0))
+        if gap:
+            imet.GCS_PUBSUB_RESYNCS.inc(channel=channel)
+        elif out:
+            imet.GCS_PUBSUB_DELTAS.inc(len(out), channel=channel)
+        return {"entries": out, "gap": gap}
 
     # ---------------------------------------------------------- lifecycle
     def ping(self) -> str:
@@ -1105,6 +1292,9 @@ def main(sock_path: str, tcp_address: Optional[str] = None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s gcs %(levelname)s %(message)s")
     _log.info("gcs started (pid %d)", os.getpid())
     service = GcsService()
+    # The daemon's own `raytpu_*` records merge straight into its table.
+    imet.configure(node_id="gcs", reporter="gcs",
+                   sink=lambda recs: service.report_internal_metrics("gcs", recs))
     servers = [RpcServer(sock_path, service)]
     if tcp_address:
         servers.append(RpcServer(tcp_address, service))

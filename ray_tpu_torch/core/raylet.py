@@ -220,6 +220,10 @@ class RayletService:
         self._pool = WorkerPoolManager(self, prestart=prestart)
         reg = self.gcs.call("register_node", node_id, self.advertised, store_path, self.total)
         self._cluster_size = reg.get("nodes", 1)
+        # This raylet's `raytpu_*` records flush through its GCS client.
+        imet.configure(node_id=node_id, reporter=f"raylet_{node_id}",
+                       sink=lambda recs: self.gcs.call("report_internal_metrics",
+                                                       f"raylet_{node_id}", recs, timeout=10.0))
         self._threads = [
             threading.Thread(target=self._scheduler_loop, daemon=True, name="sched"),
             threading.Thread(target=self._heartbeat_loop, daemon=True, name="hb"),
@@ -247,7 +251,7 @@ class RayletService:
 
     def _task_event(self, task_id: str, state: str, **extra) -> None:
         evt = {"task_id": task_id, "state": state, "ts": time.time()}
-        evt.update(extra)
+        evt.update((k, v) for k, v in extra.items() if v is not None)
         with self._buf_lock:
             self._evt_buf.append(evt)
         self._buf_wake.set()
@@ -1211,8 +1215,14 @@ class RayletService:
         task events, one-way and off the latency path."""
         if sealed:
             self._notify_sealed(sealed)
-        for tid, state in events or ():
-            self._task_event(tid, state)
+        for evt in events or ():
+            # (task_id, state) or (task_id, state, started, ended, name): the
+            # worker's own clock gives a call that ran its RUNNING -> end span.
+            if len(evt) > 2 and evt[2] is not None:
+                self._task_event(evt[0], "RUNNING", ts=evt[2], name=evt[4])
+                self._task_event(evt[0], evt[1], ts=evt[3])
+            else:
+                self._task_event(evt[0], evt[1])
         return True
 
     # -------------------------------------------------------- worker loop
@@ -1657,6 +1667,7 @@ class RayletService:
                 tail = ""
                 if w.proc.poll() not in (0, None):
                     tail = self._worker_log_tail(w.worker_id)
+                    self._report_crash(w, entry, tail)
                 tail_note = f"; last output:\n{tail}" if tail else ""
                 if entry is not None and entry["type"] != "actor_creation":
                     self._release_entry(entry)
@@ -1682,6 +1693,31 @@ class RayletService:
             cap = self.store.capacity()
             if self.store.bytes_in_use() > config.SPILL_THRESHOLD * cap:
                 self._spill_to(int(0.75 * config.SPILL_THRESHOLD * cap))
+
+    def _report_crash(self, w: _Worker, entry: Optional[dict], tail: str) -> None:
+        """A worker that died abnormally while it ran a task or hosted an
+        actor goes to the GCS error table with its output's tail. A killed
+        actor or a cancelled task is a deliberate end, not a crash."""
+        if entry is None and w.actor_id is None:
+            return
+        if entry is not None and entry.get("task_id") in self._cancelled:
+            return
+        if w.actor_id is not None:
+            with self._actor_lock:
+                a = self._actors.get(w.actor_id)
+            if a is not None and a.get("state") == "DEAD":
+                return
+        _log.warning("worker %s died abnormally (exit %s, task=%s)", w.worker_id,
+                     w.proc.poll(), (entry or {}).get("desc"))
+        error = f"worker died (exit {w.proc.poll()})"
+        if entry is not None:
+            error += f" executing {entry.get('desc', 'task')}"
+        try:
+            self.gcs.notify("report_error", {
+                "type": "worker_crash", "node_id": self.node_id, "worker_id": w.worker_id,
+                "actor_id": w.actor_id, "error": error, "log_tail": tail[-4000:]})
+        except Exception as e:  # noqa: BLE001 - the error objects below are the contract
+            _log.warning("crash report for %s failed: %r", w.worker_id, e)
 
     def _on_actor_worker_death(self, w: _Worker, tail_note: str = "") -> None:
         aid = w.actor_id

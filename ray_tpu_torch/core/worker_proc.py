@@ -184,6 +184,9 @@ def main(argv: List[str]) -> None:
                                     store_path=store_path, node_id=node_id, driver=False)
     runtime._worker_id = worker_id
     runtime_base.set_runtime(runtime)
+    from ..utils import internal_metrics as imet
+
+    imet.configure(node_id=node_id, reporter=worker_id)
 
     actor_instance: Dict[str, Any] = {}
     fn_cache: Dict[str, Any] = {}
@@ -267,9 +270,29 @@ def main(argv: List[str]) -> None:
             if inline:
                 entry["_inline"].update(inline)
 
+    # Uncaught task exceptions go to the GCS error table, one-way and at most
+    # 200 per process, so a tight failure loop cannot flood the GCS.
+    error_report_budget = [200]
+
+    def _report_task_error(entry: dict, err: BaseException) -> None:
+        if isinstance(err, (exc.TaskCancelledError, SystemExit)) or error_report_budget[0] <= 0:
+            return
+        error_report_budget[0] -= 1
+        import traceback
+
+        try:
+            runtime._gcs.notify("report_error", {
+                "type": "task_error", "node_id": node_id, "worker_id": worker_id,
+                "task_id": entry.get("task_id"), "actor_id": entry.get("actor_id"),
+                "task": entry.get("desc", ""), "error": repr(err),
+                "traceback": traceback.format_exc()[-4000:]})
+        except Exception as e:  # noqa: BLE001 - the stored error is the contract
+            _log.warning("error report for %s failed: %r", entry.get("desc", "task"), e)
+
     def store_error(entry: dict, err: BaseException, sealed: List[str]) -> None:
         if not isinstance(err, exc.RayTpuError):
             err = exc.TaskError(err, task_desc=entry.get("desc", ""))
+        _report_task_error(entry, err)
         stored = StoredError(err, entry.get("desc", ""))
         inline = entry.get("_inline")
         if inline is not None:
@@ -295,6 +318,7 @@ def main(argv: List[str]) -> None:
         from .runtime_context import reset_task_context, set_task_context
 
         kind = entry["type"]
+        entry["_t0"] = time.time()  # the RUNNING edge of a direct call's span
         token = set_task_context(entry.get("task_id"), entry.get("actor_id"))
         try:
             rule = _chaos_inject("task.exec",
@@ -366,6 +390,11 @@ def main(argv: List[str]) -> None:
 
     def fp_report(sealed: List[str], event) -> None:
         notify_q.put((sealed, event))
+
+    def _done_event(entry: dict, ok: bool) -> tuple:
+        """A direct call's task event: its state and its span on this clock."""
+        return (entry["task_id"], "FINISHED" if ok else "FAILED", entry.get("_t0"),
+                time.time(), entry.get("desc", ""))
 
     pool: Optional[Any] = None
     group_pools: Dict[str, Any] = {}
@@ -466,7 +495,7 @@ def main(argv: List[str]) -> None:
 
         def report(e: dict, ok: bool, sealed: List[str]) -> None:
             send_done(e["task_id"], ok, sealed, e.get("_inline"))
-            fp_report(sealed, (e["task_id"], "FINISHED" if ok else "FAILED"))
+            fp_report(sealed, _done_event(e, ok))
 
         if aio is not None:
             exec_actor_task_async(entry, report)
@@ -599,7 +628,7 @@ def main(argv: List[str]) -> None:
                         sealed: List[str] = []
                         ok = run_body(entry, sealed)
                         send_done(entry["task_id"], ok, sealed, entry.get("_inline"))
-                        fp_report(sealed, (entry["task_id"], "FINISHED" if ok else "FAILED"))
+                        fp_report(sealed, _done_event(entry, ok))
                     lease_revoked[0] = False
                     return
                 now = time.monotonic()
@@ -631,13 +660,13 @@ def main(argv: List[str]) -> None:
             except SystemExit:
                 executing_main.clear()
                 send_done(entry["task_id"], True, sealed, entry.get("_inline"))
-                fp_report(sealed, (entry["task_id"], "FINISHED"))
+                fp_report(sealed, _done_event(entry, True))
                 raylet.notify("return_worker_lease", worker_id, lease_token)
                 os._exit(0)
             finally:
                 executing_main.clear()
             send_done(entry["task_id"], ok, sealed, entry.get("_inline"))
-            fp_report(sealed, (entry["task_id"], "FINISHED" if ok else "FAILED"))
+            fp_report(sealed, _done_event(entry, ok))
 
     step_done: Optional[dict] = None
     while True:

@@ -1,15 +1,24 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
 the feed's channel, the chaos controller, the cluster runtime (its object
-plane included) and the trainer record into.
+plane, fast path, GCS and error table included) and the trainer record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
-lane that hot paths cache. The JAX package flushes deltas to its GCS
-every second; the port's flush is not ported yet (ROADMAP Queue 1 item
-3.8), so values stay in the process that recorded them (a counter the GCS
-daemon bumps is read in that daemon) and `snapshot()` reads them.
-`RAY_TPU_INTERNAL_METRICS=0` turns every instrument into a no-op.
+lane that hot paths cache. Each lane keeps its process's cumulative value
+(`snapshot()` reads them). A daemon thread, started on a lane's first use,
+flushes the deltas since the last flush every second to the GCS's
+internal-metrics table (`report_internal_metrics`), where they add up per
+metric and tags across processes and `utils/state.py`'s
+`internal_metrics()` reads them. Every record carries `component` and
+`node_id` tags. The raylet and the GCS daemon set their own sink
+(`configure`); workers and drivers flush through their runtime's GCS
+client. A failed flush keeps its records for the next one, up to
+`_PENDING_CAP`, so a delta is sent once; a process killed between flushes
+loses at most one interval. A forked child starts its own flusher and does
+not report what its parent recorded before the fork.
+`RAY_TPU_INTERNAL_METRICS=0` turns every instrument into a no-op and starts
+no flusher.
 """
 
 from __future__ import annotations
@@ -17,11 +26,20 @@ from __future__ import annotations
 import bisect
 import os
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+_FLUSH_INTERVAL_S = 1.0
+_PENDING_CAP = 10_000
 
 _enabled = os.environ.get("RAY_TPU_INTERNAL_METRICS", "1") != "0"
 _lock = threading.Lock()
 _registry: Dict[str, "InternalMetric"] = {}
+_flusher_pid: Optional[int] = None  # the process whose flusher runs
+_pending: List[dict] = []
+_node_id: Optional[str] = None
+_reporter: Optional[str] = None
+_sink: Optional[Callable[[List[dict]], None]] = None
 
 # Latency histograms default to these millisecond buckets.
 DEFAULT_LATENCY_BOUNDARIES_MS = [
@@ -39,13 +57,29 @@ def is_enabled() -> bool:
     return _enabled
 
 
+def configure(node_id: Optional[str] = None, reporter: Optional[str] = None,
+              sink: Optional[Callable[[List[dict]], None]] = None) -> None:
+    """Stamps this process's node onto its flushed records and names it as
+    their reporter; `sink` overrides where they go (the raylet's GCS
+    client, the GCS's own table). Without one, records go to the current
+    runtime's GCS."""
+    global _node_id, _reporter, _sink
+    with _lock:
+        if node_id is not None:
+            _node_id = node_id
+        if reporter is not None:
+            _reporter = reporter
+        _sink = sink
+
+
 # ------------------------------------------------------------- instruments
 class _BoundCounter:
-    __slots__ = ("_value", "_mu")
+    __slots__ = ("_value", "_mu", "_flushed")
 
     def __init__(self):
         self._value = 0.0
         self._mu = threading.Lock()
+        self._flushed = 0.0  # the total the last flush reported
 
     def inc(self, value: float = 1.0) -> None:
         if not _enabled:
@@ -56,33 +90,53 @@ class _BoundCounter:
     def read(self) -> float:
         return self._value
 
+    def _delta(self) -> Optional[dict]:
+        with self._mu:
+            d, self._flushed = self._value - self._flushed, self._value
+        return {"value": d} if d else None
+
+    def _rebase(self) -> None:
+        self._flushed = self._value
+
 
 class _BoundGauge:
-    __slots__ = ("_value",)
+    __slots__ = ("_value", "_set")
 
     def __init__(self):
         self._value = 0.0
+        self._set = False
 
     def set(self, value: float) -> None:
         if not _enabled:
             return
         self._value = float(value)
+        self._set = True
 
     def read(self) -> float:
         return self._value
+
+    def _delta(self) -> Optional[dict]:
+        # Re-sent every flush: the GCS keeps a gauge's value per reporter
+        # and drops a reporter silent for 30 s.
+        return {"value": self._value} if self._set else None
+
+    def _rebase(self) -> None:
+        self._set = False
 
 
 class _BoundHistogram:
     """Sum, count and per-bucket counts (bucket i holds values at or below
     boundaries[i]; the last bucket the rest)."""
 
-    __slots__ = ("_boundaries", "_sum", "_counts", "_mu")
+    __slots__ = ("_boundaries", "_sum", "_counts", "_mu", "_flushed_sum", "_flushed_counts")
 
     def __init__(self, boundaries: List[float]):
         self._boundaries = boundaries
         self._sum = 0.0
         self._counts = [0] * (len(boundaries) + 1)
         self._mu = threading.Lock()
+        self._flushed_sum = 0.0
+        self._flushed_counts = [0] * (len(boundaries) + 1)
 
     def observe(self, value: float) -> None:
         if not _enabled:
@@ -95,6 +149,18 @@ class _BoundHistogram:
         with self._mu:
             return {"sum": self._sum, "count": sum(self._counts),
                     "counts": list(self._counts), "boundaries": self._boundaries}
+
+    def _delta(self) -> Optional[dict]:
+        with self._mu:
+            counts = [a - b for a, b in zip(self._counts, self._flushed_counts)]
+            d_sum = self._sum - self._flushed_sum
+            self._flushed_counts, self._flushed_sum = list(self._counts), self._sum
+        if not any(counts):
+            return None
+        return {"value": d_sum, "counts": counts, "boundaries": self._boundaries}
+
+    def _rebase(self) -> None:
+        self._flushed_counts, self._flushed_sum = list(self._counts), self._sum
 
 
 class InternalMetric:
@@ -131,11 +197,25 @@ class InternalMetric:
                 raise ValueError(f"undeclared tag key(s) {sorted(extra)} for {self.name}")
             with _lock:
                 b = self._bound.setdefault(key, self._make_bound())
+            _ensure_flusher()
         return b
 
     def values(self) -> Dict[Tuple, Any]:
         """{sorted (tag, value) pairs: the lane's reading}."""
         return {key: b.read() for key, b in list(self._bound.items())}
+
+    def _collect(self, node_id: str) -> List[dict]:
+        out = []
+        for key, b in list(self._bound.items()):
+            rec = b._delta()
+            if rec is None:
+                continue
+            tags = dict(key)
+            tags["component"] = self.component
+            tags.setdefault("node_id", node_id)
+            rec.update({"name": self.name, "kind": self.kind, "tags": tags})
+            out.append(rec)
+        return out
 
 
 class Counter(InternalMetric):
@@ -174,10 +254,85 @@ class Histogram(InternalMetric):
 
 
 def snapshot() -> Dict[str, Dict[Tuple, Any]]:
-    """Every metric's lanes: {name: {tags: value}}."""
+    """Every metric's lanes in this process: {name: {tags: value}}."""
     with _lock:
         metrics = list(_registry.values())
     return {m.name: m.values() for m in metrics}
+
+
+# ------------------------------------------------------------------ flusher
+def _default_sink() -> Optional[Callable[[List[dict]], None]]:
+    from ..core import runtime_base
+
+    rt = runtime_base.maybe_runtime()
+    gcs = getattr(rt, "_gcs", None)
+    if gcs is None or getattr(rt, "_shutdown_done", False):
+        return None
+    rid = _reporter or getattr(rt, "_worker_id", None) or f"pid{os.getpid()}"
+    return lambda recs: gcs.call("report_internal_metrics", rid, recs, timeout=10.0)
+
+
+def _flush_once() -> None:
+    """Sends every lane's delta since the last flush, with the records a
+    failed flush kept; keeps them (at most `_PENDING_CAP`) if this one fails
+    or no GCS is there yet."""
+    global _pending
+    sink = _sink or _default_sink()
+    with _lock:
+        metrics = list(_registry.values())
+        records, _pending = _pending, []
+        node = _node_id or f"pid{os.getpid()}"
+    for m in metrics:
+        records.extend(m._collect(node))
+    if not records:
+        return
+    try:
+        if sink is None:
+            raise ConnectionError("no GCS to flush to")
+        sink(records)
+    except Exception:  # noqa: BLE001 - kept for the next flush
+        with _lock:
+            _pending = (records + _pending)[:_PENDING_CAP]
+
+
+def _flush_loop() -> None:
+    while _flusher_pid == os.getpid():
+        time.sleep(_FLUSH_INTERVAL_S)
+        _flush_once()
+
+
+def _ensure_flusher() -> None:
+    """Starts this process's flusher on a lane's first use (never at import:
+    the zygote imports this module and must not run a thread when it
+    forks)."""
+    global _flusher_pid
+    if not _enabled or _flusher_pid == os.getpid():
+        return
+    with _lock:
+        if _flusher_pid == os.getpid():
+            return
+        _flusher_pid = os.getpid()
+    threading.Thread(target=_flush_loop, daemon=True, name="internal-metrics").start()
+
+
+def _after_fork_in_child() -> None:
+    """A forked child reports only what it records itself: the parent's
+    unflushed deltas stay the parent's, and the parent's flusher thread did
+    not survive the fork."""
+    global _flusher_pid, _pending, _lock
+    _lock = threading.Lock()
+    _pending = []
+    _flusher_pid = None
+    lanes = [b for m in _registry.values() for b in m._bound.values()]
+    for b in lanes:
+        if hasattr(b, "_mu"):
+            b._mu = threading.Lock()
+        b._rebase()
+    if lanes:
+        _ensure_flusher()
+
+
+os.register_at_fork(after_in_child=_after_fork_in_child)
 
 
 # ============================================================ metric_defs
@@ -408,6 +563,36 @@ ZYGOTE_FORK_LATENCY = Histogram(
     "Worker spawn latency, by mechanism (prefork, zygote fork, popen)",
     component="zygote",
     tag_keys=("mode",),
+)
+# --- GCS: pubsub and the error table (core/gcs.py) -------------------------
+GCS_PUBSUB_BACKLOG = Gauge(
+    "raytpu_gcs_pubsub_backlog",
+    "Entries retained across GCS pubsub channel logs",
+    component="gcs",
+)
+GCS_PUBSUB_DELTAS = Counter(
+    "raytpu_pubsub_deltas_total",
+    "Delta entries delivered to pubsub_poll2 subscribers, by channel",
+    component="gcs",
+    tag_keys=("channel",),
+)
+GCS_PUBSUB_RESYNCS = Counter(
+    "raytpu_pubsub_resyncs_total",
+    "Subscriber resyncs: gap responses (cursor fell behind the retention "
+    "ring) plus snapshot serves, by channel",
+    component="gcs",
+    tag_keys=("channel",),
+)
+ERROR_REPORTS = Counter(
+    "raytpu_error_reports_total",
+    "Uncaught worker exceptions / crashes reported to the GCS error table",
+    component="gcs",
+)
+# --- fast path (core/fastpath.py) --------------------------------------------
+FASTPATH_RTT = Histogram(
+    "raytpu_fastpath_rtt_ms",
+    "Direct-push round trip: owner send to completion ack",
+    component="fastpath",
 )
 # --- chaos ------------------------------------------------------------------
 CHAOS_INJECTIONS = Counter(

@@ -7,10 +7,11 @@ spread and node affinity, spillback and cross-node transfer on a two-node
 Cluster, node failure), each run on both packages with the same functions
 and numpy inputs.
 
-One two-node cluster of each package serves the whole file (module fixture):
-every JAX `Cluster()` sweeps /dev/shm/rtpu_* and can unlink a starting
-node's pool in another test process (ROADMAP Queue 3), so the JAX cluster
-boots once. Test functions are defined inside the tests: cloudpickle sends
+One two-node cluster of each package serves the whole file (a module fixture
+per package, booted on its first case): every JAX `Cluster()` sweeps
+/dev/shm/rtpu_* and can unlink a starting node's pool in another test
+process (ROADMAP Queue 3), so the JAX cluster boots once, through
+tests/torch_modes.py's `boot_jax_cluster`. Test functions are defined inside the tests: cloudpickle sends
 them to the JAX workers and the port's serializer by value to its own.
 """
 
@@ -23,6 +24,7 @@ import pytest
 
 import ray_tpu as jrt
 import ray_tpu_torch as trt
+import torch_modes
 from ray_tpu_torch.core import serialization
 
 serialization.register_pickle_by_value(sys.modules[__name__])
@@ -31,34 +33,41 @@ PKGS = ("jax", "torch")
 
 
 @pytest.fixture(scope="module")
-def clusters():
+def jax_cluster():
     from ray_tpu.core import runtime_base as jbase
-    from ray_tpu.core.cluster_runtime import Cluster as JaxCluster
-    from ray_tpu_torch.core import runtime_base as tbase
-    from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
 
     jrt.shutdown()
-    trt.shutdown()
-    out = {}
-    jc = JaxCluster(num_cpus=2, num_workers=2)
+    jc = torch_modes.boot_jax_cluster(num_cpus=2, num_workers=2)
     try:
         jn2 = jc.add_node(num_cpus=2, resources={"special": 2.0})
         jbase.set_runtime(jc.runtime())
-        out["jax"] = types.SimpleNamespace(rt=jrt, cluster=jc, node2=jn2, base=jbase)
-        tc = TorchCluster(num_cpus=2, num_gpus=0)
-        tn2 = tc.add_node(num_cpus=2, resources={"special": 2.0})
-        tbase.set_runtime(tc.runtime())
-        out["torch"] = types.SimpleNamespace(rt=trt, cluster=tc, node2=tn2, base=tbase)
-        yield out
+        yield types.SimpleNamespace(rt=jrt, cluster=jc, node2=jn2, base=jbase)
     finally:
-        trt.shutdown()
         jrt.shutdown()
         jc.shutdown()
 
 
+@pytest.fixture(scope="module")
+def torch_cluster():
+    from ray_tpu_torch.core import runtime_base as tbase
+    from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
+
+    trt.shutdown()
+    tc = TorchCluster(num_cpus=2, num_gpus=0)
+    try:
+        tn2 = tc.add_node(num_cpus=2, resources={"special": 2.0})
+        tbase.set_runtime(tc.runtime())
+        yield types.SimpleNamespace(rt=trt, cluster=tc, node2=tn2, base=tbase)
+    finally:
+        trt.shutdown()
+        tc.shutdown()
+
+
 @pytest.fixture(params=PKGS)
-def c(request, clusters):
-    return clusters[request.param]
+def c(request):
+    """The cluster of the case's package only: a failed boot of one package
+    errors that package's cases and no others."""
+    return request.getfixturevalue(f"{request.param}_cluster")
 
 
 def test_tasks_and_chained_deps(c):
@@ -397,10 +406,10 @@ def test_duplicate_submit_is_deduped(c, tmp_path):
     assert marker.read_text() == "x"
 
 
-def test_cluster_task_imports_no_jax(clusters):
+def test_cluster_task_imports_no_jax(torch_cluster):
     """The port's worker processes load neither jax nor ray_tpu. They fork
     from the zygote, which imported torch without initialising CUDA."""
-    rt = clusters["torch"].rt
+    rt = torch_cluster.rt
 
     @rt.remote
     def modules():
@@ -412,14 +421,14 @@ def test_cluster_task_imports_no_jax(clusters):
     assert rt.get(modules.remote(), timeout=60) == (["torch"], False)
 
 
-def test_a_ref_collected_under_the_ref_lock_does_not_deadlock(clusters):
+def test_a_ref_collected_under_the_ref_lock_does_not_deadlock(torch_cluster):
     """A garbage collection can run an ObjectRef's finalizer on a thread that
     holds the runtime's reference lock; the drop is queued, not taken on the
     held lock (the JAX copy deadlocks there: ROADMAP Queue 3), and the free
     loop applies it."""
     import gc
 
-    c = clusters["torch"]
+    c = torch_cluster
     runtime = c.base.current_runtime()
 
     class Cycle:

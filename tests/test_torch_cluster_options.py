@@ -24,6 +24,7 @@ import ray_tpu as jrt
 import ray_tpu_torch as trt
 from ray_tpu import exceptions as jexc
 from ray_tpu_torch import exceptions as texc
+import torch_modes
 from ray_tpu_torch.core import serialization
 
 from torch_waits import wait_for
@@ -34,32 +35,38 @@ PKGS = ("jax", "torch")
 
 
 @pytest.fixture(scope="module")
-def clusters():
+def jax_cluster():
     from ray_tpu.core import runtime_base as jbase
-    from ray_tpu.core.cluster_runtime import Cluster as JaxCluster
-    from ray_tpu_torch.core import runtime_base as tbase
-    from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
 
     jrt.shutdown()
-    trt.shutdown()
-    out = {}
-    jc = JaxCluster(num_cpus=4, num_workers=2)
+    jc = torch_modes.boot_jax_cluster(num_cpus=4, num_workers=2)
     try:
         jbase.set_runtime(jc.runtime())
-        out["jax"] = types.SimpleNamespace(rt=jrt, exc=jexc, base=jbase)
-        tc = TorchCluster(num_cpus=4, num_gpus=0)
-        tbase.set_runtime(tc.runtime())
-        out["torch"] = types.SimpleNamespace(rt=trt, exc=texc, base=tbase)
-        yield out
+        yield types.SimpleNamespace(rt=jrt, exc=jexc, base=jbase)
     finally:
-        trt.shutdown()
         jrt.shutdown()
         jc.shutdown()
 
 
+@pytest.fixture(scope="module")
+def torch_cluster():
+    from ray_tpu_torch.core import runtime_base as tbase
+    from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
+
+    trt.shutdown()
+    tc = TorchCluster(num_cpus=4, num_gpus=0)
+    try:
+        tbase.set_runtime(tc.runtime())
+        yield types.SimpleNamespace(rt=trt, exc=texc, base=tbase)
+    finally:
+        trt.shutdown()
+        tc.shutdown()
+
+
 @pytest.fixture(params=PKGS)
-def c(request, clusters):
-    return clusters[request.param]
+def c(request):
+    """The cluster of the case's package only (one module fixture each)."""
+    return request.getfixturevalue(f"{request.param}_cluster")
 
 
 # ------------------------------------------------------------ concurrency

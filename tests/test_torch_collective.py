@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 from ray_tpu_torch.core import serialization
+import torch_modes
 
 serialization.register_pickle_by_value(sys.modules[__name__])
 
@@ -133,7 +134,8 @@ def clusters():
         for name in PKGS:
             Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
             kw = {"num_gpus": 0} if name == "torch" else {}
-            cluster = Cluster(num_cpus=4, num_workers=3, **kw)
+            boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+            cluster = boot(num_cpus=4, num_workers=3, **kw)
             booted[name] = types.SimpleNamespace(
                 name=name, cluster=cluster, runtime=cluster.runtime(),
                 rt=importlib.import_module(_ROOT[name]),

@@ -42,7 +42,7 @@ import types
 import pytest
 
 from ray_tpu_torch.core import serialization
-
+import torch_modes
 from torch_waits import bounded, wait_for
 
 serialization.register_pickle_by_value(sys.modules[__name__])
@@ -67,7 +67,7 @@ class _Clusters:
             Cluster = importlib.import_module(f"{PACKAGES[name]}.core.cluster_runtime").Cluster
             pkg.shutdown()
             if name == "jax":
-                cluster = bounded(lambda: Cluster(num_cpus=2), 120)
+                cluster = bounded(lambda: torch_modes.boot_jax_cluster(num_cpus=2), 120)
             else:
                 cluster = Cluster(num_cpus=2, num_gpus=0)
             runtime = cluster.runtime()
@@ -141,16 +141,48 @@ def _count(c, metric, **tags):
         return lane._retired + sum(cell[0] for _, cell in lane._cells)
 
 
+class _Terminator(threading.Thread):
+    """Removes a preempted node at its deadline, or at once on `finish()`.
+    Every one is finished before its test ends (`_terminators_joined`), so
+    none outlives its test and acts on a cluster that was shut down."""
+
+    live = []
+
+    def __init__(self, c, node_id, deadline_s):
+        super().__init__(daemon=True, name=f"terminate-{node_id[:8]}")
+        self._c, self._node_id, self._deadline_s = c, node_id, deadline_s
+        self._now = threading.Event()
+        self.error = None
+        _Terminator.live.append(self)
+
+    def run(self):
+        self._now.wait(self._deadline_s)
+        try:
+            self._c.cluster.remove_node(self._node_id)
+        except BaseException as e:  # noqa: BLE001 - raised by finish()
+            self.error = e
+
+    def finish(self, timeout=60.0):
+        self._now.set()
+        self.join(timeout)
+        assert not self.is_alive(), f"remove_node({self._node_id[:8]}) still running"
+        if self.error is not None:
+            raise self.error
+
+
+@pytest.fixture(autouse=True)
+def _terminators_joined():
+    yield
+    live, _Terminator.live = _Terminator.live, []
+    for t in live:
+        t.finish()
+
+
 def _preempt(c, node_id, deadline_s):
     """What LocalNodeProvider.inject_preemption does: the notice now, the
     node's death at the deadline. Returns the thread that removes it."""
     assert c.gcs.call("report_preemption", node_id, deadline_s, "spot preemption (injected)")
-
-    def terminate():
-        time.sleep(deadline_s)
-        c.cluster.remove_node(node_id)
-
-    t = threading.Thread(target=terminate, daemon=True)
+    t = _Terminator(c, node_id, deadline_s)
     t.start()
     return t
 
@@ -555,7 +587,7 @@ def test_serve_replaces_replicas_on_draining_node(c):
                 "still_up": still_up, "remover": remover}
 
     seen = bounded(case, CASE_TIMEOUT)
-    seen.pop("remover").join(0)  # the victim is removed at its deadline, in the background
+    seen.pop("remover").finish()  # the victim goes now, not at its deadline after the test
     assert seen == {"before": 1, "replaced": True, "after": 1, "new_actor": True,
                     "moved": True, "on_slot_node": True, "failed": [], "called": True,
                     "still_up": "still-up"}

@@ -27,6 +27,7 @@ import types
 import pytest
 
 from ray_tpu_torch.core import serialization
+import torch_modes
 
 serialization.register_pickle_by_value(sys.modules[__name__])
 
@@ -66,7 +67,8 @@ def c(request, clusters):
         try:
             Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
             kw = {"num_gpus": 0} if name == "torch" else {}
-            cluster = Cluster(num_cpus=2, num_workers=1, **kw)
+            boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+            cluster = boot(num_cpus=2, num_workers=1, **kw)
         finally:
             if saved is None:
                 os.environ.pop(_PLUGINS_ENV, None)

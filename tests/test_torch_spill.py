@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from ray_tpu_torch.core import serialization
+import torch_modes
 from torch_waits import wait_for
 
 serialization.register_pickle_by_value(sys.modules[__name__])
@@ -35,7 +36,8 @@ def _boot(name):
     rt = importlib.import_module(_ROOT[name])
     Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
     kw = {"num_gpus": 0} if name == "torch" else {}
-    cluster = Cluster(num_cpus=2, num_workers=2, object_store_memory=POOL, **kw)
+    boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+    cluster = boot(num_cpus=2, num_workers=2, object_store_memory=POOL, **kw)
     far = cluster.add_node(num_cpus=2, resources={"far": 1.0}, num_workers=0)
     others = [cluster.add_node(num_cpus=1, num_workers=0) for _ in range(2)]
     return types.SimpleNamespace(name=name, rt=rt, cluster=cluster, runtime=cluster.runtime(),

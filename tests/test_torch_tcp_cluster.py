@@ -28,6 +28,7 @@ import pytest
 import ray_tpu as jrt
 import ray_tpu_torch as trt
 from ray_tpu_torch.core import serialization
+import torch_modes
 
 serialization.register_pickle_by_value(sys.modules[__name__])
 
@@ -39,7 +40,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def tcp_clusters():
     from ray_tpu.core import runtime_base as jbase
-    from ray_tpu.core.cluster_runtime import Cluster as JaxCluster
     from ray_tpu.core.cluster_runtime import start_worker_node as jax_join
     from ray_tpu_torch.core import runtime_base as tbase
     from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
@@ -51,11 +51,12 @@ def tcp_clusters():
     trt.shutdown()
     out, stops = {}, []
     try:
-        jc = JaxCluster(num_cpus=1, head_port=0)
+        jc = torch_modes.boot_jax_cluster(num_cpus=1, head_port=0)
         stops.append(jc.shutdown)
         jbase.set_runtime(jc.runtime())
         stops.append(jrt.shutdown)
-        jj = jax_join(jc.gcs_tcp_address, num_cpus=2, resources={"joined": 1.0})
+        jj = torch_modes.jax_boot(jax_join, jc.gcs_tcp_address, num_cpus=2,
+                                  resources={"joined": 1.0})
         stops.append(lambda: jj["proc"].poll() is None and jj["proc"].kill())
         out["jax"] = types.SimpleNamespace(rt=jrt, cluster=jc, joined=jj, name="jax")
         tc = TorchCluster(num_cpus=1, num_gpus=0, head_port=0)

@@ -32,6 +32,7 @@ import types
 import pytest
 
 from ray_tpu_torch.core import serialization
+import torch_modes
 from torch_waits import wait_for
 
 serialization.register_pickle_by_value(sys.modules[__name__])
@@ -207,7 +208,8 @@ def _boot(name, **kw):
     Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
     if name == "torch":
         kw["num_gpus"] = 2  # device ids to lease; no CUDA device is touched
-    cluster = Cluster(num_cpus=4, object_store_memory=192 << 20, **kw)
+    boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+    cluster = boot(num_cpus=4, object_store_memory=192 << 20, **kw)
     runtime = cluster.runtime()
     base.set_runtime(runtime)
     return types.SimpleNamespace(name=name, rt=rt, cluster=cluster, runtime=runtime, base=base,

@@ -8,10 +8,111 @@ wraps `Clusters`), on first use: every JAX `Cluster()` sweeps
 process (ROADMAP Queue 3), so it boots once per file. A case takes the
 cluster's runtime for its run and puts it back after, so local-mode cases
 of the same file run in between.
+
+Every test_torch_* file boots the JAX package's clusters through
+`boot_jax_cluster` (or `jax_boot` for `start_worker_node`).
 """
 
 import contextlib
+import fcntl
 import importlib
+import os
+import shutil
+import signal
+import tempfile
+
+# One lock file for every test process of the port: a JAX boot holds it from
+# its sweep of /dev/shm/rtpu_* until the cluster answers.
+JAX_BOOT_LOCK = os.path.join(tempfile.gettempdir(), "rtpt_jax_boot.lock")
+
+
+@contextlib.contextmanager
+def _jax_boot_lock():
+    fd = os.open(JAX_BOOT_LOCK, os.O_RDWR | os.O_CREAT, 0o666)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+
+
+def jax_boot(fn, *args, **kwargs):
+    """fn(*args, **kwargs) under the JAX boot lock: a JAX `Cluster()` or
+    `start_worker_node`, whose session looks dead to a sweep until its
+    sockets answer. The lock keeps the port's test processes from sweeping
+    during each other's boots; the JAX package's own test files do not take
+    it (hence the retry in `boot_jax_cluster`)."""
+    with _jax_boot_lock():
+        return fn(*args, **kwargs)
+
+
+def _lost_own_socket(cluster, err) -> bool:
+    """The swept-session signature: a connect to a socket in this boot's own
+    session dir found no file (another process's sweep removed the dir)."""
+    session = getattr(cluster, "session_dir", None)
+    return (session is not None and isinstance(err.last_error, FileNotFoundError)
+            and os.path.dirname(os.path.realpath(err.address)) == os.path.realpath(session))
+
+
+def _discard_half_booted(cluster) -> None:
+    """Kills what a failed JAX `Cluster()` started (its daemons and whatever
+    names its session dir on its command line: the zygote, workers) and
+    removes its pools and session dir."""
+    session = getattr(cluster, "session_dir", None)
+    procs = list(getattr(cluster, "_procs", []))
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait(timeout=10)
+    if session:
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit() or int(pid) == os.getpid():
+                continue
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read()
+            except OSError:
+                continue
+            if session.encode() in cmd:
+                try:
+                    os.kill(int(pid), signal.SIGKILL)
+                except OSError:
+                    pass
+    for path in getattr(cluster, "_store_paths", {}).values():
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    if session:
+        shutil.rmtree(session, ignore_errors=True)
+
+
+def boot_jax_cluster(**kwargs):
+    """The JAX package's `Cluster(**kwargs)`, booted under the JAX boot lock.
+    A boot that fails with the swept-session signature (ROADMAP Queue 3: the
+    JAX sweep unlinked this boot's own socket) is shut down and booted once
+    more; any other failure, or a second one, is raised. The port's own boot
+    is never retried."""
+    from ray_tpu.core.cluster_runtime import Cluster
+    from ray_tpu.exceptions import RpcUnavailableError
+
+    for attempt in (1, 2):
+        cluster = Cluster.__new__(Cluster)
+        try:
+            jax_boot(cluster.__init__, **kwargs)
+            return cluster
+        except RpcUnavailableError as e:
+            _discard_half_booted(cluster)
+            if attempt == 2 or not _lost_own_socket(cluster, e):
+                raise
+            print(f"JAX Cluster() lost its own socket {e.address} (the JAX pool sweep of "
+                  f"another process, ROADMAP Queue 3): shut it down, booting once more",
+                  flush=True)
+        except BaseException:
+            _discard_half_booted(cluster)
+            raise
 
 PARAMS = [(p, m) for p in ("jax", "torch") for m in ("local", "cluster")]
 # Local-mode cases keep the ids they had before the cluster mode came.
@@ -29,9 +130,7 @@ class Clusters:
     def runtime(self, name):
         if name not in self._booted:
             if name == "jax":
-                from ray_tpu.core.cluster_runtime import Cluster
-
-                cluster = Cluster(num_cpus=self.num_cpus, num_workers=2)
+                cluster = boot_jax_cluster(num_cpus=self.num_cpus, num_workers=2)
             else:
                 from ray_tpu_torch.core.cluster_runtime import Cluster
 
