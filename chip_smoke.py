@@ -168,6 +168,25 @@ Phases, each printing its own line, any failure exits non-zero:
      the 16 calls FINISHED on the GPU node and state.timeline() one X span
      each; the flush lag, publish -> poll and each state call's ms; (d)
      nothing left after shutdown.
+  19. membership: epoch fencing, partitions and GCS restart on a fresh init()
+     whose head leases GPU 0, with a 0.25 s heartbeat, a 1.5 s timeout and
+     the GCS's snapshot pushed out to an hour, and two nodes added with
+     num_gpus=1: (a) a named num_gpus=0.5 actor running K1 at Llama-2-7B's
+     serve shape (q/k/v from a (seed, index) pair, held within 2^-6 per
+     entry of its plain version in its process) on an added node, a client
+     calling it all along, chaos.partition([[node], ["gcs"]]): the seconds
+     to the node declared dead, to the actor's record ALIVE on the other
+     GPU node, and after heal() to the zombie's fenced rejoin at the next
+     epoch and its worker gone from /proc and nvidia-smi's compute apps (it
+     held /dev/nvidia* files before); the successor's fixed-seed K1 output
+     bitwise equal to the zombie's; the rejoined node's GPU id free again;
+     the exactly-once audit (no acknowledged call lost, none applied twice,
+     none from nowhere), one ALIVE record, raytpu_nodes_fenced_total >= 1;
+     (b) the GCS killed and restarted with only its write-ahead log: the
+     old handle's next K1 call, get_actor by name, a KV value, every node
+     Alive again, and a new num_gpus=0.5 task seeing CUDA_VISIBLE_DEVICES
+     "0" and running K1 (seconds from the kill to its result, and its
+     parts); (c) nothing left after shutdown.
 Then a line of each phase's wall seconds and the whole smoke's, one JSON line
 with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
@@ -177,7 +196,8 @@ pipeline, the TP meshes and TP x SP; the deploy phase's cluster replica; the
 cluster's actor, NCCL trainer worker and gloo ranks; the preempted and
 restored workers, each elastic world, the old and new Serve replicas; the
 objects phase's two DAG actors and its runtime-env task; the ops phase's
-pool actors) under "launches_by_path"), and the
+pool actors; the membership phase's zombie and successor actors, its
+restart actor and task) under "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -4850,6 +4870,342 @@ def phase_ops():
     return {"ops pool actors": launches}
 
 
+# ------------------------------------------------------------- membership
+MEM_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
+MEM_FIXED_SEED = 3000  # (a): the K1 call held bitwise between the zombie and its successor
+MEM_HB = {"RAY_TPU_HEARTBEAT_INTERVAL_S": "0.25", "RAY_TPU_HEARTBEAT_TIMEOUT_S": "1.5",
+          # (b): no snapshot after the GCS's first: what a restart finds is in the log
+          "RAY_TPU_GCS_SNAPSHOT_INTERVAL_S": "3600"}
+MEM_TIMEOUT_S = 120
+
+
+def _mem_qkv(seed: int, index: int):
+    import torch
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed * 100_003 + index)
+    return [torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+class _MemAttend:
+    """The membership phase's GPU actor (num_gpus=0.5): each call builds
+    q/k/v from a (seed, index) pair on its card, runs K1 (causal), holds it
+    against the plain version in this process and, for (a)'s audit, records
+    its op id in the GCS KV."""
+
+    def __init__(self):
+        _zero_launch_counts()
+        self.worst = 0.0
+        self.calls = 0
+
+    def ready(self):
+        import torch
+
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        return os.getpid()
+
+    def _k1(self, seed, index):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        q, k, v = _mem_qkv(seed, index)
+        o = fa.flash_attention(q, k, v, causal=True)
+        o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+        self.worst = max(self.worst, entry_err(o, o_ref))
+        self.calls += 1
+        return o
+
+    def run(self, op_id, seed, index):
+        import uuid
+
+        from ray_tpu_torch.core.runtime_base import current_runtime
+
+        self._k1(seed, index)
+        current_runtime()._gcs.call(
+            "kv_put", f"memctr/{op_id}/{os.getpid()}-{uuid.uuid4().hex[:6]}", b"1")
+        return os.getpid()
+
+    def fixed(self):
+        """K1 on the fixed seed: the sha256 of its output's bytes."""
+        return _tensor_sha(self._k1(MEM_FIXED_SEED, 0)), os.getpid()
+
+    def report(self):
+        return {"launches": _launch_counts(), "worst": self.worst, "pid": os.getpid(),
+                "calls": self.calls}
+
+
+def _mem_gpu_task(seed):
+    """(b)'s task after the restart: the device ids it sees, K1 against its
+    plain version, and its wall clock at its start, with q/k/v made (the
+    CUDA context), after K1 and at its end."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    stamps = [time.time()]
+    _zero_launch_counts()
+    q, k, v = _mem_qkv(seed, 0)
+    torch.cuda.synchronize()
+    stamps.append(time.time())
+    o = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    stamps.append(time.time())
+    o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    err = entry_err(o, o_ref)
+    stamps.append(time.time())
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), err, _launch_counts(), os.getpid(), stamps
+
+
+def _mem_wait(pred, what, t0, timeout_s=MEM_TIMEOUT_S):
+    """Seconds from t0 until pred() holds; fails the phase past the timeout."""
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            _fail(f"membership: {what} did not happen in {timeout_s:.0f} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _mem_partition(rt, runtime, cluster, smi):
+    """(a): a node holding a named K1 actor cut off from the GCS while a
+    client calls the actor; death, rescheduling, the fence on heal, the card
+    freed, the exactly-once audit. Returns the launches of both instances."""
+    import threading
+    import uuid
+
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.utils import state
+
+    gcs = runtime._gcs
+    nodes = [cluster.add_node(num_cpus=2, num_gpus=1, resources={"mem": 1.0})
+             for _ in range(2)]
+    cls = rt.remote(max_restarts=-1, num_gpus=0.5, resources={"mem": 0.5})(_MemAttend)
+    actor = cls.options(name="mem_k1").remote()
+    zombie_pid = rt.get(actor.ready.remote(), timeout=MEM_TIMEOUT_S)
+    zombie_sha, _ = rt.get(actor.fixed.remote(), timeout=MEM_TIMEOUT_S)
+
+    def actor_node():
+        for a in state.list_actors():
+            if a.get("name") == "mem_k1" and a["state"] == "ALIVE":
+                return a.get("node_id")
+        return None
+
+    def node(nid):
+        return {n["NodeID"]: n for n in gcs.call("list_nodes")}[nid]
+
+    victim = actor_node()
+    if victim not in nodes:
+        _fail(f"membership: the actor runs on {victim}, not on an added node {nodes}")
+    stop, acked, errored = threading.Event(), set(), set()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            op = uuid.uuid4().hex[:12]
+            i += 1
+            try:
+                rt.get(actor.run.remote(op, 4000, i), timeout=20)
+                acked.add(op)
+            except Exception:  # noqa: BLE001 - errored: the audit allows at most one apply
+                errored.add(op)
+                time.sleep(0.2)
+            time.sleep(0.03)
+
+    t = threading.Thread(target=client, daemon=True, name="membership-client")
+    t.start()
+    _mem_wait(lambda: len(acked) >= 5, "5 acknowledged calls", time.perf_counter())
+    apps_before = _compute_app_pids()
+    t0 = time.perf_counter()
+    part = chaos.partition([[victim], ["gcs"]], heal_after=60.0, runtime=runtime)
+    dead_s = _mem_wait(lambda: not node(victim)["Alive"], "the victim declared dead", t0)
+    resched_s = _mem_wait(lambda: actor_node() not in (None, victim),
+                          "the actor rescheduled off the victim", t0)
+    successor_node = actor_node()
+    # The zombie still serves the driver over its direct channel: its
+    # launches are read before the fence kills it, and its open /dev/nvidia*
+    # files show the CUDA context it holds.
+    zombie_rep = rt.get(actor.report.remote(), timeout=MEM_TIMEOUT_S)
+    zombie_fds = _nvidia_fds(zombie_pid)
+    old_epoch = node(victim)["Epoch"]
+    t_heal = time.perf_counter()
+    part.heal()
+    fenced_s = _mem_wait(lambda: node(victim)["Alive"] and node(victim)["Epoch"] == old_epoch + 1,
+                         "the victim's fenced rejoin at the next epoch", t_heal)
+    gone_s = _mem_wait(lambda: not os.path.exists(f"/proc/{zombie_pid}"),
+                       "the zombie's worker gone from /proc", t_heal)
+    freed_s = _mem_wait(lambda: zombie_pid not in _compute_app_pids(),
+                        "the zombie's pid gone from nvidia-smi's compute apps", t_heal)
+    apps_after = _compute_app_pids()
+    stop.set()
+    t.join(60)
+    successor_sha, successor_pid = rt.get(actor.fixed.remote(), timeout=MEM_TIMEOUT_S)
+    successor_rep = rt.get(actor.report.remote(), timeout=MEM_TIMEOUT_S)
+    victim_state = runtime._raylet_for(node(victim)["sock"]).call("debug_state")
+    alive = [a for a in state.list_actors() if a.get("name") == "mem_k1" and a["state"] == "ALIVE"]
+
+    applied = {}
+    for key in gcs.call("kv_keys", "memctr/"):
+        op = key[len("memctr/"):].split("/", 1)[0]
+        applied[op] = applied.get(op, 0) + 1
+    lost = [op for op in acked if applied.get(op, 0) == 0]
+    duped = [op for op, n in applied.items() if n > 1]
+    phantom = [op for op in applied if op not in acked | errored]
+
+    def fenced_total():
+        return sum(m["value"] for m in state.internal_metrics()
+                   if m["name"] == "raytpu_nodes_fenced_total")
+
+    deadline = time.monotonic() + 15
+    while fenced_total() < 1 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    fenced = fenced_total()
+    reps = {"zombie": zombie_rep, "successor": successor_rep}
+    print(f"[membership] (a) {smi}: named actor (num_gpus=0.5) on node {victim[:12]}, pid "
+          f"{zombie_pid}; partition([[victim], ['gcs']]) at 0 s: declared dead at "
+          f"{dead_s:.3f} s, rescheduled onto {str(successor_node)[:12]} at {resched_s:.3f} s; "
+          f"heal: the zombie fenced and back at epoch {old_epoch + 1} after {fenced_s:.3f} s, "
+          f"its worker gone from /proc after {gone_s:.3f} s and from nvidia-smi's compute apps "
+          f"after {freed_s:.3f} s (compute apps before the partition {apps_before}, after "
+          f"{apps_after}; the zombie listed before: {zombie_pid in apps_before}; its open "
+          f"/dev/nvidia* files before the heal {zombie_fds}); the victim's "
+          f"GPU pool after the rejoin {victim_state['gpu_pool']}, available GPU "
+          f"{victim_state['available'].get('GPU')}; fixed-seed K1 sha256 zombie "
+          f"{zombie_sha[:16]} successor (pid {successor_pid}) {successor_sha[:16]}; audit: "
+          f"{len(acked)} acked, {len(errored)} errored, lost {len(lost)}, doubled "
+          f"{len(duped)}, phantom {len(phantom)}; ALIVE records {len(alive)}; "
+          f"raytpu_nodes_fenced_total {fenced:.0f}; K1 launches by instance "
+          f"{ {k: r['launches']['flash_fwd'] for k, r in reps.items()} }, worst per-entry "
+          f"error {({k: round(r['worst'], 6) for k, r in reps.items()})} (tol {MEM_TOL})",
+          flush=True)
+    if successor_node not in nodes or successor_node == victim or successor_pid == zombie_pid:
+        _fail(f"membership: the successor runs on {successor_node} in pid {successor_pid}")
+    if successor_sha != zombie_sha:
+        _fail("membership: the successor's fixed-seed K1 output differs from the zombie's")
+    if not zombie_fds or zombie_pid in apps_after or os.path.exists(f"/proc/{zombie_pid}"):
+        _fail("membership: the zombie held no CUDA context, or its worker outlived the fence")
+    if victim_state["gpu_pool"] != {"0": 1.0} or victim_state["available"].get("GPU") != 1.0:
+        _fail("membership: the rejoined node did not get its GPU back")
+    if lost or duped or phantom or len(alive) != 1:
+        _fail(f"membership: audit lost {lost[:5]} doubled {duped[:5]} phantom {phantom[:5]}, "
+              f"{len(alive)} ALIVE records")
+    if not fenced >= 1:
+        _fail(f"membership: raytpu_nodes_fenced_total reads {fenced}")
+    for k, r in reps.items():
+        if r["launches"]["flash_fwd"] != r["calls"] or r["calls"] == 0:
+            _fail(f"membership: K1 launched {r['launches']} in the {k} for {r['calls']} calls")
+        if not r["worst"] <= MEM_TOL:
+            _fail(f"membership: K1 in the {k} off its plain version by {r['worst']:.4g}")
+    return {f"membership {k} actor": r["launches"] for k, r in reps.items()}
+
+
+def _mem_restart(rt, runtime, cluster, smi):
+    """(b): a GCS restart with only its write-ahead log to go on: the old
+    handle, get_actor by name, the KV, the node table and a new GPU task."""
+    import glob
+
+    gcs = runtime._gcs
+    actor = rt.remote(num_gpus=0.5)(_MemAttend).options(name="mem_wal").remote()
+    rt.get(actor.ready.remote(), timeout=MEM_TIMEOUT_S)
+    rt.get(actor.run.remote("wal-0", 5000, 0), timeout=MEM_TIMEOUT_S)
+    gcs.call("kv_put", "mem-wal-key", b"survives")
+    alive_before = sorted(n["NodeID"] for n in gcs.call("list_nodes") if n["Alive"])
+    logs = glob.glob(os.path.join(cluster.log_dir, "raylet_*.err"))
+    log_bytes = sum(os.path.getsize(p) for p in logs)
+    t0 = time.perf_counter()
+    cluster.restart_gcs()
+    restart_s = time.perf_counter() - t0
+    rt.get(actor.run.remote("wal-1", 5000, 1), timeout=MEM_TIMEOUT_S)
+    old_handle_s = time.perf_counter() - t0
+    named = rt.get_actor("mem_wal")
+    rt.get(named.run.remote("wal-2", 5000, 2), timeout=MEM_TIMEOUT_S)
+    kv = gcs.call("kv_get", "mem-wal-key")
+    alive_s = _mem_wait(lambda: sorted(n["NodeID"] for n in gcs.call("list_nodes")
+                                       if n["Alive"]) == alive_before,
+                        "every node Alive after the restart", t0)
+    t_submit = time.time()
+    visible, err, task_launches, task_pid, stamps = rt.get(
+        rt.remote(num_gpus=0.5)(_mem_gpu_task).remote(6000), timeout=MEM_TIMEOUT_S)
+    task_s = time.perf_counter() - t0
+    task_parts = [stamps[0] - t_submit] + [b - a for a, b in zip(stamps, stamps[1:])]
+    rep = rt.get(actor.report.remote(), timeout=MEM_TIMEOUT_S)
+    epochs = {n["NodeID"][:12]: n["Epoch"] for n in gcs.call("list_nodes")}
+    log_growth = sum(os.path.getsize(p) for p in logs) - log_bytes
+    print(f"[membership] (b) {smi}: GCS killed and restarted in {restart_s:.3f} s (snapshot "
+          f"interval 3600 s: the log alone); the old handle's K1 call back {old_handle_s:.3f} s "
+          f"after the kill, get_actor('mem_wal') called, KV value {kv!r}, every node "
+          f"({len(alive_before)}) Alive after {alive_s:.3f} s (epochs {epochs}), a new "
+          f"num_gpus=0.5 task (pid {task_pid}, CUDA_VISIBLE_DEVICES={visible!r}) ran K1 "
+          f"{task_launches['flash_fwd']} time(s) within {err:.6f} per entry (tol {MEM_TOL}): "
+          f"kill -> its result {task_s:.3f} s (submit -> the task's start {task_parts[0]:.3f} s, "
+          f"its CUDA context and q/k/v {task_parts[1]:.3f} s, its first K1 call "
+          f"{task_parts[2]:.3f} s, the plain version {task_parts[3]:.3f} s); the actor's K1 "
+          f"launches "
+          f"{rep['launches']['flash_fwd']}, worst {rep['worst']:.6f}; the raylets' logs grew "
+          f"{log_growth} bytes over the restart", flush=True)
+    if kv != b"survives":
+        _fail("membership: the KV value did not survive the GCS restart")
+    if visible != "0" or task_launches["flash_fwd"] != 1 or not err <= MEM_TOL:
+        _fail("membership: the new GPU task did not see device 0 or its K1 missed")
+    if rep["launches"]["flash_fwd"] != rep["calls"] or not rep["worst"] <= MEM_TOL:
+        _fail(f"membership: the restart actor's K1 {rep}")
+    return {"membership restart actor": rep["launches"], "membership restart task": task_launches}
+
+
+def phase_membership():
+    """Partitions, epoch fencing and GCS restart on the cluster runtime, on a
+    fresh init() whose head leases GPU 0, with a 0.25 s heartbeat, a 1.5 s
+    timeout and the snapshot pushed out to an hour in the daemons'
+    environment, and two nodes added with num_gpus=1: (a) a partitioned K1
+    actor rescheduled, fenced and freed from the card with an exactly-once
+    audit; (b) the GCS restarted from its log alone; (c) nothing left after
+    shutdown. Returns the launches of each path."""
+    import glob
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    saved = {k: os.environ.get(k) for k in MEM_HB}
+    os.environ.update(MEM_HB)
+    parts, launches = {}, {}
+    try:
+        rt.init()
+    finally:
+        for k, v in saved.items():  # the daemons have read them
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    runtime = current_runtime()
+    cluster = runtime._cluster
+    session_dir = cluster.session_dir
+    ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+    try:
+        t0 = time.perf_counter()
+        launches.update(_mem_partition(rt, runtime, cluster, smi))
+        parts["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches.update(_mem_restart(rt, runtime, cluster, smi))
+        parts["b"] = time.perf_counter() - t0
+    finally:
+        t0 = time.perf_counter()
+        rt.shutdown()
+        parts["shutdown"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    print(f"[membership] (c) {smi}: parts "
+          f"{', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; processes left {left}, "
+          f"pools left {sorted(pools)}; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if left or pools:
+        _fail("membership: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -4893,7 +5249,8 @@ def main() -> int:
     fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
     by_path.update(fit_launches)
     by_path.update(timed(phase_tune, fit_step_ms))
-    for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops):
+    for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops,
+                  phase_membership):
         by_path.update(timed(phase))
     print(f"[smoke] seconds by phase {phase_s}; whole smoke "
           f"{time.perf_counter() - t_main:.1f} s", flush=True)

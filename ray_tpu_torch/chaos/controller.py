@@ -1,7 +1,8 @@
 """Seeded, deterministic fault injection (copy of
 ray_tpu/chaos/controller.py for the PyTorch port, trimmed to the points
 the port has: the channel's reads and writes, the LLM engine's decode
-step, task execution, the zygote's spawn and the collective groups).
+step, task execution, the zygote's spawn, the collective groups and the
+control plane's RPC calls and connects).
 
 Every injection site calls ``maybe_inject(point, detail)``; with no
 controller armed that is one global load and a ``None`` check. Each rule
@@ -64,6 +65,13 @@ POINT_ACTIONS = {
     # member would, `delay` stretches an op.
     "coll.rendezvous": ("raise",),
     "coll.op": ("raise", "delay"),
+    # Control-plane network faults (core/rpc.py). `drop` on net.call
+    # black-holes the message (a one-way send vanishes, a two-way call fails
+    # as a vanished peer would); `drop` on net.connect makes the connect
+    # loop use up its own retry deadline, as packets on the floor would.
+    # Partitions (chaos/net.py) ride the same sites.
+    "net.call": ("drop", "delay", "raise"),  # RpcClient.call/notify, detail "addr|method"
+    "net.connect": ("drop", "raise"),  # RpcClient._new_sock, detail = the address
 }
 POINTS = tuple(POINT_ACTIONS)
 

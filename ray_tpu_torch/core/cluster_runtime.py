@@ -1135,16 +1135,23 @@ class Cluster:
         self.gcs_tcp_address: Optional[str] = None
         self._down = False
         atexit.register(self.shutdown)
+        # The GCS's tables persist here (a snapshot and its write-ahead log):
+        # restart_gcs() brings them back.
+        self.gcs_snapshot = os.path.join(self.session_dir, "gcs_state.pkl")
         try:
-            gcs_cmd = [sys.executable, "-m", "ray_tpu_torch.core.gcs", self.gcs_sock]
+            self._gcs_cmd = [sys.executable, "-m", "ray_tpu_torch.core.gcs", self.gcs_sock,
+                             self.gcs_snapshot]
             if self._tcp_mode:
-                gcs_cmd.append(f"tcp://{node_ip}:{int(head_port)}")
-            self._procs["gcs"] = _spawn_daemon(self.log_dir, gcs_cmd, "gcs")
+                self._gcs_cmd.append(f"tcp://{node_ip}:{int(head_port)}")
+            self._procs["gcs"] = _spawn_daemon(self.log_dir, self._gcs_cmd, "gcs")
             self._gcs = RpcClient(self.gcs_sock)
             self._gcs.call("ping")
             if self._tcp_mode:
                 self.gcs_tcp_address = _read_announced(
                     os.path.join(self.log_dir, "gcs.out"), "GCS_TCP_ADDRESS=")
+                # A restarted GCS must come back on the address joined hosts
+                # and remote clients already dial: the port is pinned.
+                self._gcs_cmd[-1] = self.gcs_tcp_address
             head_res = dict(resources or {})
             if num_cpus is not None:
                 head_res["CPU"] = float(num_cpus)
@@ -1159,6 +1166,22 @@ class Cluster:
         except BaseException:
             self.shutdown()
             raise
+
+    def restart_gcs(self) -> None:
+        """Kills the GCS daemon and starts it again with the same command:
+        its tables come back from the snapshot and the write-ahead log, and
+        the raylets' heartbeats find it again (a raylet it lost registers
+        anew). Every client (the driver's, the raylets', the workers')
+        reconnects on its next call."""
+        proc = self._procs.pop("gcs")
+        proc.kill()
+        proc.wait(timeout=5.0)
+        self._procs["gcs"] = _spawn_daemon(self.log_dir, self._gcs_cmd, "gcs")
+        probe = RpcClient(self.gcs_sock)  # waits out the daemon's boot
+        try:
+            probe.call("ping")
+        finally:
+            probe.close()
 
     def _sock_for(self, node_id: str) -> str:
         return os.path.join(self.session_dir, f"raylet_{node_id}.sock")

@@ -27,10 +27,26 @@ nodes' heartbeats), the state API's tables (`list_tasks` with each task's
 transition history, `list_objects`, `node_summary`), the user and internal
 metrics tables (`report_metrics`, `report_internal_metrics`), the error
 table (`report_error`, published on `error_reports`), ping and stop.
-Left out: the snapshot/WAL persistence and GCS restart, epoch fencing and
-`node_fenced` (ROADMAP Queue 1 item 3.9), metrics history and alerts,
-incidents, `debug_harvest`, flight dumps (item 10), and the TPU slice
-strategy SLICE_GANG. This module never imports torch.
+Membership is epoch-fenced: every registration stamps the node's next
+epoch, and the raylet's mutations (heartbeat, node_sync, actor reports,
+location removals) carry the epoch they were granted. A node declared dead
+whose calls resume (the zombie of a healed partition), or a call with a
+stale epoch, gets StaleNodeEpochError and never flips the node back alive:
+its raylet kills its workers and registers again as a fresh incarnation
+(`node_fenced` on `node_events`).
+
+Durability: with a snapshot path, the control tables are pickled to it
+every GCS_SNAPSHOT_INTERVAL_S (tmp file + os.replace), and every mutation
+between two snapshots is appended to one write-ahead log beside it. A GCS
+restarted on the same path loads the snapshot and replays the log over it,
+so actors, named actors, placement groups, the KV and the node epochs
+survive; raylets keep beating with their epochs, and one the GCS lost
+registers again.
+
+Left out: the JAX copy's key-hashed shards (core/gcs_shards.py: no trace of
+the port has shown the one lock contended), metrics history and alerts,
+incidents, `debug_harvest`, flight dumps (ROADMAP Queue 1 item 10), and the
+TPU slice strategy SLICE_GANG. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -38,13 +54,17 @@ from __future__ import annotations
 import collections
 import logging
 import os
+import pickle
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 
 from . import heartbeat as _hb
-from ..exceptions import ActorNameTakenError, PlacementGroupError, SchedulingError
+from ..chaos.net import ChaosPartitionRpc
+from ..exceptions import (ActorNameTakenError, PlacementGroupError, SchedulingError,
+                          StaleNodeEpochError)
+from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
 
@@ -54,6 +74,30 @@ TASK_TABLE_CAP = 50_000
 FREED_CAP = 200_000
 
 
+def encode_wal_record(table: str, key: Any, value: Any) -> bytes:
+    """One length-prefixed write-ahead-log record (the codec of
+    ray_tpu/core/gcs_shards.py)."""
+    rec = pickle.dumps((table, key, value))
+    return len(rec).to_bytes(4, "little") + rec
+
+
+def iter_wal_records(data: bytes) -> Iterator[Tuple[str, Any, Any]]:
+    """Decodes a write-ahead log, tolerating a torn tail (a crash mid-
+    append): the partial record and anything after it are dropped."""
+    pos = 0
+    while pos + 4 <= len(data):
+        n = int.from_bytes(data[pos:pos + 4], "little")
+        pos += 4
+        if pos + n > len(data):
+            return
+        try:
+            table, key, value = pickle.loads(data[pos:pos + n])
+        except Exception:  # noqa: BLE001 - a corrupt tail: what came before is applied
+            return
+        pos += n
+        yield table, key, value
+
+
 def _is_hard_affinity(strategy: str) -> bool:
     from .placement_group import decode_node_affinity
 
@@ -61,8 +105,15 @@ def _is_hard_affinity(strategy: str) -> bool:
     return aff is not None and not aff[1]
 
 
-class GcsService:
-    def __init__(self):
+class GcsService(ChaosPartitionRpc):
+    # The tables a snapshot holds. Object locations, frees and borrows ride
+    # the snapshot only (a high-rate data plane, rebuilt by the raylets'
+    # syncs); the rest is also written ahead, mutation by mutation.
+    _PERSISTED = ("_nodes", "_node_epochs", "_actors", "_named", "_pgs", "_kv",
+                  "_objects", "_freed", "_borrows", "_deferred_free")
+    _WAL_TABLES = ("_nodes", "_node_epochs", "_actors", "_named", "_pgs", "_kv")
+
+    def __init__(self, snapshot_path: Optional[str] = None):
         # One lock over every table. The JAX copy splits nodes, actors and
         # objects into key-hashed shards (gcs_shards.py); no trace of this
         # runtime has shown the lock contended, so the port keeps one.
@@ -102,8 +153,117 @@ class GcsService:
         self._internal_metrics: Dict[Tuple, dict] = {}
         self._errors: List[dict] = []
         self._stop = threading.Event()
+        self._snapshot_path = snapshot_path
+        self._wal_path = snapshot_path + ".wal" if snapshot_path else None
+        self._wal_f = None
+        self._wal_warned = False
+        if snapshot_path:
+            self._load_snapshot()
+            self._replay_wal()
+            self._alive_count = sum(1 for n in self._nodes.values() if n["alive"])
+            self._wal_f = open(self._wal_path, "ab")
+            # What was replayed is folded into one snapshot at once, and the
+            # log starts empty.
+            self._save_snapshot()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
+
+    # -------------------------------------------------------- persistence
+    def _load_snapshot(self) -> None:
+        try:
+            with open(self._snapshot_path, "rb") as f:
+                data = pickle.load(f)
+        except (OSError, EOFError, pickle.UnpicklingError):
+            return
+        now = time.monotonic()
+        with self._lock:
+            for name in self._PERSISTED:
+                if name in data:
+                    setattr(self, name, data[name])
+            for n in self._nodes.values():
+                # A loaded node gets a fresh heartbeat window; one that is
+                # really gone expires through the health loop.
+                n["last_hb"] = now
+
+    def _replay_wal(self) -> None:
+        """Applies the log over the loaded snapshot, in order; a torn tail
+        is dropped (iter_wal_records)."""
+        try:
+            with open(self._wal_path, "rb") as f:
+                data = f.read()
+        except OSError:
+            return
+        with self._lock:
+            for table, key, value in iter_wal_records(data):
+                if table not in self._WAL_TABLES:
+                    continue
+                d = getattr(self, table)
+                if value is None:
+                    d.pop(key, None)
+                else:
+                    d[key] = value
+                    if table == "_nodes":
+                        value["last_hb"] = time.monotonic()
+
+    def _persist_delta(self, table: str, key: Any, value: Any) -> None:
+        """Appends one mutation to the log (value None deletes). Called with
+        self._lock held, as the snapshot's cut of the log is taken under it:
+        no record can fall between the two."""
+        if self._wal_f is None:
+            return
+        try:
+            self._wal_f.write(encode_wal_record(table, key, value))
+            self._wal_f.flush()
+        except Exception as e:  # noqa: BLE001 - said once; snapshots go on
+            if not self._wal_warned:
+                self._wal_warned = True
+                _log.warning("WAL append failed; durability degraded to snapshots: %r", e)
+
+    def _save_snapshot(self) -> None:
+        """Pickles the persisted tables under the lock, with the log's
+        length at that moment; writes the file outside it (tmp +
+        os.replace); only then drops the covered prefix of the log, so a
+        failed write or a crash in between loses nothing."""
+        if not self._snapshot_path:
+            return
+        with self._lock:
+            try:
+                blob = pickle.dumps({name: getattr(self, name) for name in self._PERSISTED})
+            except Exception as e:  # noqa: BLE001 - the log still holds everything
+                _log.warning("GCS snapshot failed to pickle: %r", e)
+                return
+            covered = 0
+            if self._wal_f is not None:
+                self._wal_f.flush()
+                covered = self._wal_f.tell()
+        tmp = self._snapshot_path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, self._snapshot_path)
+        except OSError as e:
+            _log.warning("GCS snapshot write failed (retried next interval): %r", e)
+            return
+        if not covered:
+            return
+        with self._lock:
+            if self._wal_f is None:
+                return
+            try:
+                self._wal_f.flush()
+                with open(self._wal_path, "rb") as rf:
+                    rf.seek(covered)
+                    suffix = rf.read()
+                self._wal_f.close()
+                with open(self._wal_path, "wb") as wf:
+                    wf.write(suffix)
+                self._wal_f = open(self._wal_path, "ab")
+            except OSError as e:
+                _log.warning("WAL rotation failed: %r", e)
+                try:  # never leave the log closed
+                    self._wal_f = open(self._wal_path, "ab")
+                except OSError:
+                    self._wal_f = None
 
     def _nodes_view_for(self, nids) -> Dict[str, dict]:
         """Resolves node ids to {sock, store, alive}."""
@@ -125,6 +285,9 @@ class GcsService:
     # -------------------------------------------------------------- nodes
     def register_node(self, node_id: str, sock_path: str, store_path: str,
                       resources: dict) -> dict:
+        """Registers a node with its next epoch: a fenced incarnation that
+        rejoins gets a new number, and whatever still carries the old one
+        stays rejected."""
         with self._lock:
             epoch = self._node_epochs.get(node_id, 0) + 1
             self._node_epochs[node_id] = epoch
@@ -140,7 +303,10 @@ class GcsService:
                 "epoch": epoch,
                 "last_hb": time.monotonic(),
             }
+            self._persist_delta("_node_epochs", node_id, epoch)
+            self._persist_delta("_nodes", node_id, self._nodes[node_id])
             nodes = self._alive_count
+        _flight_record("node.added", (node_id[:12], epoch))
         self._kick_stranded_restarts()
         # Capacity waiters (TorchTrainer's renegotiation) block on
         # node_events: a join is as much a lifecycle event as a drain.
@@ -149,24 +315,93 @@ class GcsService:
         self._publish_node_delta(node_id)
         return {"ok": True, "nodes": nodes, "epoch": epoch}
 
+    # ------------------------------------------------------------ fencing
+    def _mark_fenced_locked(self, node_id: str, n: dict) -> bool:
+        """Stamps FENCED on a dead or stale node record (self._lock held);
+        True on the first fencing of this incarnation."""
+        if n.get("fenced"):
+            return False
+        if n["alive"]:
+            self._alive_count -= 1
+        n["alive"] = False  # fencing implies dead: never resurrected in place
+        n["fenced"] = True
+        n["fenced_ts"] = time.time()
+        self._persist_delta("_nodes", node_id, n)
+        return True
+
+    def _fence_verdict_locked(self, node_id: str, n: dict,
+                              epoch: Optional[int]) -> Optional[Tuple[Optional[int], bool]]:
+        """Judges one raylet call against the membership record (self._lock
+        held, so a handler that also mutates the record does both under one
+        acquisition). None when the caller is current, else (current epoch,
+        newly fenced). Only a dead-marked record is stamped FENCED: a stale
+        epoch against an alive record is an old incarnation talking after
+        its successor registered, and the successor's record stays as it
+        is."""
+        cur = n.get("epoch")
+        stale = epoch is not None and cur is not None and epoch != cur
+        if n["alive"] and not stale:
+            return None
+        newly = self._mark_fenced_locked(node_id, n) if not n["alive"] else False
+        return cur, newly
+
+    def _reject_stale_node(self, node_id: str, epoch: Optional[int], context: str) -> None:
+        """The fence: raises StaleNodeEpochError when `node_id` is
+        dead-marked or `epoch` is not its current one. A caller that never
+        registered (a driver) passes."""
+        with self._lock:
+            n = self._nodes.get(node_id)
+            if n is None:
+                return
+            verdict = self._fence_verdict_locked(node_id, n, epoch)
+        if verdict is not None:
+            self._raise_fenced(node_id, epoch, verdict, context)
+
+    def _raise_fenced(self, node_id: str, epoch: Optional[int],
+                      verdict: Tuple[Optional[int], bool], context: str) -> None:
+        """Outside the lock: on the first fencing of an incarnation counts,
+        records and publishes it; raises the typed error every time."""
+        cur, newly = verdict
+        if newly:
+            imet.NODES_FENCED.inc()
+            _flight_record("node.fence", (node_id[:12], epoch, cur, context))
+            _log.warning("fencing node %s (%s; claimed epoch %s, current %s): rejecting its "
+                         "RPCs until it registers again", node_id[:12], context, epoch, cur)
+            # Supervisors treat fencing as death: the same channel, its own
+            # event.
+            self.pubsub_publish("node_events", {"event": "node_fenced", "node_id": node_id,
+                                                "epoch": epoch, "current_epoch": cur,
+                                                "ts": time.time()})
+            self._publish_node_delta(node_id)
+        raise StaleNodeEpochError(node_id, claimed_epoch=epoch, current_epoch=cur,
+                                  reason=f"{context}: node is dead-marked or its epoch is stale")
+
     def heartbeat(self, node_id: str, available: Optional[dict] = None,
-                  stats: Optional[dict] = None) -> dict:
-        """The 1 Hz fan-in. Payloads are deltas (core/heartbeat.py)."""
+                  stats: Optional[dict] = None, epoch: Optional[int] = None) -> dict:
+        """The 1 Hz fan-in. Payloads are deltas (core/heartbeat.py). A beat
+        from a dead-marked node or an old epoch is fenced, never applied: a
+        zombie flipped back alive in place would keep its workers, and a
+        named actor the GCS already rescheduled would run twice. An unknown
+        node (a GCS that lost it) gets ok False and registers again."""
         alive = self._alive_count
         raylet_drained = False
         with self._lock:
             n = self._nodes.get(node_id)
-            if n is None or not n["alive"]:
+            if n is None:
                 return {"ok": False, "nodes": alive}
-            if stats:
-                _hb.apply_heartbeat(n, available, dict(stats))
-                if (n.get("stats") or {}).get("draining") and not n.get("draining"):
-                    raylet_drained = True
-            elif available is not None:
-                n["available"] = dict(available)
-            n["last_hb"] = time.monotonic()
-            now = n["last_hb"]
+            verdict = self._fence_verdict_locked(node_id, n, epoch)
+            if verdict is None:
+                if stats:
+                    _hb.apply_heartbeat(n, available, dict(stats))
+                    if (n.get("stats") or {}).get("draining") and not n.get("draining"):
+                        raylet_drained = True
+                elif available is not None:
+                    n["available"] = dict(available)
+                n["last_hb"] = time.monotonic()
+            now = time.monotonic()
             expected = sum(k for k, exp in self._demand_forecast.values() if k > 0 and now < exp)
+        if verdict is not None:
+            self._raise_fenced(node_id, epoch, verdict, "heartbeat")
         pool_hint = -(-expected // alive) if expected > 0 and alive > 0 else 0
         if raylet_drained:
             # A drain the raylet started (an operator's `drain` RPC) is
@@ -214,6 +449,7 @@ class GcsService:
             n["draining"] = True
             n["drain_reason"] = reason
             n["drain_deadline"] = time.time() + max(0.0, deadline_s)
+            self._persist_delta("_nodes", node_id, n)
             sock = n["sock"] if n["alive"] else None
         if already:
             return True
@@ -234,11 +470,12 @@ class GcsService:
 
     @staticmethod
     def _node_state(n: dict) -> str:
-        """ALIVE -> DRAINING (a preemption notice) -> DEAD; a rejoin
-        registers anew."""
+        """ALIVE -> DRAINING (a preemption notice) -> DEAD (heartbeat expiry)
+        -> FENCED (a dead incarnation's calls came back and were rejected);
+        a rejoin registers anew with the next epoch."""
         if n["alive"]:
             return "DRAINING" if n.get("draining") else "ALIVE"
-        return "DEAD"
+        return "FENCED" if n.get("fenced") else "DEAD"
 
     @classmethod
     def _node_entry(cls, nid: str, n: dict) -> dict:
@@ -249,6 +486,7 @@ class GcsService:
             "DrainReason": n.get("drain_reason"),
             "DrainDeadline": n.get("drain_deadline"),
             "Epoch": n.get("epoch"),
+            "Fenced": bool(n.get("fenced")),
             "State": cls._node_state(n),
             "sock": n["sock"], "store": n["store"],
         }
@@ -310,7 +548,7 @@ class GcsService:
     @classmethod
     def _slim_node(cls, nid: str, n: dict) -> dict:
         return {"op": "upsert", "NodeID": nid, "Alive": bool(n["alive"]),
-                "Draining": bool(n.get("draining")), "Fenced": False,
+                "Draining": bool(n.get("draining")), "Fenced": bool(n.get("fenced")),
                 "Epoch": n.get("epoch", 0), "State": cls._node_state(n),
                 "Labels": {}, "Resources": dict(n["resources"]),
                 "sock": n["sock"], "store": n["store"]}
@@ -388,9 +626,12 @@ class GcsService:
 
     def _health_loop(self):
         tick = 0
+        snap_every = max(1, int(config.GCS_SNAPSHOT_INTERVAL_S / 0.1))
         while not self._stop.wait(0.1):
             self._process_frees()
             tick += 1
+            if tick % snap_every == 0:
+                self._save_snapshot()
             if tick % 20 == 0:
                 self._kick_stranded_restarts()
             dead = []
@@ -400,6 +641,7 @@ class GcsService:
                     if n["alive"] and now - n["last_hb"] > config.HEARTBEAT_TIMEOUT_S:
                         n["alive"] = False
                         self._alive_count -= 1
+                        self._persist_delta("_nodes", nid, n)
                         dead.append(nid)
             for nid in dead:
                 self._on_node_death(nid)
@@ -413,6 +655,7 @@ class GcsService:
                 return False
             n["alive"] = False
             self._alive_count -= 1
+            self._persist_delta("_nodes", node_id, n)
         self._on_node_death(node_id)
         return True
 
@@ -421,6 +664,7 @@ class GcsService:
         running tasks fail, its actors restart elsewhere or die (reference:
         gcs_node_manager death handling -> gcs_actor_manager restart :548)."""
         _log.warning("node %s declared dead", node_id[:12])
+        _flight_record("node.dead", (node_id[:12],))
         # Death is a node event too: supervisors subscribed for drain
         # notices learn of a failure without one from the same stream.
         self.pubsub_publish("node_events", {"event": "node_dead", "node_id": node_id,
@@ -450,6 +694,7 @@ class GcsService:
                         self._drop_name(aid, a)
                     else:
                         restart.append(aid)
+                    self._persist_delta("_actors", aid, a)
         if restart:
             threading.Thread(target=lambda: [self._restart_actor(a) for a in restart],
                              daemon=True).start()
@@ -465,6 +710,7 @@ class GcsService:
         key = (a.get("namespace") or "default", a.get("name") or "")
         if a.get("name") and self._named.get(key) == actor_id:
             del self._named[key]
+            self._persist_delta("_named", key, None)
 
     def _restart_actor(self, actor_id: str) -> None:
         """Re-places and re-creates one RESTARTING actor. No capacity now:
@@ -499,6 +745,7 @@ class GcsService:
                             a["state"] = "DEAD"
                             a["death_reason"] = reason
                             self._drop_name(actor_id, a)
+                            self._persist_delta("_actors", actor_id, a)
                 return
             with self._lock:
                 a = self._actors.get(actor_id)
@@ -506,6 +753,7 @@ class GcsService:
                     return
                 a["node_id"] = node["node_id"]
                 spec_blob = a["spec_blob"]
+                self._persist_delta("_actors", actor_id, a)
             try:
                 self._raylet_call(node["sock"], "create_actor", spec_blob,
                                   node.get("bundle_index", -1))
@@ -515,12 +763,17 @@ class GcsService:
                 with self._lock:
                     a = self._actors.get(actor_id)
                     if a is not None and a["state"] == "RESTARTING":
+                        # Stranded again, and so persisted: a record still
+                        # pinned to the failed target after a GCS restart
+                        # would hide from the stranded sweep for good.
                         a["node_id"] = None
+                        self._persist_delta("_actors", actor_id, a)
                 return
             with self._lock:
                 a = self._actors.get(actor_id)
                 if a is not None:
                     a["num_restarts"] += 1
+                    self._persist_delta("_actors", actor_id, a)
         finally:
             with self._lock:
                 self._actor_restarting.discard(actor_id)
@@ -574,6 +827,7 @@ class GcsService:
                 if key in self._named:
                     raise ActorNameTakenError(f"actor name {name!r} already taken")
                 self._named[key] = actor_id
+                self._persist_delta("_named", key, actor_id)
         return key
 
     def _place_actor(self, resources: dict, pg_id: Optional[str], bundle_index: int,
@@ -622,31 +876,15 @@ class GcsService:
                 node = self._place_actor(s.get("resources") or {}, s.get("pg_id"),
                                          s.get("bundle_index", -1), s.get("strategy", "DEFAULT"))
             except Exception as e:  # noqa: BLE001 - returned in this spec's slot
-                if key is not None:
-                    with self._lock:
-                        if self._named.get(key) == s["actor_id"]:
-                            del self._named[key]
+                self._release_name_claim(key, s["actor_id"])
                 results[i] = {"error": e}
                 continue
             placed.append((i, s, node))
         self._consume_forecast(len(placed))
-        for i, s, node in placed:
-            rec = {
-                "state": "PENDING",
-                "node_id": node["node_id"],
-                "spec_blob": s["spec_blob"],
-                "resources": dict(s.get("resources") or {}),
-                "max_restarts": s.get("max_restarts", 0),
-                "num_restarts": 0,
-                "pg_id": s.get("pg_id"),
-                "bundle_index": node.get("bundle_index", -1) if s.get("pg_id") else -1,
-                "strategy": s.get("strategy", "DEFAULT"),
-                "name": s.get("name"),
-                "namespace": s.get("namespace") or "default",
-                "death_reason": "",
-            }
-            with self._lock:
-                self._actors[s["actor_id"]] = rec
+        with self._lock:
+            for i, s, node in placed:
+                self._actors[s["actor_id"]] = rec = self._actor_record(s, node)
+                self._persist_delta("_actors", s["actor_id"], rec)
         by_sock: Dict[str, List[Tuple[int, bytes, int]]] = {}
         for i, s, node in placed:
             bi = node.get("bundle_index", -1)
@@ -666,12 +904,65 @@ class GcsService:
                             a["death_reason"] = f"creation forward failed: {e!r}"
                             a["node_id"] = None
                             self._drop_name(aid, a)
+                            self._persist_delta("_actors", aid, a)
                     results[i] = {"error": e}
         return results
 
-    def actor_started_batch(self, node_id: str, actor_ids: List[str]) -> Dict[str, bool]:
+    def register_actor(self, actor_id: str, spec_blob: bytes, resources: dict,
+                       max_restarts: int, name: Optional[str], namespace: Optional[str],
+                       pg_id: Optional[str] = None, bundle_index: int = -1,
+                       strategy: str = "DEFAULT") -> dict:
+        """Registers and places one actor; returns the chosen node (the
+        caller forwards the creation there)."""
+        key = self._claim_name(actor_id, name, namespace)
+        try:
+            node = self._place_actor(resources, pg_id, bundle_index, strategy)
+        except BaseException:
+            self._release_name_claim(key, actor_id)
+            raise
+        self._consume_forecast(1)
+        spec = {"spec_blob": spec_blob, "resources": resources, "max_restarts": max_restarts,
+                "pg_id": pg_id, "strategy": strategy, "name": name, "namespace": namespace}
+        with self._lock:
+            self._actors[actor_id] = rec = self._actor_record(spec, node)
+            self._persist_delta("_actors", actor_id, rec)
+        return node
+
+    def _release_name_claim(self, key: Optional[Tuple[str, str]], actor_id: str) -> None:
+        if key is not None:
+            with self._lock:
+                if self._named.get(key) == actor_id:
+                    del self._named[key]
+                    self._persist_delta("_named", key, None)
+
+    @staticmethod
+    def _actor_record(s: dict, node: dict) -> dict:
+        return {
+            "state": "PENDING",
+            "node_id": node["node_id"],
+            "spec_blob": s["spec_blob"],
+            "resources": dict(s.get("resources") or {}),
+            "max_restarts": s.get("max_restarts", 0),
+            "num_restarts": 0,
+            "pg_id": s.get("pg_id"),
+            "bundle_index": node.get("bundle_index", -1) if s.get("pg_id") else -1,
+            "strategy": s.get("strategy", "DEFAULT"),
+            "name": s.get("name"),
+            "namespace": s.get("namespace") or "default",
+            "death_reason": "",
+        }
+
+    def actor_started(self, actor_id: str, node_id: str, epoch: Optional[int] = None) -> bool:
+        """One actor_started report; False: the instance is a duplicate."""
+        return self.actor_started_batch(node_id, [actor_id], epoch)[actor_id]
+
+    def actor_started_batch(self, node_id: str, actor_ids: List[str],
+                            epoch: Optional[int] = None) -> Dict[str, bool]:
         """Coalesced actor_started reports from one raylet. False tells the
-        raylet its instance is a duplicate (the record moved) to kill."""
+        raylet its instance is a duplicate (the record moved) to kill.
+        Fenced: a zombie reporting "started" for an actor the GCS already
+        rescheduled would point the record at the duplicate."""
+        self._reject_stale_node(node_id, epoch, "actor_started")
         out: Dict[str, bool] = {}
         with self._lock:
             for aid in actor_ids:
@@ -682,13 +973,18 @@ class GcsService:
                 if a:
                     a["state"] = "ALIVE"
                     a["node_id"] = node_id
+                    self._persist_delta("_actors", aid, a)
                 out[aid] = True
         return out
 
     def actor_died(self, actor_id: str, reason: str, no_restart: bool = False,
-                   node_id: Optional[str] = None) -> dict:
+                   node_id: Optional[str] = None, epoch: Optional[int] = None) -> dict:
         """Returns {restart: bool}; on True the GCS re-places and re-creates
-        the actor itself, off-thread (reference: design_docs/actor_states.rst)."""
+        the actor itself, off-thread (reference: design_docs/actor_states.rst).
+        A raylet's report carries (node_id, epoch): a fenced incarnation's
+        report must not flip the rescheduled successor to RESTARTING."""
+        if node_id is not None:
+            self._reject_stale_node(node_id, epoch, "actor_died")
         with self._lock:
             a = self._actors.get(actor_id)
             if a is None:
@@ -700,9 +996,11 @@ class GcsService:
                 a["death_reason"] = reason
                 a["node_id"] = None
                 self._drop_name(actor_id, a)
+                self._persist_delta("_actors", actor_id, a)
                 return {"restart": False}
             a["state"] = "RESTARTING"
             a["node_id"] = None
+            self._persist_delta("_actors", actor_id, a)
         self._kick_stranded_restarts()
         return {"restart": True}
 
@@ -741,8 +1039,11 @@ class GcsService:
                      "pending_free": h in self._deferred_free}
                     for h, locs in list(self._objects.items())[-limit:]]
 
-    def remove_object_location(self, oid_hex: str, node_id: str) -> bool:
-        """A node dropped its copy (replica eviction)."""
+    def remove_object_location(self, oid_hex: str, node_id: str,
+                               epoch: Optional[int] = None) -> bool:
+        """A node dropped its copy (replica eviction); fenced like every
+        raylet mutation."""
+        self._reject_stale_node(node_id, epoch, "remove_object_location")
         with self._lock:
             locs = self._objects.get(oid_hex)
             if locs is not None:
@@ -840,10 +1141,15 @@ class GcsService:
         self._delete_on_nodes(freed)
         return True
 
-    def node_sync(self, node_id: str, sealed: List[str], events: List[dict]) -> bool:
+    def node_sync(self, node_id: str, sealed: List[str], events: List[dict],
+                  epoch: Optional[int] = None) -> bool:
         """Batched raylet -> GCS sync: object locations and task state events
         (reference: task_event_buffer.h batching + object directory adds).
-        A location for an object already freed is deleted on its node."""
+        A location for an object already freed is deleted on its node.
+        Fenced: a dead or stale incarnation's copies are already gone from
+        the directory, and indexing them again would hand readers dangling
+        locations."""
+        self._reject_stale_node(node_id, epoch, "node_sync")
         stale: List[str] = []
         with self._lock:
             for h in sealed:
@@ -903,6 +1209,7 @@ class GcsService:
     def kv_put(self, key: str, value: bytes) -> bool:
         with self._lock:
             self._kv[key] = value
+            self._persist_delta("_kv", key, value)
         return True
 
     def kv_get(self, key: str) -> Optional[bytes]:
@@ -911,7 +1218,10 @@ class GcsService:
 
     def kv_del(self, key: str) -> bool:
         with self._lock:
-            return self._kv.pop(key, None) is not None
+            hit = self._kv.pop(key, None) is not None
+            if hit:
+                self._persist_delta("_kv", key, None)
+            return hit
 
     def kv_keys(self, prefix: str = "") -> List[str]:
         with self._lock:
@@ -1007,6 +1317,7 @@ class GcsService:
                         self._pgs[pg_id] = {"bundles": bundles, "strategy": strategy,
                                             "placements": placements, "state": "CREATED",
                                             "rr": 0}
+                        self._persist_delta("_pgs", pg_id, self._pgs[pg_id])
                 if removed:
                     self._release_bundles(pg_id, reserved)
                     raise PlacementGroupError(f"placement group {pg_id[:8]} was removed")
@@ -1033,6 +1344,8 @@ class GcsService:
     def remove_placement_group(self, pg_id: str) -> bool:
         with self._lock:
             pg = self._pgs.pop(pg_id, None)
+            if pg is not None:
+                self._persist_delta("_pgs", pg_id, None)
             self._removed_pgs[pg_id] = True
             while len(self._removed_pgs) > 10_000:
                 self._removed_pgs.popitem(last=False)
@@ -1081,6 +1394,7 @@ class GcsService:
                 return False
             self._pgs[pg_id] = {"bundles": bundles, "strategy": strategy, "placements": [],
                                 "state": "PENDING", "rr": 0}
+            self._persist_delta("_pgs", pg_id, self._pgs[pg_id])
         return True
 
     def retry_pending_placement_group(self, pg_id: str) -> Optional[dict]:
@@ -1264,6 +1578,9 @@ class GcsService:
     def ping(self) -> str:
         return "pong"
 
+    # chaos_partition / chaos_heal come from ChaosPartitionRpc (chaos/net.py),
+    # one definition shared with the raylet.
+
     def stop(self) -> bool:
         self._stop.set()
         return True
@@ -1283,15 +1600,18 @@ def exit_with_parent(stop: threading.Event) -> None:
     threading.Thread(target=watch, daemon=True, name="parent-watch").start()
 
 
-def main(sock_path: str, tcp_address: Optional[str] = None) -> None:
+def main(sock_path: str, snapshot_path: Optional[str] = None,
+         tcp_address: Optional[str] = None) -> None:
     """GCS daemon: serves the cluster's control plane on `sock_path`, and on
     `tcp_address` too for a cluster other hosts join (its bound address is
-    printed as GCS_TCP_ADDRESS=... for the head to read)."""
+    printed as GCS_TCP_ADDRESS=... for the head to read). Its tables persist
+    to `snapshot_path` (default `<sock_path>.snapshot`) and its log; a GCS
+    started again on the same path takes them up."""
     from .rpc import RpcServer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s gcs %(levelname)s %(message)s")
     _log.info("gcs started (pid %d)", os.getpid())
-    service = GcsService()
+    service = GcsService(snapshot_path=snapshot_path or sock_path + ".snapshot")
     # The daemon's own `raytpu_*` records merge straight into its table.
     imet.configure(node_id="gcs", reporter="gcs",
                    sink=lambda recs: service.report_internal_metrics("gcs", recs))
@@ -1309,4 +1629,4 @@ def main(sock_path: str, tcp_address: Optional[str] = None) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])

@@ -37,9 +37,12 @@ pool, whose workers fork from a zygote (core/worker_pool.py,
 core/zygote.py), with Popen where the zygote cannot serve or the env sets
 variables or an interpreter; `drain` (a preemption notice: default-
 placement tasks and worker leases go to surviving nodes while in-flight and
-bundle-pinned work runs on). Left out (ROADMAP Queue 1 item 3): epoch
-fencing, profile, tail_logs and flight dumps. This module never imports
-torch.
+bundle-pinned work runs on); epoch fencing (every GCS mutation carries
+the epoch this incarnation registered with; when the GCS answers
+StaleNodeEpochError the node dies as a member in `_fence` and registers
+again as a fresh incarnation); the `chaos_partition` / `chaos_heal` RPCs
+(chaos/net.py). Left out (ROADMAP Queue 1 items 8 and 10): profile,
+tail_logs and flight dumps. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 from .. import exceptions as exc
 from ..accelerators import get_accelerator_manager
+from ..chaos.net import ChaosPartitionRpc
+from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
 from .heartbeat import HeartbeatCodec
@@ -76,6 +81,9 @@ POLL_TIMEOUT_S = config.WORKER_POLL_TIMEOUT_S
 _EPS = 1e-9
 
 _log = logging.getLogger("ray_tpu_torch.raylet")
+
+# What `_gcs_call_fenced` returns when the GCS rejected the call as fenced.
+_FENCED = object()
 
 
 class _Worker:
@@ -120,7 +128,7 @@ def _gpu_give(pool: Dict[str, float], taken: Dict[str, float]) -> None:
             pool[g] = min(1.0, pool[g] + v)
 
 
-class RayletService:
+class RayletService(ChaosPartitionRpc):
     def __init__(
         self,
         node_id: str,
@@ -185,6 +193,19 @@ class RayletService:
         self._stop = threading.Event()
         self._draining = False
         self._hb_codec = HeartbeatCodec()
+        # The membership epoch granted at registration, carried on every
+        # GCS mutation. The incarnation number stamps each queued entry and
+        # advances when a fence starts, so the old life's queued work is
+        # dropped at dispatch (the epoch itself also advances when a GCS
+        # that lost this node takes it back, and that queued work is still
+        # this life's). _max_fenced_epoch is the highest epoch a fence
+        # voided: a batch rejected at a higher one belongs to a live
+        # incarnation and is sent again.
+        self.epoch = 0
+        self._incarnation = 0
+        self._fence_guard = threading.Lock()
+        self._fencing = False
+        self._max_fenced_epoch = 0
         self._seal_cv = threading.Condition()
         self._pulling: Set[str] = set()
         self._pull_sem = threading.BoundedSemaphore(config.MAX_CONCURRENT_PULLS)
@@ -220,6 +241,7 @@ class RayletService:
         self._pool = WorkerPoolManager(self, prestart=prestart)
         reg = self.gcs.call("register_node", node_id, self.advertised, store_path, self.total)
         self._cluster_size = reg.get("nodes", 1)
+        self.epoch = reg.get("epoch", 0)
         # This raylet's `raytpu_*` records flush through its GCS client.
         imet.configure(node_id=node_id, reporter=f"raylet_{node_id}",
                        sink=lambda recs: self.gcs.call("report_internal_metrics",
@@ -257,6 +279,7 @@ class RayletService:
         self._buf_wake.set()
 
     def _enqueue(self, entry: dict) -> None:
+        entry["_node_incarnation"] = self._incarnation
         self._pending.put(entry)
         self._sched_wake.set()
 
@@ -265,13 +288,22 @@ class RayletService:
         while not self._stop.is_set():
             self._buf_wake.wait(timeout=0.2)
             self._buf_wake.clear()
+            # The epoch is read before the buffers: these entries belong to
+            # the incarnation that buffered them, and a fence completing in
+            # between must not slip them past the GCS's fence under the new
+            # epoch.
+            ep = self.epoch
             with self._buf_lock:
                 locs, self._loc_buf = self._loc_buf, []
                 evts, self._evt_buf = self._evt_buf, []
                 started, self._started_buf = self._started_buf, []
             if started:
                 try:
-                    verdicts = self.gcs.call("actor_started_batch", self.node_id, started)
+                    verdicts = self.gcs.call("actor_started_batch", self.node_id, started, ep)
+                except exc.StaleNodeEpochError:
+                    # Fenced mid-launch: the GCS moved these actors; the
+                    # instances die with the fence.
+                    self._fence("actor_started", ep)
                 except Exception:  # noqa: BLE001 - GCS briefly unreachable: retry
                     with self._buf_lock:
                         self._started_buf = started + self._started_buf
@@ -282,7 +314,18 @@ class RayletService:
             if not locs and not evts:
                 continue
             try:
-                self.gcs.call("node_sync", self.node_id, locs, evts)
+                self.gcs.call("node_sync", self.node_id, locs, evts, ep)
+            except exc.StaleNodeEpochError:
+                # This incarnation is fenced: its seals and events are void
+                # (sent again after the rejoin they would advertise dangling
+                # locations). A rejection above every fenced epoch came from
+                # a GCS that lost this node and took it back under a new
+                # number: the same live incarnation, whose batch goes again.
+                self._fence("node_sync", ep)
+                if ep > self._max_fenced_epoch:
+                    with self._buf_lock:
+                        self._loc_buf = locs + self._loc_buf
+                        self._evt_buf = evts + self._evt_buf
             except Exception:  # noqa: BLE001 - GCS briefly unreachable: retry later
                 with self._buf_lock:
                     self._loc_buf = locs + self._loc_buf
@@ -665,7 +708,8 @@ class RayletService:
             if w:
                 w.proc.kill()
         try:
-            self.gcs.call("actor_died", actor_id, "killed via kill()", no_restart, self.node_id)
+            self._gcs_call_fenced("actor_died", actor_id, "killed via kill()", no_restart,
+                                  self.node_id)
         except Exception as e:  # noqa: BLE001 - the GCS heals on the next report
             _log.warning("actor_died report for %s failed: %r", actor_id[:8], e)
         return True
@@ -971,7 +1015,7 @@ class RayletService:
             with self._objects_lock:
                 self._local_objects.pop(h, None)
             try:
-                self.gcs.call("remove_object_location", h, self.node_id)
+                self._gcs_call_fenced("remove_object_location", h, self.node_id)
             except Exception:  # noqa: BLE001 - the directory heals on the next sync
                 pass
             return True
@@ -1303,7 +1347,8 @@ class RayletService:
                     self._buf_wake.set()
                 else:
                     try:
-                        self.gcs.call("actor_died", aid, "constructor failed", True, self.node_id)
+                        self._gcs_call_fenced("actor_died", aid, "constructor failed", True,
+                                              self.node_id)
                     except Exception as e:  # noqa: BLE001 - logged; the caller's get raises
                         _log.warning("actor_died report for %s failed: %r", aid[:8], e)
         self._sched_wake.set()
@@ -1345,6 +1390,13 @@ class RayletService:
         return True
 
     def _dispatch(self, entry: dict) -> bool:
+        if entry.get("_node_incarnation", self._incarnation) != self._incarnation:
+            # Queued by an incarnation fenced since: the GCS failed this
+            # node's tasks at its death and the owners retried elsewhere, so
+            # running it here would apply it twice. Dropped silently: a
+            # FAILED event would carry the fresh epoch past the fence and
+            # overwrite a live retry's record.
+            return True
         kind = entry["type"]
         if kind in ("task", "actor_creation"):
             if self._fail_if_unschedulable(entry):
@@ -1415,7 +1467,7 @@ class RayletService:
             if a:
                 a["state"] = "DEAD"
         try:
-            self.gcs.call("actor_died", entry["actor_id"], reason, True, self.node_id)
+            self._gcs_call_fenced("actor_died", entry["actor_id"], reason, True, self.node_id)
         except Exception as e:  # noqa: BLE001 - logged; the caller's get raises
             _log.warning("actor_died report failed: %r", e)
 
@@ -1751,8 +1803,10 @@ class RayletService:
         if was_dead:
             return  # killed deliberately: the GCS already knows, no restart
         try:
-            self.gcs.call("actor_died", aid, f"worker process died{tail_note[:1200]}", False,
-                          self.node_id)
+            # Fenced while the worker died: the GCS already rescheduled the
+            # actor, and a report would hijack the successor.
+            self._gcs_call_fenced("actor_died", aid, f"worker process died{tail_note[:1200]}",
+                                  False, self.node_id)
         except Exception as e:  # noqa: BLE001 - logged
             _log.warning("actor_died report for %s failed: %r", aid[:8], e)
 
@@ -1774,16 +1828,141 @@ class RayletService:
                 stats["draining"] = True
             send_avail, send_stats = self._hb_codec.encode(avail, stats)
             try:
-                reply = self.gcs.call("heartbeat", self.node_id, send_avail, send_stats)
+                # Fenced: the GCS declared this node dead while a partition
+                # hid its beats; _fence kills the workers and rejoins fresh.
+                reply = self._gcs_call_fenced("heartbeat", self.node_id, send_avail, send_stats)
+                if reply is _FENCED:
+                    continue
                 self._cluster_size = reply.get("nodes", self._cluster_size)
                 self._pool.set_hint(int(reply.get("pool_hint", 0) or 0))
                 if not reply.get("ok", True):
-                    self.gcs.call("register_node", self.node_id, self.advertised,
-                                  self.store_path, self.total)
+                    # A restarted GCS that lost this node: register again and
+                    # take the epoch it grants (reference: the
+                    # RayletNotifyGCSRestart path, core_worker.proto:441).
+                    reg = self.gcs.call("register_node", self.node_id, self.advertised,
+                                        self.store_path, self.total)
+                    self.epoch = reg.get("epoch", self.epoch)
                     self._hb_codec.force_full()
             except Exception as e:  # noqa: BLE001 - retried next tick
+                # Debug only: at a 0.25 s beat a GCS restart would flood the
+                # log. The codec's baselines moved for a beat never applied.
                 _log.debug("heartbeat to GCS failed: %r", e)
                 self._hb_codec.force_full()
+
+    def _gcs_call_fenced(self, method: str, *args) -> Any:
+        """One epoch-fenced GCS mutation: the epoch read before the call is
+        its last argument, and on StaleNodeEpochError the fence runs for
+        exactly the incarnation that spoke. Returns _FENCED then, else the
+        reply."""
+        ep = self.epoch
+        try:
+            return self.gcs.call(method, *args, ep)
+        except exc.StaleNodeEpochError:
+            self._fence(method, ep)
+            return _FENCED
+
+    def _fence(self, origin: str, epoch: Optional[int] = None) -> None:
+        """The reaction to StaleNodeEpochError: the GCS declared this
+        incarnation dead and has rescheduled its actors and dropped its
+        object locations, so acting on any of that state would be split
+        brain. The node dies as a member (every worker killed and reaped,
+        leases, actors, bundles and GPU ids freed, queued work and buffers
+        dropped, the parked pool drained, object pins forgotten) and then
+        registers as a fresh incarnation with a new epoch.
+
+        `epoch` is the one the rejected call carried: when another thread's
+        fence already completed (self.epoch moved on), the rejection is
+        about a bygone incarnation and is ignored, as a second fence would
+        kill the fresh incarnation's workers with the GCS none the wiser."""
+        with self._fence_guard:
+            if self._fencing or self._stop.is_set():
+                return
+            if epoch is not None and epoch != self.epoch:
+                return
+            self._fencing = True
+            self._max_fenced_epoch = max(self._max_fenced_epoch, self.epoch)
+            # A new incarnation at the start: the old life's queued entries
+            # are droppable at once, even if the registration below fails.
+            self._incarnation += 1
+        old_epoch = self.epoch
+        try:
+            _flight_record("node.fence", (self.node_id[:12], old_epoch, origin))
+            _log.warning("node %s (epoch %s) fenced by the GCS via %s: killing workers, "
+                         "dropping leases, registering again", self.node_id[:12], old_epoch,
+                         origin)
+            # Workers first: the old life's actors and tasks must stop. They
+            # leave the table before the kill, so the monitor loop never
+            # reports their deaths as crashes of records that moved.
+            with self._workers_lock:
+                victims = list(self._workers.values())
+                self._workers.clear()
+                self._idle.clear()
+            for w in victims:
+                try:
+                    w.proc.kill()
+                except OSError:
+                    pass
+            # Reap: a Popen'd child is waited here, a forked one is reaped by
+            # the zygote (its PidHandle waits for the pid to go); until then
+            # a process may still hold its CUDA context.
+            deadline = time.monotonic() + 5.0
+            for w in victims:
+                try:
+                    w.proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    _log.warning("fenced worker %s (pid %d) not gone after the kill",
+                                 w.worker_id, w.proc.pid)
+                try:
+                    os.unlink(self._direct_sock(w.worker_id))
+                except OSError:
+                    pass
+            self._leases.clear()
+            with self._actor_lock:
+                self._actors.clear()
+            with self._res_lock:
+                self._bundles.clear()
+                self.available = dict(self.total)
+                # Every device id back in the free set: the workers that saw
+                # them through CUDA_VISIBLE_DEVICES are gone.
+                self._gpu_pool = {g: 1.0 for g in self._gpu_pool}
+            with self._seen_lock:
+                self._seen_submits.clear()
+            # Queued work belongs to the old life (the GCS failed it at the
+            # node's death); what sits in _waiting is dropped at dispatch by
+            # its incarnation stamp.
+            try:
+                while True:
+                    self._pending.get_nowait()
+            except queue.Empty:
+                pass
+            with self._buf_lock:
+                self._loc_buf.clear()
+                self._evt_buf.clear()
+                self._started_buf.clear()
+                self._deferred_deletes.clear()
+            # No pre-forked child outlives the incarnation that forked it.
+            self._pool.on_fence()
+            # The directory dropped this node's locations: forget the old
+            # life's objects, so no later sync advertises them again.
+            with self._evict_lock, self._objects_lock:
+                self._local_objects.clear()
+                self._spilled.clear()
+            self._draining = False
+            reg = self.gcs.call("register_node", self.node_id, self.advertised,
+                                self.store_path, self.total)
+            self.epoch = reg.get("epoch", 0)
+            self._cluster_size = reg.get("nodes", self._cluster_size)
+            # The GCS built this node's record afresh: the next beat carries
+            # everything.
+            self._hb_codec.force_full()
+            _log.warning("node %s rejoined as epoch %s", self.node_id[:12], self.epoch)
+            self._sched_wake.set()
+        except Exception as e:  # noqa: BLE001 - the next fenced beat retries it all
+            _log.warning("fence of node %s did not complete (%r); will retry",
+                         self.node_id[:12], e)
+        finally:
+            with self._fence_guard:
+                self._fencing = False
 
     def ping(self) -> str:
         return "pong"

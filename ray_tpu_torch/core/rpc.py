@@ -14,8 +14,11 @@ The control plane speaks pickle, so anyone who can reach an open TCP port
 can run code as this user. A TCP server therefore refuses to start without
 a shared secret in RAY_TPU_AUTH_TOKEN, and drops every connection whose
 first frame is not `RTPUAUTH:<token>`; a TCP client sends that frame first.
-(The JAX copy only warns when the token is missing.) Left out: the chaos
-network partitions (ROADMAP Queue 1 item 3.9).
+(The JAX copy only warns when the token is missing.)
+
+Fault injection: the client's connect and call paths are the `net.connect`
+and `net.call` chaos points, and the sites where a partition installed by
+chaos/net.py black-holes traffic. Disarmed, each costs two global loads.
 
 Payloads are plain pickle: task functions and arguments are already bytes
 made by core/serialization.py when they reach this layer.
@@ -35,12 +38,21 @@ import time
 import uuid
 from typing import Any, Optional, Tuple
 
+from ..chaos import net as _netpart
+from ..chaos.controller import controller as _chaos_controller
+from ..chaos.controller import maybe_inject as _chaos_inject
 from ..exceptions import RpcUnavailableError
 
 _HDR = struct.Struct("<I")
 AUTH_TOKEN_ENV = "RAY_TPU_AUTH_TOKEN"
 # The first frame of an authenticated TCP connection: RTPUAUTH:<token>.
 _AUTH_PREFIX = b"RTPUAUTH:"
+
+
+def _net_chaos_armed() -> bool:
+    """The net.* points' disarmed fast path: details and partition lookups
+    are built only when a rule or a partition is armed."""
+    return _chaos_controller() is not None or _netpart.active()
 
 
 def require_auth_token(what: str) -> None:
@@ -206,6 +218,26 @@ class RpcClient:
         last_err: Optional[Exception] = None
         attempt = 0
         while True:
+            if _net_chaos_armed():
+                # net.connect: a partition (or a `drop` rule) makes this
+                # attempt vanish on the wire, so the loop uses up the
+                # caller's own deadline; `raise` fails the connect at once.
+                blocked = _netpart.blocked_addr(self.path)
+                rule = None if blocked else _chaos_inject("net.connect", self.path)
+                if rule is not None and rule.action == "raise":
+                    raise RpcUnavailableError(self.path, time.monotonic() - start, attempt,
+                                              ConnectionError("chaos: injected connect failure"))
+                if blocked is not None or rule is not None:
+                    if blocked is not None:
+                        _netpart.note_drop(self.path, "connect")
+                    last_err = ConnectionError("chaos: connect black-holed by "
+                                               + ("partition" if blocked else "net.connect rule"))
+                    attempt += 1
+                    now = time.monotonic()
+                    if now >= deadline:
+                        raise RpcUnavailableError(self.path, now - start, attempt, last_err)
+                    time.sleep(min(self._BACKOFF_BASE_S, deadline - now))
+                    continue
             s = None
             try:
                 if kind == "tcp":
@@ -242,7 +274,35 @@ class RpcClient:
             self._tls.sock = sock
         return sock
 
+    def _chaos_gate(self, method: str, oneway: bool) -> bool:
+        """net.call (reached only when armed): True when a one-way message
+        must vanish; a two-way call raises, since a black hole gives a
+        request/reply protocol no reply, and every control-plane caller
+        already handles the typed connection error as "peer gone"."""
+        blocked = _netpart.blocked_addr(self.path)
+        if blocked is not None:
+            _netpart.note_drop(self.path, method)
+            if oneway:
+                return True
+            raise RpcUnavailableError(self.path, 0.0, 0, ConnectionError(
+                f"chaos partition black-holed {method!r}"))
+        rule = _chaos_inject("net.call", f"{self.path}|{method}")
+        if rule is not None:
+            if rule.action == "delay":
+                time.sleep(rule.delay_s)
+            elif rule.action == "drop":
+                if oneway:
+                    return True
+                raise RpcUnavailableError(self.path, 0.0, 0, ConnectionError(
+                    f"chaos net.call dropped {method!r}"))
+            else:  # raise
+                raise RpcUnavailableError(self.path, 0.0, 0, ConnectionError(
+                    f"chaos net.call failed {method!r}"))
+        return False
+
     def call(self, method: str, *args, timeout: Optional[float] = None, **kwargs) -> Any:
+        if _net_chaos_armed():
+            self._chaos_gate(method, oneway=False)
         req_id = uuid.uuid4().hex
         payload = pickle.dumps((req_id, method, args, kwargs))
         sock = self._get_sock()
@@ -268,6 +328,8 @@ class RpcClient:
 
     def notify(self, method: str, *args, **kwargs) -> None:
         """One-way call: no reply, no round-trip wait."""
+        if _net_chaos_armed() and self._chaos_gate(method, oneway=True):
+            return  # black-holed: a one-way send just vanishes
         payload = pickle.dumps((None, method, args, kwargs))
         sock = self._get_sock()
         sock.settimeout(None)

@@ -22,10 +22,13 @@ The manager owns the zygote daemon's lifecycle: boot, death detection,
 respawn with backoff and the rebuild of the parked pool. The chaos point
 `zygote.spawn` (action `kill`: SIGKILL the daemon at a spawn) drills it.
 
+When the raylet is fenced (core/raylet.py `_fence`), `on_fence` drains the
+zygote's parked children: no pre-forked worker outlives the incarnation that
+forked it.
+
 Left out: the autoscaler_v2 InstanceManager's forecast relay (ROADMAP Queue
 1 item 3.8 and its autoscaler, item 8; the GCS takes a forecast from any
-caller), and `on_fence`, the parked pool's drain when a fenced node rejoins
-(item 3.9, epoch fencing, which is what would call it).
+caller).
 """
 
 from __future__ import annotations
@@ -252,6 +255,26 @@ class WorkerPoolManager:
             self._parked = 0
         self._zygote_failed.set()
         self._wake.set()
+
+    def on_fence(self) -> None:
+        """The fenced node's pool teardown: the parked children were forked
+        under the old incarnation and go with it (the same reap the fence
+        applies to live workers); the maintenance loop refills the pool for
+        the fresh incarnation."""
+        z = self._zygote
+        if z is None:
+            return
+        try:
+            drained = z.reset()
+        except (OSError, ValueError) as e:
+            # The daemon may have died meanwhile: respawned either way.
+            self._note_zygote_failure(e)
+            return
+        with self._lock:
+            self._parked = 0
+        self._wake.set()
+        if drained:
+            _log.info("fence drained %d parked pre-forked workers", drained)
 
     def zygote_stats(self) -> dict:
         """The daemon's own answer (pid, parked, whether CUDA initialised

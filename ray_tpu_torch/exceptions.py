@@ -152,6 +152,31 @@ class CapacityTimeoutError(RayTpuError, TimeoutError):
                 (self.needed, self.feasible, self.waited_s, self.min_workers))
 
 
+class StaleNodeEpochError(RayTpuError, ConnectionError):
+    """An RPC came from a node incarnation the GCS has fenced: the node was
+    declared dead (heartbeat expiry during a partition) or the epoch it
+    carries is not the one the GCS stamped at its registration. The caller
+    is a zombie: it kills its workers, drops its leases and pins, and
+    registers again as a fresh incarnation with a new epoch. A
+    ConnectionError, so transport handlers treat it as the loss of the
+    control-plane session, never as data."""
+
+    def __init__(self, node_id: str = "", claimed_epoch: Optional[int] = None,
+                 current_epoch: Optional[int] = None, reason: str = "node declared dead"):
+        self.node_id = node_id
+        self.claimed_epoch = claimed_epoch
+        self.current_epoch = current_epoch
+        self.reason = reason
+        super().__init__(
+            f"node {node_id[:12]} is fenced ({reason}; claimed epoch {claimed_epoch}, "
+            f"current {current_epoch}): kill workers, drop leases, and re-register as a "
+            "fresh node")
+
+    def __reduce__(self):
+        return (StaleNodeEpochError,
+                (self.node_id, self.claimed_epoch, self.current_epoch, self.reason))
+
+
 class TaskCancelledError(RayTpuError):
     pass
 

@@ -29,6 +29,8 @@ KIND_PREFIXES = {
     "chan",   # core/channel.py reads/writes/timeouts
     "chaos",  # chaos controller injections
     "coll",   # collective.py rendezvous, ring up, ops, timeouts and destroys
+    "net",    # chaos/net.py partitions: installs, heals, blocked sends
+    "node",   # membership: the GCS's deaths, fences and joins, a raylet's fence
     "pool",   # core/worker_pool.py pops, misses, refills, zygote loss and respawn
     "serve",  # the Serve controller's drain replacements (serve.drain_replace)
     "train",  # trainer drains, restores and elastic resizes

@@ -1,13 +1,28 @@
 """The timing and size constants of the port's cluster runtime (the part of
-ray_tpu/utils/config.py that its modules read). The JAX copy makes each one
-overridable through a RAY_TPU_<NAME> variable; here each is a constant, and a
-knob comes back when a second caller needs another value.
+ray_tpu/utils/config.py that its modules read). As in the JAX copy, a
+constant declared through `_declare` is overridden by RAY_TPU_<NAME> in the
+environment of the process that reads it, at import: the daemons inherit the
+driver's environment, so a variable exported before `init()` or `Cluster()`
+reaches the whole cluster. Those are the ones a caller sets (the partition
+and GCS-restart drills shorten the heartbeat and push the snapshot out); the
+rest stay constants until a caller needs another value.
 """
+
+import os
+
+
+def _declare(name: str, default):
+    """RAY_TPU_<NAME> from the environment, coerced to the default's type;
+    the default when it is unset."""
+    raw = os.environ.get(f"RAY_TPU_{name}")
+    return default if raw is None else type(default)(raw)
+
 
 # --- health / liveness (reference: raylet_heartbeat_period_ms,
 # health_check_timeout_ms)
-HEARTBEAT_INTERVAL_S = 1.0  # raylet -> GCS heartbeat period
-HEARTBEAT_TIMEOUT_S = 5.0  # the GCS declares a node dead after this silence
+HEARTBEAT_INTERVAL_S = _declare("HEARTBEAT_INTERVAL_S", 1.0)  # raylet -> GCS heartbeat period
+# The GCS declares a node dead after this silence.
+HEARTBEAT_TIMEOUT_S = _declare("HEARTBEAT_TIMEOUT_S", 5.0)
 WORKER_MONITOR_INTERVAL_S = 0.2  # the raylet's worker-death poll period
 
 # --- worker pool
@@ -38,3 +53,8 @@ PLACEMENT_RETRY_TIMEOUT_S = 10.0
 # Long-poll window of object waits; between windows the owner runs its
 # failure-recovery check, so this bounds retry latency.
 OBJECT_WAIT_POLL_S = 2.0
+
+# --- GCS persistence
+# Period of the GCS's whole-state snapshot; between two snapshots every
+# mutation is in the write-ahead log.
+GCS_SNAPSHOT_INTERVAL_S = _declare("GCS_SNAPSHOT_INTERVAL_S", 1.0)

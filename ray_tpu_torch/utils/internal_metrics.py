@@ -491,6 +491,12 @@ NODES_DRAINED = Counter(
     "Nodes that entered the draining state on a preemption notice",
     component="gcs",
 )
+NODES_FENCED = Counter(
+    "raytpu_nodes_fenced_total",
+    "Dead-marked nodes whose later RPCs were rejected with StaleNodeEpochError "
+    "(zombies made to register again)",
+    component="gcs",
+)
 # --- object transport / shm store (core/raylet.py) ---------------------------
 OBJECT_BYTES_IN = Counter(
     "raytpu_object_bytes_in_total",
@@ -600,4 +606,14 @@ CHAOS_INJECTIONS = Counter(
     "Faults injected by the chaos controller, by point and action",
     component="chaos",
     tag_keys=("point", "action"),
+)
+NET_PARTITIONS = Counter(
+    "raytpu_net_partitions_total",
+    "Network-partition specs installed in this process by chaos.partition",
+    component="chaos",
+)
+NET_BLOCKED = Counter(
+    "raytpu_net_blocked_total",
+    "Control-plane sends and connects black-holed by an active chaos partition",
+    component="chaos",
 )

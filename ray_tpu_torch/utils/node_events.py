@@ -9,10 +9,12 @@ pubsub channel:
   API, an operator, or a test),
 - ``{"event": "node_dead", "node_id"}`` when a node is declared dead
   (heartbeat expiry, or `Cluster.remove_node`),
-- ``{"event": "node_added", "node_id", "epoch"}`` when a node registers.
-
-The JAX copy also tracks ``node_fenced``; epoch fencing is not ported
-(ROADMAP Queue 1 item 3.9), so no GCS of the port publishes it.
+- ``{"event": "node_fenced", "node_id", "epoch"}`` when a dead-marked
+  node's calls resumed (a healed partition) and were rejected with
+  StaleNodeEpochError: supervisors treat it as death (the node already left
+  the membership; the fence only makes the zombie stop),
+- ``{"event": "node_added", "node_id", "epoch"}`` when a node registers
+  (a first join, or a fenced incarnation rejoining fresh).
 
 `NodeEventWatcher` is the subscriber side: a daemon thread long-polls the
 channel and maintains the cumulative ``draining`` / ``dead`` node-id sets.
@@ -42,6 +44,7 @@ class NodeEventWatcher:
         self.draining: Set[str] = set()
         self.dead: Set[str] = set()
         self.added: Set[str] = set()
+        self.fenced: Set[str] = set()
         # Grows only: nodes that EVER received a drain notice. `draining`
         # reflects current state (a dead node leaves it); supervisors
         # distinguishing "noticed preemption" from "un-noticed crash"
@@ -90,6 +93,13 @@ class NodeEventWatcher:
                     elif msg.get("event") == "node_dead":
                         self.dead.add(nid)
                         # A dead node is no longer "draining" — it's gone.
+                        self.draining.discard(nid)
+                    elif msg.get("event") == "node_fenced":
+                        # Death, to a supervisor (the membership was lost
+                        # at node_dead; this is the zombie put down), kept
+                        # apart for post-mortems.
+                        self.fenced.add(nid)
+                        self.dead.add(nid)
                         self.draining.discard(nid)
                     elif msg.get("event") == "node_added":
                         self.added.add(nid)

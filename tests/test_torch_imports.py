@@ -159,7 +159,7 @@ def test_daemons_import_neither_torch_nor_jax():
         "import ray_tpu_torch.core.gcs, ray_tpu_torch.core.raylet, ray_tpu_torch.core.rpc\n"
         "import ray_tpu_torch.core.worker_proc, ray_tpu_torch.core.cluster_runtime\n"
         "import ray_tpu_torch.core.zygote, ray_tpu_torch.core.worker_pool\n"
-        "import ray_tpu_torch.core.client_runtime\n"
+        "import ray_tpu_torch.core.client_runtime, ray_tpu_torch.chaos.net\n"
         "bad = sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'jax', 'jaxlib',\n"
         "                                                      'ray_tpu', 'cloudpickle'})\n"
         "assert not bad, bad\n"

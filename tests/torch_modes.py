@@ -14,12 +14,72 @@ Every test_torch_* file boots the JAX package's clusters through
 """
 
 import contextlib
+import faulthandler
 import fcntl
+import hashlib
 import importlib
 import os
 import shutil
 import signal
 import tempfile
+import threading
+
+import pytest
+
+class CaseTimeLimitError(Exception):
+    """A case ran past its own time limit (case_time_limit)."""
+
+
+def _raise_time_limit(signum, frame):
+    raise CaseTimeLimitError("the case ran past its time limit; every thread's stack is "
+                             "printed above it on stderr")
+
+
+@contextlib.contextmanager
+def case_time_limit(request, seconds, grace=30.0):
+    """A case's own limit, so a hang (a deadlock of the JAX package's runtime,
+    ROADMAP Queue 3) fails that case alone instead of holding its xdist
+    worker until the whole run is cut. Past `seconds` a watchdog thread
+    prints every thread's stack to the process's real stderr (pytest's
+    capture set aside) and interrupts the main thread (SIGUSR1), whose
+    blocking call then raises CaseTimeLimitError: the case fails and its
+    teardown runs. A case still not unwound `grace` seconds later exits the
+    worker; since xdist's loadfile scheduling runs a crashed case again on
+    the next worker, that run finds the case's marker and fails at once."""
+    run_id = os.environ.get("PYTEST_XDIST_TESTRUNUID") or str(os.getpid())
+    key = hashlib.sha1(f"{run_id} {request.node.nodeid}".encode()).hexdigest()[:20]
+    marker = os.path.join(tempfile.gettempdir(), "rtpt_case_limit", key)
+    if os.path.exists(marker):
+        pytest.fail(f"{request.node.nodeid} ran past its {seconds} s limit in an earlier "
+                    "worker of this run (its stacks are printed there): not run again")
+    capman = request.config.pluginmanager.getplugin("capturemanager")
+    with capman.global_and_fixture_disabled() if capman else contextlib.nullcontext():
+        err_fd = os.dup(2)
+    main, done = threading.main_thread().ident, threading.Event()
+
+    def watchdog():
+        if done.wait(seconds):
+            return
+        os.makedirs(os.path.dirname(marker), exist_ok=True)
+        open(marker, "w").close()
+        os.write(err_fd, f"\n{request.node.nodeid} ran past its {seconds} s limit; every "
+                         f"thread's stack:\n".encode())
+        faulthandler.dump_traceback(file=err_fd, all_threads=True)
+        signal.pthread_kill(main, signal.SIGUSR1)
+        if not done.wait(grace):
+            os.write(err_fd, f"{request.node.nodeid} did not unwind within {grace} s: "
+                             "exiting this worker\n".encode())
+            os._exit(1)
+
+    previous = signal.signal(signal.SIGUSR1, _raise_time_limit)
+    threading.Thread(target=watchdog, daemon=True, name="case-time-limit").start()
+    try:
+        yield
+    finally:
+        done.set()
+        signal.signal(signal.SIGUSR1, previous)
+        os.close(err_fd)
+
 
 # One lock file for every test process of the port: a JAX boot holds it from
 # its sweep of /dev/shm/rtpu_* until the cluster answers.
