@@ -49,10 +49,10 @@ Phases, each printing its own line, any failure exits non-zero:
   10. zero: ZeRO-1 (train/zero.py) over a NCCL group of one rank against the
      plain step, 2 layers, bf16: losses and params bitwise equal after 3
      steps; each optimizer state's bytes;
-  11. checkpoint: 3 steps, an elastic checkpoint at world 1 resharded to 4 on
-     disk, restored into a fresh run, 3 more steps: bitwise equal to 6
-     uninterrupted steps; then an HF safetensors export and reload, bitwise,
-     with the same greedy tokens from PagedLM;
+  11. checkpoint (llama2_7b width, 1 layer): 3 steps, an elastic checkpoint at
+     world 1 resharded to 4 on disk, restored into a fresh run, 3 more steps:
+     bitwise equal to 6 uninterrupted steps; then an HF safetensors export and
+     reload, bitwise, with the same greedy tokens from PagedLM;
   12. fit: the zero phase's configuration trained through TorchTrainer.fit
      on init(local_mode=True), 8 steps with an elastic checkpoint reported
      at step 3, uninterrupted (A) and with a failure after step 5 and a
@@ -135,7 +135,7 @@ Phases, each printing its own line, any failure exits non-zero:
      request, K1 in both replicas' processes; nothing left after shutdown.
   17. objects: the object plane and what rides it, on a fresh init() with a
      2 GiB pool per node; one layer = Llama-2-7B's seven block matrices as a
-     dict of bf16 CUDA tensors (404.8 MB): (a) 12 layers (2.3x the pool) put
+     dict of bf16 CUDA tensors (404.8 MB): (a) 8 layers (1.5x the pool) put
      and read back onto the card bitwise through spill to disk, num_spilled
      in the GCS's stats, a num_gpus=1 task on a spilled layer (sha256), the
      spill dir empty and the pool's bytes back once the refs drop; (b) 3
@@ -187,6 +187,26 @@ Phases, each printing its own line, any failure exits non-zero:
      Alive again, and a new num_gpus=0.5 task seeing CUDA_VISIBLE_DEVICES
      "0" and running K1 (seconds from the kill to its result, and its
      parts); (c) nothing left after shutdown.
+  20. observe: logs, dumps, spans and post-mortems on a fresh init() whose head
+     leases GPU 0, with tracing on and a 3 s collective op timeout: (a) a named
+     num_gpus=0.5 actor's first K1 call at the serve shape (against its plain
+     version), split by its own clock into its CUDA context, q/k/v, the kernel
+     library's load, the wrapper's first launch, the registered op's first
+     dispatch through flash_attention and a second call; the line it prints
+     reaches the driver's _log_recent with its `(observe_k1 pid=... node=...)`
+     prefix (seconds from its print), tail_logs by its actor id returns the
+     capture record and its structured record, and tracing.collect() holds the
+     worker's execution span parented to the driver's span with the submit
+     span's flow id; (b) a num_gpus=0.5 task with max_retries=0 on a worker
+     forked from the zygote runs K1, writes a marker to stderr and SIGKILLs
+     itself: WorkerCrashedError with the marker, a post-mortem in the flight
+     dir with exit code -9, the task and the marker (seconds from the kill),
+     a worker_crash record; (c) two num_gpus=0.5 actors in a collective group
+     allreduce K1's CUDA output, then rank 1 sleeps past the op timeout: rank
+     0's CollectiveTimeoutError opens one coll.timeout incident, whose harvest
+     SIGUSR2s both actors and stages a bundle with their rings, a trace.json
+     holding the trigger's marker and a report naming rank 1 missing (seconds
+     from the trigger to the manifest); (d) nothing left after shutdown.
 Then a line of each phase's wall seconds and the whole smoke's, one JSON line
 with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
@@ -197,7 +217,8 @@ cluster's actor, NCCL trainer worker and gloo ranks; the preempted and
 restored workers, each elastic world, the old and new Serve replicas; the
 objects phase's two DAG actors and its runtime-env task; the ops phase's
 pool actors; the membership phase's zombie and successor actors, its
-restart actor and task) under "launches_by_path"), and the
+restart actor and task; the observe phase's logging actor, crashed task and
+collective actors) under "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -1478,8 +1499,9 @@ def _dir_bytes(path) -> int:
 
 
 def phase_checkpoint():
-    """Save, reshard, resume and HF round trip on llama2_7b(n_layers=2),
-    bf16, remat "hot", b=1, s=2048, under deterministic algorithms: 3 steps,
+    """Save, reshard, resume and HF round trip on llama2_7b(n_layers=1) (2
+    before the observe phase came: the smoke's time), bf16, remat "hot",
+    b=1, s=2048, under deterministic algorithms: 3 steps,
     save_state (elastic format) at world 1, reshard to world 4 on disk,
     restore into fresh params and a fresh optimizer (bitwise equal to what
     was saved), 3 more steps: losses and params bitwise equal to an
@@ -1496,7 +1518,7 @@ def phase_checkpoint():
     from ray_tpu_torch.train import elastic_checkpoint as ec
     from ray_tpu_torch.train import hf_checkpoint as hf
 
-    cfg = tfm.llama2_7b(n_layers=2, dtype=torch.bfloat16, remat_policy="hot")
+    cfg = tfm.llama2_7b(n_layers=1, dtype=torch.bfloat16, remat_policy="hot")
     init, step = tfm.build_train_step(cfg, tfm.adamw(1e-4), device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(6))
@@ -1539,7 +1561,8 @@ def phase_checkpoint():
             resumed += [step(params, opt, tokens).item() for _ in range(3)]
             del opt
         same = resumed == straight and _tree_equal(want, params)
-        print(f"[checkpoint] llama2_7b width, 2 layers, bf16, remat hot, b=1 s=2048, "
+        print(f"[checkpoint] llama2_7b width, {cfg.n_layers} layer(s), bf16, remat hot, "
+              f"b=1 s=2048, "
               f"deterministic: losses straight {straight} resumed {resumed}; restored state "
               f"bitwise equal to the saved {restored}; after 6 steps losses and params bitwise "
               f"equal {same}; elastic checkpoint {written / 2**30:.3f} GiB at world 1, "
@@ -4029,9 +4052,9 @@ def phase_elastic():
 
 # ----------------------------------------------------------------- objects
 OBJ_POOL = 2 << 30  # the phase's object store per node
-# Layers put in (a): 4.86 GB, 2.26x the pool (16 before the ops phase came:
-# the smoke's time; 12 still spill most of them).
-OBJ_LAYERS = 12
+# Layers put in (a): 3.24 GB, 1.51x the pool (16 before the ops phase came,
+# 12 before the observe phase: the smoke's time; 8 still spill).
+OBJ_LAYERS = 8
 # One Llama-2-7B block's seven weight matrices (Meta's published config:
 # d_model 4096, d_ff 11008), bf16: 202.4 M params, 404.8 MB.
 OBJ_LAYER_SHAPES = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
@@ -5110,7 +5133,7 @@ def _mem_restart(rt, runtime, cluster, smi):
     rt.get(actor.run.remote("wal-0", 5000, 0), timeout=MEM_TIMEOUT_S)
     gcs.call("kv_put", "mem-wal-key", b"survives")
     alive_before = sorted(n["NodeID"] for n in gcs.call("list_nodes") if n["Alive"])
-    logs = glob.glob(os.path.join(cluster.log_dir, "raylet_*.err"))
+    logs = glob.glob(os.path.join(cluster.log_dir, "raylet_*.jsonl"))  # their records
     log_bytes = sum(os.path.getsize(p) for p in logs)
     t0 = time.perf_counter()
     cluster.restart_gcs()
@@ -5206,6 +5229,423 @@ def phase_membership():
     return launches
 
 
+# --------------------------------------------------------------- observe
+OBS_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
+OBS_ENV = {"RAY_TPU_TRACING": "1",
+           # (c): rank 1's stall times rank 0's op out in 3 s, not the 300 s default
+           "RAY_TPU_COLLECTIVE_TIMEOUT_S": "30", "RAY_TPU_COLLECTIVE_OP_TIMEOUT_S": "3"}
+OBS_STALL_S = 5.0  # (c): rank 1's sleep, past the op timeout
+OBS_TIMEOUT_S = 120
+
+
+def _obs_qkv(seed: int):
+    import torch
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def _obs_k1(seed: int):
+    """K1 (causal) on q/k/v from `seed` in this process, held against its
+    plain version: (o, per-entry error)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _obs_qkv(seed)
+    o = fa.flash_attention(q, k, v, causal=True)
+    o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    return o, entry_err(o, o_ref)
+
+
+class _ObsTalker:
+    """(a)'s num_gpus=0.5 actor: its first call times its own first K1 call
+    by its clock (the CUDA context, q/k/v, the kernel library's load, the
+    first launch through the wrapper `flash_fwd`, the first dispatch of the
+    registered op through flash_attention, a second call), prints a line
+    with the output's checksum and its wall time, and logs one structured
+    record."""
+
+    def __init__(self):
+        _zero_launch_counts()
+
+    def first(self, seed):
+        import torch
+
+        from ray_tpu_torch.observability.logs import get_logger
+        from ray_tpu_torch.ops import _build
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        stamps = [time.perf_counter()]
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())  # the CUDA context
+        q, k, v = _obs_qkv(seed)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())  # q/k/v
+        _build.load("flash_fwd")
+        stamps.append(time.perf_counter())  # the kernel library's load
+        fa.flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())  # the wrapper's first launch
+        o = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())  # the op's first dispatch and launch
+        fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())  # a second call
+        o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+        err = entry_err(o, o_ref)
+        checksum = float(o.float().sum())
+        printed = time.time()
+        print(f"observe-k1 checksum={checksum:.6f} printed={printed:.6f}", flush=True)
+        get_logger("worker").info("observe-k1 structured checksum=%.6f", checksum)
+        return {"pid": os.getpid(), "err": err, "checksum": checksum, "printed": printed,
+                "parts": [b - a for a, b in zip(stamps, stamps[1:])],
+                "launches": _launch_counts()}
+
+
+def _obs_crash_task(marker, key):
+    """(b): K1 against its plain version, what it saw recorded in the GCS
+    KV, a marker line on stderr, then SIGKILL of its own worker."""
+    import json as _json
+    import signal as _signal
+
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    _zero_launch_counts()
+    _, err = _obs_k1(7001)
+    killed = time.time()
+    current_runtime()._gcs.call("kv_put", key, _json.dumps({
+        "ppid": os.getppid(), "pid": os.getpid(), "err": err, "killed": killed,
+        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "launches": _launch_counts()}).encode())
+    sys.stderr.write(marker + "\n")
+    sys.stderr.flush()
+    os.kill(os.getpid(), _signal.SIGKILL)
+
+
+class _ObsMember:
+    """(c)'s collective member (num_gpus=0.5): K1's output on its card into
+    the group's allreduce; a stall past the op timeout on demand."""
+
+    def __init__(self):
+        _zero_launch_counts()
+        self.err = None
+
+    def pid(self):
+        return os.getpid()
+
+    def reduce(self, seed):
+        from ray_tpu_torch import collective
+
+        o, self.err = _obs_k1(seed)
+        summed = collective.allreduce(o, group_name="observe")
+        return {"o": o.float().cpu().numpy(), "sum": summed}
+
+    def again(self, stall_s=0.0):
+        import torch
+
+        from ray_tpu_torch import collective
+        from ray_tpu_torch.exceptions import CollectiveTimeoutError
+
+        if stall_s:
+            time.sleep(stall_s)  # rank 1 never joins this op
+            return ("stalled",)
+        t0 = time.time()
+        try:
+            collective.allreduce(torch.ones(4, device="cuda"), group_name="observe")
+            return ("ok",)
+        except CollectiveTimeoutError as e:
+            return ("timeout", e.group, e.rank, list(e.missing), t0, time.time())
+
+    def report(self):
+        return {"launches": _launch_counts(), "err": self.err, "pid": os.getpid()}
+
+
+def _obs_wait(pred, what, timeout_s=OBS_TIMEOUT_S, interval=0.01):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            _fail(f"observe: {what} did not happen in {timeout_s:.0f} s")
+        time.sleep(interval)
+
+
+def _obs_logs(rt, runtime, smi):
+    """(a): a named num_gpus=0.5 actor's first K1 call, its print at the
+    driver, its records through tail_logs, its span linked to the driver's.
+    Returns its launches."""
+    from ray_tpu_torch import tracing
+    from ray_tpu_torch.utils import state
+
+    import threading
+
+    # The driver's view of the actor's line, stamped as it lands.
+    landed, done = {}, threading.Event()
+
+    def watch():
+        while not done.is_set() and "line" not in landed:
+            line = next((ln for ln in list(runtime._log_recent)
+                         if "observe-k1 checksum=" in ln), None)
+            if line is not None:
+                landed.update(line=line, at=time.time())
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch, daemon=True, name="observe-watch")
+    watcher.start()
+    actor = rt.remote(num_gpus=0.5)(_ObsTalker).options(name="observe_k1").remote()
+    with tracing.span("observe.call") as driver_span:
+        res = rt.get(actor.first.remote(1001), timeout=OBS_TIMEOUT_S)
+    pid = res["pid"]
+    _obs_wait(lambda: "line" in landed, "the actor's print at the driver")
+    done.set()
+    watcher.join(5)
+    seen, arrived = landed["line"], landed["at"]
+    actor_id = actor._actor_id.hex()
+    recs = _obs_wait(lambda: (r := state.cluster_logs(actor_id=actor_id, grep="observe-k1"))
+                     and {x["component"] for x in r} >= {"stdout", "worker"} and r,
+                     "the actor's records in tail_logs")
+    comps = sorted({r["component"] for r in recs})
+    spans = tracing.collect()
+    mine = [s for s in spans if s.get("trace_id") == driver_span["trace_id"]]
+    submit = next((s for s in mine if s["name"].startswith("submit actor task first")), None)
+    run = next((s for s in mine if s["name"].startswith("run actor task first")), None)
+    parts = dict(zip(("cuda context", "q/k/v", "library load", "first launch (flash_fwd)",
+                      "first dispatch (flash_attention)", "second call"), res["parts"]))
+    rt.kill(actor)
+    print(f"[observe] (a) {smi}: actor observe_k1 (num_gpus=0.5, pid {pid}) ran K1 at the "
+          f"serve shape {CLUSTER_SERVE_SHAPE} within {res['err']:.6f} per entry (tol "
+          f"{OBS_TOL}), {res['launches']['flash_fwd']} launches; its print reached the "
+          f"driver's _log_recent {arrived - res['printed']:.3f} s after it was printed, as "
+          f"{seen!r}; tail_logs by its actor id: components {comps}; spans: the driver's "
+          f"{driver_span['name']!r} {driver_span['span_id']}, the worker's "
+          f"{(run or {}).get('name')!r} (pid {(run or {}).get('pid')}) parent "
+          f"{(run or {}).get('parent_id')} flow_in {((run or {}).get('attrs') or {}).get('flow_in')} "
+          f"against the submit span's flow_out "
+          f"{((submit or {}).get('attrs') or {}).get('flow_out')}", flush=True)
+    print(f"[observe] (a) {smi}: the actor's first K1 call by its own clock: "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in parts.items())}", flush=True)
+    if not res["err"] <= OBS_TOL or res["launches"]["flash_fwd"] != 3:
+        _fail(f"observe: K1 in the actor {res['err']} {res['launches']}")
+    if not seen.startswith(f"(observe_k1 pid={pid} node="):
+        _fail(f"observe: the driver's line {seen!r} lacks the actor's prefix")
+    if run is None or submit is None or run["parent_id"] != driver_span["span_id"] \
+            or run["pid"] != pid or run["attrs"].get("flow_in") != submit["attrs"].get("flow_out"):
+        _fail(f"observe: the worker's span is not linked to the driver's: {mine}")
+    return res["launches"], arrived - res["printed"]
+
+
+def _obs_crash(rt, runtime, smi):
+    """(b): a num_gpus=0.5 task with max_retries=0 on a worker forked from the
+    zygote runs K1, writes a marker to stderr and SIGKILLs itself: the
+    driver's error, the post-mortem beside the flight dumps, the GCS's
+    error table. Returns its launches and death -> post-mortem s."""
+    import glob
+    import json as _json
+    import uuid
+
+    from ray_tpu_torch.exceptions import WorkerCrashedError
+    from ray_tpu_torch.observability import flight_recorder
+    from ray_tpu_torch.utils import state
+
+    zpid = _obs_wait(lambda: runtime._raylet.call("zygote_stats").get("pid"),
+                     "the zygote", interval=0.1)
+    marker, key = f"observe-last-words-{uuid.uuid4().hex[:8]}", "observe/crash"
+    err = None
+    try:
+        rt.get(rt.remote(num_gpus=0.5, max_retries=0)(_obs_crash_task).remote(marker, key),
+               timeout=OBS_TIMEOUT_S)
+    except WorkerCrashedError as e:
+        err = str(e)
+    seen = _json.loads(runtime._gcs.call("kv_get", key) or b"{}")
+
+    def postmortem():
+        for path in glob.glob(os.path.join(flight_recorder.flight_dir(), "postmortem_*.json")):
+            with open(path) as f:
+                payload = _json.load(f)
+            if any(marker in ln for ln in payload.get("tail", [])):
+                return path, payload
+        return None
+
+    path, payload = _obs_wait(postmortem, "the post-mortem file")
+    landed = os.stat(path).st_mtime - seen.get("killed", 0.0)
+    crash = _obs_wait(lambda: [e for e in state.cluster_errors() if e.get("type") ==
+                               "worker_crash" and marker in str(e.get("log_tail", ""))],
+                      "the worker_crash record")
+    status = os.path.join(runtime._cluster.log_dir, f"worker_{payload['worker_id']}.exit")
+    print(f"[observe] (b) {smi}: task (num_gpus=0.5, max_retries=0, pid {seen.get('pid')}, "
+          f"parent {seen.get('ppid')}, the zygote {zpid}, CUDA_VISIBLE_DEVICES="
+          f"{seen.get('visible')!r}) ran K1 within {seen.get('err')} per entry, then SIGKILLed "
+          f"itself: the driver's error {err!r:.160}; post-mortem {os.path.basename(path)} "
+          f"{landed:.3f} s after the kill: exit_code {payload['exit_code']}, task "
+          f"{payload['task']!r}, tail {payload['tail'][-2:]}; the zygote's status file "
+          f"{os.path.exists(status)}; GCS error table: {crash[-1]['type']} "
+          f"{crash[-1]['error']!r}", flush=True)
+    if err is None or marker not in err:
+        _fail(f"observe: the driver's get raised no WorkerCrashedError with the marker: {err!r}")
+    if seen.get("ppid") != zpid or not os.path.exists(status):
+        _fail(f"observe: the task's worker was not forked from the zygote ({seen}, {zpid})")
+    if payload["exit_code"] != -9 or "_obs_crash_task" not in (payload["task"] or ""):
+        _fail(f"observe: post-mortem {payload}")
+    if seen.get("visible") != "0" or not seen.get("err", 1.0) <= OBS_TOL \
+            or seen["launches"]["flash_fwd"] != 1:
+        _fail(f"observe: the task's K1 {seen}")
+    return seen["launches"], landed
+
+
+def _obs_collective(rt, runtime, smi):
+    """(c): two num_gpus=0.5 actors allreduce K1's CUDA output, then rank 1
+    stalls past the op timeout: rank 0's CollectiveTimeoutError, one
+    incident, its harvest and bundle, the merged trace, the report. Returns
+    the two actors' launches and trigger -> staged s."""
+    import json as _json
+
+    import numpy as np
+
+    from ray_tpu_torch import collective
+    from ray_tpu_torch.observability import flight_recorder, postmortem
+    from ray_tpu_torch.utils import state
+
+    cls = rt.remote(num_gpus=0.5)(_ObsMember)
+    members = [cls.remote(), cls.remote()]
+    pids = rt.get([m.pid.remote() for m in members], timeout=OBS_TIMEOUT_S)
+    born = time.monotonic()
+    collective.create_collective_group(members, group_name="observe")
+    outs = rt.get([m.reduce.remote(2001 + i) for i, m in enumerate(members)],
+                  timeout=OBS_TIMEOUT_S)
+    want = outs[0]["o"].astype(np.float64) + outs[1]["o"].astype(np.float64)
+    ar_err = max(float(np.max(np.abs(o["sum"].reshape(want.shape) - want))) for o in outs)
+    # The raylet signals no worker younger than 5 s: both rings must dump.
+    time.sleep(max(0.0, 5.5 - (time.monotonic() - born)))
+    stalled = members[1].again.remote(OBS_STALL_S)
+    r0 = rt.get(members[0].again.remote(), timeout=OBS_TIMEOUT_S)
+    if r0[0] != "timeout":
+        _fail(f"observe: rank 0 got {r0} with rank 1 stalled")
+    inc = _obs_wait(lambda: next((i for i in state.list_incidents()
+                                  if i["trigger"] == "coll.timeout"
+                                  and i["state"] in ("staged", "failed")), None),
+                    "the coll.timeout incident staged")
+    incidents = state.list_incidents()
+    full = state.get_incident(inc["incident_id"])
+    bundle = inc["bundle"] or ""
+    staged_s = os.stat(os.path.join(bundle, postmortem.MANIFEST_NAME)).st_mtime \
+        - full["triggers"][0]["ts"] if bundle else float("nan")
+    manifest = postmortem.load_manifest(bundle)
+    rings = {d["pid"] for d in flight_recorder.collect(os.path.join(bundle, "flight"))}
+    with open(os.path.join(bundle, postmortem.TRACE_NAME)) as f:
+        trace = _json.load(f)
+    marker = any(e.get("name") == "trigger:coll.timeout" for e in trace["traceEvents"])
+    report = postmortem.render_report(bundle)
+    suspect = next((ln for ln in report.splitlines() if ln.startswith("- suspect:")), "")
+    rt.get(stalled, timeout=OBS_TIMEOUT_S)
+    reps = rt.get([m.report.remote() for m in members], timeout=OBS_TIMEOUT_S)
+    print(f"[observe] (c) {smi}: two num_gpus=0.5 actors (pids {pids}) allreduced K1's "
+          f"CUDA output (bf16, {CLUSTER_SERVE_SHAPE}) within {ar_err:.3g} of the float64 sum, "
+          f"K1 within {max(r['err'] for r in reps):.6f} per entry; rank 1 slept "
+          f"{OBS_STALL_S} s: rank 0 got {r0[:4]} after {r0[-1] - r0[-2]:.3f} s; incidents "
+          f"{[(i['trigger'], i['state'], i['triggers']) for i in incidents]}; trigger -> "
+          f"bundle staged {staged_s:.3f} s; the manifest's pids {sorted(manifest['pids'])}, "
+          f"the rings in flight/ {sorted(rings)}; trace.json {len(trace['traceEvents'])} "
+          f"events, the trigger marker {marker}; report {suspect!r}", flush=True)
+    if ar_err > 1e-3 or any(not r["err"] <= OBS_TOL or r["launches"]["flash_fwd"] != 1
+                            for r in reps):
+        _fail(f"observe: the group's K1 or allreduce: {ar_err} {reps}")
+    if r0[:4] != ("timeout", "observe", 0, [1]):
+        _fail(f"observe: rank 0 got {r0}")
+    if len(incidents) != 1 or inc["state"] != "staged" or full["triggers"][0]["kind"] \
+            != "coll.timeout":
+        _fail(f"observe: incidents {incidents}")
+    if not {str(p) for p in pids} <= set(manifest["pids"]) or not set(pids) <= rings:
+        _fail(f"observe: the bundle lacks an actor's ring: {manifest['pids']} {rings}")
+    if not marker or "stalled rank" not in suspect or "'missing': [1]" not in suspect:
+        _fail(f"observe: the trace's marker {marker}, the report's suspect {suspect!r}")
+    launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for r in reps:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    return launches, staged_s
+
+
+def phase_observe():
+    """Logs, dumps, spans and post-mortems on the cluster runtime, on a fresh
+    init() whose head leases GPU 0, with tracing on (RAY_TPU_TRACING,
+    RAY_TPU_TRACE_DIR) and a 3 s collective op timeout in the daemons' and
+    workers' environment: (a) a named num_gpus=0.5 actor's first K1 call,
+    timed by its own clock, its print at the driver with its prefix, its
+    capture and structured records through tail_logs, its execution span
+    linked to the driver's; (b) a num_gpus=0.5 task on a forked worker runs
+    K1 and SIGKILLs itself: WorkerCrashedError with its marker, a
+    post-mortem with exit code -9, a worker_crash record; (c) two
+    num_gpus=0.5 actors allreduce K1's output, then rank 1 stalls: rank 0's
+    CollectiveTimeoutError opens one incident whose bundle holds both
+    actors' rings, a trace with the trigger's marker and a report naming
+    rank 1; (d) nothing left after shutdown. Returns the launches of each
+    path."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    trace_dir = tempfile.mkdtemp(prefix="observe_traces_")
+    env = dict(OBS_ENV, RAY_TPU_TRACE_DIR=trace_dir)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    parts, launches, timing = {}, {}, {}
+    try:
+        rt.init()
+        runtime = current_runtime()
+        session_dir = runtime._cluster.session_dir
+        ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+        try:
+            if rt.cluster_resources().get("GPU") != 1.0:
+                _fail(f"observe: cluster_resources {rt.cluster_resources()}")
+            t0 = time.perf_counter()
+            launches["observe logging actor"], timing["print -> driver"] = _obs_logs(
+                rt, runtime, smi)
+            parts["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches["observe crashed task"], timing["death -> post-mortem"] = _obs_crash(
+                rt, runtime, smi)
+            parts["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches["observe collective actors"], timing["trigger -> staged"] = \
+                _obs_collective(rt, runtime, smi)
+            parts["c"] = time.perf_counter() - t0
+        finally:
+            t0 = time.perf_counter()
+            rt.shutdown()
+            parts["shutdown"] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        from ray_tpu_torch import tracing
+
+        tracing.disable()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    print(f"[observe] (d) {smi}: {', '.join(f'{k} {v:.3f} s' for k, v in timing.items())}; "
+          f"parts {', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; processes left "
+          f"{left}, pools left {sorted(pools)}; phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    if left or pools:
+        _fail("observe: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -5250,7 +5690,7 @@ def main() -> int:
     by_path.update(fit_launches)
     by_path.update(timed(phase_tune, fit_step_ms))
     for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops,
-                  phase_membership):
+                  phase_membership, phase_observe):
         by_path.update(timed(phase))
     print(f"[smoke] seconds by phase {phase_s}; whole smoke "
           f"{time.perf_counter() - t_main:.1f} s", flush=True)

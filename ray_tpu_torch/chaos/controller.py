@@ -26,15 +26,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 import random
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 from ..observability.flight_recorder import record as _flight_record
-
-_log = logging.getLogger(__name__)
 
 ENV_VAR = "RAY_TPU_CHAOS"
 SEED_ENV = "RAY_TPU_CHAOS_SEED"
@@ -204,13 +201,19 @@ class ChaosController:
 
     @staticmethod
     def _stamp(point: str, rule: ChaosRule, detail: str) -> None:
-        # Cause before symptom: the flight record lands before the fault
-        # is applied.
+        # Cause before symptom: the flight record and the trigger land
+        # before the fault is applied.
         _flight_record("chaos.inject", (point, rule.action, detail))
+        from ..observability.logs import get_logger
+        from ..observability.postmortem import publish_trigger
         from ..utils import internal_metrics as imet
 
+        publish_trigger("chaos.inject", {"point": point, "action": rule.action,
+                                         "detail": detail}, source="chaos")
         imet.CHAOS_INJECTIONS.inc(point=point, action=rule.action)
-        _log.warning("injecting %s at %s (%s)", rule.action, point, detail)
+        # The structured stream gets it too: the faults sit beside the
+        # symptoms they caused under component "chaos".
+        get_logger("chaos").warning("injecting %s at %s (%s)", rule.action, point, detail)
 
     def stats(self) -> List[Dict[str, Any]]:
         with self._lock:

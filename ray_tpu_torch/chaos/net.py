@@ -30,15 +30,13 @@ Installs and blocked sends are flight-recorded (``chaos.partition``,
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from ..observability.flight_recorder import record as _flight_record
-
-_log = logging.getLogger("ray_tpu_torch.chaos")
+from ..observability.logs import get_logger
 
 GCS = "gcs"
 DRIVER = "driver"
@@ -86,8 +84,9 @@ def install(blocked: Sequence[str], heal_after: Optional[float] = None,
     from ..utils import internal_metrics as imet
 
     imet.NET_PARTITIONS.inc()
-    _log.warning("network partition %s installed: blocking %d peer address(es)%s", spec_id,
-                 len(blocked), f", self-heals in {heal_after:.1f}s" if heal_after else "")
+    get_logger("chaos").warning(
+        "network partition %s installed: blocking %d peer address(es)%s", spec_id,
+        len(blocked), f", self-heals in {heal_after:.1f}s" if heal_after else "")
     return spec_id
 
 
@@ -189,8 +188,9 @@ class Partition:
         self._targets = failed
         self.healed = not failed
         if failed:
-            _log.warning("partition %s: heal undelivered to %d target(s); call heal() again",
-                         self.spec_id, len(failed))
+            get_logger("chaos").warning(
+                "partition %s: heal undelivered to %d target(s); call heal() again",
+                self.spec_id, len(failed))
 
     def __enter__(self) -> "Partition":
         return self

@@ -28,9 +28,10 @@ way a bf16 input gives a float32 result. There is no NCCL backend, as the
 JAX package has none.
 
 All members must call each collective in the same order, the standard
-process-group contract. Left out: the post-mortem trigger on a timeout
-(observability/postmortem.py is ROADMAP Queue 1 item 3.10); the timeout is
-flight-recorded.
+process-group contract. A terminal timeout (of the rendezvous, or of a ring
+op whose peer stalled) is flight-recorded and published as a `coll.timeout`
+trigger naming the group, this rank and the missing ranks: the GCS opens an
+incident and harvests every process's ring (observability/postmortem.py).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from . import tracing as _tracing
 from .chaos.controller import maybe_inject as _chaos_inject
 from .exceptions import CollectiveTimeoutError
 from .observability.flight_recorder import record as _flight_record
+from .observability.postmortem import publish_trigger
 
 _LEN = struct.Struct("<Q")
 _KV_PREFIX = "__collective__/"
@@ -183,6 +185,9 @@ class _Group:
             missing = self._missing_ranks()
         if record:
             _flight_record("coll.timeout", (self.name, self.rank, tuple(missing)))
+            publish_trigger("coll.timeout",
+                            {"group": self.name, "rank": self.rank, "missing": list(missing)},
+                            source="collective")
         raise CollectiveTimeoutError(
             self.name, self.rank, self.world_size, missing=missing, detail=detail
         )
@@ -357,6 +362,8 @@ class _Group:
         hang (the old behavior: blocking recv with no timeout) leaves a
         gang wedged with nothing to post-mortem."""
         _flight_record("coll.timeout", (self.name, self.rank, (peer,)))
+        publish_trigger("coll.timeout", {"group": self.name, "rank": self.rank, "missing": [peer]},
+                        source="collective")
         raise CollectiveTimeoutError(
             self.name,
             self.rank,

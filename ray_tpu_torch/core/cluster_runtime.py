@@ -40,8 +40,19 @@ py_modules directories become content-addressed packages in the GCS KV,
 once per distinct env) and travels in the task's entry; the raylet
 materialises it before it spawns the worker.
 
-Left out (ROADMAP Queue 1 item 3): GCS restart, the driver's log monitor and
-tracing spans.
+Observability: every process of the runtime binds the flight recorder's
+crash hooks and arms the post-mortem trigger bus with its GCS client. Each
+task entry carries `trace_ctx` (tracing.inject_context), so a worker's
+execution span parents to the submitter's ambient span; `submit` and
+`actor_launch` spans hold the flow arrows' tails. The driver writes its
+structured records to the session's logs/ and re-prints its workers'
+captured output from the `logs` pubsub channel with `(name pid=...
+node=...)` prefixes, deduplicated and rate-limited (logs.DedupPrinter;
+RAY_TPU_LOG_TO_DRIVER=0 turns it off); `_log_recent` keeps the last lines.
+
+Left out (ROADMAP Queue 1, item 3.3's remainder): node labels and
+session.json, `init(address=)` with a session dir or "auto" (tcp:// only),
+and streaming returns through a remote client.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 from .. import exceptions as exc
+from .. import tracing as _tracing
 from ..utils import config
 from . import serialization
 from ..native.build import shm_pool_lib
@@ -116,6 +128,9 @@ def _entry_from_spec(spec: TaskSpec, blobs: _FunctionBlobs) -> dict:
                             else (b"", ""))
     return {
         "task_id": spec.task_id.hex(),
+        # The executing span parents to the submitter's ambient span, and a
+        # flow id ties them (None with tracing off).
+        "trace_ctx": _tracing.inject_context(),
         "func_blob": func_blob,
         "func_hash": func_hash,
         "method_name": spec.method_name,
@@ -142,6 +157,17 @@ def _entry_from_spec(spec: TaskSpec, blobs: _FunctionBlobs) -> dict:
         "namespace": spec.options.namespace,
         "desc": spec.description(),
     }
+
+
+def _submit_span(entry: dict):
+    """The submit-side anchor of the submit -> execute flow arrow: a span
+    with `flow_out`, paired with the flow id riding the entry's trace_ctx.
+    Tracing off: nothing."""
+    ctx = entry.get("trace_ctx")
+    if not ctx:
+        return _tracing.null_span()
+    return _tracing.span(f"submit {entry.get('desc', 'task')}",
+                         {"task_id": entry.get("task_id", ""), "flow_out": ctx.get("flow")})
 
 
 class _ActorCreateBatcher:
@@ -216,9 +242,15 @@ class ClusterRuntime(Runtime):
         self._namespace = "default"
         # This process's `raytpu_*` records carry its node and go to this GCS
         # (a worker names itself again once it knows its raylet-given id).
+        from ..observability import postmortem as _postmortem
+        from ..observability.flight_recorder import install_crash_hooks
         from ..utils import internal_metrics as imet
 
         imet.configure(node_id=node_id, reporter=self._worker_id)
+        # An unhandled crash of this process dumps its flight ring; the
+        # anomalies it sees (a collective's timeout) go to the GCS's bus.
+        install_crash_hooks("driver" if driver else "worker")
+        self._trigger_forward = _postmortem.arm_client(gcs)
         self._blobs = _FunctionBlobs()
         self._actor_location: Dict[str, str] = {}  # actor_id -> raylet sock
         self._raylet_clients: Dict[str, RpcClient] = {}
@@ -260,6 +292,63 @@ class ClusterRuntime(Runtime):
         self._memstore_bytes = 0
         self._stream_tasks: set = set()
         self._renv_cache: Dict[str, dict] = {}
+        # The driver's structured records go to the session's log dir, and
+        # its workers' captured output comes back over the `logs` channel.
+        from ..observability import logs as _logs
+
+        session = None if raylet.path.startswith("tcp://") else os.path.dirname(raylet.path)
+        if driver:
+            _logs.configure("driver", node_id=node_id,
+                            directory=os.path.join(session, "logs") if session else None)
+        self._log_printer = _logs.DedupPrinter()
+        self._log_recent: List[str] = []  # the last re-printed lines
+        if driver and os.environ.get("RAY_TPU_LOG_TO_DRIVER", "1") != "0":
+            threading.Thread(target=self._log_subscriber, daemon=True, name="logmon").start()
+
+    def _log_subscriber(self) -> None:
+        """Re-prints the workers' captured output with `(name pid=...
+        node=...)` prefixes, from the `logs` pubsub channel the raylets'
+        log monitors publish on: repeats are deduplicated and the stream
+        rate-limited (logs.DedupPrinter)."""
+        from ..observability import logs as _logs
+
+        # From the channel's tail: earlier output belongs to earlier drivers.
+        # A failed first poll retries, and never falls back to cursor 0,
+        # which would replay a long-lived cluster's retained history.
+        cursor = None
+        while cursor is None and not self._shutdown_done:
+            try:
+                entries = self._gcs.call("pubsub_poll", "logs", 0, 0.0, timeout=10.0)
+                cursor = entries[-1][0] if entries else 0
+            except Exception:  # noqa: BLE001 - the GCS is away: try again
+                time.sleep(0.5)
+        printer = self._log_printer
+        failing_since = None
+        while not self._shutdown_done:
+            try:
+                entries = self._gcs.call("pubsub_poll", "logs", cursor, 1.0, timeout=11.0)
+                failing_since = None
+            except Exception:  # noqa: BLE001 - the GCS is away or restarting
+                # A GCS gone for a minute is a cluster shut down under a
+                # runtime nobody shut down: the thread ends.
+                failing_since = failing_since or time.monotonic()
+                if time.monotonic() - failing_since > 60.0:
+                    return
+                time.sleep(0.5)
+                continue
+            for seq, msg in entries:
+                cursor = max(cursor, seq)
+                if self._shutdown_done:
+                    return  # nothing is printed once shutdown() began
+                if not isinstance(msg, dict):
+                    continue
+                prefix = _logs.capture_prefix(msg)
+                for line in msg.get("lines") or ():
+                    printer.emit(prefix, line)
+                    self._log_recent.append(f"{prefix} {line}")
+                if len(self._log_recent) > 1000:
+                    del self._log_recent[:-500]
+            printer.flush()
 
     # ------------------------------------------------------ construction
     @classmethod
@@ -777,30 +866,36 @@ class ClusterRuntime(Runtime):
             with self._fast_seal_cv:
                 self._stream_tasks.add(spec.task_id.hex()[:24])
         self._record_submission(entry, "task")
-        self._submit_entry(entry)
+        with _submit_span(entry):
+            self._submit_entry(entry)
         return spec.return_ids
 
     def create_actor(self, spec: TaskSpec) -> ActorID:
         actor_id = spec.actor_id or ActorID.from_random()
         spec.actor_id = actor_id
         self._process_renv(spec)
-        entry = _entry_from_spec(spec, self._blobs)
-        with self._ref_lock:
-            for dep in entry.get("deps", []):
-                self._local_refs[dep] = self._local_refs.get(dep, 0) + 1
-        entry["actor_id"] = actor_id.hex()
-        node = self._actor_batcher.create({
-            "actor_id": actor_id.hex(),
-            "spec_blob": pickle.dumps(entry),
-            "resources": entry["resources"]
-            or ({"CPU": 1.0} if spec.options.actor_placement_bias else {}),
-            "max_restarts": spec.options.max_restarts,
-            "name": spec.options.name,
-            "namespace": spec.options.namespace,
-            "pg_id": spec.options.placement_group_id,
-            "bundle_index": spec.options.bundle_index,
-            "strategy": spec.options.scheduling_strategy,
-        })
+        # The launch's trace: the raylet's worker_spawn and the worker's
+        # constructor parent to this span through the entry's trace_ctx.
+        with _tracing.maybe_span("actor_launch", {"actor_id": actor_id.hex()}):
+            entry = _entry_from_spec(spec, self._blobs)
+            with self._ref_lock:
+                for dep in entry.get("deps", []):
+                    self._local_refs[dep] = self._local_refs.get(dep, 0) + 1
+            entry["actor_id"] = actor_id.hex()
+            with _tracing.maybe_span("actor_launch.gcs_register",
+                                     {"flow_out": (entry.get("trace_ctx") or {}).get("flow")}):
+                node = self._actor_batcher.create({
+                    "actor_id": actor_id.hex(),
+                    "spec_blob": pickle.dumps(entry),
+                    "resources": entry["resources"]
+                    or ({"CPU": 1.0} if spec.options.actor_placement_bias else {}),
+                    "max_restarts": spec.options.max_restarts,
+                    "name": spec.options.name,
+                    "namespace": spec.options.namespace,
+                    "pg_id": spec.options.placement_group_id,
+                    "bundle_index": spec.options.bundle_index,
+                    "strategy": spec.options.scheduling_strategy,
+                })
         self._actor_location[actor_id.hex()] = node["sock"]
         return actor_id
 
@@ -829,7 +924,8 @@ class ClusterRuntime(Runtime):
             with self._fast_seal_cv:
                 self._stream_tasks.add(spec.task_id.hex()[:24])
         self._record_submission(entry, "actor_task")
-        self._actor_channel(spec.actor_id.hex()).submit(entry)
+        with _submit_span(entry):
+            self._actor_channel(spec.actor_id.hex()).submit(entry)
         return spec.return_ids
 
     def _actor_channel(self, actor_hex: str):
@@ -957,6 +1053,9 @@ class ClusterRuntime(Runtime):
         if self._shutdown_done:
             return
         self._shutdown_done = True
+        from ..observability import postmortem as _postmortem
+
+        _postmortem.disarm(self._trigger_forward)
         self._free_wake.set()
         self._submit_wake.set()
         self._fastpath.close()

@@ -43,10 +43,24 @@ so actors, named actors, placement groups, the KV and the node epochs
 survive; raylets keep beating with their epochs, and one the GCS lost
 registers again.
 
+Incidents (observability/postmortem.py): the GCS arms the trigger bus in
+its own process, and takes remote triggers through `report_trigger`. A
+trigger opens an incident, or joins the open one while its last trigger
+is within the coalesce window; a fresh incident runs one harvest in a
+thread of its own, off the RPC handlers and outside the lock: `flight_dump`
+on every alive raylet (each SIGUSR2s its workers), this process's ring, the
+raylets' log tails, then a bundle under `<session_dir>/incidents/` with the
+manifest's per-pid clock offsets (each node's offset sampled from its
+heartbeats' wall clock) and the merged trace. `node.dead` and
+`node.fenced` fire from the membership paths; `list_incidents`,
+`get_incident` and `debug_harvest` read them.
+
 Left out: the JAX copy's key-hashed shards (core/gcs_shards.py: no trace of
-the port has shown the one lock contended), metrics history and alerts,
-incidents, `debug_harvest`, flight dumps (ROADMAP Queue 1 item 10), and the
-TPU slice strategy SLICE_GANG. This module never imports torch.
+the port has shown the one lock contended); metrics history, the SLO
+watchdog and with them an incident's metrics window and goodput (a bundle
+holds `metrics.json` = [] and no goodput until ROADMAP Queue 1 item 3.10
+(b)); and the TPU slice strategy SLICE_GANG. This module never imports
+torch.
 """
 
 from __future__ import annotations
@@ -64,6 +78,7 @@ from . import heartbeat as _hb
 from ..chaos.net import ChaosPartitionRpc
 from ..exceptions import (ActorNameTakenError, PlacementGroupError, SchedulingError,
                           StaleNodeEpochError)
+from ..observability import postmortem as _postmortem
 from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
@@ -113,7 +128,8 @@ class GcsService(ChaosPartitionRpc):
                   "_objects", "_freed", "_borrows", "_deferred_free")
     _WAL_TABLES = ("_nodes", "_node_epochs", "_actors", "_named", "_pgs", "_kv")
 
-    def __init__(self, snapshot_path: Optional[str] = None):
+    def __init__(self, snapshot_path: Optional[str] = None,
+                 session_dir: Optional[str] = None):
         # One lock over every table. The JAX copy splits nodes, actors and
         # objects into key-hashed shards (gcs_shards.py); no trace of this
         # runtime has shown the lock contended, so the port keeps one.
@@ -153,6 +169,13 @@ class GcsService(ChaosPartitionRpc):
         self._internal_metrics: Dict[Tuple, dict] = {}
         self._errors: List[dict] = []
         self._stop = threading.Event()
+        self._session_dir = session_dir or (os.path.dirname(snapshot_path)
+                                            if snapshot_path else None)
+        # The anomaly trigger bus: incident records (a bounded ring) under
+        # their own lock; the open incident takes triggers in its window.
+        self._incident_lock = threading.Lock()
+        self._incidents: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
+        self._open_incident: Optional[str] = None
         self._snapshot_path = snapshot_path
         self._wal_path = snapshot_path + ".wal" if snapshot_path else None
         self._wal_f = None
@@ -167,6 +190,9 @@ class GcsService(ChaosPartitionRpc):
             self._save_snapshot()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
+        # Anomalies raised in this process (its chaos injections) publish
+        # straight to _trigger.
+        _postmortem.arm(self._trigger)
 
     # -------------------------------------------------------- persistence
     def _load_snapshot(self) -> None:
@@ -372,6 +398,8 @@ class GcsService(ChaosPartitionRpc):
             self.pubsub_publish("node_events", {"event": "node_fenced", "node_id": node_id,
                                                 "epoch": epoch, "current_epoch": cur,
                                                 "ts": time.time()})
+            self._trigger("node.fenced", {"node_id": node_id[:12], "epoch": epoch,
+                                          "current": cur}, source="gcs")
             self._publish_node_delta(node_id)
         raise StaleNodeEpochError(node_id, claimed_epoch=epoch, current_epoch=cur,
                                   reason=f"{context}: node is dead-marked or its epoch is stale")
@@ -393,8 +421,15 @@ class GcsService(ChaosPartitionRpc):
             if verdict is None:
                 if stats:
                     _hb.apply_heartbeat(n, available, dict(stats))
-                    if (n.get("stats") or {}).get("draining") and not n.get("draining"):
+                    merged = n.get("stats") or {}
+                    if merged.get("draining") and not n.get("draining"):
                         raylet_drained = True
+                    # The node's clock offset, gcs_now - its send time (one
+                    # hop of latency folds in): the incident merge shifts
+                    # the node's flight and span stamps by it.
+                    wall = merged.get("wall_ts")
+                    if isinstance(wall, (int, float)):
+                        n["clock_offset_us"] = int((time.time() - wall) * 1e6)
                 elif available is not None:
                     n["available"] = dict(available)
                 n["last_hb"] = time.monotonic()
@@ -669,6 +704,7 @@ class GcsService(ChaosPartitionRpc):
         # notices learn of a failure without one from the same stream.
         self.pubsub_publish("node_events", {"event": "node_dead", "node_id": node_id,
                                             "ts": time.time()})
+        self._trigger("node.dead", {"node_id": node_id[:12]}, source="gcs")
         self._publish_node_delta(node_id)
         dead_sock = self._node_sock(node_id, alive_only=False)
         with self._lock:
@@ -1327,7 +1363,7 @@ class GcsService(ChaosPartitionRpc):
             last_err = f"node {failed[:8]} refused bundle lease"
         raise PlacementGroupError(f"placement group {pg_id[:8]} creation failed: {last_err}")
 
-    def _raylet_call(self, sock: str, method: str, *args):
+    def _raylet_call(self, sock: str, method: str, *args, timeout: Optional[float] = None):
         """Cached per-raylet client for control-plane calls."""
         from .rpc import RpcClient
 
@@ -1339,7 +1375,7 @@ class GcsService(ChaosPartitionRpc):
                 cli = self._raylet_clients.setdefault(sock, fresh)
             if cli is not fresh:
                 fresh.close()
-        return cli.call(method, *args)
+        return cli.call(method, *args, timeout=timeout)
 
     def remove_placement_group(self, pg_id: str) -> bool:
         with self._lock:
@@ -1578,11 +1614,185 @@ class GcsService(ChaosPartitionRpc):
     def ping(self) -> str:
         return "pong"
 
+    def flight_dump(self) -> Optional[str]:
+        """Dumps this process's flight ring (node.dead, node.fence,
+        node.added, incident.*), so a post-mortem orders the membership
+        transitions exactly."""
+        from ..observability import flight_recorder as _frec
+
+        return _frec.dump(reason="gcs flight_dump rpc")
+
+    # ------------------------------------------------------- trigger bus
+    @staticmethod
+    def _postmortem_enabled() -> bool:
+        return os.environ.get("RAY_TPU_POSTMORTEM") != "0"
+
+    @staticmethod
+    def _env_float(name: str, default: float) -> float:
+        try:
+            return float(os.environ.get(name, default))
+        except ValueError:
+            return default
+
+    def report_trigger(self, kind: str, detail: Any = None,
+                       source: Optional[str] = None) -> dict:
+        """The remote half of the trigger bus: raylets, drivers and workers
+        forward their anomaly triggers here (postmortem.arm_client)."""
+        return self._trigger(kind, detail, source)
+
+    def _trigger(self, kind: str, detail: Any = None, source: Optional[str] = None) -> dict:
+        """One anomaly trigger: it joins the open incident while that
+        incident's last trigger is within the (sliding) coalesce window, so a
+        storm of faults is one incident's chain, not a harvest each; else it
+        opens a fresh incident and starts its harvest in a thread (the
+        harvest calls every raylet: never on an RPC handler, never under a
+        lock)."""
+        if not self._postmortem_enabled():
+            return {"ok": False, "disabled": True}
+        ev = {"ts": time.time(), "ts_us": time.time_ns() // 1000, "kind": kind,
+              "detail": _postmortem.safe_detail(detail), "source": source}
+        imet.POSTMORTEM_TRIGGERS.inc(kind=kind)
+        fresh = False
+        window = self._env_float("RAY_TPU_INCIDENT_WINDOW_S", 10.0)
+        with self._incident_lock:
+            inc = self._incidents.get(self._open_incident) if self._open_incident else None
+            now_mono = time.monotonic()
+            if inc is not None and now_mono - inc["last_mono"] <= window:
+                inc["last_mono"] = now_mono
+                inc["triggers"].append(ev)
+                inc["coalesced"] += 1
+                iid = inc["id"]
+            else:
+                iid = f"inc-{ev['ts_us']}-{kind.replace('.', '-')}"
+                self._incidents[iid] = {"id": iid, "opened_ts": ev["ts"],
+                                        "opened_mono": now_mono, "last_mono": now_mono,
+                                        "state": "open", "triggers": [ev], "coalesced": 0,
+                                        "bundle": None}
+                self._open_incident = iid
+                fresh = True
+                while len(self._incidents) > 64:
+                    self._incidents.popitem(last=False)
+        if fresh:
+            _flight_record("incident.open", (iid, kind))
+            imet.POSTMORTEM_INCIDENTS.inc()
+            _log.warning("incident %s opened by trigger %s (source=%s); harvesting",
+                         iid, kind, source)
+            self.pubsub_publish("node_events", {"event": "incident", "incident_id": iid,
+                                                "trigger": kind, "ts": ev["ts"]})
+            threading.Thread(target=self._harvest, args=(iid,), daemon=True,
+                             name=f"harvest-{iid[:20]}").start()
+        return {"ok": True, "incident": iid, "coalesced": not fresh}
+
+    def _harvest(self, incident_id: str) -> None:
+        """One incident's harvest: after a settle delay (the trigger chain
+        accumulates, secondary failures land) it calls `flight_dump` on
+        every alive raylet (each SIGUSR2s its workers) and takes their log
+        tails, dumps this process's ring, gives the signalled rings half a
+        second to land, and stages the bundle with its clock-offset
+        manifest and the merged trace. The node list is read under the lock
+        and every call is made outside it."""
+        from ..observability import flight_recorder as _frec
+
+        time.sleep(max(0.0, self._env_float("RAY_TPU_HARVEST_DELAY_S", 0.75)))
+        with self._incident_lock:
+            inc = self._incidents.get(incident_id)
+            if inc is None or self._stop.is_set():
+                return  # a GCS that stopped meanwhile harvests nothing
+            inc["state"] = "harvesting"
+        try:
+            with self._lock:
+                nodes = [(nid, n["sock"], int(n.get("clock_offset_us") or 0))
+                         for nid, n in self._nodes.items() if n["alive"]]
+            pids: Dict[str, dict] = {str(os.getpid()): {"node": "gcs", "offset_us": 0}}
+            node_info: Dict[str, dict] = {}
+            logs: List[dict] = []
+            for nid, sock, offset_us in nodes:
+                node_info[nid[:12]] = {"offset_us": offset_us}
+                try:
+                    res = self._raylet_call(sock, "flight_dump", timeout=30.0)
+                except Exception as e:  # noqa: BLE001 - harvest the reachable rings
+                    node_info[nid[:12]]["error"] = repr(e)[:200]
+                    continue
+                node_info[nid[:12]]["dump"] = (res or {}).get("path")
+                for pid in (res or {}).get("pids") or ():
+                    pids[str(pid)] = {"node": nid[:12], "offset_us": offset_us}
+                try:
+                    logs.extend(self._raylet_call(sock, "tail_logs", {"tail": 300},
+                                                  timeout=30.0) or [])
+                except Exception:  # noqa: BLE001 - log tails are enrichment; rings are the contract
+                    pass
+            _frec.dump(reason=f"incident harvest {incident_id}")
+            time.sleep(0.5)  # the signalled workers' rings land
+            with self._incident_lock:
+                triggers = list(inc["triggers"])
+            logs.sort(key=lambda r: r.get("ts") or 0.0)
+            manifest = {"incident_id": incident_id, "opened_ts": triggers[0]["ts"],
+                        "triggers": triggers, "nodes": node_info, "pids": pids,
+                        "goodput": {}}
+            bundle_dir = os.path.join(_postmortem.incidents_dir(self._session_dir),
+                                      incident_id)
+            # The dumps and spans of this incident's minute only: the flight
+            # dir of a long session holds every earlier incident's rings, which
+            # each harvest would copy and merge again (the JAX copy takes an
+            # hour's).
+            _postmortem.stage_bundle(bundle_dir, manifest, log_records=logs[-1000:],
+                                     metrics=[],
+                                     max_age_s=time.time() - triggers[0]["ts"] + 60.0)
+            _postmortem.merge_trace(bundle_dir)
+            with self._incident_lock:
+                inc["state"] = "staged"
+                inc["bundle"] = bundle_dir
+            _flight_record("incident.staged", (incident_id, bundle_dir))
+            _log.warning("incident %s staged: %s (postmortem.render_report renders it)",
+                         incident_id, bundle_dir)
+        except Exception:  # noqa: BLE001 - recorded on the incident
+            _log.exception("incident %s harvest failed", incident_id)
+            with self._incident_lock:
+                inc["state"] = "failed"
+
+    def list_incidents(self) -> List[dict]:
+        """Incident records, oldest first."""
+        with self._incident_lock:
+            return [{"incident_id": i["id"], "opened_ts": i["opened_ts"], "state": i["state"],
+                     "trigger": i["triggers"][0]["kind"] if i["triggers"] else None,
+                     "triggers": len(i["triggers"]), "bundle": i["bundle"]}
+                    for i in self._incidents.values()]
+
+    def get_incident(self, incident_id: str) -> Optional[dict]:
+        with self._incident_lock:
+            inc = self._incidents.get(incident_id)
+            if inc is None:
+                return None
+            out = dict(inc)
+            out["triggers"] = list(inc["triggers"])
+            return out
+
+    def debug_harvest(self, timeout_s: float = 20.0) -> dict:
+        """An operator's harvest: raises a `debug.manual` trigger and waits
+        for its incident's bundle, so the caller gets one bundle path. It
+        coalesces like any trigger: a harvest asked for mid-incident
+        returns that incident's bundle."""
+        res = self._trigger("debug.manual", None, source="debug_harvest")
+        if not res.get("ok"):
+            return {"ok": False, "reason": "trigger bus disabled"}
+        iid = res["incident"]
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            inc = self.get_incident(iid)
+            if inc is None:
+                break
+            if inc["state"] in ("staged", "failed"):
+                return {"ok": inc["state"] == "staged", "incident": iid, "state": inc["state"],
+                        "bundle": inc["bundle"], "triggers": inc["triggers"]}
+            time.sleep(0.1)
+        return {"ok": False, "incident": iid, "reason": "harvest timed out"}
+
     # chaos_partition / chaos_heal come from ChaosPartitionRpc (chaos/net.py),
     # one definition shared with the raylet.
 
     def stop(self) -> bool:
         self._stop.set()
+        _postmortem.disarm(self._trigger)
         return True
 
 
@@ -1607,11 +1817,14 @@ def main(sock_path: str, snapshot_path: Optional[str] = None,
     printed as GCS_TCP_ADDRESS=... for the head to read). Its tables persist
     to `snapshot_path` (default `<sock_path>.snapshot`) and its log; a GCS
     started again on the same path takes them up."""
+    from ..observability import logs as _logs
     from .rpc import RpcServer
 
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s gcs %(levelname)s %(message)s")
+    session_dir = os.path.dirname(sock_path) or "."
+    _logs.configure("gcs", node_id="gcs", directory=os.path.join(session_dir, "logs"))
     _log.info("gcs started (pid %d)", os.getpid())
-    service = GcsService(snapshot_path=snapshot_path or sock_path + ".snapshot")
+    service = GcsService(snapshot_path=snapshot_path or sock_path + ".snapshot",
+                         session_dir=session_dir)
     # The daemon's own `raytpu_*` records merge straight into its table.
     imet.configure(node_id="gcs", reporter="gcs",
                    sink=lambda recs: service.report_internal_metrics("gcs", recs))

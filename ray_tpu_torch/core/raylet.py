@@ -41,8 +41,23 @@ bundle-pinned work runs on); epoch fencing (every GCS mutation carries
 the epoch this incarnation registered with; when the GCS answers
 StaleNodeEpochError the node dies as a member in `_fence` and registers
 again as a fresh incarnation); the `chaos_partition` / `chaos_heal` RPCs
-(chaos/net.py). Left out (ROADMAP Queue 1 items 8 and 10): profile,
-tail_logs and flight dumps. This module never imports torch.
+(chaos/net.py).
+
+Logs, dumps and post-mortems (observability/{logs,flight_recorder,
+postmortem}.py): the log monitor tails this node's workers' captured
+stdout/stderr, publishes new lines on the `logs` pubsub channel in chunks
+of at most 200 (the driver re-prints them with `(name pid=... node=...)`
+prefixes) and mirrors them into structured capture records attributed to
+the worker, its pid and its actor; `tail_logs` filters the session's JSONL
+records; `flight_dump` dumps this raylet's ring and SIGUSR2s its workers
+older than 5 s (their rings dump too; the GCS's incident harvest calls it).
+A worker that dies abnormally leaves `postmortem_<worker>_<us>.json` in the
+flight dir: its exit status (a forked worker's from the zygote, minus the
+signal's number when killed), the task it ran and the last 50 lines of its
+.err and .out, the tail its error and the GCS error table carry. The
+raylet forwards its anomaly triggers to the GCS (postmortem.arm_client).
+Left out: the `profile` RPC (ROADMAP Queue 1 item 8). This module never
+imports torch.
 """
 
 from __future__ import annotations
@@ -63,8 +78,10 @@ import uuid
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from .. import exceptions as exc
+from .. import tracing as _tracing
 from ..accelerators import get_accelerator_manager
 from ..chaos.net import ChaosPartitionRpc
+from ..observability import postmortem as _postmortem
 from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
@@ -97,6 +114,7 @@ class _Worker:
         self.env_key = env_key  # pool key: the device ids the worker sees
         self.last_done: Optional[str] = None  # a retried worker_step is applied once
         self.ready = False  # first poll arrived: the process finished booting
+        self.spawned_at = time.monotonic()  # flight_dump signals none younger than 5 s
 
 
 def _gpu_take(pool: Dict[str, float], amount: float) -> Optional[Dict[str, float]]:
@@ -149,6 +167,8 @@ class RayletService(ChaosPartitionRpc):
         self.store = SharedMemoryStore.create(store_path, store_capacity)
         self.gcs = RpcClient(gcs_sock)
         self.gcs_sock = gcs_sock
+        # Anomalies seen here (chaos injections) go to the GCS's trigger bus.
+        self._trigger_forward = _postmortem.arm_client(self.gcs)
         self.total = dict(resources)
         self.available = dict(resources)
         # Device accounting goes through the accelerator manager
@@ -177,6 +197,10 @@ class RayletService(ChaosPartitionRpc):
         # HandleRequestWorkerLease, node_manager.cc:1797).
         self._leases: Dict[str, Dict[str, Any]] = {}
         self._workers_lock = threading.Lock()
+        # Ids a batched zygote spawn asked for and not yet registered: a forked
+        # child can poll before its registration lands, and must not be told
+        # to stop.
+        self._spawning: Set[str] = set()
         self._max_task_workers = max(1, int(resources.get("CPU", 1)))
         self._cancelled: "collections.OrderedDict[str, bool]" = collections.OrderedDict()
         # (task_id, attempt) -> return ids: a one-way submit resent after a
@@ -235,6 +259,11 @@ class RayletService(ChaosPartitionRpc):
         self._last_reclaim = 0.0
         self._log_dir = os.path.join(os.path.dirname(sock_path) or ".", "logs")
         os.makedirs(self._log_dir, exist_ok=True)
+        # The pids of the workers this raylet spawned, by worker id: the log
+        # monitor tails only their files (nodes on one host share the
+        # session's log dir), and a dead worker's last lines keep its pid.
+        self._spawned_pids: Dict[str, int] = {}
+        self._last_log_gc = 0.0
         # The warm pool and its zygote (core/worker_pool.py): spawns fork
         # from a daemon that already imported the worker stack and torch;
         # until it is up, or when it is down, they Popen.
@@ -252,6 +281,9 @@ class RayletService(ChaosPartitionRpc):
             threading.Thread(target=self._monitor_loop, daemon=True, name="monitor"),
             threading.Thread(target=self._flush_loop, daemon=True, name="flush"),
         ]
+        if os.environ.get("RAY_TPU_LOG_MONITOR", "1") != "0":
+            self._threads.append(threading.Thread(target=self._log_monitor_loop, daemon=True,
+                                                  name="logmon"))
         for t in self._threads:
             t.start()
         self._pool.start()
@@ -1275,7 +1307,15 @@ class RayletService(ChaosPartitionRpc):
         direction inverted: workers pull)."""
         with self._workers_lock:
             w = self._workers.get(worker_id)
+            registering = w is None and worker_id in self._spawning
         if w is None:
+            if registering:
+                # Forked and polling before the batch that spawned it is
+                # registered: "stop" would end a worker the raylet is about
+                # to hand an actor (it exited 0 with no output: "worker
+                # process died"). It polls again.
+                time.sleep(0.01)
+                return {"type": "noop"}
             return {"type": "stop"}
         w.ready = True
         if w.busy_with is not None and w.mailbox.empty():
@@ -1411,14 +1451,22 @@ class RayletService(ChaosPartitionRpc):
                 if kind == "task":
                     w = self._checkout_worker(env_key)
                 else:
-                    with self._workers_lock:
-                        w = self._pop_idle_locked(env_key)
-                        if w is not None:
-                            w.actor_id = entry["actor_id"]
-                    if w is None:
-                        w = self._spawn_worker(actor_id=entry["actor_id"], env_key=env_key)
-                    else:
-                        self._pool.note_hit("idle")
+                    # The actor's launch span, parented to the driver's
+                    # actor_launch span through the entry's trace_ctx.
+                    with _tracing.continue_context(
+                            entry.get("trace_ctx"), "actor_launch.worker_spawn",
+                            {"actor_id": entry.get("actor_id", "")}) as sp:
+                        with self._workers_lock:
+                            w = self._pop_idle_locked(env_key)
+                            if w is not None:
+                                w.actor_id = entry["actor_id"]
+                        pooled = w is not None
+                        if w is None:
+                            w = self._spawn_worker(actor_id=entry["actor_id"], env_key=env_key)
+                        else:
+                            self._pool.note_hit("idle")
+                        if sp is not None:
+                            sp["attrs"]["mode"] = "pooled" if pooled else "spawned"
             except BaseException:
                 # A runtime env that failed to materialise: the scheduler
                 # stores the error on this entry; its resources go back.
@@ -1436,6 +1484,8 @@ class RayletService(ChaosPartitionRpc):
                         a["worker_id"] = w.worker_id
                         a["resources_held"] = True
                         w.actor_rec = a
+            if kind == "task":
+                self._schedule_span(entry)
             w.busy_with = entry
             self._task_event(entry["task_id"], "RUNNING")
             w.mailbox.put({"type": "task", "entry": entry})
@@ -1460,6 +1510,19 @@ class RayletService(ChaosPartitionRpc):
             w.mailbox.put({"type": "task", "entry": entry})
             return True
         return True
+
+    def _schedule_span(self, entry: dict) -> None:
+        """The middle rung of the submit -> schedule -> execute flow: a
+        near-zero-width span at the dispatch decision, a step of the
+        entry's flow. Tracing off: one dict lookup."""
+        ctx = entry.get("trace_ctx")
+        if ctx and _tracing.is_enabled():
+            with _tracing.continue_context(
+                    dict(ctx, flow=None),  # a step, not the head: no flow_in
+                    f"schedule {entry.get('desc', 'task')}",
+                    {"task_id": entry.get("task_id", ""), "node_id": self.node_id[:12],
+                     "flow_step": ctx.get("flow")}):
+                pass
 
     def _actor_creation_failed(self, entry: dict, reason: str) -> None:
         with self._actor_lock:
@@ -1522,6 +1585,7 @@ class RayletService(ChaosPartitionRpc):
         worker_id = uuid.uuid4().hex[:12]
         env = dict(os.environ)
         env["RAY_TPU_WORKER"] = "1"
+        env["RAY_TPU_LOG_DIR"] = self._log_dir  # the worker's JSONL beside its .out/.err
         if self._has_gpus:
             ids = json.loads(env_key).get("gpu", []) if env_key else []
             env.update(self._gpu_manager.worker_visibility_env(ids))
@@ -1541,19 +1605,26 @@ class RayletService(ChaosPartitionRpc):
         for _ in range(n):
             wid, argv, env, log_base = self._default_spawn_spec()
             specs.append(ZygoteClient.spawn_spec(argv, env, log_base + ".out",
-                                                 log_base + ".err"))
+                                                 log_base + ".err", log_base + ".exit"))
             wids.append(wid)
+        with self._workers_lock:
+            self._spawning.update(wids)
         try:
             t0 = time.perf_counter()
             results = self._pool.zygote_spawn_batch(specs)
         except ZygoteUnavailableError as e:
             _log.debug("batched prestart fell back to popen: %r", e)
+            with self._workers_lock:
+                self._spawning.difference_update(wids)  # strays are told to stop
         else:
             per_ms = (time.perf_counter() - t0) * 1e3 / max(1, len(results))
             with self._workers_lock:
                 for wid, (pid, _warm) in zip(wids, results):
-                    self._workers[wid] = _Worker(wid, PidHandle(pid))
+                    status = os.path.join(self._log_dir, f"worker_{wid}.exit")
+                    self._workers[wid] = _Worker(wid, PidHandle(pid, status))
+                    self._spawned_pids[wid] = pid
                     self._idle.setdefault("", []).append(wid)
+                self._spawning.difference_update(wids)
             for _pid, warm in results:
                 mode = "prefork" if warm else "zygote"
                 imet.WORKER_SPAWN_TOTAL.inc(mode=mode)
@@ -1616,7 +1687,7 @@ class RayletService(ChaosPartitionRpc):
         if py_exe == sys.executable and not prefix and not (renv or {}).get("env_vars"):
             try:
                 pid, warm = self._pool.zygote_spawn(worker_args, env, log_base + ".out",
-                                                    log_base + ".err")
+                                                    log_base + ".err", log_base + ".exit")
             except ZygoteUnavailableError:
                 # A timed-out request may still be forked once the daemon
                 # moves again. That child carries this worker id, so the
@@ -1626,7 +1697,7 @@ class RayletService(ChaosPartitionRpc):
                 worker_args[3] = worker_id
                 log_base = os.path.join(self._log_dir, f"worker_{worker_id}")
             else:
-                proc = PidHandle(pid)
+                proc = PidHandle(pid, log_base + ".exit")
                 mode = "prefork" if warm else "zygote"
                 if not _pool_refill:
                     if warm:
@@ -1648,6 +1719,7 @@ class RayletService(ChaosPartitionRpc):
         w = _Worker(worker_id, proc, env_key=env_key)
         w.actor_id = actor_id
         self._workers[worker_id] = w
+        self._spawned_pids[worker_id] = proc.pid
         return w
 
     @staticmethod
@@ -1684,14 +1756,57 @@ class RayletService(ChaosPartitionRpc):
         self._notify_sealed(sealed)
         self._task_event(entry["task_id"], "FAILED", reason=str(error))
 
-    def _worker_log_tail(self, worker_id: str, n_bytes: int = 2000) -> str:
+    def _worker_log_tail(self, worker_id: str, n_lines: int = 50) -> str:
+        """The last captured output lines of one worker (its .err and .out
+        files, each under a header): the tail a crash's error, its error
+        report and its post-mortem carry."""
+        chunks: List[str] = []
+        for ext in (".err", ".out"):
+            path = os.path.join(self._log_dir, f"worker_{worker_id}{ext}")
+            try:
+                size = os.path.getsize(path)
+                with open(path, "rb") as f:
+                    f.seek(max(0, size - 16384))
+                    data = f.read()
+            except OSError:
+                continue
+            lines = data.decode(errors="replace").splitlines()[-n_lines:]
+            if lines:
+                chunks.append(f"--- worker_{worker_id}{ext} (tail) ---")
+                chunks.extend(lines)
+        return "\n".join(chunks)
+
+    def _write_postmortem(self, w: _Worker, tail: str) -> Optional[str]:
+        """Writes a dying worker's exit status, task and output tail to the
+        flight dir, where the rings land."""
+        from ..observability import flight_recorder as _fr
+
         try:
-            with open(os.path.join(self._log_dir, f"worker_{worker_id}.err"), "rb") as f:
-                f.seek(0, os.SEEK_END)
-                f.seek(max(0, f.tell() - n_bytes))
-                return f.read().decode(errors="replace")
+            d = _fr.flight_dir()
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, f"postmortem_{w.worker_id}_{time.time_ns() // 1000}.json")
+            payload = {"worker_id": w.worker_id, "node_id": self.node_id,
+                       "actor_id": w.actor_id, "exit_code": w.proc.poll(),
+                       "task": (w.busy_with or {}).get("desc"),
+                       "tail": tail.splitlines()}
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(payload, f, default=repr)
+            os.replace(tmp, path)
+            return path
         except OSError:
-            return ""
+            return None
+
+    def _deliberate_end(self, w: _Worker, entry: Optional[dict]) -> bool:
+        """A killed actor or a cancelled task ends its worker on purpose:
+        no crash to report."""
+        if entry is not None and entry.get("task_id") in self._cancelled:
+            return True
+        if w.actor_id is not None:
+            with self._actor_lock:
+                a = self._actors.get(w.actor_id)
+            return a is not None and a.get("state") == "DEAD"
+        return False
 
     def _monitor_loop(self) -> None:
         """Detects worker-process death; fails or retries in-flight work and
@@ -1717,8 +1832,9 @@ class RayletService(ChaosPartitionRpc):
                     pass
                 entry = w.busy_with
                 tail = ""
-                if w.proc.poll() not in (0, None):
+                if w.proc.poll() not in (0, None) and not self._deliberate_end(w, entry):
                     tail = self._worker_log_tail(w.worker_id)
+                    self._write_postmortem(w, tail)
                     self._report_crash(w, entry, tail)
                 tail_note = f"; last output:\n{tail}" if tail else ""
                 if entry is not None and entry["type"] != "actor_creation":
@@ -1748,17 +1864,9 @@ class RayletService(ChaosPartitionRpc):
 
     def _report_crash(self, w: _Worker, entry: Optional[dict], tail: str) -> None:
         """A worker that died abnormally while it ran a task or hosted an
-        actor goes to the GCS error table with its output's tail. A killed
-        actor or a cancelled task is a deliberate end, not a crash."""
+        actor goes to the GCS error table with its output's tail."""
         if entry is None and w.actor_id is None:
             return
-        if entry is not None and entry.get("task_id") in self._cancelled:
-            return
-        if w.actor_id is not None:
-            with self._actor_lock:
-                a = self._actors.get(w.actor_id)
-            if a is not None and a.get("state") == "DEAD":
-                return
         _log.warning("worker %s died abnormally (exit %s, task=%s)", w.worker_id,
                      w.proc.poll(), (entry or {}).get("desc"))
         error = f"worker died (exit {w.proc.poll()})"
@@ -2011,9 +2119,150 @@ class RayletService(ChaosPartitionRpc):
         whether CUDA was ever initialised in it ({} while it is down)."""
         return self._pool.zygote_stats()
 
+    # ------------------------------------------------ dumps and logs
+    def flight_dump(self) -> dict:
+        """Dumps this raylet's flight ring and SIGUSR2s its workers (each
+        dumps its own ring). A worker younger than 5 s is skipped: one
+        Popen'd and still in its imports has not bound the signal yet, and
+        its default action would kill it. Returns the raylet's dump path,
+        the workers signalled, the flight dir and the pids whose rings to
+        expect (the harvest maps each to this node's clock offset)."""
+        from ..observability import flight_recorder as _fr
+
+        path = _fr.dump(reason=f"flight_dump (raylet {self.node_id[:12]})")
+        pids = [os.getpid()]
+        with self._workers_lock:
+            workers = list(self._workers.values())
+        now = time.monotonic()
+        for w in workers:
+            if now - w.spawned_at < 5.0:
+                continue
+            try:
+                if w.proc.poll() is None:
+                    # send_signal, not os.kill: a PidHandle never signals a
+                    # recycled pid.
+                    w.proc.send_signal(signal.SIGUSR2)
+                    pids.append(w.proc.pid)
+            except OSError:
+                pass
+        return {"path": path, "workers_signaled": len(pids) - 1, "dir": _fr.flight_dir(),
+                "pids": pids}
+
+    _TAIL_FILTER_KEYS = ("component", "level", "task_id", "actor_id", "trace_id",
+                         "worker_id", "node_id", "grep", "since_ts")
+
+    def tail_logs(self, filters: Optional[dict] = None) -> List[dict]:
+        """Filtered structured records from the session's log dir (newest
+        `tail`, default 1000); workers' raw prints are there too, as the log
+        monitor's capture records. Unknown filter keys are dropped."""
+        from ..observability import logs as _logs
+
+        filters = dict(filters or {})
+        tail = filters.pop("tail", 1000)
+        clean = {k: v for k, v in filters.items() if k in self._TAIL_FILTER_KEYS}
+        return _logs.read_records(self._log_dir, tail=tail, **clean)
+
+    def _worker_attribution(self, worker_id: str
+                            ) -> Tuple[Optional[int], Optional[str], Optional[str]]:
+        """(pid, actor_id, actor name) of one worker: the identity its
+        output lines carry."""
+        with self._workers_lock:
+            w = self._workers.get(worker_id)
+        if w is None:
+            return None, None, None
+        aid = w.actor_id
+        name = None
+        if aid:
+            with self._actor_lock:
+                a = self._actors.get(aid)
+                entry = (a or {}).get("creation_entry") or {}
+            name = entry.get("name") or f"Actor({aid[:8]})"
+        return w.proc.pid, aid, name
+
+    def _log_monitor_loop(self) -> None:
+        """Tails this raylet's workers' worker_*.out / .err every 0.2 s: each
+        batch of complete new lines is published on the `logs` pubsub
+        channel, at most 200 lines a message so a burst of several workers
+        fits the GCS's retention window, and written as structured capture
+        records (component stdout/stderr, the worker's ids). A worker's
+        identity is kept from when it was alive, and its pid from its
+        spawn, so the last lines of one that died still carry them."""
+        from ..observability import logs as _logs
+
+        offsets: Dict[str, int] = {}
+        known: Dict[str, Tuple[Optional[int], Optional[str], Optional[str]]] = {}
+        while not self._stop.wait(0.2):
+            try:
+                names = sorted(os.listdir(self._log_dir))
+            except OSError:
+                continue
+            for name in names:
+                if not (name.startswith("worker_")
+                        and (name.endswith(".out") or name.endswith(".err"))):
+                    continue
+                wid = name[len("worker_"):-len(".out")]
+                if wid not in self._spawned_pids:
+                    continue  # another node's worker, in the shared dir
+                path = os.path.join(self._log_dir, name)
+                try:
+                    size = os.path.getsize(path)
+                except OSError:
+                    offsets.pop(name, None)
+                    continue
+                pos = offsets.get(name, 0)
+                if pos > size:
+                    pos = 0  # truncated or replaced: start over
+                if size <= pos:
+                    continue
+                try:
+                    with open(path, "rb") as f:
+                        f.seek(pos)
+                        data = f.read(size - pos)
+                except OSError:
+                    continue
+                cut = data.rfind(b"\n")
+                if cut < 0:
+                    continue  # no complete line yet
+                offsets[name] = pos + cut + 1
+                lines = data[:cut + 1].decode(errors="replace").splitlines()
+                if not lines:
+                    continue
+                stream = name.rsplit(".", 1)[1]
+                attrib = self._worker_attribution(wid)
+                if attrib[0] is not None:
+                    known[wid] = attrib
+                pid, aid, actor_name = known.get(wid, (self._spawned_pids[wid], None, None))
+                now = time.time()
+                _logs.write_capture_records([
+                    _logs.capture_record(line, stream, self.node_id, wid, aid, pid, ts=now)
+                    for line in lines])
+                imet.LOG_LINES_PUBLISHED.inc(len(lines))
+                for i in range(0, len(lines), 200):
+                    msg = {"node_id": self.node_id, "worker_id": wid, "pid": pid,
+                           "actor": actor_name, "stream": stream, "lines": lines[i:i + 200]}
+                    try:
+                        self.gcs.notify("pubsub_publish", "logs", msg)
+                    except Exception:  # noqa: BLE001 - the GCS is away; the lines stay on disk
+                        break
+            # The retention GC rides the monitor, every ~10 s. Live workers'
+            # files and the daemons' are protected: their writers hold them
+            # open, and an unlink would void all their later output.
+            now_mono = time.monotonic()
+            if now_mono - self._last_log_gc > 10.0:
+                self._last_log_gc = now_mono
+                with self._workers_lock:
+                    live = [f"worker_{wid}" for wid in self._workers]
+                try:
+                    _logs.gc_log_dir(self._log_dir,
+                                     protect_prefixes=live + ["gcs", "raylet_", "zygote"])
+                except Exception as e:  # noqa: BLE001 - the next round retries
+                    _log.debug("log-dir GC failed this round: %r", e)
+
     def stop(self) -> bool:
         """Stops every worker of this node and the raylet's loops."""
         self._stop.set()
+        # A trigger after the stop must not dial the GCS through this raylet.
+        _postmortem.disarm(self._trigger_forward)
         with self._workers_lock:
             workers = list(self._workers.values())
         for w in workers:
@@ -2041,10 +2290,13 @@ class RayletService(ChaosPartitionRpc):
 def main(argv: List[str]) -> None:
     node_id, sock_path, store_path, gcs_sock, resources_json, capacity, prestart = argv[:7]
     tcp_spec = argv[7] if len(argv) > 7 else None
+    from ..observability import logs as _logs
+    from ..observability.flight_recorder import install_crash_hooks
     from .gcs import exit_with_parent
 
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s raylet %(levelname)s %(message)s")
+    install_crash_hooks("raylet")
+    _logs.configure("raylet", node_id=node_id,
+                    directory=os.path.join(os.path.dirname(sock_path) or ".", "logs"))
     _log.info("raylet started (node %s, pid %d)", node_id[:12], os.getpid())
     # On a cluster that spans hosts the TCP endpoint is bound first, so the
     # service registers the port it got; connections wait for the service.

@@ -189,15 +189,16 @@ class WorkerPoolManager:
                    max(config.WORKER_POOL_PREFORK, self._demand()))
 
     # --------------------------------------------------------------- zygote
-    def zygote_spawn(self, argv, env, out, err) -> Tuple[int, bool]:
+    def zygote_spawn(self, argv, env, out, err, status=None) -> Tuple[int, bool]:
         """One fork through the zygote; (pid, warm). Raises
-        ZygoteUnavailableError when it cannot: the caller Popens."""
+        ZygoteUnavailableError when it cannot: the caller Popens. The
+        zygote writes the child's exit status to `status`."""
         self._chaos_spawn_point(f"spawn:{argv[3] if len(argv) > 3 else ''}")
         z = self._zygote
         if z is None:
             raise ZygoteUnavailableError("zygote not running")
         try:
-            return z.spawn(argv, env, out, err)
+            return z.spawn(argv, env, out, err, status=status)
         except ZygoteSpawnError as e:  # the daemon is fine; this fork failed
             raise ZygoteUnavailableError(f"zygote fork failed: {e}") from e
         except (OSError, ValueError) as e:

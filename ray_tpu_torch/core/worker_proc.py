@@ -25,8 +25,17 @@ runtime env finds it resolved in RAY_TPU_RUNTIME_ENV (its env_vars already
 in its environment) and applies its working_dir and py_modules at boot. An
 actor also answers the collective builtins `__ray_tpu_collective_init__` and
 `__ray_tpu_collective_destroy__` (collective.py's create_collective_group
-and destroy_collective_group_on). Left out: the compiled-graph builtins
-`__ray_dag_*__` (ROADMAP Queue 1 item 4).
+and destroy_collective_group_on).
+
+Observability: `main` binds the flight recorder's crash hooks and its
+SIGUSR2 dump first (a forked worker inherits the signal ignored from the
+zygote until then), line-buffers stdout and stderr (the raylet's log
+monitor tails them), and writes its structured records to
+`worker_<id>.jsonl` with user `logging` captured and mirrored to stderr.
+Each task, actor method and actor constructor runs in a span re-rooted
+under the submitter's `trace_ctx`, on the raylet path and the direct one
+alike. Left out: the compiled-graph builtins `__ray_dag_*__` (ROADMAP
+Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from .. import exceptions as exc
+from .. import tracing as _tracing
 from ..chaos.controller import kill_now as _chaos_kill
 from ..chaos.controller import maybe_inject as _chaos_inject
 from . import runtime_base, serialization
@@ -168,13 +178,26 @@ def _exit_with_raylet() -> None:
 
 def main(argv: List[str]) -> None:
     raylet_sock, store_path, gcs_sock, worker_id, node_id = argv
+    # First: the SIGUSR2 dump, before anything slow. The raylet's
+    # flight_dump signals its workers, and the signal's default action
+    # would kill one that has not bound it.
+    from ..observability.flight_recorder import install_crash_hooks
+
+    install_crash_hooks("worker")
+    # stdout and stderr are the capture files the raylet's log monitor
+    # tails: a print must reach it when its line completes.
     for stream in (sys.stdout, sys.stderr):
         try:
             stream.reconfigure(line_buffering=True)
         except (AttributeError, ValueError, OSError):
             pass
-    logging.basicConfig(level=logging.INFO,
-                        format=f"%(asctime)s worker {worker_id} %(levelname)s %(message)s")
+    from ..observability import logs as _logs
+
+    # Records land in worker_<id>.jsonl beside the captured output; user
+    # `logging` joins them (capture_root), and INFO+ records mirror a line
+    # to stderr, so they reach the driver as prints do.
+    _logs.configure("worker", node_id=node_id, worker_id=worker_id, mirror_stderr=True,
+                    capture_root=True)
     _exit_with_raylet()
     _apply_working_dir(json.loads(os.environ.get("RAY_TPU_RUNTIME_ENV", "{}") or "{}"))
 
@@ -330,20 +353,25 @@ def main(argv: List[str]) -> None:
                     time.sleep(rule.delay_s)
                 elif rule.action == "raise":
                     raise RuntimeError(f"chaos: injected task failure in {entry.get('desc', kind)}")
-            if kind == "task":
-                fn = load_fn(entry)
-            else:
-                inst = actor_instance.get(entry["actor_id"])
-                if inst is None:
-                    raise RuntimeError("actor instance missing in worker")
-                fn = _bind_method(inst, entry["method_name"])
-            args, kwargs = _resolve_args(store, entry["args_blob"], raylet)
-            result = fn(*args, **kwargs)
-            if inspect.iscoroutine(result):
-                import asyncio
+            # The execution span, parented to the submitter's through the
+            # propagated context.
+            with _tracing.continue_context(entry.get("trace_ctx"),
+                                           f"run {entry.get('desc') or kind}",
+                                           {"task_id": entry.get("task_id", "")}):
+                if kind == "task":
+                    fn = load_fn(entry)
+                else:
+                    inst = actor_instance.get(entry["actor_id"])
+                    if inst is None:
+                        raise RuntimeError("actor instance missing in worker")
+                    fn = _bind_method(inst, entry["method_name"])
+                args, kwargs = _resolve_args(store, entry["args_blob"], raylet)
+                result = fn(*args, **kwargs)
+                if inspect.iscoroutine(result):
+                    import asyncio
 
-                result = asyncio.run(result)
-            store_returns(entry, result, sealed)
+                    result = asyncio.run(result)
+                store_returns(entry, result, sealed)
             return True
         except SystemExit:
             store_returns(entry, None, sealed)
@@ -408,7 +436,11 @@ def main(argv: List[str]) -> None:
         try:
             cls = load_fn(entry)
             args, kwargs = _resolve_args(store, entry["args_blob"], raylet)
-            inst = cls(*args, **kwargs)
+            # The last phase of the actor's launch: its constructor, under
+            # the driver's actor_launch span.
+            with _tracing.continue_context(entry.get("trace_ctx"), "actor_launch.init",
+                                           {"actor_id": entry.get("actor_id", "")}):
+                inst = cls(*args, **kwargs)
             actor_instance[entry["actor_id"]] = inst
             mc = int(entry.get("max_concurrency", 1) or 1)
             cgroups = entry.get("concurrency_groups") or {}
@@ -555,7 +587,8 @@ def main(argv: List[str]) -> None:
                     _, tid, fh, fb, ab, rids, desc, streaming = frame[:8]
                     entry = {"type": "task", "task_id": tid, "func_hash": fh, "func_blob": fb,
                              "args_blob": ab, "return_ids": rids, "desc": desc,
-                             "streaming": streaming, "_inline": {}}
+                             "streaming": streaming, "_inline": {},
+                             "trace_ctx": frame[8] if len(frame) > 8 else None}
                     if streaming:
                         entry["_stream_report"] = _make_stream_report(send_raw)
                     direct_inbox.put((entry, send_done))
@@ -564,7 +597,8 @@ def main(argv: List[str]) -> None:
                     entry = {"type": "actor_task", "task_id": tid, "actor_id": aid,
                              "method_name": method, "args_blob": ab, "return_ids": rids,
                              "desc": desc, "streaming": streaming, "concurrency_group": cgroup,
-                             "_inline": {}}
+                             "_inline": {},
+                             "trace_ctx": frame[9] if len(frame) > 9 else None}
                     if streaming:
                         entry["_stream_report"] = _make_stream_report(send_raw)
                     _exec_direct_actor(entry, send_done)

@@ -33,8 +33,18 @@ Two tiers serve a spawn request:
 Batched spawns (`{"batch": [...]}`) cost one socket round trip for N
 workers.
 
+Exit status. The zygote reaps its children, so the raylet cannot wait for
+them; a spawn request may name a `status` file, and the zygote writes the
+child's exit status there, decoded as Popen's `returncode` (the exit code,
+or minus the number of the signal that killed it), before it reaps the
+child: it peeks with `waitid(WNOWAIT)`, writes, then reaps. A dead child's
+/proc entry (a zombie's) thus lasts until its status is on disk, and
+`PidHandle` reads the file once /proc shows the worker gone. The JAX
+zygote drops the status (its `_reap`), and its PidHandle reports -1 for
+every forked worker however it died.
+
 Protocol (one JSON line per request and reply over the UDS):
-  {"argv": [...], "env": {...}, "out": path, "err": path}
+  {"argv": [...], "env": {...}, "out": path, "err": path[, "status": path]}
       -> {"pid": N, "warm": bool}
   {"batch": [spawn_req, ...]}   -> {"spawns": [{"pid": N, "warm": b}|{"error": s}]}
   {"pool": N}                   -> {"parked": N_now, "forked": K}
@@ -45,6 +55,8 @@ Protocol (one JSON line per request and reply over the UDS):
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import signal
@@ -52,7 +64,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # PR_SET_PDEATHSIG, bound at import so set_pdeathsig() allocates and
 # imports nothing: it runs in a fork child.
@@ -76,16 +88,81 @@ def set_pdeathsig(sig: int = signal.SIGTERM) -> None:
     _PRCTL(_PR_SET_PDEATHSIG, int(sig), 0, 0, 0)
 
 
-def _reap(signum, frame):
-    """Collects exited children, so none lingers as a zombie (the raylet
-    sees death through /proc once the pid is reaped)."""
+# Status files of assigned children, pid -> path, and the statuses of
+# children reaped before (or without) an assignment, pid -> returncode. Both
+# are touched by the SIGCHLD handler and by the main loop, which holds
+# SIGCHLD blocked while it forks and books a child (_sigchld_held).
+_STATUS_PATHS: Dict[int, str] = {}
+_UNCLAIMED: "collections.OrderedDict[int, int]" = collections.OrderedDict()
+_UNCLAIMED_CAP = 256
+
+
+@contextlib.contextmanager
+def _sigchld_held():
+    """SIGCHLD blocked for the body: a child forked inside it is booked
+    before the reaper can see it. A fork child inherits the mask and drops
+    it in _child_exec."""
+    signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGCHLD})
     try:
-        while True:
-            pid, _ = os.waitpid(-1, os.WNOHANG)
-            if pid == 0:
-                break
-    except ChildProcessError:
-        pass
+        yield
+    finally:
+        signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGCHLD})
+
+
+def _write_status(path: str, rc: int) -> None:
+    try:
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            f.write(str(rc))
+        os.replace(tmp, path)
+    except OSError:
+        pass  # the raylet then reads the status as unknown (-1)
+
+
+def _booked(pid: int, path: Optional[str]) -> None:
+    """A fresh fork's bookkeeping (SIGCHLD held): a status left under a
+    recycled pid is dropped, and the child's status file is noted."""
+    _UNCLAIMED.pop(pid, None)
+    if path:
+        _STATUS_PATHS[pid] = path
+
+
+def _claim(pid: int, path: Optional[str]) -> None:
+    """A parked child's assignment names its status file; a status reaped
+    before the claim is written at once."""
+    if not path:
+        return
+    _STATUS_PATHS[pid] = path
+    rc = _UNCLAIMED.pop(pid, None)
+    if rc is not None and _STATUS_PATHS.pop(pid, None) is not None:
+        _write_status(path, rc)
+
+
+def _reap(signum, frame):
+    """Collects exited children, so none lingers as a zombie. Each one's
+    status is peeked (WNOWAIT) and written to its status file before the
+    reap, so the raylet, which sees death through /proc, finds the file as
+    soon as the pid is gone."""
+    while True:
+        try:
+            info = os.waitid(os.P_ALL, 0, os.WEXITED | os.WNOHANG | os.WNOWAIT)
+        except ChildProcessError:
+            return
+        if info is None or info.si_pid == 0:
+            return
+        pid = info.si_pid
+        rc = info.si_status if info.si_code == os.CLD_EXITED else -info.si_status
+        path = _STATUS_PATHS.pop(pid, None)
+        if path:
+            _write_status(path, rc)
+        else:
+            _UNCLAIMED[pid] = rc
+            while len(_UNCLAIMED) > _UNCLAIMED_CAP:
+                _UNCLAIMED.popitem(last=False)
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
 
 
 _CHILD_CLOSE: list = []  # sockets a fork child must not inherit
@@ -124,6 +201,7 @@ def _child_exec(req: dict) -> None:
         os.environ.clear()
         os.environ.update(req["env"])
         signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+        signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGCHLD})
         from ray_tpu_torch.core import worker_proc
 
         worker_proc.main(req["argv"])
@@ -139,9 +217,11 @@ def _child_exec(req: dict) -> None:
 
 def _spawn(req: dict) -> int:
     """Cold fork: forks and applies the assignment at once."""
-    pid = os.fork()
-    if pid != 0:
-        return pid
+    with _sigchld_held():
+        pid = os.fork()
+        if pid != 0:
+            _booked(pid, req.get("status"))
+            return pid
     try:
         _close_inherited()
         os.setsid()  # its own process group: the raylet's signals reach it alone
@@ -160,15 +240,17 @@ def _prefork() -> Optional[Tuple[int, int]]:
         rfd, wfd = os.pipe()
     except OSError:
         return None
-    try:
-        pid = os.fork()
-    except OSError:
-        os.close(rfd)
-        os.close(wfd)
-        return None
-    if pid != 0:
-        os.close(rfd)
-        return (pid, wfd)
+    with _sigchld_held():
+        try:
+            pid = os.fork()
+        except OSError:
+            os.close(rfd)
+            os.close(wfd)
+            return None
+        if pid != 0:
+            _booked(pid, None)
+            os.close(rfd)
+            return (pid, wfd)
     try:
         os.close(wfd)
         _close_inherited()
@@ -249,6 +331,7 @@ def _fill_pool(target: int) -> int:
 def _do_spawn(req: dict) -> dict:
     pid = _pop_parked(req)
     if pid is not None:
+        _claim(pid, req.get("status"))
         return {"pid": pid, "warm": True}
     try:
         return {"pid": _spawn(req), "warm": False}
@@ -314,6 +397,10 @@ def main(sock_path: str, parent_pid: Optional[int] = None) -> None:
     # raylet passes its pid: one read here could already be init's, had the
     # raylet died before this line.
     boot_ppid = parent_pid or os.getppid()
+    # Children inherit SIGUSR2 ignored until their worker binds its flight
+    # dump to it (install_crash_hooks): a dump fan-out reaching a child
+    # still in its boot must not kill it.
+    signal.signal(signal.SIGUSR2, signal.SIG_IGN)
     signal.signal(signal.SIGCHLD, _reap)
     _prewarm_worker_stack()
     srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -385,15 +472,21 @@ class ZygoteClient:
             s.close()
 
     @staticmethod
-    def spawn_spec(argv: List[str], env: dict, out: str, err: str) -> dict:
-        return {"argv": argv, "env": env, "out": out, "err": err}
+    def spawn_spec(argv: List[str], env: dict, out: str, err: str,
+                   status: Optional[str] = None) -> dict:
+        spec = {"argv": argv, "env": env, "out": out, "err": err}
+        if status:
+            spec["status"] = status
+        return spec
 
     def spawn(self, argv: List[str], env: dict, out: str, err: str,
-              timeout: float = 10.0) -> Tuple[int, bool]:
+              timeout: float = 10.0, status: Optional[str] = None) -> Tuple[int, bool]:
         """Forks one worker; (pid, warm), warm when a parked child took the
         assignment. Raises ZygoteSpawnError when the fork itself failed. The
-        request carries its deadline: a daemon that reads it later drops it."""
-        req = dict(self.spawn_spec(argv, env, out, err), deadline=time.time() + timeout)
+        request carries its deadline: a daemon that reads it later drops it.
+        `status` names the file the child's exit status goes to."""
+        req = dict(self.spawn_spec(argv, env, out, err, status),
+                   deadline=time.time() + timeout)
         reply = self._request(req, timeout=timeout)
         if "error" in reply:
             raise ZygoteSpawnError(reply["error"])
@@ -437,24 +530,38 @@ class PidHandle:
     terminate, send_signal) over a zygote-forked pid. The zygote reaps its
     children, so death shows as a missing /proc entry or one with another
     start time: a recycled pid is never taken for our worker, nor
-    signalled."""
+    signalled. The return code is the one the zygote wrote to
+    `status_path` before the reap (Popen's convention: minus the signal's
+    number for a killed worker), and -1 when no status came back (no file
+    named, or the zygote died before its child)."""
 
-    def __init__(self, pid: int):
+    def __init__(self, pid: int, status_path: Optional[str] = None):
         self.pid = pid
         self._rc = None
+        self._status_path = status_path
         self._starttime = _proc_starttime(pid)
 
     def _alive(self) -> bool:
         st = _proc_starttime(self.pid)
         return st is not None and st == self._starttime
 
+    def _set_dead(self) -> int:
+        rc = -1
+        if self._status_path:
+            try:
+                with open(self._status_path) as f:
+                    rc = int(f.read())
+            except (OSError, ValueError):
+                pass
+        self._rc = rc
+        return rc
+
     def poll(self):
         if self._rc is not None:
             return self._rc
         if self._alive():
             return None
-        self._rc = -1
-        return self._rc
+        return self._set_dead()
 
     def wait(self, timeout: Optional[float] = None):
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -465,13 +572,13 @@ class PidHandle:
         return self._rc
 
     def send_signal(self, sig: int) -> None:
-        if not self._alive():
-            self._rc = -1
+        if self._rc is not None or not self._alive():
+            self.poll()
             return  # the pid may be recycled: never signal a stranger
         try:
             os.kill(self.pid, sig)
         except ProcessLookupError:
-            self._rc = -1
+            self.poll()
 
     def kill(self) -> None:
         self.send_signal(signal.SIGKILL)

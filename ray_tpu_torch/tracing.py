@@ -1,13 +1,24 @@
-"""Tracing: spans with context propagation (copy of ray_tpu/tracing.py for
-the PyTorch port, trimmed to the spans Serve and the trainer open: the
-handle's `serve.request`, the replica's `serve.replica`, the response's
-`serve.response` and the training loop's `train.phase.<name>`).
+"""Tracing: spans with context propagation across processes (the port of
+ray_tpu/tracing.py).
 
-Spans are plain dicts `{trace_id, span_id, parent_id, name, start_us,
-end_us, attrs}`; the ambient context rides a contextvar, so spans opened
-inside a span parent to it. Exporters are pluggable: `tracing.enable(InMemoryExporter())` in-process,
-or `RAY_TPU_TRACING=1`, which writes JSONL under $RAY_TPU_TRACE_DIR. Span
-open and close also feed the flight recorder.
+Spans are plain dicts `{trace_id, span_id, parent_id, name, pid, tid,
+start_us, end_us, attrs}`; the ambient context rides a contextvar, so spans
+opened inside a span parent to it. A submitter stamps `inject_context()`
+into each task entry as `trace_ctx` (core/cluster_runtime.py); the worker
+re-roots its execution span under it with `continue_context`, so a span
+opened in a worker process parents to the driver's. `inject_context()` also
+mints a flow id: the submit-side span carries it as `flow_out`, the
+raylet's schedule span as `flow_step`, the executing span as `flow_in`
+(observability/perfetto.py draws them as arrows).
+
+Exporters are pluggable: `tracing.enable(InMemoryExporter())` in-process,
+or `RAY_TPU_TRACING=1` (inherited by the cluster's daemons and workers),
+which writes one JSONL file per process under $RAY_TPU_TRACE_DIR;
+`collect()` merges those files, tolerating torn lines. The exporter the
+environment starts follows `trace_dir()` as it stands: a process whose
+RAY_TPU_TRACE_DIR changes writes its next span to the new directory (the
+JAX copy keeps the first one). Span open and close also feed the flight
+recorder.
 """
 
 from __future__ import annotations
@@ -29,8 +40,8 @@ _ctx: "contextvars.ContextVar[Optional[dict]]" = contextvars.ContextVar(
 )
 
 _lock = threading.Lock()
-_exporter: Optional["SpanExporter"] = None
-_enabled_env = os.environ.get("RAY_TPU_TRACING") == "1"
+_exporter: Optional["SpanExporter"] = None  # set by enable()
+_env_exporter: Optional["JsonlExporter"] = None  # started by RAY_TPU_TRACING=1
 
 
 class SpanExporter:
@@ -55,6 +66,7 @@ class JsonlExporter(SpanExporter):
 
     def __init__(self, directory: str):
         os.makedirs(directory, exist_ok=True)
+        self.directory = directory
         self.path = os.path.join(directory, f"spans_{os.getpid()}.jsonl")
         self._f = open(self.path, "a", buffering=1)
         self._flock = threading.Lock()
@@ -62,7 +74,8 @@ class JsonlExporter(SpanExporter):
 
     def export(self, span: dict) -> None:
         with self._flock:
-            self._f.write(json.dumps(span, default=repr) + "\n")
+            if not self._f.closed:  # a span that outlived its exporter's switch
+                self._f.write(json.dumps(span, default=repr) + "\n")
 
     def shutdown(self) -> None:
         with contextlib.suppress(Exception):
@@ -85,11 +98,12 @@ def enable(exporter: Optional[SpanExporter] = None) -> None:
 
 
 def disable() -> None:
-    global _exporter
+    global _exporter, _env_exporter
     with _lock:
-        if _exporter is not None:
-            _exporter.shutdown()
-        _exporter = None
+        for exp in (_exporter, _env_exporter):
+            if exp is not None:
+                exp.shutdown()
+        _exporter = _env_exporter = None
 
 
 def trace_dir() -> str:
@@ -101,16 +115,25 @@ def trace_dir() -> str:
 
 
 def _active() -> Optional[SpanExporter]:
-    global _exporter
-    if _exporter is not None:
-        return _exporter
-    if _enabled_env or os.environ.get("RAY_TPU_TRACING") == "1":
-        # The env toggle lazily starts the JSONL sink.
+    global _env_exporter
+    exp = _exporter
+    if exp is not None:
+        return exp
+    if os.environ.get("RAY_TPU_TRACING") != "1":
+        return None
+    # The env toggle lazily starts the JSONL sink, in the directory the
+    # environment names now: a changed RAY_TPU_TRACE_DIR switches the sink.
+    directory = trace_dir()
+    env = _env_exporter
+    if env is None or env.directory != directory:
         with _lock:
-            if _exporter is None:
-                _exporter = JsonlExporter(trace_dir())
-        return _exporter
-    return None
+            old = _env_exporter
+            if old is None or old.directory != directory:
+                _env_exporter = JsonlExporter(directory)
+                if old is not None:
+                    old.shutdown()
+            env = _env_exporter
+    return env
 
 
 def is_enabled() -> bool:
@@ -118,7 +141,8 @@ def is_enabled() -> bool:
 
 
 def new_flow_id() -> str:
-    """A fresh id for one request->response edge."""
+    """A fresh id for one cross-process edge (submit->execute,
+    request->replica), drawn as a Perfetto flow arrow."""
     return uuid.uuid4().hex[:16]
 
 
@@ -176,6 +200,22 @@ def current_context() -> Optional[dict]:
     return _ctx.get()
 
 
+def inject_context() -> Optional[dict]:
+    """The context a submitter stamps into an outgoing task entry: the
+    ambient {trace_id, span_id} plus a fresh flow id for the submit->execute
+    arrow. With no ambient span the entry still gets a trace_id (the
+    execution roots a new trace) and a flow id, so the arrow exists even
+    for fire-and-forget submissions. None with tracing off."""
+    if not is_enabled():
+        return None
+    ctx = _ctx.get()
+    return {
+        "trace_id": ctx["trace_id"] if ctx else uuid.uuid4().hex,
+        "span_id": ctx["span_id"] if ctx else None,
+        "flow": new_flow_id(),
+    }
+
+
 @contextlib.contextmanager
 def continue_context(trace_ctx: Optional[dict], name: str, attrs=None):
     """Re-roots the ambient context from a propagated trace_ctx, then opens
@@ -201,3 +241,44 @@ def continue_context(trace_ctx: Optional[dict], name: str, attrs=None):
     else:
         with span(name, attrs) as sp:
             yield sp
+
+
+# ------------------------------------------------------------- collection
+def collect(directory: Optional[str] = None) -> List[dict]:
+    """Merges every process's JSONL spans (stable-sorted by start time).
+
+    Tolerant of truncated/corrupt lines: a worker killed mid-write leaves
+    a partial last line, and one poisoned file must not discard every
+    other process's spans: the line is skipped, the rest kept."""
+    directory = directory or trace_dir()
+    spans: List[dict] = []
+    try:
+        names = sorted(os.listdir(directory))
+    except OSError:
+        return spans
+    for fname in names:
+        if not fname.endswith(".jsonl"):
+            continue
+        try:
+            with open(os.path.join(directory, fname), errors="replace") as f:
+                for line in f:
+                    try:
+                        sp = json.loads(line)
+                    except ValueError:
+                        continue  # truncated/corrupt line
+                    # A partial write can still parse (a bare number from a
+                    # split record): only span-shaped dicts merge.
+                    if isinstance(sp, dict) and "span_id" in sp:
+                        spans.append(sp)
+        except OSError:
+            continue
+    spans.sort(key=lambda s: s.get("start_us", 0))
+    return spans
+
+
+def span_tree(spans: List[dict]) -> Dict[Optional[str], List[dict]]:
+    """Groups spans by parent_id for tree walks in tests and tools."""
+    by_parent: Dict[Optional[str], List[dict]] = {}
+    for s in spans:
+        by_parent.setdefault(s.get("parent_id"), []).append(s)
+    return by_parent

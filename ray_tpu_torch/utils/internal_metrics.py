@@ -1,7 +1,8 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
 the feed's channel, the chaos controller, the cluster runtime (its object
-plane, fast path, GCS and error table included) and the trainer record into.
+plane, fast path, GCS and error table included), the trainer, the GCS's
+trigger bus and the raylet's log monitor record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
@@ -593,6 +594,25 @@ ERROR_REPORTS = Counter(
     "raytpu_error_reports_total",
     "Uncaught worker exceptions / crashes reported to the GCS error table",
     component="gcs",
+)
+# --- post-mortems and logs (observability/{postmortem,logs}.py) --------------
+POSTMORTEM_TRIGGERS = Counter(
+    "raytpu_postmortem_triggers_total",
+    "Anomaly triggers received by the GCS trigger bus, by kind "
+    "(coalesced and fresh alike)",
+    component="gcs",
+    tag_keys=("kind",),
+)
+POSTMORTEM_INCIDENTS = Counter(
+    "raytpu_postmortem_incidents_total",
+    "Incidents opened by the trigger bus (each runs one cluster-wide "
+    "flight-ring harvest into a bundle)",
+    component="gcs",
+)
+LOG_LINES_PUBLISHED = Counter(
+    "raytpu_log_lines_published_total",
+    "Captured worker output lines published on the logs pubsub channel",
+    component="raylet",
 )
 # --- fast path (core/fastpath.py) --------------------------------------------
 FASTPATH_RTT = Histogram(

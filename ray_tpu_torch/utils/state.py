@@ -11,17 +11,19 @@ batched events and heartbeats; none touches a device.
     state.list_actors()         # with num_restarts
     state.cluster_stats()       # aggregate counters
     state.log_dir()             # per-process session logs
+    state.cluster_logs(actor_id=...)   # structured records, every node
+    state.list_incidents()      # the GCS trigger bus's incidents
 
-`cluster_logs`, `metrics_history`, `active_alerts`, `list_incidents` and
-`get_incident` stand on the log query, the metrics history, the SLO
-watchdog and the incident bus of the JAX package, which are not ported:
-they raise NotImplementedError naming their ROADMAP item.
+`metrics_history` and `active_alerts` stand on the metrics history and the
+SLO watchdog, which are not ported: they raise NotImplementedError naming
+ROADMAP Queue 1 item 3.10 (b).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 from ..core import runtime_base
@@ -92,22 +94,25 @@ def internal_metrics() -> List[Dict[str, Any]]:
 def metrics_history(name: Optional[str] = None, tags: Optional[Dict[str, str]] = None,
                     window_s: Optional[float] = None, as_rate: bool = False):
     """The internal metrics' time series (observability/history.py)."""
-    _not_ported("metrics_history (observability/history.py)", "3.10")
+    _not_ported("metrics_history (observability/history.py)", "3.10 (b)")
 
 
 def active_alerts():
     """Firing SLO watchdog alerts (observability/watchdog.py)."""
-    _not_ported("active_alerts (observability/watchdog.py)", "3.10")
+    _not_ported("active_alerts (observability/watchdog.py)", "3.10 (b)")
 
 
-def list_incidents():
-    """Incidents of the GCS anomaly trigger bus (observability/postmortem.py)."""
-    _not_ported("list_incidents (observability/postmortem.py)", "3.10")
+def list_incidents() -> List[Dict[str, Any]]:
+    """Incidents opened by the GCS anomaly trigger bus
+    (observability/postmortem.py): id, state (open / harvesting / staged /
+    failed), the first trigger's kind, the coalesced-trigger count, and the
+    staged bundle's path once the harvest lands."""
+    return _gcs().call("list_incidents")
 
 
-def get_incident(incident_id: str):
-    """One incident's record (observability/postmortem.py)."""
-    _not_ported("get_incident (observability/postmortem.py)", "3.10")
+def get_incident(incident_id: str) -> Optional[Dict[str, Any]]:
+    """One incident's full record, its trigger chain included."""
+    return _gcs().call("get_incident", incident_id)
 
 
 def cluster_errors(limit: int = 100) -> List[Dict[str, Any]]:
@@ -118,9 +123,15 @@ def cluster_errors(limit: int = 100) -> List[Dict[str, Any]]:
     return _gcs().call("cluster_errors", limit)
 
 
-def cluster_logs(node: Optional[str] = None, tail: Optional[int] = 1000, **filters: Any):
-    """The cluster-wide structured log query (observability/logs.py)."""
-    _not_ported("cluster_logs (observability/logs.py)", "8")
+def cluster_logs(node: Optional[str] = None, tail: Optional[int] = 1000,
+                 **filters: Any) -> List[Dict[str, Any]]:
+    """Cluster-wide structured log query: the raylets' `tail_logs` on every
+    alive node, merged by timestamp. Filters: component, level (minimum),
+    task_id / actor_id / trace_id / worker_id (prefix match), grep
+    (substring), since_ts."""
+    from ..observability import logs as _logs
+
+    return _logs.query_cluster(_gcs(), node=node, tail=tail, **filters)
 
 
 def get_task(task_id: str) -> Optional[Dict[str, Any]]:
@@ -149,11 +160,16 @@ def task_timeline_events() -> List[Dict[str, Any]]:
 
 def timeline(path: Optional[str] = None) -> List[Dict[str, Any]]:
     """Chrome-trace (Perfetto / chrome://tracing) export of task execution
-    spans from the task table (reference: `ray timeline`), sorted by start;
-    writes JSON when `path` is given. The JAX copy also merges the collected
-    trace spans through observability/perfetto.py; that merge waits for
-    ROADMAP Queue 1 item 10."""
+    spans from the task table (reference: `ray timeline`), with every
+    collected trace span merged in (tracing.collect: submit and execute,
+    the actor-launch phases, Serve's request and replica spans; a span that
+    never closed lands on an "open at dump" track), stable-sorted by start;
+    writes JSON when `path` is given."""
+    from .. import tracing
+    from ..observability import perfetto
+
     events = task_timeline_events()
+    events += perfetto.span_events(tracing.collect(), dump_us=int(time.time() * 1e6))
     events.sort(key=lambda e: e.get("ts", 0))  # stable: ties keep order
     if path:
         with open(path, "w") as f:

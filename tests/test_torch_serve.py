@@ -285,16 +285,20 @@ def test_port_serve_refuses_an_http_port():
         ray_tpu_torch.shutdown()
 
 
-def test_serve_spans_match(pk):
+def test_serve_spans_match(pk, tmp_path):
     """With tracing on, one call through the handle opens the router's
     `serve.request <app>` span and the replica's `serve.replica <app>` span
-    in both packages."""
-    if pk.mode == "cluster":
-        pytest.skip("the replica's span is recorded in its worker process, and gathering "
-                    "spans across processes is not ported (ROADMAP Queue 1 item 3.10)")
+    in both packages. On a cluster the replica runs in a worker process: it
+    traces by RAY_TPU_TRACING in its environment (its runtime_env here),
+    writes its spans under RAY_TPU_TRACE_DIR, and tracing.collect gathers
+    them; the replica's span shares the router span's trace."""
     tracing = importlib.import_module(f"{pk.rt.__name__}.tracing")
+    options = {}
+    if pk.mode == "cluster":
+        options["ray_actor_options"] = {"runtime_env": {"env_vars": {
+            "RAY_TPU_TRACING": "1", "RAY_TPU_TRACE_DIR": str(tmp_path)}}}
 
-    @pk.serve.deployment
+    @pk.serve.deployment(**options)
     def echo(x):
         return x
 
@@ -306,7 +310,16 @@ def test_serve_spans_match(pk):
     finally:
         tracing.disable()
     spans = {s["name"]: s for s in exporter.spans}
+    if pk.mode == "cluster":
+        # The span closes before the reply is sent, and its file is
+        # line-buffered: it is on disk by the time the result arrived.
+        remote = {s["name"]: s for s in tracing.collect(str(tmp_path))}
+        assert "serve.replica traced" in remote, sorted(remote)
+        assert remote["serve.replica traced"]["pid"] != os.getpid()
+        assert (remote["serve.replica traced"]["trace_id"]
+                == spans["serve.request traced"]["trace_id"])
+        spans.update(remote)
     assert {"serve.request traced", "serve.replica traced"} <= spans.keys(), sorted(spans)
     assert spans["serve.request traced"]["attrs"]["app"] == "traced"
     assert spans["serve.replica traced"]["attrs"] == {"app": "traced", "serve_method": "__call__"}
-    assert all(s["end_us"] >= s["start_us"] for s in exporter.spans)
+    assert all(s["end_us"] >= s["start_us"] for s in spans.values())

@@ -17,7 +17,10 @@ imports), in its own sub-pool, while the default pool's warm workers stay
 where they are. The port's key also holds the GPU ids a worker sees, and
 such a worker still forks from the zygote (CUDA reads CUDA_VISIBLE_DEVICES
 at its first cuInit): a case of its own. One more case proves the port's
-zygote imports torch without initialising CUDA.
+zygote imports torch without initialising CUDA. Two cases hold the port's
+repairs of the reference: a forked child's exit status reaches its
+PidHandle, and a batch-forked worker that polls before its registration is
+not told to stop.
 """
 
 import importlib
@@ -555,3 +558,74 @@ def test_pool_stop_before_the_zygote_boots_starts_none(tmp_path):
     mgr.stop()
     assert mgr._boot_zygote() is False
     assert mgr._zygote_proc is None
+
+
+# ------------------------------------------------ a forked worker's status
+def test_zygote_keeps_a_forked_workers_exit_status(zygote_daemon):
+    """A forked child's exit status reaches its PidHandle. The port's zygote
+    writes it to the file the spawn named before it reaps the child, and
+    PidHandle reads it once /proc shows the pid gone: the child here exits
+    1 (worker_proc cannot open the store it is given), a cold fork and a
+    parked child alike. The JAX zygote drops the status, so its PidHandle
+    reads -1 (ROADMAP Queue 3: a fault of the reference the port does not
+    copy)."""
+    z = zygote_daemon
+    got = []
+    for tag, parked in (("cold", False), ("warm", True)):
+        if parked:
+            assert z.client.ensure_pool(1)["parked"] == 1
+        spec = _spawn_spec(z, tag)
+        status = os.path.join(z.dir, f"{tag}.exit")
+        if z.name == "torch":
+            pid, warm = z.client.spawn(*_unpack(spec), status=status)
+            handle = z.zmod.PidHandle(pid, status)
+        else:
+            pid, warm = z.client.spawn(*_unpack(spec))
+            handle = z.zmod.PidHandle(pid)
+        assert warm is parked
+        assert wait_for(lambda: handle.poll() is not None, timeout=60, interval=0.05)
+        got.append(handle.poll())
+    if z.name == "torch":
+        assert got == [1, 1]
+        assert all(open(os.path.join(z.dir, f"{t}.exit")).read() == "1" for t in ("cold", "warm"))
+    else:
+        assert got == [-1, -1]
+
+
+def test_batch_spawned_worker_polling_early_is_not_stopped(tmp_path):
+    """A worker forked in a batched prestart can poll its raylet before the
+    batch's reply is registered. The raylet used to answer that poll with
+    "stop": the worker exited 0 with no output, and an actor the raylet
+    then placed on it died with "worker process died" (the intermittent
+    test_torch_tune.py failure, ROADMAP Queue 3; a raylet log kept from a
+    run of the port's cluster files together showed the poll from an
+    unknown worker, its exit 0 and the actor's death). The poll now gets a
+    "noop" while the id is being registered, and "stop" only once the id is
+    not the raylet's."""
+    import threading
+
+    from ray_tpu_torch.core import raylet as rmod
+
+    replies = {}
+
+    class _Pool:
+        def zygote_spawn_batch(self, specs):
+            # The children poll before this reply lands.
+            for spec in specs:
+                wid = spec["argv"][3]
+                replies[wid] = svc.worker_poll(wid)
+            return [(os.getpid(), True) for _ in specs]
+
+    svc = rmod.RayletService.__new__(rmod.RayletService)
+    svc.node_id, svc.sock_path, svc.store_path, svc.gcs_sock = "n" * 12, "r.sock", "s", "g.sock"
+    svc._log_dir, svc._has_gpus = str(tmp_path), False
+    svc._workers, svc._idle, svc._spawned_pids, svc._spawning = {}, {}, {}, set()
+    svc._workers_lock, svc._leases = threading.Lock(), {}
+    svc._sched_wake, svc._stop, svc._pool = threading.Event(), threading.Event(), _Pool()
+    assert svc._prestart_idle(3) == 3
+    assert len(replies) == 3 and all(r == {"type": "noop"} for r in replies.values()), replies
+    assert sorted(svc._idle[""]) == sorted(replies) and not svc._spawning
+    wid = next(iter(replies))
+    svc._workers[wid].mailbox.put({"type": "task", "entry": {"task_id": "t"}})
+    assert svc.worker_poll(wid)["type"] == "task"  # registered: served as usual
+    assert svc.worker_poll("not-this-raylets")["type"] == "stop"  # a stray still stops
