@@ -207,6 +207,28 @@ Phases, each printing its own line, any failure exits non-zero:
      SIGUSR2s both actors and stages a bundle with their rings, a trace.json
      holding the trigger's marker and a report naming rank 1 missing (seconds
      from the trigger to the manifest); (d) nothing left after shutdown.
+  21. graphs: compiled graphs, the SLO watchdog and the sampling profiler on a
+     fresh init() whose head leases GPU 0, the GCS's one watchdog rule
+     cgraph_execute_p99 (p99 of raytpu_cgraph_execute_latency_ms > 1000 ms,
+     for_s 0.5, a 5 s window): (a) two num_gpus=0.5 actors each run K1
+     (causal) at Llama-2-7B's serve shape on q/k/v from (their seed, the
+     iteration), an allreduce edge sums their outputs and a MultiOutputNode
+     returns both members' digests of the sum: 32 iterations compiled with
+     max_inflight=2, each bitwise equal to the same graph run over the
+     object plane (compile(), the sum at the driver), K1 within 2^-6 per
+     entry of its plain version and launched 32 times in each actor's
+     process; the compiled and the eager iteration's p50 and p99; the
+     raylet's profile RPC (1 s) during the run, its JSON merged into a
+     Perfetto trace; (b) actor 1 sleeps 1.5 s in 3 iterations: the rule's
+     slo_alert firing on node_events (seconds from the first slow
+     iteration), state.active_alerts() naming it, a watchdog.alert incident
+     whose bundle's metrics.json holds the latency series (seconds from
+     firing to the manifest), the alert cleared after the stall, and
+     state.metrics_history of the executions counter as a rate; (c) an
+     ElasticGraph (min_actors=1) over both loses actor 1 to rt.kill and
+     re-forms at the survivor, whose next result is its K1 output within
+     2^-6 per entry of the plain version (seconds from the kill); (d)
+     nothing left after shutdown.
 Then a line of each phase's wall seconds and the whole smoke's, one JSON line
 with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
@@ -218,7 +240,8 @@ restored workers, each elastic world, the old and new Serve replicas; the
 objects phase's two DAG actors and its runtime-env task; the ops phase's
 pool actors; the membership phase's zombie and successor actors, its
 restart actor and task; the observe phase's logging actor, crashed task and
-collective actors) under "launches_by_path"), and the
+collective actors; the graphs phase's compiled actors) under
+"launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -5646,6 +5669,394 @@ def phase_observe():
     return launches
 
 
+# ----------------------------------------------------------------- graphs
+GRAPH_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
+GRAPH_ITERS = 32
+GRAPH_INFLIGHT = 2
+GRAPH_SEEDS = (6001, 6002)  # the two actors' seeds; q/k/v from (seed, iteration)
+# (b): the cgraph_execute_p99 rule's threshold, the shipped rule's. At 200 ms the
+# rule fires on (a)'s own iterations: their execute -> get p99 is ~290 ms on an
+# H100 (the 16.8 MB float32 ring allreduce), read as the 500 ms bucket's edge.
+GRAPH_P99_MS = 1000.0
+GRAPH_STALL_S = 1.5  # (b): actor 1's sleep in each stalled iteration
+GRAPH_STALLS = 3
+GRAPH_RULES = [{"name": "cgraph_execute_p99", "metric": "raytpu_cgraph_execute_latency_ms",
+                "stat": "p99", "op": ">", "threshold": GRAPH_P99_MS, "window_s": 5.0,
+                "for_s": 0.5, "description": "compiled-graph iterations are stalling"}]
+GRAPH_TIMEOUT_S = 120
+GRAPH_BUFFER = 64 << 20  # each edge's ring: a K1 output (8 MiB bf16) fits in half
+
+
+def _graph_qkv(seed: int, index: int):
+    import torch
+
+    b, s, h, d = CLUSTER_SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + index)
+    return [torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+class _GraphMember:
+    """A num_gpus=0.5 gang member holding Llama-2-7B attention at the serve
+    shape: `attend` runs K1 (causal) on q/k/v from (its seed, the
+    iteration), holds the output against the plain version in this process,
+    and sleeps when the input asks this rank to stall; `digest` and `full`
+    are the graph's last nodes after the allreduce edge (which hands them
+    float32 numpy on the host)."""
+
+    def __init__(self, rank, seed):
+        self.rank, self.seed = rank, seed
+        self.worst = 0.0
+        _zero_launch_counts()
+
+    def attend(self, x):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        q, k, v = _graph_qkv(self.seed, x["i"])
+        o = fa.flash_attention(q, k, v, causal=True)
+        o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+        self.worst = max(self.worst, entry_err(o, o_ref))
+        torch.cuda.synchronize()
+        if x.get("stall_rank") == self.rank:
+            time.sleep(x["stall_s"])
+        return o
+
+    def digest(self, summed):
+        import hashlib
+
+        import numpy as np
+
+        arr = np.ascontiguousarray(summed)
+        return {"sha": hashlib.sha256(arr.tobytes()).hexdigest(), "dtype": str(arr.dtype),
+                "shape": list(arr.shape), "rank": self.rank}
+
+    def full(self, summed):
+        return summed
+
+    def zero(self):
+        _zero_launch_counts()
+        return os.getpid()
+
+    def report(self):
+        return {"pid": os.getpid(), "worst": self.worst, "launches": _launch_counts()}
+
+
+def _graph_digest(o_sum):
+    import hashlib
+
+    arr = o_sum.cpu().numpy()
+    return {"sha": hashlib.sha256(arr.tobytes()).hexdigest(), "dtype": str(arr.dtype),
+            "shape": list(arr.shape)}
+
+
+def _pcts(xs):
+    s = sorted(xs)
+    return s[len(s) // 2], s[min(len(s) - 1, math.ceil(0.99 * len(s)) - 1)]
+
+
+def _graph_events(runtime, out, stop):
+    """Collects node_events as they land, stamped with the driver's clock."""
+    cursor = 0
+    while not stop.is_set():
+        try:
+            batch = runtime._gcs.call("pubsub_poll", "node_events", cursor, 0.5, timeout=10.0)
+        except Exception:  # noqa: BLE001 - the GCS is going down with the phase
+            return
+        for seq, msg in batch:
+            cursor = max(cursor, seq)
+            out.append((time.time(), msg))
+
+
+def _graph_compiled(rt, runtime, smi, members):
+    """(a): the compiled graph, its eager twin, K1's launches, the profile RPC
+    during the run. Returns the compiled graph (still wired), the latencies
+    and the profile's merge."""
+    import threading
+
+    import torch
+
+    from ray_tpu_torch import cgraph
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode
+    from ray_tpu_torch.observability import perfetto
+
+    with InputNode() as inp:
+        outs = [m.attend.bind(inp) for m in members]
+        eager = MultiOutputNode(outs).compile()
+        reduced = cgraph.allreduce.bind(outs)
+        dag = MultiOutputNode([m.digest.bind(r) for m, r in zip(members, reduced)])
+    xs = [{"i": i} for i in range(GRAPH_ITERS)]
+    eager_ms, want = [], []
+    for x in xs:
+        t0 = time.perf_counter()
+        o = rt.get(eager.execute(x), timeout=GRAPH_TIMEOUT_S)
+        want.append(_graph_digest(o[0].float() + o[1].float()))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    graph = dag.experimental_compile(buffer_size_bytes=GRAPH_BUFFER, max_inflight=GRAPH_INFLIGHT)
+    compile_s = time.perf_counter() - t0
+    for i in range(2):  # the channels' and the collective ring's first use
+        graph.execute({"i": -2 - i}).get(timeout=GRAPH_TIMEOUT_S)
+    rt.get([m.zero.remote() for m in members], timeout=GRAPH_TIMEOUT_S)
+    prof = {}
+    profiler = threading.Thread(
+        target=lambda: prof.update(runtime._raylet.call("profile", 1.0, timeout=60.0)),
+        daemon=True, name="graphs-profile")
+    profiler.start()
+    lat_ms, got, pending = [], [], []
+    t_run = time.perf_counter()
+    for x in xs:
+        pending.append((time.perf_counter(), graph.execute(x)))
+        if len(pending) == GRAPH_INFLIGHT or x is xs[-1]:
+            while pending:
+                t_exec, ref = pending.pop(0)
+                got.append(ref.get(timeout=GRAPH_TIMEOUT_S))
+                lat_ms.append((time.perf_counter() - t_exec) * 1e3)
+    run_s = time.perf_counter() - t_run
+    reps = rt.get([m.report.remote() for m in members], timeout=GRAPH_TIMEOUT_S)
+    profiler.join(60)
+    profiles = [p for p in perfetto.collect_profiles(os.path.dirname(prof.get("path") or "."))
+                if str(p.get("name", "")).startswith("raylet-")]
+    trace = perfetto.build_trace(profiles=profiles)
+    prof_events = [e for e in trace["traceEvents"] if e.get("cat") == "profile"]
+    bitwise = [g[0]["sha"] == g[1]["sha"] == w["sha"] and g[0]["dtype"] == w["dtype"] ==
+               "float32" for g, w in zip(got, want)]
+    c50, c99 = _pcts(lat_ms)
+    e50, e99 = _pcts(eager_ms)
+    print(f"[graphs] (a) {smi}: two num_gpus=0.5 actors (pids {[r['pid'] for r in reps]}) ran K1 "
+          f"at the serve shape {CLUSTER_SERVE_SHAPE} on q/k/v from (seed, iteration), an "
+          f"allreduce edge summing their outputs, MultiOutputNode of both members' digests; "
+          f"compiled (max_inflight={GRAPH_INFLIGHT}, compile {compile_s:.3f} s) "
+          f"{GRAPH_ITERS} iterations in {run_s:.3f} s: execute -> get p50 {c50:.2f} ms, p99 "
+          f"{c99:.2f} ms; the eager twin (object-plane compile(), the sum at the driver) p50 "
+          f"{e50:.2f} ms, p99 {e99:.2f} ms; compiled == eager bitwise in "
+          f"{sum(bitwise)}/{len(bitwise)}; K1 per entry {[round(r['worst'], 6) for r in reps]} "
+          f"(tol {GRAPH_TOL}); K1 launches in each actor's process "
+          f"{[r['launches']['flash_fwd'] for r in reps]}; the raylet's profile RPC (1 s, "
+          f"{prof.get('samples')} samples) merged into the Perfetto trace as "
+          f"{len(prof_events)} profile events", flush=True)
+    if not all(bitwise):
+        _fail(f"graphs: compiled results differ from the eager twin: {got[:2]} {want[:2]}")
+    if any(not r["worst"] <= GRAPH_TOL for r in reps) or any(
+            r["launches"]["flash_fwd"] != GRAPH_ITERS for r in reps):
+        _fail(f"graphs: K1 in the actors {reps}")
+    if not prof.get("samples") or not prof_events:
+        _fail(f"graphs: the profile RPC {prof} merged {len(prof_events)} events")
+    return graph, reps, {"compiled p50 ms": c50, "compiled p99 ms": c99, "eager p50 ms": e50,
+                         "eager p99 ms": e99}
+
+
+def _graph_watchdog(rt, runtime, smi, graph, events):
+    """(b): actor 1 stalls a few iterations: the cgraph_execute_p99 rule
+    fires on node_events and in active_alerts, a watchdog.alert incident is
+    staged with the latency series in its metrics.json, the rule clears once
+    the stall has left its window, and the executions counter's history
+    reads as a rate. An alert that (a)'s own iterations raised (their p99
+    read as a bucket's upper edge) is waited out first and reported."""
+    import json as _json
+
+    from ray_tpu_torch.observability import postmortem
+    from ray_tpu_torch.utils import state
+
+    def alerts(which, since=0.0):
+        return [(t, m) for t, m in list(events) if isinstance(m, dict)
+                and m.get("event") == "slo_alert" and m.get("rule") == "cgraph_execute_p99"
+                and m.get("state") == which and m.get("ts", 0.0) >= since]
+
+    # (a)'s last latencies reach the rule within a flush, a tick and for_s.
+    t_wait = time.perf_counter()
+    time.sleep(3.0)
+    early = [m["value"] for _, m in alerts("firing")]
+    _obs_wait(lambda: not state.active_alerts(), "(a)'s alert cleared", timeout_s=GRAPH_TIMEOUT_S,
+              interval=0.2)
+    early_wait = time.perf_counter() - t_wait
+    stall_t0, breach = time.time(), None
+    for i in range(GRAPH_STALLS):
+        graph.execute({"i": 100 + i, "stall_rank": 1, "stall_s": GRAPH_STALL_S}).get(
+            timeout=GRAPH_TIMEOUT_S)
+        breach = breach or time.time()  # the first slow iteration's latency is observed
+    firing = _obs_wait(lambda: alerts("firing", stall_t0), "the slo_alert firing",
+                       timeout_s=GRAPH_TIMEOUT_S)[0][1]
+    active = state.active_alerts()
+    fired_at = firing["ts"]
+    inc = _obs_wait(lambda: next((i for i in state.list_incidents()
+                                  if i["trigger"] == "watchdog.alert"
+                                  and i["opened_ts"] >= fired_at - 1.0
+                                  and i["state"] in ("staged", "failed")), None),
+                    "the watchdog.alert incident staged", timeout_s=GRAPH_TIMEOUT_S)
+    bundle = inc["bundle"] or ""
+    staged_s = (os.stat(os.path.join(bundle, postmortem.MANIFEST_NAME)).st_mtime - fired_at
+                if bundle else float("nan"))
+    window = []
+    if bundle:
+        with open(os.path.join(bundle, "metrics.json")) as f:
+            window = [m for m in _json.load(f)
+                      if m["name"] == "raytpu_cgraph_execute_latency_ms"]
+    # Fast iterations go on while the stall leaves the rule's window; if
+    # their own p99 reads above the threshold, the rule clears once they stop.
+    t_clear, i = time.monotonic(), 200
+    while not alerts("cleared", fired_at) and time.monotonic() - t_clear < 20.0:
+        graph.execute({"i": i}).get(timeout=GRAPH_TIMEOUT_S)
+        i += 1
+    idle = not alerts("cleared", fired_at)
+    cleared = _obs_wait(lambda: alerts("cleared", fired_at), "the slo_alert cleared",
+                        timeout_s=GRAPH_TIMEOUT_S)[0][1]
+    gtag = {"graph": graph._dag_id[:8]}
+    rates = _obs_wait(lambda: [s for s in state.metrics_history(
+        "raytpu_cgraph_executions_total", tags=gtag, as_rate=True) if len(s["samples"]) >= 2],
+        "two rate samples of raytpu_cgraph_executions_total", timeout_s=30)
+    print(f"[graphs] (b) {smi}: alerts raised by (a)'s own iterations {early} (waited "
+          f"{early_wait:.3f} s for them to clear); actor 1 slept {GRAPH_STALL_S} s in "
+          f"{GRAPH_STALLS} iterations under cgraph_execute_p99 > {GRAPH_P99_MS} ms (for_s 0.5, "
+          f"window 5 s): breach -> firing {fired_at - breach:.3f} s (value {firing['value']}, "
+          f"flight dump {bool(firing.get('flight_dump'))}); active_alerts "
+          f"{[a['rule'] for a in active]}; firing -> bundle staged {staged_s:.3f} s "
+          f"({inc['incident_id']}, {inc['state']}), its metrics.json latency series "
+          f"{len(window)} with {sum(len(m['samples']) for m in window)} samples; cleared "
+          f"{cleared['ts'] - fired_at:.3f} s after firing ({i - 200} fast iterations after the "
+          f"stall{', then idle' if idle else ''}); executions as a rate: "
+          f"{len(rates[0]['samples'])} samples, last {rates[0]['samples'][-1][1]:.2f}/s",
+          flush=True)
+    if not active or active[0]["rule"] != "cgraph_execute_p99" or not firing.get("flight_dump"):
+        _fail(f"graphs: active_alerts {active}, the firing event {firing}")
+    if inc["state"] != "staged" or not any(m["samples"] for m in window):
+        _fail(f"graphs: the incident {inc} and its metrics window {window}")
+    return {"breach -> firing s": fired_at - breach, "firing -> staged s": staged_s,
+            "firing -> cleared s": cleared["ts"] - fired_at}
+
+
+def _graph_elastic(rt, runtime, smi, members):
+    """(c): an ElasticGraph over the two members (allreduce, each member's
+    full sum back); one member killed; the gang re-forms at the survivor,
+    whose next result must be its own K1 output within 2^-6 of the plain
+    version on the driver's card."""
+    import torch
+
+    from ray_tpu_torch import cgraph
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.utils import state
+
+    def build(actors):
+        with InputNode() as inp:
+            reduced = cgraph.allreduce.bind([a.attend.bind(inp) for a in actors])
+            return MultiOutputNode([a.full.bind(r) for a, r in zip(actors, reduced)])
+
+    eg = cgraph.ElasticGraph(build, list(members), min_actors=1, rebuild_timeout=90.0,
+                             buffer_size_bytes=GRAPH_BUFFER, max_inflight=GRAPH_INFLIGHT)
+    try:
+        both = eg.run({"i": 300}, timeout=60)
+        rt.kill(members[1])
+        t_kill = time.perf_counter()
+        out = eg.run({"i": 301}, timeout=30)
+        kill_s = time.perf_counter() - t_kill
+        world = eg.world_size
+    finally:
+        eg.teardown()
+    q, k, v = _graph_qkv(GRAPH_SEEDS[0], 301)
+    o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    err = entry_err(torch.from_numpy(out[0]).cuda(), o_ref) if len(out) == 1 else float("nan")
+    dead = [a["state"] for a in state.list_actors()
+            if a["actor_id"] == members[1]._actor_id.hex()]
+    print(f"[graphs] (c) {smi}: ElasticGraph (min_actors=1) over both members: world 2 "
+          f"result {len(both)} sums of shape {list(both[0].shape)}; member 1 killed "
+          f"({dead}): kill -> first result at world {world} {kill_s:.3f} s, the survivor's "
+          f"K1 within {err:.6f} per entry of the plain version on the driver's card", flush=True)
+    if world != 1 or len(out) != 1 or not err <= GRAPH_TOL:
+        _fail(f"graphs: the re-formed gang: world {world}, {len(out)} results, err {err}")
+    return {"kill -> first result s": kill_s}
+
+
+def phase_graphs():
+    """Compiled graphs, SLO watchdogs and the sampling profiler on a fresh
+    init() whose head leases GPU 0, with the cgraph_execute_p99 rule at
+    GRAPH_P99_MS (for_s 0.5, a 5 s window) as the GCS's only watchdog rule:
+    (a) two num_gpus=0.5 actors run K1 at the serve shape, an allreduce edge
+    sums their outputs, a MultiOutputNode returns both members' results: 32
+    iterations with max_inflight=2 bitwise equal to the eager twin, K1 within
+    2^-6 per entry and launched 32 times in each actor's process, the
+    raylet's profile RPC (1 s) merged into a Perfetto trace; (b) actor 1
+    stalls: slo_alert firing then cleared on node_events, active_alerts, a
+    watchdog.alert incident with the latency series in its metrics.json, the
+    executions counter's history as a rate; (c) an ElasticGraph loses member
+    1 and re-forms at the survivor, whose K1 is checked; (d) nothing left
+    after shutdown. Returns the actors' launches."""
+    import glob
+    import json as _json
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    trace_dir = tempfile.mkdtemp(prefix="graphs_traces_")
+    env = {"RAY_TPU_WATCHDOG_RULES": _json.dumps(GRAPH_RULES), "RAY_TPU_TRACE_DIR": trace_dir}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    parts, timing, events, stop = {}, {}, [], threading.Event()
+    try:
+        rt.init()
+        runtime = current_runtime()
+        session_dir = runtime._cluster.session_dir
+        ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+        watcher = threading.Thread(target=_graph_events, args=(runtime, events, stop),
+                                   daemon=True, name="graphs-events")
+        watcher.start()
+        try:
+            if rt.cluster_resources().get("GPU") != 1.0:
+                _fail(f"graphs: cluster_resources {rt.cluster_resources()}")
+            t0 = time.perf_counter()
+            cls = rt.remote(num_gpus=0.5, max_restarts=0)(_GraphMember)
+            members = [cls.remote(r, s) for r, s in enumerate(GRAPH_SEEDS)]
+            # Each fresh actor's first K1 dispatch (~9 s), both at once.
+            rt.get([m.attend.remote({"i": -1}) for m in members], timeout=GRAPH_TIMEOUT_S)
+            parts["start"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            graph, reps, lat = _graph_compiled(rt, runtime, smi, members)
+            timing.update(lat)
+            parts["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                timing.update(_graph_watchdog(rt, runtime, smi, graph, events))
+            finally:
+                graph.teardown()
+            parts["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            timing.update(_graph_elastic(rt, runtime, smi, members))
+            parts["c"] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            t0 = time.perf_counter()
+            rt.shutdown()
+            parts["shutdown"] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    print(f"[graphs] (d) {smi}: {', '.join(f'{k} {v:.3f}' for k, v in timing.items())}; parts "
+          f"{', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; processes left {left}, "
+          f"pools left {sorted(pools)}; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if left or pools:
+        _fail("graphs: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for rep in reps:
+        for k, n in rep["launches"].items():
+            launches[k] += n
+    return {"graphs compiled actors": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -5690,7 +6101,7 @@ def main() -> int:
     by_path.update(fit_launches)
     by_path.update(timed(phase_tune, fit_step_ms))
     for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops,
-                  phase_membership, phase_observe):
+                  phase_membership, phase_observe, phase_graphs):
         by_path.update(timed(phase))
     print(f"[smoke] seconds by phase {phase_s}; whole smoke "
           f"{time.perf_counter() - t_main:.1f} s", flush=True)

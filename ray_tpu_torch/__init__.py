@@ -13,8 +13,10 @@ checkpoints), the trainer (train.TorchTrainer, train.report) and Tune
 (tune.Tuner), and the cluster runtime on one machine (`init()`: a GCS, a
 raylet and worker processes over a shared-memory store, with CUDA devices
 leased to workers through CUDA_VISIBLE_DEVICES), with spill to disk,
-`broadcast`, runtime envs, out-of-band collective groups (collective) and
-DAG authoring (dag).
+`broadcast`, runtime envs, out-of-band collective groups (collective), DAG
+authoring (dag) and compiled graphs (cgraph), and its operator surface
+(utils: the state API with metrics history and SLO alerts, metrics, pubsub;
+observability: logs, flight dumps, incidents, the watchdog).
 
 Subpackages that need torch load on first use (PEP 562 `__getattr__`), so
 that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
@@ -50,7 +52,7 @@ from .core.placement_group import (  # noqa: F401
 from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError  # noqa: F401
 
 _LAZY_SUBMODULES = ("train", "tune", "serve", "models", "ops", "parallel", "air",
-                    "observability", "collective", "dag")
+                    "observability", "collective", "dag", "cgraph")
 
 
 def __getattr__(name):

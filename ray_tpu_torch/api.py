@@ -526,7 +526,15 @@ def remote(*args, **options):
 
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *, timeout: Optional[float] = None):
     """Blocks until object values are available (reference:
-    python/ray/_private/worker.py:2619)."""
+    python/ray/_private/worker.py:2619). A compiled graph's CompiledRef
+    resolves on its output channel, not the object store."""
+    if getattr(refs, "_is_channel_dag_ref", False):
+        return refs.get(timeout=timeout)
+    if isinstance(refs, (list, tuple)) and any(
+            getattr(r, "_is_channel_dag_ref", False) for r in refs):
+        if not all(getattr(r, "_is_channel_dag_ref", False) for r in refs):
+            raise TypeError("get() cannot mix compiled-DAG refs with ObjectRefs in one call")
+        return [r.get(timeout=timeout) for r in refs]
     rt = current_runtime()
     single = isinstance(refs, ObjectRef)
     ref_list = [refs] if single else list(refs)

@@ -1,13 +1,21 @@
 """Preallocated SPSC channels (copy of ray_tpu/core/channel.py for the
-PyTorch port): the transport of the LLM feed (serve/llm/feed.py).
+PyTorch port): the transport of compiled graphs' edges (cgraph/) and of the
+LLM feed (serve/llm/feed.py).
 
 One transport, the node-local **shm ring**: an mmap'd ring buffer file
 holding length-prefixed pickled records, plus a tiny UDS used purely for
 blocking wakeups (data never rides it). Writer blocks when the ring is
 full (backpressure), reader blocks when empty. Positions are monotonic
-u64s so free space is one subtraction. (ray_tpu/core/channel.py also has
-a TCP stream transport for writers on other hosts; it belongs to the
-cluster runtime, which the port does not have yet.)
+u64s so free space is one subtraction. Nodes of the port's cluster on one
+host share it; the JAX copy's TCP stream transport for writers on other
+hosts is ROADMAP Queue 1 item 3.3's remainder.
+
+Records pickle through the object plane's reducer (core/serialization.py),
+not plain pickle: a torch tensor travels as its bytes, a CUDA one staged to
+host memory by the writer and rebuilt on the reader's current CUDA device,
+and a reader with no CUDA device raises instead of getting a tensor on a
+device it cannot use (plain pickle would rebuild it on the writer's device
+index).
 
 The READER hosts the channel (creates the ring file + listener); writers
 attach by descriptor.
@@ -18,7 +26,6 @@ from __future__ import annotations
 import contextlib
 import mmap
 import os
-import pickle
 import select
 import socket
 import struct
@@ -27,6 +34,7 @@ import uuid
 from typing import Any, Optional
 
 from ..chaos.controller import maybe_inject as _chaos_inject
+from . import serialization
 from ..observability.flight_recorder import record as _flight_record
 
 
@@ -266,8 +274,7 @@ class ChannelReader:
         self._conn = conn
 
     def read(self, timeout: Optional[float] = None) -> Any:
-        payload = self.read_bytes(timeout)
-        return pickle.loads(payload)
+        return serialization.loads(self.read_bytes(timeout))
 
     def read_bytes(self, timeout: Optional[float] = None) -> bytes:
         if self._closed:
@@ -378,7 +385,7 @@ class ChannelWriter:
         raise ConnectionError(f"cannot attach channel {spec.name}: {last}")
 
     def write(self, value: Any, timeout: Optional[float] = None) -> None:
-        self.write_bytes(pickle.dumps(value, protocol=5), timeout)
+        self.write_bytes(serialization.dumps(value), timeout)
 
     def write_bytes(self, payload: bytes, timeout: Optional[float] = None) -> None:
         if self._closed:

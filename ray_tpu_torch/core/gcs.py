@@ -55,12 +55,20 @@ heartbeats' wall clock) and the merged trace. `node.dead` and
 `node.fenced` fire from the membership paths; `list_incidents`,
 `get_incident` and `debug_harvest` read them.
 
+History and alerts (observability/{history,watchdog}.py): every merge into
+the internal-metrics table also lands a cumulative sample in the history
+rings (`metrics_history` reads them), the health loop samples each alive
+node's heartbeat lag once a second into the same table, and the SLO
+watchdog evaluates its rules on a thread of its own (never on an RPC
+handler), publishing `slo_alert` firing and cleared events on
+`node_events` with a flight dump and a `watchdog.alert` trigger
+(`active_alerts` reads the firing ones). An incident's bundle holds the
+history of its window as `metrics.json`, and the last goodput and MFU in
+its manifest.
+
 Left out: the JAX copy's key-hashed shards (core/gcs_shards.py: no trace of
-the port has shown the one lock contended); metrics history, the SLO
-watchdog and with them an incident's metrics window and goodput (a bundle
-holds `metrics.json` = [] and no goodput until ROADMAP Queue 1 item 3.10
-(b)); and the TPU slice strategy SLICE_GANG. This module never imports
-torch.
+the port has shown the one lock contended) and the TPU slice strategy
+SLICE_GANG. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -78,7 +86,9 @@ from . import heartbeat as _hb
 from ..chaos.net import ChaosPartitionRpc
 from ..exceptions import (ActorNameTakenError, PlacementGroupError, SchedulingError,
                           StaleNodeEpochError)
+from ..observability import history as _history
 from ..observability import postmortem as _postmortem
+from ..observability import watchdog as _watchdog
 from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
@@ -168,6 +178,10 @@ class GcsService(ChaosPartitionRpc):
         self._user_metrics: Dict[Tuple, dict] = {}
         self._internal_metrics: Dict[Tuple, dict] = {}
         self._errors: List[dict] = []
+        # Per-series time series: each internal-metrics merge also lands a
+        # bounded, rolled-up history sample (observability/history.py).
+        self._history = (_history.MetricsHistory() if _history.history_enabled()
+                         else None)
         self._stop = threading.Event()
         self._session_dir = session_dir or (os.path.dirname(snapshot_path)
                                             if snapshot_path else None)
@@ -190,8 +204,17 @@ class GcsService(ChaosPartitionRpc):
             self._save_snapshot()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
-        # Anomalies raised in this process (its chaos injections) publish
-        # straight to _trigger.
+        # The SLO watchdog: rules over the history, alerts onto node_events
+        # (observability/watchdog.py). Its poll runs on its own thread.
+        self._watchdog = None
+        if self._history is not None and _watchdog.watchdog_enabled():
+            self._watchdog = _watchdog.Watchdog(
+                history=self._history,
+                publish=lambda msg: self.pubsub_publish("node_events", msg),
+                metrics_fn=self.internal_metrics)
+            self._watchdog.start()
+        # Anomalies raised in this process (its chaos injections, the
+        # watchdog's alerts) publish straight to _trigger.
         _postmortem.arm(self._trigger)
 
     # -------------------------------------------------------- persistence
@@ -670,14 +693,30 @@ class GcsService(ChaosPartitionRpc):
             if tick % 20 == 0:
                 self._kick_stranded_restarts()
             dead = []
+            lag_records: List[dict] = []
+            sample_lag = tick % 10 == 0 and self._history is not None
+            lag = imet.NODE_HEARTBEAT_LAG
             now = time.monotonic()
             with self._lock:
                 for nid, n in self._nodes.items():
-                    if n["alive"] and now - n["last_hb"] > config.HEARTBEAT_TIMEOUT_S:
+                    if not n["alive"]:
+                        continue
+                    if now - n["last_hb"] > config.HEARTBEAT_TIMEOUT_S:
                         n["alive"] = False
                         self._alive_count -= 1
                         self._persist_delta("_nodes", nid, n)
                         dead.append(nid)
+                    elif sample_lag:
+                        # Each alive node's heartbeat lag once a second, the
+                        # signal of the heartbeat_lag rule. Built by hand
+                        # from the catalog entry and merged at once: an
+                        # in-process GcsService has no flusher wired to it.
+                        lag_records.append({
+                            "name": lag.name, "kind": lag.kind, "value": now - n["last_hb"],
+                            "tags": {"component": lag.component, "node_id": "gcs",
+                                     lag.tag_keys[0]: nid[:12]}})
+            if lag_records:
+                self.report_internal_metrics("gcs", lag_records)
             for nid in dead:
                 self._on_node_death(nid)
 
@@ -1470,12 +1509,15 @@ class GcsService(ChaosPartitionRpc):
 
     # ------------------------------------------------------------ metrics
     def _merge_metric_records(self, table: Dict[Tuple, dict], worker_id: str,
-                              records: List[dict]) -> bool:
+                              records: List[dict], history=None) -> bool:
         """Aggregates flushed records per (name, tags): counters add their
         deltas, gauges keep the last value per reporter, histograms add their
         sums and bucket counts. Each aggregate also names its latest 64
         reporters (a raylet, a worker id, a driver, the GCS), which the JAX
-        copy does not keep: an operator sees which processes feed a series."""
+        copy does not keep: an operator sees which processes feed a series.
+        With `history`, each merged series lands a cumulative sample (a
+        gauge: the sum over its reporters heard from in the last 30 s, the
+        rule of `_metrics_view`)."""
         with self._lock:
             for rec in records:
                 tags = dict(rec.get("tags") or {})
@@ -1498,6 +1540,18 @@ class GcsService(ChaosPartitionRpc):
                     if len(have) == len(counts):
                         entry["counts"] = [a + b for a, b in zip(have, counts)]
                     entry.setdefault("boundaries", rec.get("boundaries"))
+                if history is None:
+                    continue
+                if rec["kind"] == "counter":
+                    history.observe(entry["name"], "counter", entry["tags"], entry["value"])
+                elif rec["kind"] == "gauge":
+                    now_m = time.monotonic()
+                    total = sum(v for v, ts in entry["gauges"].values() if now_m - ts < 30.0)
+                    history.observe(entry["name"], "gauge", entry["tags"], total)
+                elif rec["kind"] == "histogram":
+                    history.observe(entry["name"], "histogram", entry["tags"],
+                                    float(sum(entry.get("counts") or [])),
+                                    hist_sum=entry["value"])
         return True
 
     def _metrics_view(self, table: Dict[Tuple, dict]) -> List[dict]:
@@ -1530,10 +1584,27 @@ class GcsService(ChaosPartitionRpc):
     def report_internal_metrics(self, worker_id: str, records: List[dict]) -> bool:
         """The runtime's `raytpu_*` catalog (utils/internal_metrics.py),
         flushed by raylets, workers, drivers and this daemon itself."""
-        return self._merge_metric_records(self._internal_metrics, worker_id, records)
+        return self._merge_metric_records(self._internal_metrics, worker_id, records,
+                                          history=self._history)
 
     def internal_metrics(self) -> List[dict]:
         return self._metrics_view(self._internal_metrics)
+
+    def metrics_history(self, name: Optional[str] = None, tags: Optional[dict] = None,
+                        window_s: Optional[float] = None, as_rate: bool = False) -> List[dict]:
+        """The internal metrics' time series: matching series with [ts, value]
+        samples ([ts, count, sum] for histograms), fine-resolution recent
+        and rolled-up old. Empty when retention is off
+        (RAY_TPU_METRICS_HISTORY=0)."""
+        if self._history is None:
+            return []
+        return self._history.query(name=name, tags=tags, window_s=window_s, as_rate=as_rate)
+
+    def active_alerts(self) -> List[dict]:
+        """The SLO watchdog's firing alerts (empty when it is disarmed)."""
+        if self._watchdog is None:
+            return []
+        return self._watchdog.active_alerts()
 
     # ------------------------------------------------------- error reports
     # Workers report uncaught task exceptions and raylets worker crashes
@@ -1725,10 +1796,21 @@ class GcsService(ChaosPartitionRpc):
             time.sleep(0.5)  # the signalled workers' rings land
             with self._incident_lock:
                 triggers = list(inc["triggers"])
+            # The metrics of the incident's window: from 30 s before its
+            # first trigger, at least a minute; the last goodput and MFU in
+            # it are the incident's impact on training.
+            window_s = max(60.0, time.time() - (triggers[0]["ts"] - 30.0))
+            metrics = self.metrics_history(window_s=window_s)
+            goodput: Dict[str, Any] = {}
+            for series in metrics:
+                if series["name"] == "raytpu_train_goodput" and series["samples"]:
+                    goodput["goodput"] = series["samples"][-1][1]
+                if series["name"] == "raytpu_train_mfu" and series["samples"]:
+                    goodput["mfu"] = series["samples"][-1][1]
             logs.sort(key=lambda r: r.get("ts") or 0.0)
             manifest = {"incident_id": incident_id, "opened_ts": triggers[0]["ts"],
                         "triggers": triggers, "nodes": node_info, "pids": pids,
-                        "goodput": {}}
+                        "goodput": goodput, "impact_window_s": window_s}
             bundle_dir = os.path.join(_postmortem.incidents_dir(self._session_dir),
                                       incident_id)
             # The dumps and spans of this incident's minute only: the flight
@@ -1736,7 +1818,7 @@ class GcsService(ChaosPartitionRpc):
             # each harvest would copy and merge again (the JAX copy takes an
             # hour's).
             _postmortem.stage_bundle(bundle_dir, manifest, log_records=logs[-1000:],
-                                     metrics=[],
+                                     metrics=metrics,
                                      max_age_s=time.time() - triggers[0]["ts"] + 60.0)
             _postmortem.merge_trace(bundle_dir)
             with self._incident_lock:
@@ -1792,6 +1874,8 @@ class GcsService(ChaosPartitionRpc):
 
     def stop(self) -> bool:
         self._stop.set()
+        if self._watchdog is not None:
+            self._watchdog.stop()
         _postmortem.disarm(self._trigger)
         return True
 
@@ -1818,10 +1902,12 @@ def main(sock_path: str, snapshot_path: Optional[str] = None,
     to `snapshot_path` (default `<sock_path>.snapshot`) and its log; a GCS
     started again on the same path takes them up."""
     from ..observability import logs as _logs
+    from ..utils.sampling_profiler import maybe_start_from_env
     from .rpc import RpcServer
 
     session_dir = os.path.dirname(sock_path) or "."
     _logs.configure("gcs", node_id="gcs", directory=os.path.join(session_dir, "logs"))
+    maybe_start_from_env("gcs")
     _log.info("gcs started (pid %d)", os.getpid())
     service = GcsService(snapshot_path=snapshot_path or sock_path + ".snapshot",
                          session_dir=session_dir)

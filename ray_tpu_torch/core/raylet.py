@@ -56,8 +56,9 @@ flight dir: its exit status (a forked worker's from the zygote, minus the
 signal's number when killed), the task it ran and the last 50 lines of its
 .err and .out, the tail its error and the GCS error table carry. The
 raylet forwards its anomaly triggers to the GCS (postmortem.arm_client).
-Left out: the `profile` RPC (ROADMAP Queue 1 item 8). This module never
-imports torch.
+`profile` samples this raylet's threads for N seconds
+(utils/sampling_profiler.py) and leaves a JSON dump that the Perfetto
+merge reads. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -1015,23 +1016,30 @@ class RayletService(ChaosPartitionRpc):
         return raw
 
     # ---------------------------------------------------- eviction / spill
-    def _spill_to(self, target_bytes: int) -> bool:
+    def _spill_to(self, target_bytes: int, fit: int = 0) -> bool:
         with self._evict_lock:
-            return self._spill_to_locked(target_bytes)
+            return self._spill_to_locked(target_bytes, fit)
 
-    def _spill_to_locked(self, target_bytes: int) -> bool:
+    def _spill_to_locked(self, target_bytes: int, fit: int = 0) -> bool:
         """Evicts pulled replicas and spills primaries, in seal order (the
-        oldest first), until the pool holds at most `target_bytes`: one
-        snapshot, one forward scan. True when the target is met."""
-        if self.store.bytes_in_use() <= target_bytes:
+        oldest first), until the pool holds at most `target_bytes` and, for
+        `fit` > 0, one free block takes `fit` bytes: the first-fit pool can
+        be below its byte target with every hole too small, and a restore
+        or put that waits on bytes alone never fits. One snapshot, one
+        forward scan. True when both are met."""
+        def met() -> bool:
+            return (self.store.bytes_in_use() <= target_bytes
+                    and (fit <= 0 or self.store.fits(fit)))
+
+        if met():
             return True
         with self._objects_lock:
             candidates = list(self._local_objects.items())
         for h, primary in candidates:
-            if self.store.bytes_in_use() <= target_bytes:
+            if met():
                 return True
             self._try_evict_one_locked(h, primary)
-        return self.store.bytes_in_use() <= target_bytes
+        return met()
 
     def _try_evict_one_locked(self, h: str, primary: bool) -> bool:
         oid = ObjectID.from_hex(h)
@@ -1084,9 +1092,9 @@ class RayletService(ChaosPartitionRpc):
             self.gcs.call("flush_frees")
         except Exception:  # noqa: BLE001 - advisory; eviction below is the guarantee
             pass
-        if self.store.bytes_in_use() <= target:
+        if self.store.bytes_in_use() <= target and self.store.fits(nbytes):
             return True
-        return self._spill_to(target)
+        return self._spill_to(target, fit=int(nbytes))
 
     def _restore(self, oid_hex: str) -> bool:
         """Brings a spilled object back into the pool, under the evict lock
@@ -1099,7 +1107,8 @@ class RayletService(ChaosPartitionRpc):
             try:
                 self.store.put_raw(oid, raw)
             except exc.ObjectStoreFullError:
-                self._spill_to_locked(max(0, int(self.store.capacity() * 0.95) - len(raw)))
+                self._spill_to_locked(max(0, int(self.store.capacity() * 0.95) - len(raw)),
+                                      fit=len(raw))
                 try:
                     self.store.put_raw(oid, raw)
                 except exc.ObjectStoreFullError:
@@ -2148,6 +2157,15 @@ class RayletService(ChaosPartitionRpc):
         return {"path": path, "workers_signaled": len(pids) - 1, "dir": _fr.flight_dir(),
                 "pids": pids}
 
+    def profile(self, seconds: float = 5.0) -> dict:
+        """Runs the in-process sampling profiler for `seconds` and dumps the
+        hottest stacks (JSON for the trace merge, text for a person).
+        Blocking: the RPC returns when the dump is on disk; the server's
+        thread pool absorbs the wait."""
+        from ..utils import sampling_profiler
+
+        return sampling_profiler.run_for(seconds, name=f"raylet-{self.node_id[:12]}")
+
     _TAIL_FILTER_KEYS = ("component", "level", "task_id", "actor_id", "trace_id",
                          "worker_id", "node_id", "grep", "since_ts")
 
@@ -2294,9 +2312,12 @@ def main(argv: List[str]) -> None:
     from ..observability.flight_recorder import install_crash_hooks
     from .gcs import exit_with_parent
 
+    from ..utils.sampling_profiler import maybe_start_from_env
+
     install_crash_hooks("raylet")
     _logs.configure("raylet", node_id=node_id,
                     directory=os.path.join(os.path.dirname(sock_path) or ".", "logs"))
+    maybe_start_from_env("raylet")
     _log.info("raylet started (node %s, pid %d)", node_id[:12], os.getpid())
     # On a cluster that spans hosts the TCP endpoint is bound first, so the
     # service registers the port it got; connections wait for the service.

@@ -52,7 +52,8 @@ def _load():
             ctypes.POINTER(ctypes.c_uint64),
         ]
         lib.rtpt_get.restype = ctypes.c_int
-        for f in ("rtpt_bytes_in_use", "rtpt_num_objects", "rtpt_capacity"):
+        for f in ("rtpt_bytes_in_use", "rtpt_num_objects", "rtpt_capacity",
+                  "rtpt_largest_free"):
             fn = getattr(lib, f)
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_uint64
@@ -362,6 +363,12 @@ class SharedMemoryStore:
 
     def bytes_in_use(self) -> int:
         return self._lib.rtpt_bytes_in_use(self._handle)
+
+    def fits(self, nbytes: int) -> bool:
+        """True when one free block can take an object of `nbytes` now: the
+        first-fit pool can hold fewer bytes than its capacity less
+        bytes_in_use in one piece."""
+        return (int(nbytes) + 63) // 64 * 64 <= self._lib.rtpt_largest_free(self._handle)
 
     def num_objects(self) -> int:
         return self._lib.rtpt_num_objects(self._handle)

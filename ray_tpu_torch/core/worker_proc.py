@@ -34,8 +34,12 @@ monitor tails them), and writes its structured records to
 `worker_<id>.jsonl` with user `logging` captured and mirrored to stderr.
 Each task, actor method and actor constructor runs in a span re-rooted
 under the submitter's `trace_ctx`, on the raylet path and the direct one
-alike. Left out: the compiled-graph builtins `__ray_dag_*__` (ROADMAP
-Queue 1 item 4).
+alike. The compiled-graph builtins `__ray_dag_setup__`, `_start__` and
+`_stop__` host a graph's resident exec loop on a thread of the actor's
+process (cgraph/executor.py), so the actor still answers its calls, the
+raylet's liveness checks and SIGUSR2 while the loop blocks on a channel.
+With RAY_TPU_SAMPLING_PROFILE set the worker samples its own threads
+(utils/sampling_profiler.py).
 """
 
 from __future__ import annotations
@@ -106,7 +110,14 @@ def _apply_working_dir(runtime_env: dict) -> None:
 
 def _bind_method(inst, name: str):
     """The user method, or a framework builtin for a reserved name: the
-    collective group's join and leave ride the actor-task path."""
+    compiled graph's setup, start and stop (cgraph/executor.py, reference:
+    do_exec_tasks being a framework function run as an actor task,
+    compiled_dag_node.py:133) and the collective group's join and leave
+    ride the actor-task path."""
+    if name.startswith("__ray_dag_"):
+        from .dag_exec import bind_builtin
+
+        return bind_builtin(inst, name)
     if name == "__ray_tpu_collective_init__":
         from ..collective import init_collective_group
 
@@ -198,6 +209,9 @@ def main(argv: List[str]) -> None:
     # to stderr, so they reach the driver as prints do.
     _logs.configure("worker", node_id=node_id, worker_id=worker_id, mirror_stderr=True,
                     capture_root=True)
+    from ..utils.sampling_profiler import maybe_start_from_env
+
+    maybe_start_from_env("worker")
     _exit_with_raylet()
     _apply_working_dir(json.loads(os.environ.get("RAY_TPU_RUNTIME_ENV", "{}") or "{}"))
 

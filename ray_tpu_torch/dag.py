@@ -14,21 +14,14 @@ Two compilation tiers:
   serialization of values through the driver) but every hop still pays
   task submission.
 - `experimental_compile()` hands the graph to the compiled-graph
-  subsystem (one persistent channel per edge, a resident exec loop per
-  actor). Compiled graphs are ROADMAP Queue 1 item 4 of the port, not
-  ported yet: it raises NotImplementedError, as do `CompiledGraph` and
-  `CompiledRef`.
+  subsystem (cgraph/: one persistent channel per edge, a resident exec
+  loop per actor, on the cluster runtime).
 """
 
 from __future__ import annotations
 
 import itertools
 from typing import Any, Dict, List, Tuple
-
-_COMPILED_GRAPHS_NOTE = (
-    "compiled graphs (experimental_compile, CompiledGraph, CompiledRef) are ROADMAP "
-    "Queue 1 item 4 of the PyTorch port and not ported yet; compile() runs the DAG over "
-    "the object plane")
 
 
 class DAGNode:
@@ -80,10 +73,15 @@ class DAGNode:
 
     def experimental_compile(self, buffer_size_bytes: int = 8 << 20, max_inflight: int = 32,
                              max_message_bytes: int = 0):
-        """Compiles an actor-method DAG onto the compiled-graph data plane
-        (reference: compiled_dag_node.py:664 experimental_compile). Not
-        ported yet: raises NotImplementedError."""
-        raise NotImplementedError(_COMPILED_GRAPHS_NOTE)
+        """Compiles an actor-method DAG onto the compiled-graph data plane:
+        preallocated channels, a resident exec loop on every participating
+        actor, bounded pipeline depth; `execute()` in steady state is a
+        channel write and a read, no task submitted (reference:
+        compiled_dag_node.py:664 experimental_compile, execute:2118)."""
+        from .cgraph.compile import CompiledGraph
+
+        return CompiledGraph(self, capacity=buffer_size_bytes, max_inflight=max_inflight,
+                             max_message=max_message_bytes)
 
 
 class InputNode(DAGNode):
@@ -158,6 +156,11 @@ class CompiledDAG:
 
 
 def __getattr__(name: str):
-    if name in ("CompiledGraph", "CompiledRef", "ChannelCompiledDAG", "ChannelDAGRef"):
-        raise NotImplementedError(_COMPILED_GRAPHS_NOTE)
+    # The compiled-graph classes live in cgraph/ and resolve lazily (a
+    # module-level import would cycle: cgraph.compile imports this module
+    # for the node types).
+    if name in ("CompiledGraph", "CompiledRef"):
+        from .cgraph.compile import CompiledGraph, CompiledRef
+
+        return {"CompiledGraph": CompiledGraph, "CompiledRef": CompiledRef}[name]
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

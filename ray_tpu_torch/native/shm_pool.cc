@@ -445,6 +445,23 @@ int rtpt_delete(int handle, const uint8_t* key) {
   return 0;
 }
 
+// The payload size of the largest free block: the most one allocation can
+// take now. First fit leaves holes between live blocks, so bytes_in_use alone
+// cannot say whether an object of a given size fits.
+uint64_t rtpt_largest_free(int handle) {
+  if (!rtpt_valid(handle)) return 0;
+  Pool& p = g_pools[handle];
+  PoolHeader* h = p.hdr();
+  LockGuard g(p);
+  uint64_t best = 0;
+  for (uint64_t cur = h->free_head; cur != kNoBlock;) {
+    BlockHeader* b = reinterpret_cast<BlockHeader*>(p.data() + cur);
+    if (b->is_free && b->size > best) best = b->size;
+    cur = b->next_free;
+  }
+  return best;
+}
+
 uint64_t rtpt_bytes_in_use(int handle) { if (!rtpt_valid(handle)) return 0; return g_pools[handle].hdr()->bytes_in_use; }
 uint64_t rtpt_num_objects(int handle) { if (!rtpt_valid(handle)) return 0; return g_pools[handle].hdr()->num_objects; }
 uint64_t rtpt_capacity(int handle) { if (!rtpt_valid(handle)) return 0; return g_pools[handle].hdr()->data_size; }

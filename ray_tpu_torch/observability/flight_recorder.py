@@ -2,8 +2,9 @@
 (the port of ray_tpu/observability/flight_recorder.py).
 
 `record()` is one counter bump and one slot store, no lock and no IO, so
-the channel's reads and writes, the chaos controller's injections, the
-collective's ops and timeouts, the GCS's membership transitions and the
+the channel's reads and writes, the compiled graphs' node runs, the chaos
+controller's injections, the collective's ops and timeouts, the watchdog's
+alerts, the GCS's membership transitions and the
 trainer's and the Serve controller's reactions can afford it
 unconditionally. When something hangs or crashes, the last N events are
 the post-mortem.
@@ -39,6 +40,7 @@ _DEFAULT_SIZE = 4096
 # the JAX package's KIND_PREFIXES for the paths the port has; consumers
 # group and filter by prefix.
 KIND_PREFIXES = {
+    "cgraph",    # compiled graphs: node runs, recompiles, elastic resizes
     "chan",      # core/channel.py reads/writes/timeouts
     "chaos",     # chaos controller injections
     "coll",      # collective.py rendezvous, ring up, ops, timeouts and destroys
@@ -49,6 +51,7 @@ KIND_PREFIXES = {
     "serve",     # the Serve controller's drain replacements (serve.drain_replace)
     "train",     # trainer drains, restores and elastic resizes
     "trigger",   # anomaly trigger publishes (observability/postmortem.py)
+    "watchdog",  # SLO watchdog alert transitions (observability/watchdog.py)
 }
 
 

@@ -194,18 +194,11 @@ def flight_events(dumps: List[dict]) -> List[dict]:
 
 
 def profile_dir() -> str:
-    """Where structured profile dumps land: RAY_TPU_SAMPLING_PROFILE when
-    set, else <trace_dir>/profile, beside the flight dir (the port's copy
-    of ray_tpu/utils/sampling_profiler.py's `profile_dir`; the sampling
-    profiler that writes them is ROADMAP Queue 1 item 3.10 (b))."""
-    import os
+    """Where the sampling profiler's structured dumps land (its
+    `profile_dir`: RAY_TPU_SAMPLING_PROFILE, else <trace_dir>/profile)."""
+    from ..utils.sampling_profiler import profile_dir as _profile_dir
 
-    d = os.environ.get("RAY_TPU_SAMPLING_PROFILE")
-    if d:
-        return d
-    from .. import tracing
-
-    return os.path.join(tracing.trace_dir(), "profile")
+    return _profile_dir()
 
 
 def collect_profiles(directory: Optional[str] = None) -> List[dict]:

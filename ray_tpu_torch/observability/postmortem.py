@@ -46,12 +46,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from .flight_recorder import record as _flight_record
 
 # Catalog of anomaly trigger kinds, closed: the JAX package's for the sites
-# the port has. The SLO watchdog's, the compiled graph's and the job
-# manager's kinds come with their modules (ROADMAP Queue 1 items 3.10 (b),
-# 4 and 8).
+# the port has. The job manager's kind comes with its module (ROADMAP
+# Queue 1 item 8).
 TRIGGERS = {
+    "watchdog.alert": "SLO watchdog rule transitioned to firing",
     "node.dead": "heartbeat-timeout node death declared by the GCS",
     "node.fenced": "dead-marked incarnation resumed RPCs and was fenced",
+    "cgraph.timeout": "compiled-graph execute()/get() timed out on a channel",
+    "cgraph.crash": "compiled-graph exec loop died on an actor",
     "chaos.inject": "chaos controller armed a fault at an injection point",
     "coll.timeout": "collective op/rendezvous timeout naming a stalled rank",
     "debug.manual": "operator-requested harvest (GcsService.debug_harvest)",

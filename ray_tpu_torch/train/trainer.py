@@ -233,7 +233,9 @@ class TorchTrainer:
         metrics = dict(metrics)
         metrics["goodput"] = snap["goodput"]
         metrics["goodput_seconds"] = snap["seconds"]
-        imet.TRAIN_GOODPUT.set(snap["goodput"], trial=name)
+        # once=True: the terminal value ships on one flush and then stops,
+        # so the goodput_floor watchdog rule can clear after a run ends.
+        imet.TRAIN_GOODPUT.set(snap["goodput"], once=True, trial=name)
         storage.write_json(
             "result.json",
             {"metrics": metrics, "error": repr(last_error) if last_error else None},

@@ -1,8 +1,9 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
-the feed's channel, the chaos controller, the cluster runtime (its object
-plane, fast path, GCS and error table included), the trainer, the GCS's
-trigger bus and the raylet's log monitor record into.
+compiled graphs and the feed's channels, the chaos controller, the cluster
+runtime (its object plane, fast path, GCS and error table included), the
+trainer, the GCS's trigger bus and heartbeat lag, and the raylet's log
+monitor record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
@@ -101,25 +102,36 @@ class _BoundCounter:
 
 
 class _BoundGauge:
-    __slots__ = ("_value", "_set")
+    __slots__ = ("_value", "_set", "_once")
 
     def __init__(self):
         self._value = 0.0
         self._set = False
+        self._once = False
 
-    def set(self, value: float) -> None:
+    def set(self, value: float, once: bool = False) -> None:
+        """`once=True` ships the value on exactly one flush and then stops
+        re-reporting it: the terminal value of a finished run (a final
+        goodput) must not be asserted by the flusher forever, so the GCS
+        drops the stale gauge ~30 s later and history windows age the
+        sample out, and an alert on it can clear."""
         if not _enabled:
             return
         self._value = float(value)
         self._set = True
+        self._once = bool(once)
 
     def read(self) -> float:
         return self._value
 
     def _delta(self) -> Optional[dict]:
-        # Re-sent every flush: the GCS keeps a gauge's value per reporter
-        # and drops a reporter silent for 30 s.
-        return {"value": self._value} if self._set else None
+        # Re-sent every flush (but once): the GCS keeps a gauge's value per
+        # reporter and drops a reporter silent for 30 s.
+        if not self._set:
+            return None
+        if self._once:
+            self._set = False
+        return {"value": self._value}
 
     def _rebase(self) -> None:
         self._set = False
@@ -235,8 +247,8 @@ class Gauge(InternalMetric):
     def _make_bound(self):
         return _BoundGauge()
 
-    def set(self, value: float, **tags: str) -> None:
-        self.labels(**tags).set(value)
+    def set(self, value: float, once: bool = False, **tags: str) -> None:
+        self.labels(**tags).set(value, once=once)
 
 
 class Histogram(InternalMetric):
@@ -340,7 +352,7 @@ os.register_at_fork(after_in_child=_after_fork_in_child)
 # The JAX package's catalog entries for the paths the port has, with the
 # same names, components and tag keys.
 
-# --- compiled-graph data plane: the LLM feed's channels -------------------
+# --- compiled-graph data plane (cgraph) and the LLM feed's channels -------
 CGRAPH_CHANNEL_MSGS = Counter(
     "raytpu_cgraph_channel_msgs_total",
     "Messages written per compiled-graph channel edge",
@@ -358,6 +370,18 @@ CGRAPH_RING_HWM = Gauge(
     "High-water mark of ring-buffer occupancy per compiled-graph channel",
     component="cgraph",
     tag_keys=("channel",),
+)
+CGRAPH_EXECUTE_LATENCY = Histogram(
+    "raytpu_cgraph_execute_latency_ms",
+    "End-to-end latency of one compiled-graph iteration (execute to fetch)",
+    component="cgraph",
+    tag_keys=("graph",),
+)
+CGRAPH_EXECUTIONS = Counter(
+    "raytpu_cgraph_executions_total",
+    "Compiled-graph iterations driven, per graph",
+    component="cgraph",
+    tag_keys=("graph",),
 )
 # --- serve ------------------------------------------------------------------
 SERVE_REQUESTS = Counter(
@@ -636,4 +660,10 @@ NET_BLOCKED = Counter(
     "raytpu_net_blocked_total",
     "Control-plane sends and connects black-holed by an active chaos partition",
     component="chaos",
+)
+NODE_HEARTBEAT_LAG = Gauge(
+    "raytpu_node_heartbeat_lag_s",
+    "Seconds since each alive node's last raylet heartbeat (GCS-reported)",
+    component="gcs",
+    tag_keys=("node",),
 )

@@ -13,10 +13,8 @@ batched events and heartbeats; none touches a device.
     state.log_dir()             # per-process session logs
     state.cluster_logs(actor_id=...)   # structured records, every node
     state.list_incidents()      # the GCS trigger bus's incidents
-
-`metrics_history` and `active_alerts` stand on the metrics history and the
-SLO watchdog, which are not ported: they raise NotImplementedError naming
-ROADMAP Queue 1 item 3.10 (b).
+    state.metrics_history("raytpu_cgraph_executions_total", as_rate=True)
+    state.active_alerts()       # firing SLO watchdog rules
 """
 
 from __future__ import annotations
@@ -35,10 +33,6 @@ def _gcs():
     if gcs is None:
         raise RuntimeError("the state API requires cluster mode (ray_tpu_torch.init())")
     return gcs
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def list_nodes(limit: Optional[int] = None) -> List[Dict[str, Any]]:
@@ -92,14 +86,26 @@ def internal_metrics() -> List[Dict[str, Any]]:
 
 
 def metrics_history(name: Optional[str] = None, tags: Optional[Dict[str, str]] = None,
-                    window_s: Optional[float] = None, as_rate: bool = False):
-    """The internal metrics' time series (observability/history.py)."""
-    _not_ported("metrics_history (observability/history.py)", "3.10 (b)")
+                    window_s: Optional[float] = None,
+                    as_rate: bool = False) -> List[Dict[str, Any]]:
+    """Time series of the internal metrics: matching series with `samples`
+    lists of [ts, value] ([ts, count, sum] for histograms), fine-resolution
+    recent samples plus coarse rollups of older ones
+    (observability/history.py). `tags` is a subset filter; `as_rate` turns
+    cumulative series into per-second rates, so
+
+        state.metrics_history("raytpu_store_puts_total", window_s=60, as_rate=True)
+
+    is puts/s over the last minute per (component, node) series. Empty when
+    retention is off (RAY_TPU_METRICS_HISTORY=0)."""
+    return _gcs().call("metrics_history", name, tags, window_s, as_rate)
 
 
-def active_alerts():
-    """Firing SLO watchdog alerts (observability/watchdog.py)."""
-    _not_ported("active_alerts (observability/watchdog.py)", "3.10 (b)")
+def active_alerts() -> List[Dict[str, Any]]:
+    """Firing SLO watchdog alerts (observability/watchdog.py): rule, metric,
+    the observed value against its threshold, firing since. Transitions are
+    also published on the `node_events` pubsub channel and flight-recorded."""
+    return _gcs().call("active_alerts")
 
 
 def list_incidents() -> List[Dict[str, Any]]:

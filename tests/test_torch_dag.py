@@ -4,11 +4,14 @@ ray_tpu/dag.py: tests/test_dag.py's four object-plane cases, each on both
 packages' local and cluster runtimes (tests/torch_modes.py: ids jax,
 jax-cluster, torch, torch-cluster) with the same inputs and equal results.
 
-test_dag.py's two channel-compiled cases wait for compiled graphs (ROADMAP
-Queue 1 item 4): on the port `experimental_compile` raises
-NotImplementedError naming that item.
+test_dag.py's two channel-compiled cases need a worker process to host the
+exec loop: compiled graphs run on the cluster runtime and are held against
+the JAX package's in tests/test_torch_cgraph.py. Here, on the in-process
+runtime, `experimental_compile` fails alike in both packages and the
+object-plane path still runs.
 """
 
+import importlib
 import sys
 
 import numpy as np
@@ -112,24 +115,40 @@ def test_intermediate_values_stay_in_object_plane(rt):
 
 
 def test_experimental_compile_names_roadmap_item_4():
-    import ray_tpu_torch as trt
+    """Compiled graphs (ROADMAP Queue 1 item 4) are ported: the dag module
+    resolves CompiledGraph and CompiledRef to cgraph's classes. The
+    in-process runtime has no worker to host an exec loop, so
+    `experimental_compile` there fails as the JAX package's does (a TaskError
+    naming the worker builtin `__ray_dag_setup__`), and the object-plane path
+    still runs."""
+    import ray_tpu_torch.cgraph as cgraph
     from ray_tpu_torch import dag as dag_mod
 
-    trt.shutdown()
-    trt.init(local_mode=True, num_cpus=2)
-    try:
-        @trt.remote
-        class Stage:
-            def apply(self, x):
-                return x + 1
+    assert dag_mod.CompiledGraph is cgraph.CompiledGraph
+    assert dag_mod.CompiledRef is cgraph.CompiledRef
+    seen = {}
+    for name in ("jax", "torch"):
+        pkg = importlib.import_module(torch_modes.PACKAGES[name])
+        dags = importlib.import_module(f"{torch_modes.PACKAGES[name]}.dag")
+        pkg.shutdown()
+        pkg.init(local_mode=True, num_cpus=2)
+        try:
+            s = pkg.remote(_stage_class()).remote()
+            with dags.InputNode() as inp:
+                dag = s.apply.bind(inp)
+            with pytest.raises(Exception, match="__ray_dag_setup__") as ei:
+                dag.experimental_compile()
+            seen[name] = (type(ei.value).__name__, pkg.get(dag.execute(1), timeout=30))
+        finally:
+            pkg.shutdown()
+    assert seen["torch"] == seen["jax"] == ("TaskError", 2)
 
-        s = Stage.remote()
-        with dag_mod.InputNode() as inp:
-            dag = s.apply.bind(inp)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            dag.experimental_compile()
-        with pytest.raises(NotImplementedError, match="item 4"):
-            dag_mod.CompiledGraph  # noqa: B018 - the attribute access raises
-        assert trt.get(dag.execute(1), timeout=30) == 2  # the object-plane path still runs
-    finally:
-        trt.shutdown()
+
+def _stage_class():
+    """Made in a function: the JAX package's local runtime cloudpickles a
+    module-level class of this file by reference."""
+    class Stage:
+        def apply(self, x):
+            return x + 1
+
+    return Stage

@@ -25,8 +25,7 @@ the same assertions.
       singleton invariants through partition, heal, kill and preempt events.
       It runs on the port only: test_partition.py runs the JAX tool.
 
-Left out: test_partition.py's cgraph case (compiled graphs, ROADMAP Queue 1
-item 4).
+test_partition.py's cgraph case is in tests/test_torch_cgraph.py.
 
 Each cluster case boots its own cluster (the daemons read the heartbeat
 settings at start) and runs under its own time limit

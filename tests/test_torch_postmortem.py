@@ -259,9 +259,9 @@ def test_report_names_stalled_rank(tmp_path):
 
 # ============================================================ bare GCS
 def _manifest_keys(manifest):
-    """A manifest's keys, less the metrics window the port does not stage
-    until it has the metrics history (ROADMAP Queue 1 item 3.10 (b))."""
-    return sorted(set(manifest) - {"impact_window_s"})
+    """A manifest's keys, the metrics window's `impact_window_s` included
+    (the GCS keeps a metrics history in both packages)."""
+    return sorted(manifest)
 
 
 def test_gcs_coalesces_trigger_storm_into_one_incident(p, monkeypatch, tmp_path, unit_limit):

@@ -187,3 +187,66 @@ def test_torch_tensors_bitwise_through_a_spill(clusters):
         assert after["restore_total"] > stats["restore_total"], (stats, after)
     finally:
         c.base.set_runtime(None)
+
+
+def test_restore_into_a_fragmented_pool_spills_until_it_fits(tmp_path):
+    """The port's raylet restores a spilled object into a pool whose free
+    bytes are enough but lie in holes too small for it, and makes room for a
+    put in the same pool. The first-fit pool leaves such holes when spills
+    take objects of mixed sizes out of the middle; the raylet used to stop
+    spilling once the bytes were under the target, so the restore failed on
+    every retry and the get waited out its timeout
+    (test_torch_tensors_bitwise_through_a_spill under load). It now spills
+    on, oldest first, until one free block takes the object."""
+    import collections
+    import threading
+
+    from ray_tpu_torch.core import raylet as rmod
+    from ray_tpu_torch.core.ids import ObjectID
+    from ray_tpu_torch.core.shm_store import SharedMemoryStore
+    from ray_tpu_torch.exceptions import ObjectStoreFullError
+
+    mib = 1 << 20
+    store = SharedMemoryStore.create(str(tmp_path / "pool"), capacity=POOL)
+    svc = rmod.RayletService.__new__(rmod.RayletService)
+    svc.store, svc._spill_dir = store, str(tmp_path)
+    svc._evict_lock, svc._objects_lock = threading.Lock(), threading.Lock()
+    svc._local_objects, svc._spilled = collections.OrderedDict(), {}
+    svc._seal_cv, svc._buf_lock, svc._loc_buf = threading.Condition(), threading.Lock(), []
+    svc._buf_wake, svc._sched_wake = threading.Event(), threading.Event()
+    svc.gcs = types.SimpleNamespace(call=lambda *a, **k: None)
+    rng = np.random.default_rng(0)
+    ids = [rng.bytes(16).hex() for _ in range(13)]
+
+    def fits(nbytes):  # a probe allocation, taken back at once
+        probe = ObjectID.from_hex(ids[12])
+        try:
+            store.begin_put_raw(probe, nbytes)
+        except ObjectStoreFullError:
+            return False
+        assert store.delete(probe)
+        return True
+
+    try:
+        for i in range(10):  # 4 and 8 MiB in turn: 60 MiB in the 64 MiB pool
+            store.put_raw(ObjectID.from_hex(ids[i]), bytes([i]) * ((4, 8)[i % 2] * mib))
+            svc._local_objects[ids[i]] = True
+        for i in (2, 4, 6):  # spilled as the monitor would: three 4 MiB holes
+            assert svc._try_evict_one_locked(ids[i], True)
+        spilled = os.path.join(str(tmp_path), ids[10])
+        with open(spilled, "wb") as f:
+            f.write(b"\x0a" * (8 * mib))
+        svc._spilled[ids[10]] = spilled
+        target = int(store.capacity() * 0.95) - 8 * mib
+        assert store.bytes_in_use() <= target and not fits(8 * mib)
+        assert svc._restore(ids[10])
+        assert store.get_raw(ObjectID.from_hex(ids[10])) == b"\x0a" * (8 * mib)
+        assert not os.path.exists(spilled) and ids[10] not in svc._spilled
+        assert ids[0] in svc._spilled  # the oldest went to disk to make the hole
+        assert svc._try_evict_one_locked(ids[8], True)  # holes of 8 and 4 MiB
+        target = int(store.capacity() * 0.95) - 12 * mib
+        assert store.bytes_in_use() <= target and not fits(12 * mib)
+        assert svc.ensure_space(12 * mib) and fits(12 * mib)
+        store.put_raw(ObjectID.from_hex(ids[11]), b"\x0b" * (12 * mib))
+    finally:
+        store.close()
