@@ -188,8 +188,9 @@ Phases, each printing its own line, any failure exits non-zero:
      "0" and running K1 (seconds from the kill to its result, and its
      parts); (c) nothing left after shutdown.
   20. observe: logs, dumps, spans and post-mortems on a fresh init() whose head
-     leases GPU 0, with tracing on and a 3 s collective op timeout: (a) a named
-     num_gpus=0.5 actor's first K1 call at the serve shape (against its plain
+     leases GPU 0, with tracing on and a 3 s collective op timeout: (a) once
+     the zygote has imported its device stack, a named num_gpus=0.5 actor's
+     first K1 call at the serve shape (against its plain
      version), split by its own clock into its CUDA context, q/k/v, the kernel
      library's load, the wrapper's first launch, the registered op's first
      dispatch through flash_attention and a second call; the line it prints
@@ -229,6 +230,29 @@ Phases, each printing its own line, any failure exits non-zero:
      re-forms at the survivor, whose next result is its K1 output within
      2^-6 per entry of the plain version (seconds from the kill); (d)
      nothing left after shutdown.
+  22. data: Data and the rest of Serve on a fresh init() whose head leases
+     GPU 0, the references in this process first, then a wait for the
+     zygote's device stack: (a) from_numpy of 6 rows of 2048 token ids (seed 7)
+     and a row id,
+     map_batches through an autoscaling actor pool (concurrency (1, 2)), fed to
+     TorchTrainer(datasets=, dataset_config="channel") with one GPU worker
+     process training the fit phase's model (llama2_7b width, 2 layers, bf16,
+     remat "hot") from train.get_dataset_shard("train").iter_device_batches(1):
+     losses and params_sha256 bitwise equal to the same rows through
+     build_train_step driven directly in this process, the rows seen exactly
+     the dataset's in order, K1-K3 12 / 12 / 12 in the worker's process (two
+     layers, six steps); rows/s into the trainer, data_wait per step against the
+     step p50 and the direct loop's; (b) llm_deployment of PagedLM at
+     Llama-2-7B width (2 layers, seed 0) behind serve.run(http_port=0), the
+     replica a GPU worker process: 4 prompts as JSON bodies, the chunked
+     framing read off the socket (one token per chunk), greedy tokens equal
+     to InferenceEngine's driven directly here and to the handle's, K1 in the
+     replica's process; TTFT p50 over HTTP, through the handle and of the
+     engine; (c) a featurized range(512) through streaming_split(1)
+     .to_channel() into a FeatureTable replica: 17 lookups over HTTP equal to
+     the dataset's rows, an unknown key null, the ingest lag (a row made ->
+     the first lookup that sees it); (d) nothing left after shutdown. The gRPC
+     proxy is not driven here (the card's machine has no grpcio).
 Then a line of each phase's wall seconds and the whole smoke's, one JSON line
 with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
@@ -240,7 +264,8 @@ restored workers, each elastic world, the old and new Serve replicas; the
 objects phase's two DAG actors and its runtime-env task; the ops phase's
 pool actors; the membership phase's zombie and successor actors, its
 restart actor and task; the observe phase's logging actor, crashed task and
-collective actors; the graphs phase's compiled actors) under
+collective actors; the graphs phase's compiled actors; the data phase's
+trainer worker and HTTP replica) under
 "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
@@ -5323,8 +5348,8 @@ class _ObsTalker:
         printed = time.time()
         print(f"observe-k1 checksum={checksum:.6f} printed={printed:.6f}", flush=True)
         get_logger("worker").info("observe-k1 structured checksum=%.6f", checksum)
-        return {"pid": os.getpid(), "err": err, "checksum": checksum, "printed": printed,
-                "parts": [b - a for a, b in zip(stamps, stamps[1:])],
+        return {"pid": os.getpid(), "ppid": os.getppid(), "err": err, "checksum": checksum,
+                "printed": printed, "parts": [b - a for a, b in zip(stamps, stamps[1:])],
                 "launches": _launch_counts()}
 
 
@@ -5397,6 +5422,19 @@ def _obs_wait(pred, what, timeout_s=OBS_TIMEOUT_S, interval=0.01):
         time.sleep(interval)
 
 
+def _warm_zygote(runtime, what: str, timeout_s: float = 120.0) -> float:
+    """Waits until this node's zygote has imported its device stack (the
+    flash op's first dispatch, core/zygote.py), so that a GPU worker forked
+    now skips it; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not (stats := runtime._raylet.call("zygote_stats")).get("device_stack"):
+        if time.perf_counter() - t0 > timeout_s:
+            _fail(f"{what}: the zygote did not import its device stack in {timeout_s} s: "
+                  f"{stats}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
 def _obs_logs(rt, runtime, smi):
     """(a): a named num_gpus=0.5 actor's first K1 call, its print at the
     driver, its records through tail_logs, its span linked to the driver's.
@@ -5449,8 +5487,10 @@ def _obs_logs(rt, runtime, smi):
           f"{(run or {}).get('parent_id')} flow_in {((run or {}).get('attrs') or {}).get('flow_in')} "
           f"against the submit span's flow_out "
           f"{((submit or {}).get('attrs') or {}).get('flow_out')}", flush=True)
+    zygote = runtime._raylet.call("zygote_stats").get("pid")
     print(f"[observe] (a) {smi}: the actor's first K1 call by its own clock: "
-          f"{', '.join(f'{k} {v:.3f} s' for k, v in parts.items())}", flush=True)
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in parts.items())}; the actor forked by the "
+          f"zygote after its device stack: {res['ppid'] == zygote}", flush=True)
     if not res["err"] <= OBS_TOL or res["launches"]["flash_fwd"] != 3:
         _fail(f"observe: K1 in the actor {res['err']} {res['launches']}")
     if not seen.startswith(f"(observe_k1 pid={pid} node="):
@@ -5631,6 +5671,7 @@ def phase_observe():
         try:
             if rt.cluster_resources().get("GPU") != 1.0:
                 _fail(f"observe: cluster_resources {rt.cluster_resources()}")
+            parts["zygote"] = _warm_zygote(runtime, "observe")
             t0 = time.perf_counter()
             launches["observe logging actor"], timing["print -> driver"] = _obs_logs(
                 rt, runtime, smi)
@@ -6057,6 +6098,455 @@ def phase_graphs():
     return {"graphs compiled actors": launches}
 
 
+DATA_ROWS = 6  # (a): one 1 x FIT_SEQ row per step
+DATA_BLOCKS = 3
+DATA_LR = 1e-4
+DATA_LM_LAYERS = 2  # (b): the replica's PagedLM at Llama-2-7B width
+DATA_LM_GEOMETRY = dict(num_pages=256, page_tokens=16, max_slots=4, max_pages_per_seq=64)
+DATA_PROMPTS = (280, 700, 20, 310)  # (b): the serve cell's first four prompt lengths
+DATA_NEW = 16
+DATA_FEATURES = 512  # (c): rows of the featurized dataset
+DATA_LOOKUPS = 16
+DATA_TIMEOUT_S = 120
+
+
+def _data_source():
+    """(a)'s source: DATA_ROWS rows of FIT_SEQ token ids from seed 7 and a
+    row id column."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    return {"tokens": rng.integers(0, 32000, (DATA_ROWS, FIT_SEQ), dtype=np.int32),
+            "row": np.arange(DATA_ROWS, dtype=np.int64)}
+
+
+class _DataCheck:
+    """(a)'s map_batches stage, on an actor pool: the token ids checked
+    against the vocab and passed on, with the pool actor's pid."""
+
+    def __call__(self, batch):
+        import numpy as np
+
+        tokens = np.asarray(batch["tokens"])
+        if tokens.min() < 0 or tokens.max() >= 32000:
+            raise ValueError(f"token ids out of the vocab: {tokens.min()}..{tokens.max()}")
+        return {"tokens": tokens, "row": batch["row"],
+                "pid": np.full(len(batch["row"]), os.getpid(), dtype=np.int64)}
+
+
+def _data_loop(config):
+    """(a)'s training loop, as a user writes it for TorchTrainer(datasets=):
+    the fit phase's model from seed 0, deterministic, one AdamW step per
+    batch of train.get_dataset_shard("train").iter_device_batches(1); the
+    last report holds the losses, the rows seen, the wait before each batch
+    and each step's time, params_sha256 and the kernel launches."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.use_deterministic_algorithms(True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = _fit_cfg()
+    init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device)
+    params, opt = init(torch.Generator(device=device).manual_seed(0))
+    _zero_launch_counts()
+    batches = iter(train.get_dataset_shard("train").iter_device_batches(batch_size=1))
+    losses, rows, pool_pids, waits, step_s, dtype = [], [], set(), [], [], None
+    t_start = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        waits.append(time.perf_counter() - t0)
+        if batch is None:
+            break
+        if batch["tokens"].device != device:
+            raise RuntimeError(f"a batch landed on {batch['tokens'].device}, not {device}")
+        rows.extend(batch["row"].tolist())
+        pool_pids.update(batch["pid"].tolist())
+        dtype = str(batch["tokens"].dtype)
+        t0 = time.perf_counter()
+        losses.append(step(params, opt, batch["tokens"]).item())
+        step_s.append(time.perf_counter() - t0)
+        train.report({"step": len(losses) - 1, "loss": losses[-1]})
+    train.report({"losses": losses, "rows": rows, "pool_pids": sorted(pool_pids),
+                  "waits": waits, "step_s": step_s, "wall_s": time.perf_counter() - t_start,
+                  "launches": _launch_counts(), "params_sha256": _params_sha256(params),
+                  "pid": os.getpid(), "dtype": dtype})
+
+
+def _data_direct(tokens):
+    """(a)'s reference in this process: the same model, seed and rows in
+    dataset order through build_train_step driven directly, deterministic:
+    (losses, step seconds, params_sha256)."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    with _deterministic():
+        cfg = _fit_cfg()
+        init, step = tfm.build_train_step(cfg, tfm.adamw(DATA_LR), device="cuda")
+        params, opt = init(torch.Generator(device="cuda").manual_seed(0))
+        losses, step_s = [], []
+        for r in range(DATA_ROWS):
+            batch = torch.from_numpy(tokens[r:r + 1].astype("int64")).cuda()
+            t0 = time.perf_counter()
+            losses.append(step(params, opt, batch).item())
+            step_s.append(time.perf_counter() - t0)
+        sha = _params_sha256(params)
+        del params, opt
+    torch.cuda.empty_cache()
+    return losses, step_s, sha
+
+
+def _data_lm(*, seed: int = 0, device=None, **geometry):
+    """(b)'s builder for llm_deployment: PagedLM at Llama-2-7B width with
+    DATA_LM_LAYERS layers, bf16, random weights from `seed`."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.serve.llm.model import PagedLM
+
+    return PagedLM(tfm.llama2_7b(n_layers=DATA_LM_LAYERS, dtype=torch.bfloat16), seed=seed,
+                   device=device, **geometry)
+
+
+def _http_stream(port: int, app: str, payload, timeout_s: float = DATA_TIMEOUT_S):
+    """POSTs `payload` as JSON to the proxy and reads the chunked framing off
+    the socket itself: (status, t_submit, [(t, chunk bytes), ...]), one entry
+    per chunk as it arrived."""
+    import socket
+
+    body = json.dumps(payload).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout_s) as s:
+        t0 = time.perf_counter()
+        s.sendall(f"POST /{app} HTTP/1.1\r\nHost: smoke\r\nContent-Type: application/json\r\n"
+                  f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n".encode() + body)
+        f = s.makefile("rb")
+        status = int(f.readline().split()[1])
+        chunked = False
+        while True:
+            line = f.readline().strip().lower()
+            if not line:
+                break
+            chunked |= line == b"transfer-encoding: chunked"
+        if not chunked:
+            _fail(f"data: the proxy's answer to /{app} is not chunked (status {status})")
+        chunks = []
+        while True:
+            size = int(f.readline().strip(), 16)
+            if size == 0:
+                return status, t0, chunks
+            chunks.append((time.perf_counter(), f.read(size)))
+            f.readline()
+
+
+def _http_json(port: int, app: str, payload):
+    """One unary request through the proxy: the decoded JSON answer."""
+    status, _, chunks = _http_stream(port, app, payload)
+    if status != 200:
+        _fail(f"data: /{app} answered {status}: {b''.join(c for _, c in chunks)!r}")
+    return json.loads(b"".join(c for _, c in chunks))
+
+
+def _data_featurize(batch):
+    """(c)'s feature transform: per id a scalar, a 2-vector and the host
+    time the row was made."""
+    import numpy as np
+
+    ids = np.asarray(batch["id"])
+    return {"id": ids, "feat": ids * 0.5, "vec": np.stack([np.sin(ids), np.cos(ids)], 1),
+            "t_feat": np.full(len(ids), time.time())}
+
+
+class _FeatureLookup:
+    """(c)'s deployment: a FeatureTable over the ChannelFeed it is bound
+    with; a request is one key, the answer its row (null when unknown)."""
+
+    def __init__(self, feed):
+        from ray_tpu_torch.serve import FeatureTable
+
+        self.table = FeatureTable(feed, key="id", batch_size=128, continuous=False)
+
+    def __call__(self, key):
+        row = self.table.lookup(int(key))
+        return None if row is None else {k: v.tolist() for k, v in row.items()}
+
+    def stats(self):
+        return {**self.table.stats(), "pid": os.getpid()}
+
+
+def _data_trainer(rt, tmp, tokens, direct, smi):
+    """(a): the pipeline into TorchTrainer on this cluster; returns the
+    worker's launches."""
+    import statistics
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    ds = data.from_numpy(tokens, parallelism=DATA_BLOCKS).map_batches(_DataCheck,
+                                                                       concurrency=(1, 2))
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        _data_loop, train_loop_config={"lr": DATA_LR},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="data_channel", storage_path=tmp),
+        datasets={"train": ds}, dataset_config="channel").fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        _fail(f"data: (a) the trainer failed: {result.error!r}")
+    m = result.metrics
+    d_losses, d_step_s, d_sha = direct
+    step_p50 = statistics.median(m["step_s"][1:]) * 1e3
+    direct_p50 = statistics.median(d_step_s[1:]) * 1e3
+    wait_ms = [w * 1e3 for w in m["waits"]]
+    print(f"[data] (a) {smi}: from_numpy({DATA_ROWS} x {FIT_SEQ} int32 tokens, {DATA_BLOCKS} "
+          f"blocks) -> map_batches on an actor pool (concurrency (1, 2), pids {m['pool_pids']}) "
+          f"-> TorchTrainer(dataset_config='channel'), 1 worker (pid {m['pid']}), llama2_7b width, "
+          f"2 layers, bf16, remat hot, batches of 1 x {FIT_SEQ} as {m['dtype']}: fit {fit_s:.1f} s; "
+          f"rows seen {m['rows']}; losses {m['losses']}, direct {d_losses}; params_sha256 equal "
+          f"{m['params_sha256'] == d_sha}; launches in the worker {m['launches']}", flush=True)
+    print(f"[data] (a) {smi}: {DATA_ROWS / m['wall_s']:.2f} rows/s into the trainer "
+          f"({DATA_ROWS * FIT_SEQ / m['wall_s']:.0f} tokens/s); data_wait per step "
+          f"{', '.join(f'{w:.2f}' for w in wait_ms)} ms (the last is the end of the stream; "
+          f"phase_seconds data_wait {m.get('phase_seconds', {}).get('data_wait', 0) * 1e3:.2f} ms "
+          f"in the last report) against a step p50 of {step_p50:.2f} ms (steps 2-{DATA_ROWS}; the direct "
+          f"loop's {direct_p50:.2f} ms)", flush=True)
+    if m["pid"] == os.getpid() or not m["pool_pids"] or os.getpid() in m["pool_pids"]:
+        _fail("data: (a) the trainer's worker or the pool ran in the driver's process")
+    if m["rows"] != list(range(DATA_ROWS)):
+        _fail(f"data: (a) the worker saw rows {m['rows']}, not the dataset's {DATA_ROWS} in order")
+    if m["losses"] != d_losses or m["params_sha256"] != d_sha:
+        _fail("data: (a) the channel-fed trainer is not bitwise the direct loop on the same rows")
+    want = {k: 2 * DATA_ROWS for k in m["launches"]}
+    if m["launches"] != want:
+        _fail(f"data: (a) the worker launched {m['launches']}, want {want}")
+    if not m.get("phase_seconds", {}).get("data_wait", 0) > 0:
+        _fail("data: (a) no data_wait phase in the trainer's report")
+    return m["launches"]
+
+
+def _data_http(rt, serve, engine_runs, smi):
+    """(b): the LLM deployment behind the HTTP proxy, its replica a GPU
+    worker process; returns the replica's launches and the proxy's port."""
+    import statistics
+
+    from ray_tpu_torch.serve.deployment import Application, Deployment
+    from ray_tpu_torch.serve.llm import EngineConfig, llm_deployment
+
+    prompts, engine_tokens, engine_ttft = engine_runs
+    cfg = EngineConfig(page_tokens=DATA_LM_GEOMETRY["page_tokens"],
+                       pool_pages=DATA_LM_GEOMETRY["num_pages"], max_new_tokens=DATA_NEW)
+    t0 = time.perf_counter()
+    base = llm_deployment(_data_lm, name="data-llm", engine_config=cfg,
+                          model_kwargs=dict(seed=0, device="cuda", **DATA_LM_GEOMETRY),
+                          ray_actor_options={"num_gpus": 1})
+    app = Application(Deployment(_counted_llm_server(), base.deployment.name,
+                                 base.deployment.config), base.init_args, base.init_kwargs)
+    handle = serve.run(app, name="llm", http_port=0)
+    from ray_tpu_torch.serve import handle as handle_mod
+
+    port = handle_mod._proxy.port
+    counters = handle.options(method_name="kernel_launches")
+    _http_stream(port, "llm", [1, 2, 3, 4])  # warm-up
+    up_s = time.perf_counter() - t0
+    replica = counters.remote(True).result(timeout=DATA_TIMEOUT_S)
+    http_tokens, http_ttft, per_chunk = [], [], True
+    for p in prompts:
+        status, t_sub, chunks = _http_stream(port, "llm", p)
+        toks = [json.loads(c) for _, c in chunks]
+        per_chunk &= status == 200 and all(isinstance(t, int) for t in toks)
+        http_tokens.append(toks)
+        http_ttft.append((chunks[0][0] - t_sub) * 1e3)
+    launches = counters.remote(False).result(timeout=DATA_TIMEOUT_S)["launches"]
+    stream = handle.options(stream=True)
+    handle_tokens, handle_ttft = [], []
+    for p in prompts:
+        t_sub, toks = time.perf_counter(), []
+        for tok in stream.remote(p):
+            toks.append((time.perf_counter(), tok))
+        handle_tokens.append([t for _, t in toks])
+        handle_ttft.append((toks[0][0] - t_sub) * 1e3)
+    print(f"[data] (b) {smi}: llm_deployment(PagedLM at llama2_7b width, {DATA_LM_LAYERS} layers, "
+          f"bf16, seed 0) behind serve.run(http_port=0) on port {port}, the replica in worker "
+          f"pid {replica['pid']} (CUDA_VISIBLE_DEVICES={replica['visible']!r}), up in "
+          f"{up_s:.1f} s; {len(prompts)} prompts {[len(p) for p in prompts]}, {DATA_NEW} new "
+          f"tokens each, read chunk by chunk: one token per chunk {per_chunk}; greedy tokens "
+          f"equal to InferenceEngine's: HTTP "
+          f"{sum(a == b for a, b in zip(http_tokens, engine_tokens))}/{len(prompts)}, handle "
+          f"{sum(a == b for a, b in zip(handle_tokens, engine_tokens))}/{len(prompts)}; "
+          f"launches in the replica's process over the HTTP requests {launches}", flush=True)
+    print(f"[data] (b) {smi}: TTFT p50 over HTTP (first chunk) "
+          f"{statistics.median(http_ttft):.1f} ms, through the handle "
+          f"{statistics.median(handle_ttft):.1f} ms, InferenceEngine driven directly "
+          f"{statistics.median(engine_ttft):.1f} ms (one request at a time)", flush=True)
+    if replica["pid"] == os.getpid() or replica["visible"] != "0":
+        _fail("data: (b) the replica is not a worker process that sees exactly device 0")
+    if not per_chunk or http_tokens != engine_tokens or handle_tokens != engine_tokens:
+        _fail(f"data: (b) tokens differ from the engine's: HTTP {http_tokens}, handle "
+              f"{handle_tokens}, engine {engine_tokens}")
+    if (launches["flash_fwd"] < DATA_LM_LAYERS * len(prompts) or launches["flash_bwd_dq"]
+            or launches["flash_bwd_dkv"]):
+        _fail(f"data: (b) the replica launched {launches}, want flash_fwd >= "
+              f"{DATA_LM_LAYERS} x {len(prompts)} and no backward kernel")
+    return launches, port
+
+
+def _data_features(rt, serve, port, smi):
+    """(c): a FeatureTable replica fed through a ChannelFeed, looked up over
+    HTTP while it ingests."""
+    import random
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch import data
+
+    ds = data.range(DATA_FEATURES, parallelism=8).map_batches(_data_featurize)
+    feed = ds.streaming_split(1).to_channel()[0]
+    last = DATA_FEATURES - 1
+    seen, stop = {}, threading.Event()
+
+    def poll():
+        """The last row's first sighting over HTTP, polled from before the
+        deployment exists (404, then null, then the row)."""
+        import urllib.error
+        import urllib.request
+
+        while not stop.is_set():
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/features",
+                                         data=str(last).encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=DATA_TIMEOUT_S) as resp:
+                    row = json.loads(resp.read())
+            except urllib.error.HTTPError:
+                row = None
+            if row is not None:
+                seen.update(t=time.time(), pc=time.perf_counter(), row=row)
+                return
+            time.sleep(0.002)
+
+    poller = threading.Thread(target=poll, daemon=True, name="data-features-poll")
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        handle = serve.run(serve.deployment(_FeatureLookup).bind(feed), name="features",
+                           http_port=0)
+        poller.join(DATA_TIMEOUT_S)
+    finally:
+        stop.set()
+    if "row" not in seen:
+        _fail("data: (c) the last feature row never showed over HTTP")
+    stats = handle.options(method_name="stats").remote().result(timeout=DATA_TIMEOUT_S)
+    keys = sorted(random.Random(3).sample(range(DATA_FEATURES), DATA_LOOKUPS)) + [last]
+    got = {k: _http_json(port, "features", k) for k in keys}
+    missing = _http_json(port, "features", DATA_FEATURES + 7)
+    want = {k: {"id": k, "feat": k * 0.5, "vec": [float(np.sin(k)), float(np.cos(k))]}
+            for k in keys}
+    exact = sum({c: v for c, v in got[k].items() if c != "t_feat"} == want[k] for k in keys)
+    lag_s = seen["t"] - seen["row"]["t_feat"]
+    print(f"[data] (c) {smi}: range({DATA_FEATURES}).map_batches(featurize) -> "
+          f"streaming_split(1).to_channel() -> a FeatureTable replica (pid {stats['pid']}): "
+          f"{stats['rows']} rows ingested in {stats['epochs_ingested']} epoch; {exact}/{len(keys)} "
+          f"lookups over HTTP equal the dataset's rows, an unknown key -> {missing}; ingest lag "
+          f"(row made -> first lookup that sees it) {lag_s * 1e3:.1f} ms; serve.run to that "
+          f"lookup {seen['pc'] - t0:.2f} s", flush=True)
+    if exact != len(keys) or missing is not None or stats["rows"] != DATA_FEATURES:
+        _fail(f"data: (c) lookups {got} against {want}, unknown key {missing}, stats {stats}")
+
+
+def phase_data():
+    """Data and the rest of Serve on a fresh init() whose head leases GPU 0:
+    (a) from_numpy tokens -> map_batches on an autoscaling actor pool ->
+    TorchTrainer(datasets=, dataset_config="channel") with one GPU worker
+    process training the fit phase's model: losses and params_sha256
+    bitwise equal to the direct loop on the same rows, the rows exactly
+    the dataset's, K1-K3 in the worker; (b) an LLM deployment (PagedLM at
+    Llama-2-7B width, DATA_LM_LAYERS layers) behind serve.run(http_port=0),
+    its replica a GPU worker: greedy tokens over HTTP, read chunk by chunk,
+    equal to InferenceEngine's, K1 in the replica; (c) a FeatureTable
+    replica fed through a ChannelFeed: lookups over HTTP exact, the ingest
+    lag; nothing left after shutdown. Returns the launches of each path."""
+    import gc
+    import glob
+    import random
+    import statistics
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.serve.llm import EngineConfig, InferenceEngine
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-data-")
+    # Workers inherit the driver's environment: cuBLAS's workspace setting
+    # makes the trainer worker's deterministic algorithms usable.
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    parts = {}
+    t0 = time.perf_counter()
+    rt.init()
+    session_dir = current_runtime()._cluster.session_dir
+    ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            _fail(f"data: cluster_resources {rt.cluster_resources()}")
+        # The references first, in this process, while the zygote comes up.
+        tokens = _data_source()
+        direct = _data_direct(tokens["tokens"])
+        rng = random.Random(1)
+        prompts = [[rng.randrange(1, 32000) for _ in range(n)] for n in DATA_PROMPTS]
+        eng = InferenceEngine(_data_lm(seed=0, device="cuda", **DATA_LM_GEOMETRY),
+                              EngineConfig(page_tokens=DATA_LM_GEOMETRY["page_tokens"],
+                                           pool_pages=DATA_LM_GEOMETRY["num_pages"],
+                                           max_new_tokens=DATA_NEW), name="data-direct")
+        try:
+            list(eng.generate([1, 2, 3, 4], 2))  # warm-up
+            engine_tokens, engine_ttft = [], []
+            for p in prompts:
+                t_sub, toks = time.perf_counter(), []
+                for tok in eng.generate(p, DATA_NEW):
+                    toks.append((time.perf_counter(), tok))
+                engine_tokens.append([t for _, t in toks])
+                engine_ttft.append((toks[0][0] - t_sub) * 1e3)
+        finally:
+            eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["references"] = time.perf_counter() - t0
+        parts["zygote"] = _warm_zygote(current_runtime(), "data")
+        t0 = time.perf_counter()
+        trainer_launches = _data_trainer(rt, tmp, tokens, direct, smi)
+        parts["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replica_launches, port = _data_http(rt, serve, (prompts, engine_tokens, engine_ttft),
+                                            smi)
+        parts["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _data_features(rt, serve, port, smi)
+        parts["c"] = time.perf_counter() - t0
+    finally:
+        serve.shutdown()
+        t0 = time.perf_counter()
+        rt.shutdown()
+        parts["shutdown"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    print(f"[data] (d) {smi}: parts {', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; "
+          f"processes left {left}, pools left {sorted(pools)}; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if left or pools:
+        _fail("data: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    return {"data trainer worker": trainer_launches, "data http replica": replica_launches}
+
+
 def main() -> int:
     import argparse
 
@@ -6101,7 +6591,7 @@ def main() -> int:
     by_path.update(fit_launches)
     by_path.update(timed(phase_tune, fit_step_ms))
     for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops,
-                  phase_membership, phase_observe, phase_graphs):
+                  phase_membership, phase_observe, phase_graphs, phase_data):
         by_path.update(timed(phase))
     print(f"[smoke] seconds by phase {phase_s}; whole smoke "
           f"{time.perf_counter() - t_main:.1f} s", flush=True)

@@ -16,7 +16,9 @@ leased to workers through CUDA_VISIBLE_DEVICES), with spill to disk,
 `broadcast`, runtime envs, out-of-band collective groups (collective), DAG
 authoring (dag) and compiled graphs (cgraph), and its operator surface
 (utils: the state API with metrics history and SLO alerts, metrics, pubsub;
-observability: logs, flight dumps, incidents, the watchdog).
+observability: logs, flight dumps, incidents, the watchdog), and Data
+(data: lazy datasets with streaming execution, fed to TorchTrainer's
+`datasets=` and to Serve's FeatureTable).
 
 Subpackages that need torch load on first use (PEP 562 `__getattr__`), so
 that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
@@ -52,7 +54,7 @@ from .core.placement_group import (  # noqa: F401
 from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError  # noqa: F401
 
 _LAZY_SUBMODULES = ("train", "tune", "serve", "models", "ops", "parallel", "air",
-                    "observability", "collective", "dag", "cgraph")
+                    "observability", "collective", "dag", "cgraph", "data")
 
 
 def __getattr__(name):

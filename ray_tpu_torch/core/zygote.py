@@ -33,6 +33,19 @@ Two tiers serve a spawn request:
 Batched spawns (`{"batch": [...]}`) cost one socket round trip for N
 workers.
 
+The device stack. On a machine with an NVIDIA driver (`/dev/nvidiactl`; a
+file test, not a CUDA call) the zygote also imports what the first dispatch
+of the registered flash op imports (`torch._dynamo`, `torch._inductor`,
+sympy: ~840 modules, seconds), so a forked GPU worker does not pay it at its
+first `flash_attention`. The readiness socket does not wait for it: once no
+spawn has come for `_QUIET_BEFORE_IMPORT_S` (since binding, or since the
+last spawn, so a burst of launches is served first), the accept loop imports
+one module of that stack whenever no request is waiting (a request that
+comes during an import waits for that one module), then re-forks its parked
+children so they hold it too; `stats` says when it is in (`device_stack`).
+Importing these touches no CUDA (the cluster phase of chip_smoke.py checks
+the zygote's `cuda_initialized` and its /dev/nvidia* files).
+
 Exit status. The zygote reaps its children, so the raylet cannot wait for
 them; a spawn request may name a `status` file, and the zygote writes the
 child's exit status there, decoded as Popen's `returncode` (the exit code,
@@ -48,7 +61,8 @@ Protocol (one JSON line per request and reply over the UDS):
       -> {"pid": N, "warm": bool}
   {"batch": [spawn_req, ...]}   -> {"spawns": [{"pid": N, "warm": b}|{"error": s}]}
   {"pool": N}                   -> {"parked": N_now, "forked": K}
-  {"stats": true}               -> {"parked": N, "pid": pid, "cuda_initialized": b}
+  {"stats": true}               -> {"parked": N, "pid": pid, "cuda_initialized": b,
+                                    "device_stack": b}
   {"reset": true}               -> {"drained": K}   (parked children exit)
   {"stop": true}                -> (daemon exits; parked children die with it)
 """
@@ -59,6 +73,7 @@ import collections
 import contextlib
 import json
 import os
+import select
 import signal
 import socket
 import subprocess
@@ -348,7 +363,8 @@ def _handle(req: dict) -> Optional[dict]:
     if req.get("stats"):
         torch = sys.modules.get("torch")
         return {"parked": len(_PARKED), "pid": os.getpid(),
-                "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized())}
+                "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized()),
+                "device_stack": all(m in sys.modules for m in _PREWARM_DEVICE)}
     if req.get("reset"):
         return {"drained": _drain_parked()}
     if "pool" in req:
@@ -361,6 +377,7 @@ def _handle(req: dict) -> Optional[dict]:
         # Its client timed out and went on without it (a Popen under a new
         # worker id): a fork now would only start a worker nobody adopts.
         return {"error": "spawn request expired before the daemon read it"}
+    _LAST_SPAWN[0] = time.monotonic()
     if "batch" in req:
         return {"spawns": [_do_spawn(r) for r in req["batch"]]}
     return _do_spawn(req)
@@ -382,12 +399,46 @@ _PREWARM = (
     "ray_tpu_torch.serve.llm",
     "ray_tpu_torch.train",
     "ray_tpu_torch.tune",
+    "ray_tpu_torch.data",
 )
+
+
+# The first dispatch of `torch.ops.ray_tpu_torch.flash_fwd` (a
+# torch.library.custom_op) through `flash_attention`: imported after the
+# socket is bound, between requests, beside a card only (module docstring).
+_PREWARM_DEVICE = ("sympy", "torch._dynamo", "torch._inductor")
+# Those imports wait for this long without a spawn request.
+_QUIET_BEFORE_IMPORT_S = 1.0
+_LAST_SPAWN = [0.0]  # monotonic time of the last spawn request (or of binding)
 
 
 def _prewarm_worker_stack() -> None:
     for mod in _PREWARM:
         __import__(mod)
+
+
+def _device_stack_to_import() -> list:
+    """The device stack's modules still to import: all of them beside an
+    NVIDIA driver and none elsewhere (a CPU machine runs no flash kernel)."""
+    if not os.path.exists("/dev/nvidiactl"):
+        return []
+    return [m for m in _PREWARM_DEVICE if m not in sys.modules]
+
+
+def _import_when_idle(srv: socket.socket, pending: list) -> bool:
+    """Imports the next module of `pending` once no spawn has come for
+    `_QUIET_BEFORE_IMPORT_S` and no request is waiting; once the last one
+    is in, re-forks the parked children so that they hold it. True when it
+    imported something."""
+    if not pending or time.monotonic() - _LAST_SPAWN[0] < _QUIET_BEFORE_IMPORT_S:
+        return False
+    if select.select([srv], [], [], 0)[0]:
+        return False
+    __import__(pending.pop(0))
+    if not pending and _PARKED:
+        n = _drain_parked()
+        _fill_pool(n)
+    return True
 
 
 def main(sock_path: str, parent_pid: Optional[int] = None) -> None:
@@ -411,7 +462,13 @@ def main(sock_path: str, parent_pid: Optional[int] = None) -> None:
     srv.bind(sock_path + ".tmp")
     srv.listen(64)
     os.rename(sock_path + ".tmp", sock_path)  # readiness, atomically
+    device_stack = _device_stack_to_import()
+    _LAST_SPAWN[0] = time.monotonic()
     while True:
+        if _import_when_idle(srv, device_stack):
+            continue
+        # While the device stack waits for a quiet second, look again soon.
+        srv.settimeout(0.25 if device_stack else 2.0)
         try:
             conn, _ = srv.accept()
         except socket.timeout:

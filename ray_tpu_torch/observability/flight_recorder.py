@@ -44,6 +44,7 @@ KIND_PREFIXES = {
     "chan",      # core/channel.py reads/writes/timeouts
     "chaos",     # chaos controller injections
     "coll",      # collective.py rendezvous, ring up, ops, timeouts and destroys
+    "data",      # data/op_pool.py scaling and data/executor.py backpressure edges
     "incident",  # the GCS trigger bus: incident open and staged
     "net",       # chaos/net.py partitions: installs, heals, blocked sends
     "node",      # membership: the GCS's deaths, fences and joins, a raylet's fence

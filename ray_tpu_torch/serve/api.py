@@ -9,7 +9,7 @@ from typing import Any, Optional, Union
 from .. import api as core_api
 from .controller import get_or_create_controller
 from .deployment import Application, Deployment
-from .handle import DeploymentHandle
+from .handle import DeploymentHandle, start_proxy, stop_proxy
 
 
 def run(
@@ -20,13 +20,8 @@ def run(
     http_port: Optional[int] = None,
 ) -> DeploymentHandle:
     """Deploys an application and returns its handle
-    (reference: serve/api.py serve.run). The HTTP proxy is not ported:
-    `http_port` must stay None."""
-    if http_port is not None:
-        raise NotImplementedError(
-            "the HTTP proxy is not ported; call the returned handle, or an LLM "
-            "app's LLMClient feed, with http_port=None"
-        )
+    (reference: serve/api.py serve.run). With `http_port` (0 for any free
+    port) the HTTP proxy starts in this process (handle.py `start_proxy`)."""
     if isinstance(target, Deployment):
         target = target.bind()
     if not isinstance(target, Application):
@@ -36,6 +31,8 @@ def run(
         core_api.init(local_mode=True)
     controller = get_or_create_controller()
     _deploy_application(controller, target, name)
+    if http_port is not None:
+        start_proxy(http_port)
     return DeploymentHandle(name)
 
 
@@ -99,6 +96,7 @@ def delete(name: str = "default") -> None:
 
 
 def shutdown() -> None:
+    stop_proxy()
     try:
         controller = core_api.get_actor("__serve_controller__")
         core_api.get(controller.shutdown.remote())

@@ -10,13 +10,18 @@ keeps client-side outstanding counters per replica and picks the less
 loaded of two random candidates — the same O(1) balancing argument as the
 reference's queue-length-probe scheduler without the probe RPC.
 
-Left out: the HTTP proxy (ProxyASGIApp, start_proxy) and the gRPC proxy of
-ray_tpu/serve/grpc_proxy.py; requests reach a deployment through its
-handle or, for LLM apps, the channel feed (serve/llm/feed.py).
+The HTTP proxy (ProxyASGIApp on a threaded stdlib server, `start_proxy`)
+routes `/<app>` to the app's handle, streams generator responses as chunked
+bodies and sheds requests past RAY_TPU_PROXY_MAX_INFLIGHT with 503; its
+`serve.http` span is the root the handle's `serve.request` span parents to.
+It runs in the driver's process on either runtime. The gRPC ingress is
+serve/grpc_proxy.py.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 import threading
 from typing import Any, Dict, List, Optional
@@ -26,6 +31,25 @@ from .. import tracing as _tracing
 from .controller import CONTROLLER_NAME, Replica
 
 _STREAM_MARKER = Replica.STREAM_MARKER  # single definition of the sentinel
+
+_stream_exec = None
+_stream_exec_lock = threading.Lock()
+
+
+def _stream_executor():
+    """Shared pool for blocking chunk pulls: per-request default executors
+    would churn threads on every streaming response."""
+    global _stream_exec
+    if _stream_exec is None:
+        import concurrent.futures
+
+        with _stream_exec_lock:
+            if _stream_exec is None:
+                _stream_exec = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=32, thread_name_prefix="serve-stream"
+                )
+    return _stream_exec
+
 
 class DeploymentResponse:
     """Future-like response (reference: serve/handle.py DeploymentResponse)."""
@@ -296,6 +320,310 @@ class DeploymentHandle:
             replica=replica,
             trace=(self._app, resp_ctx) if resp_ctx else None,
         )
+
+
+# ------------------------------------------------------------------ proxy
+
+
+class ProxyASGIApp:
+    """The proxy as an ASGI application (reference: proxy.py:874 HTTPProxy
+    — the ASGI callable served by uvicorn there). Any ASGI server can host
+    this app; the built-in _ProxyServer below runs it on a threaded stdlib
+    HTTP server via a minimal adapter. Routing: first path segment ->
+    deployment handle; generator handlers stream as chunked responses;
+    bytes bodies pass through untouched (non-JSON friendly)."""
+
+    # Backpressure: the proxy admits a bounded number of in-flight
+    # requests and sheds the rest with 503 instead of queueing without
+    # limit (reference: proxy.py's max_ongoing-based admission; env
+    # override RAY_TPU_PROXY_MAX_INFLIGHT).
+    MAX_INFLIGHT = int(os.environ.get("RAY_TPU_PROXY_MAX_INFLIGHT", "256"))
+
+    def __init__(self, proxy: "_ProxyServer"):
+        self._proxy = proxy
+        self._inflight = [0]
+        self._inflight_lock = threading.Lock()
+
+    async def __call__(self, scope, receive, send):
+        assert scope["type"] == "http"
+        with self._inflight_lock:
+            if self._inflight[0] >= self.MAX_INFLIGHT:
+                shed = True
+            else:
+                shed = False
+                self._inflight[0] += 1
+        if shed:
+            await self._respond_json(
+                send, 503, {"error": "proxy saturated; retry later"}
+            )
+            return
+        try:
+            await self._serve_one(scope, receive, send)
+        finally:
+            with self._inflight_lock:
+                self._inflight[0] -= 1
+
+    async def _serve_one(self, scope, receive, send):
+        # Root span of an HTTP request's trace: the handle's serve.request
+        # span (opened inside, same thread/context) parents here, the
+        # replica execution follows via the propagated trace_ctx — one
+        # trace_id across proxy -> router -> replica.
+        with _tracing.span(
+            f"serve.http {scope.get('path', '/')}",
+            {"method": scope.get("method", "?"), "path": scope.get("path", "")},
+        ):
+            await self._serve_one_traced(scope, receive, send)
+
+    async def _serve_one_traced(self, scope, receive, send):
+        path = scope["path"].strip("/")
+        app = path.split("/")[0] if path else ""
+
+        body = b""
+        while True:
+            message = await receive()
+            if message["type"] == "http.request":
+                body += message.get("body", b"")
+                if not message.get("more_body", False):
+                    break
+            elif message["type"] == "http.disconnect":
+                return
+
+        try:
+            handle = self._proxy._handle_for(app)
+        except Exception as e:  # noqa: BLE001
+            await self._respond_json(send, 404, {"error": f"no app {app!r}: {e}"})
+            return
+
+        headers = {k.decode().lower(): v.decode() for k, v in scope.get("headers", [])}
+        payload = self._decode_body(body, headers.get("content-type", ""))
+        sent_start = [False]
+
+        async def tracking_send(message):
+            if message["type"] == "http.response.start":
+                sent_start[0] = True
+            await send(message)
+
+        try:
+            stream = handle.options(stream=True).remote(*(() if payload is None else (payload,)))
+            await self._respond_stream(tracking_send, stream)
+        except Exception as e:  # noqa: BLE001
+            if sent_start[0]:
+                # Headers already on the wire: propagate so the server
+                # closes the connection WITHOUT the terminal chunk — a
+                # cleanly terminated chunked body would make the partial
+                # result indistinguishable from success.
+                raise
+            await self._respond_json(send, 500, {"error": repr(e)})
+
+    @staticmethod
+    def _decode_body(body: bytes, content_type: str) -> Any:
+        if not body:
+            return None
+        try:
+            if "application/json" in content_type:
+                return json.loads(body)
+            if content_type.startswith("text/"):
+                return body.decode()
+            if not content_type:
+                return json.loads(body)
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            return body  # malformed declared type: raw passthrough
+        return body  # binary passthrough
+
+    @staticmethod
+    def _encode_chunk(chunk: Any) -> tuple:
+        if isinstance(chunk, bytes):
+            return chunk, "application/octet-stream"
+        if isinstance(chunk, str):
+            return chunk.encode(), "text/plain; charset=utf-8"
+        return json.dumps(chunk, default=str).encode(), "application/json"
+
+    async def _respond_stream(self, send, stream) -> None:
+        """Sends the handler's chunks as they arrive (chunked transfer).
+        The first chunk decides the content type. Blocking pulls run in the
+        executor so this app stays event-loop safe under any ASGI server.
+        """
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        it = iter(stream)
+        sentinel = object()
+
+        def pull():
+            return next(it, sentinel)
+
+        first = await loop.run_in_executor(_stream_executor(), pull)
+        if first is sentinel:
+            await self._respond_json(send, 200, None)
+            return
+        data, ctype = self._encode_chunk(first)
+        await send(
+            {
+                "type": "http.response.start",
+                "status": 200,
+                "headers": [(b"content-type", ctype.encode())],
+            }
+        )
+        await send({"type": "http.response.body", "body": data, "more_body": True})
+        while True:
+            chunk = await loop.run_in_executor(_stream_executor(), pull)
+            if chunk is sentinel:
+                break
+            data, _ = self._encode_chunk(chunk)
+            await send({"type": "http.response.body", "body": data, "more_body": True})
+        await send({"type": "http.response.body", "body": b"", "more_body": False})
+
+    async def _respond_json(self, send, status: int, payload: Any) -> None:
+        data = json.dumps(payload, default=str).encode()
+        await send(
+            {
+                "type": "http.response.start",
+                "status": status,
+                "headers": [(b"content-type", b"application/json")],
+            }
+        )
+        await send({"type": "http.response.body", "body": data, "more_body": False})
+
+
+class HandleCache:
+    """Thread-safe app -> DeploymentHandle cache shared by the HTTP and
+    gRPC proxies (one handle per app keeps pow-2 outstanding counters
+    accurate)."""
+
+    def __init__(self):
+        self._handles: Dict[str, DeploymentHandle] = {}
+        self._lock = threading.Lock()
+
+    def get(self, app: str) -> DeploymentHandle:
+        with self._lock:
+            cached = self._handles.get(app)
+        if cached is not None:
+            return cached
+        controller = api.get_actor(CONTROLLER_NAME)
+        apps = api.get(controller.list_apps.remote())
+        name = app
+        if app not in apps:
+            if app == "" and len(apps) == 1:
+                name = apps[0]
+            else:
+                raise KeyError(f"no app {app!r}; deployed: {apps}")
+        handle = DeploymentHandle(name)
+        with self._lock:
+            return self._handles.setdefault(app, handle)
+
+
+class _ProxyServer:
+    """Hosts ProxyASGIApp on a threaded stdlib HTTP server through a
+    minimal ASGI adapter (chunked transfer for multi-part bodies). In a
+    production deployment the same app runs under any ASGI server."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 8000):
+        import http.server
+        import socketserver
+
+        asgi_app = ProxyASGIApp(self)
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _run_asgi(self, body: bytes):
+                import asyncio
+                from urllib.parse import urlsplit
+
+                parts = urlsplit(self.path)
+                scope = {
+                    "type": "http",
+                    "asgi": {"version": "3.0"},
+                    "http_version": "1.1",
+                    "method": self.command,
+                    "path": parts.path,
+                    "raw_path": self.path.encode(),
+                    "query_string": parts.query.encode(),
+                    "headers": [
+                        (k.lower().encode(), v.encode()) for k, v in self.headers.items()
+                    ],
+                }
+                received = [False]
+
+                async def receive():
+                    if received[0]:
+                        return {"type": "http.disconnect"}
+                    received[0] = True
+                    return {"type": "http.request", "body": body, "more_body": False}
+
+                async def send(message):
+                    if message["type"] == "http.response.start":
+                        self.send_response(message["status"])
+                        for k, v in message.get("headers", []):
+                            self.send_header(k.decode(), v.decode())
+                        # Length unknown until the stream ends: chunked.
+                        self.send_header("Transfer-Encoding", "chunked")
+                        self.end_headers()
+                    elif message["type"] == "http.response.body":
+                        chunk = message.get("body", b"")
+                        if chunk:
+                            self.wfile.write(
+                                f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n"
+                            )
+                            self.wfile.flush()
+                        if not message.get("more_body", False):
+                            self.wfile.write(b"0\r\n\r\n")
+                            self.wfile.flush()
+
+                try:
+                    asyncio.run(asgi_app(scope, receive, send))
+                except Exception:  # noqa: BLE001
+                    # Mid-stream failure after headers: drop the connection
+                    # without the terminal chunk so the client observes a
+                    # truncated (failed) transfer, not a short success.
+                    self.close_connection = True
+
+            def _handle(self):
+                # Always drain the declared body (any method): leftover
+                # bytes would corrupt the next request on this keep-alive
+                # connection.
+                n = int(self.headers.get("Content-Length", 0))
+                self._run_asgi(self.rfile.read(n) if n else b"")
+
+            do_GET = do_POST = do_PUT = do_DELETE = _handle
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._handle_cache = HandleCache()
+        self._server = Server((host, port), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+
+    def _handle_for(self, app: str) -> DeploymentHandle:
+        return self._handle_cache.get(app)
+
+    def shutdown(self):
+        self._server.shutdown()
+        self._server.server_close()
+
+
+_proxy: Optional[_ProxyServer] = None
+
+
+def start_proxy(port: int = 0) -> int:
+    """Starts (or returns) the node's HTTP proxy; returns the bound port."""
+    global _proxy
+    if _proxy is None:
+        _proxy = _ProxyServer(port=port)
+    return _proxy.port
+
+
+def stop_proxy() -> None:
+    global _proxy
+    if _proxy is not None:
+        _proxy.shutdown()
+        _proxy = None
 
 
 def _rebuild_handle(

@@ -68,10 +68,13 @@ class TrainSession:
         self._peak_flops: Optional[float] = None
         self._phase_seconds: Dict[str, float] = {}
         self._phase_lock = threading.Lock()
-        # This rank's dataset shards (name -> iterator), read via
-        # train.get_dataset_shard(); empty until Data is ported (ROADMAP
-        # Queue 1 item 6).
+        # This rank's dataset shards (name -> DataIterator), resolved by
+        # the worker from the trainer's per-rank split (worker_group.py);
+        # read via train.get_dataset_shard().
         self.dataset_shards: Dict[str, Any] = {}
+        # The worker's torch.device (set by the worker): the device
+        # DataIterator.iter_device_batches puts batches on by default.
+        self.device = None
 
     # ------------------------------------------------------------ user API
     def report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
@@ -276,9 +279,12 @@ def drain_requested() -> bool:
 
 def get_dataset_shard(name: str = "train"):
     """This rank's shard of a trainer-attached dataset (the
-    `ray.train.get_dataset_shard` analogue). None outside a session or for
-    an unknown name, and always None until Data is ported (the trainer's
-    `datasets=` raises until then)."""
+    `ray.train.get_dataset_shard` analogue): a DataIterator — iterate with
+    `iter_batches` or `iter_device_batches`. Under
+    `dataset_config="channel"`, the iterator reads a persistent channel
+    fed by a BlockFeeder actor (data/feed.py) instead of pulling each
+    block from the object store. None outside a session or for an unknown
+    name."""
     s = get_session()
     if s is None:
         return None

@@ -19,6 +19,13 @@ group (NCCL on the card, gloo on the CPU) and builds its DeviceMesh over the
 world (`_use_distributed`; the JAX trainer's multi-host branch,
 ray_tpu/train/trainer.py:347-358 and :433-455).
 
+Datasets (`datasets={"train": ds}`): each attempt splits every dataset once
+over its world (`streaming_split(world, equal=True)`), as plain shard
+iterators sharing one SplitCoordinator actor (`dataset_config=
+"object_store"`) or as ChannelFeed handles of one BlockFeeder actor
+(`"channel"`); each worker resolves its rank's shard, and the loop reads it
+through `train.get_dataset_shard(name).iter_device_batches(...)`.
+
 Preemption (the cluster runtime only; the in-process runtime has no nodes to
 lose). A node_events watcher (utils/node_events.py) maps a `node_draining`
 notice to the gang's nodes; the trainer then asks every worker to drain
@@ -37,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import uuid
-from typing import Any, Callable, Dict, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set
 
 from .. import api
 from .. import exceptions as exc
@@ -116,15 +123,12 @@ class TorchTrainer:
         self._config = dict(train_loop_config or {})
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        self._datasets = dict(datasets or {})
         if dataset_config not in ("object_store", "channel"):
             raise ValueError(
                 f"dataset_config must be 'object_store' or 'channel', got {dataset_config!r}"
             )
-        if datasets:
-            raise NotImplementedError(
-                "TorchTrainer(datasets=...) waits for the port of Data (ROADMAP Queue 1 "
-                "item 6); read the data inside the training loop until then"
-            )
+        self._dataset_config = dataset_config
         self._resume_from = resume_from_checkpoint
 
     # ------------------------------------------------------------------ fit
@@ -336,6 +340,17 @@ class TorchTrainer:
         return {nid for aid, nid in node_events.actor_locations(gcs).items()
                 if aid in ids and nid}
 
+    def _split_shards(self, ds: Any, ws: int) -> List[Any]:
+        """One coordinated equal split of `ds` into ws per-rank handles:
+        ChannelFeed handles (dataset_config="channel") or plain shard
+        iterators (the coordinator made before they ship, so every rank
+        shares ONE SplitCoordinator actor)."""
+        split = ds.streaming_split(ws)
+        if self._dataset_config == "channel":
+            return split.to_channel()
+        split.prepare_shipping()
+        return list(split)
+
     def _use_distributed(self, world_size: Optional[int] = None) -> bool:
         """Workers rendezvous in one torch.distributed group when they are
         processes (the cluster runtime) and there is a backend config or more
@@ -425,11 +440,22 @@ class TorchTrainer:
                 api.get([w.setup_distributed.remote(coord, sc.mesh, sc.use_gpu, cfg.backend,
                                                     cfg.init_timeout_s)
                          for w in group.workers])
+            config = dict(self._config)
+            if self._datasets:
+                config["__datasets__"] = self._datasets
+                # Per-rank shards (train.get_dataset_shard resolves them in
+                # the worker): one coordinated streaming_split per dataset
+                # per attempt, so an elastic restart re-splits at the new
+                # world size.
+                config["__dataset_shards__"] = {
+                    ds_name: self._split_shards(ds, ws)
+                    for ds_name, ds in self._datasets.items()
+                }
             api.get(
                 [
                     w.start_training.remote(
                         self._train_loop,
-                        dict(self._config),
+                        config,
                         trial,
                         resume_ckpt.path if resume_ckpt else None,
                         sc.mesh,

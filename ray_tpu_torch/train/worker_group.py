@@ -105,6 +105,20 @@ class _TrainWorker:
             self._error = e
             raise
         session.mesh = self._mesh
+        session.device = self._device
+        # Resolve this rank's dataset shards: a ChannelFeed handle becomes a
+        # live ChannelDataIterator HERE (the consuming process hosts the
+        # reader's ring); plain split iterators pass through. Copy, never
+        # pop: on the in-process runtime every worker receives the SAME
+        # config dict object.
+        shard_lists = config.get("__dataset_shards__") or {}
+        for ds_name, shards in shard_lists.items():
+            shard = shards[self.rank]
+            session.dataset_shards[ds_name] = (
+                shard.iterator() if hasattr(shard, "iterator") else shard
+            )
+        if shard_lists:
+            config = {k: v for k, v in config.items() if k != "__dataset_shards__"}
         if self._drain_flag:
             # A drain notice landed before the session existed (a restart
             # racing the notice): the new session starts drained.

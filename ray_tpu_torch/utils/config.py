@@ -58,3 +58,19 @@ OBJECT_WAIT_POLL_S = 2.0
 # Period of the GCS's whole-state snapshot; between two snapshots every
 # mutation is in the write-ahead log.
 GCS_SNAPSHOT_INTERVAL_S = _declare("GCS_SNAPSHOT_INTERVAL_S", 1.0)
+
+# --- data plane
+# Streaming executor generation: "v2" (operator actor pools with
+# pressure-driven autoscaling and per-operator byte budgets) or "v1" (one
+# global budget). Dataset.iter_block_refs reads RAY_TPU_DATA_EXECUTOR again at
+# each call, so one process can run both.
+DATA_EXECUTOR = _declare("DATA_EXECUTOR", "v2")
+# Per-operator queued-bytes budget (v2): an operator whose input queue holds
+# more backpressures its upstream instead of accumulating blocks.
+DATA_OP_BUDGET_BYTES = _declare("DATA_OP_BUDGET_BYTES", 64 << 20)
+# Operator pools: the cap on any pool, how long "backlogged and downstream
+# starved" must last before a scale-up, and how long a surplus actor idles
+# before a scale-down.
+DATA_POOL_MAX = 8
+DATA_POOL_UP_S = 0.2
+DATA_POOL_IDLE_S = 2.0

@@ -1,6 +1,7 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
 PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
-compiled graphs and the feed's channels, the chaos controller, the cluster
+compiled graphs and the feed's channels, Data's executors and operator
+pools, the chaos controller, the cluster
 runtime (its object plane, fast path, GCS and error table included), the
 trainer, the GCS's trigger bus and heartbeat lag, and the raylet's log
 monitor record into.
@@ -449,6 +450,43 @@ SERVE_REQUESTS_SHED = Counter(
     "LLM requests rejected with backpressure (pool exhausted / queue full)",
     component="serve",
     tag_keys=("deployment",),
+)
+DATA_OP_TASKS = Counter(
+    "raytpu_data_op_tasks_total",
+    "Data streaming-executor tasks submitted, by operator",
+    component="data",
+    tag_keys=("operator",),
+)
+DATA_OP_BLOCKS = Counter(
+    "raytpu_data_op_blocks_total",
+    "Data blocks completed, by operator",
+    component="data",
+    tag_keys=("operator",),
+)
+DATA_ROWS = Counter(
+    "raytpu_data_rows_total",
+    "Rows processed inside data transform tasks, by operator",
+    component="data",
+    tag_keys=("operator",),
+)
+DATA_OP_POOL_SIZE = Gauge(
+    "raytpu_data_op_pool_size",
+    "Live actors in an operator's autoscaling pool (executor v2)",
+    component="data",
+    tag_keys=("operator",),
+)
+DATA_OP_QUEUED_BYTES = Gauge(
+    "raytpu_data_op_queued_bytes",
+    "Object-store bytes queued at an operator's input (executor v2)",
+    component="data",
+    tag_keys=("operator",),
+)
+DATA_BACKPRESSURE = Counter(
+    "raytpu_data_backpressure_total",
+    "Times an operator was gated because its downstream exceeded its "
+    "byte budget (one count per blocked->unblocked transition edge)",
+    component="data",
+    tag_keys=("operator",),
 )
 # --- train ------------------------------------------------------------------
 TRAIN_REPORTS = Counter(

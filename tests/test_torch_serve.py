@@ -4,7 +4,7 @@ Every test runs four times, on `ray_tpu.serve` and on `ray_tpu_torch.serve`,
 each over its package's `init(local_mode=True)` and over a cluster whose
 controller and replicas are actors in worker processes (tests/torch_modes.py),
 with the same deployments and inputs, and asserts the same outcome: the cases of tests/test_serve.py that need no HTTP or gRPC proxy
-(the port has neither yet). Every wait has a deadline; every fixture shuts
+(tests/test_torch_ingress.py holds the proxies). Every wait has a deadline; every fixture shuts
 Serve and the runtime down in a `finally`; nothing binds a fixed port.
 """
 
@@ -270,6 +270,15 @@ def test_serve_multiplexed_lru(pk):
 
 
 def test_port_serve_refuses_an_http_port():
+    """The name is older than the port's HTTP proxy: serve.run(http_port=0)
+    no longer refuses the port, it starts the proxy on a free one, a POST
+    reaches the deployment, and serve.shutdown() stops the proxy
+    (tests/test_torch_ingress.py holds the proxy to the JAX package's)."""
+    import json
+    import urllib.request
+
+    from ray_tpu_torch.serve import handle as handle_mod
+
     ray_tpu_torch.shutdown()
     ray_tpu_torch.init(local_mode=True, num_cpus=2)
     try:
@@ -279,8 +288,16 @@ def test_port_serve_refuses_an_http_port():
         def f(x):
             return x
 
-        with pytest.raises(NotImplementedError, match="HTTP proxy"):
+        try:
             serve.run(f.bind(), name="f", http_port=0)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{handle_mod._proxy.port}/f", data=json.dumps([1, 2]).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                assert json.loads(resp.read()) == [1, 2]
+        finally:
+            serve.shutdown()
+        assert handle_mod._proxy is None
     finally:
         ray_tpu_torch.shutdown()
 

@@ -28,6 +28,7 @@ uninterrupted port run bit for bit. Every wait has a deadline
 
 import gc
 import hashlib
+import importlib
 import os
 import tempfile
 import time
@@ -545,11 +546,39 @@ def test_trainer_rejects_unknown_dataset_config(name):
         _ns(name).Trainer(lambda config: None, dataset_config="teleport")
 
 
-def test_torch_trainer_datasets_wait_for_data():
-    from ray_tpu_torch.train import TorchTrainer
+def _shard_ids_loop(config):
+    """Reports the ids this rank's dataset shard holds, in the order read."""
+    import importlib
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TorchTrainer(lambda config: None, datasets={"train": [1, 2, 3]})
+    train = importlib.import_module(config["train"])
+    ids = [int(v) for b in train.get_dataset_shard("train").iter_batches(batch_size=10)
+           for v in b["id"]]
+    train.report({"ids": ids, "rank": train.get_context().get_world_rank()})
+
+
+def test_torch_trainer_datasets_wait_for_data():
+    """The name is older than the port of Data: TorchTrainer(datasets=) no
+    longer raises. `datasets={"train": data.range(...)}` over 2 workers
+    gives rank 0 the ids the JaxTrainer's split gives its rank 0 (an equal
+    split, in the order read)."""
+    got = {}
+    for name in PACKAGES:
+        ns = _ns(name)
+        data = importlib.import_module(f"{ns.rt.__name__}.data")
+        ns.rt.shutdown()
+        ns.rt.init(local_mode=True, num_cpus=8)
+        try:
+            result = _fit(ns.Trainer(
+                _shard_ids_loop, train_loop_config={"train": ns.train.__name__},
+                scaling_config=ns.scaling(2),
+                run_config=ns.train.RunConfig(name="shards", storage_path=tempfile.mkdtemp()),
+                datasets={"train": data.range(64, parallelism=4)}))
+        finally:
+            ns.rt.shutdown()
+        assert result.error is None, result.error
+        got[name] = result.metrics
+    assert got["torch"]["rank"] == got["jax"]["rank"] == 0
+    assert got["torch"]["ids"] == got["jax"]["ids"] and len(got["jax"]["ids"]) == 32
 
 
 def _three_step_loop(config):
