@@ -135,7 +135,7 @@ Phases, each printing its own line, any failure exits non-zero:
      request, K1 in both replicas' processes; nothing left after shutdown.
   17. objects: the object plane and what rides it, on a fresh init() with a
      2 GiB pool per node; one layer = Llama-2-7B's seven block matrices as a
-     dict of bf16 CUDA tensors (404.8 MB): (a) 8 layers (1.5x the pool) put
+     dict of bf16 CUDA tensors (404.8 MB): (a) 6 layers (1.13x the pool) put
      and read back onto the card bitwise through spill to disk, num_spilled
      in the GCS's stats, a num_gpus=1 task on a spilled layer (sha256), the
      spill dir empty and the pool's bytes back once the refs drop; (b) 3
@@ -214,10 +214,10 @@ Phases, each printing its own line, any failure exits non-zero:
      for_s 0.5, a 5 s window): (a) two num_gpus=0.5 actors each run K1
      (causal) at Llama-2-7B's serve shape on q/k/v from (their seed, the
      iteration), an allreduce edge sums their outputs and a MultiOutputNode
-     returns both members' digests of the sum: 32 iterations compiled with
+     returns both members' digests of the sum: 16 iterations compiled with
      max_inflight=2, each bitwise equal to the same graph run over the
      object plane (compile(), the sum at the driver), K1 within 2^-6 per
-     entry of its plain version and launched 32 times in each actor's
+     entry of its plain version and launched 16 times in each actor's
      process; the compiled and the eager iteration's p50 and p99; the
      raylet's profile RPC (1 s) during the run, its JSON merged into a
      Perfetto trace; (b) actor 1 sleeps 1.5 s in 3 iterations: the rule's
@@ -253,7 +253,37 @@ Phases, each printing its own line, any failure exits non-zero:
      the dataset's rows, an unknown key null, the ingest lag (a row made ->
      the first lookup that sees it); (d) nothing left after shutdown. The gRPC
      proxy is not driven here (the card's machine has no grpcio).
-Then a line of each phase's wall seconds and the whole smoke's, one JSON line
+  23. operate: the operator surface and the device glue: (a) through
+     `python -m ray_tpu_torch.scripts` with HOME at a temp dir, `up` of a JSON
+     config (the local provider; a head with no GPU and one worker of 2 CPUs and
+     1 GPU, RAY_RUNNING through its cloud-id label), `status` (2 nodes, GPU 1),
+     `submit --wait` of an entrypoint that attaches with init(address="auto")
+     and runs a num_gpus=1 task: K1 at the serve shape against its plain version
+     within 2^-6 per entry, launched once, on a worker forked after that node's
+     zygote imported its device stack; the job SUCCEEDED, its line in `submit`'s
+     output and in `logs`; this process attached by session dir reads the
+     dashboard's /api/jobs, /api/nodes (the worker's label), /metrics
+     (raytpu_gcs_rpc_total and the reporter's node gauges), /api/metrics_history
+     and /api/alerts; `down`: no process of the session, no keeper, no pool;
+     (b) autoscaler_v2's InstanceManager over a LocalNodeProvider (shape 2 CPUs,
+     1 GPU) on init(num_gpus=0) with a 0.25 s heartbeat and a 1.5 s timeout:
+     the GPU node's raylet killed, the instance terminated and replaced, a K1
+     task on the replacement (seconds from the kill to each); (c) in this
+     process, which holds a CUDA context: the
+     reporter's raytpu_device_mem_used_bytes{device="0"} equal to
+     torch.cuda.memory_allocated(0), one K1 call under profiling.device_trace
+     whose trace names the flash_fwd kernel, and save_device_memory_profile's
+     snapshot. (b) and (c) run after (a)'s `status`, while the GPU node's
+     zygote imports its device stack.
+Phases 1-5 run alone, in this order. Then a second process of this script
+(`--lane`) runs ops, membership, observe, graphs, data and elastic, in that
+order (data once the main process's parallel phase has ended), while the
+main process runs parallel, serve, deploy, train-parity, train, zero,
+checkpoint, fit, tune, cluster, objects and operate; the second process's
+lines are printed when it ends, and its failure fails the smoke.
+Then a line of the card's peak memory in use and the host's lowest
+MemAvailable while each phase of the main process ran, a line of each
+phase's wall seconds and the whole smoke's, one JSON line
 with every kernel's numbers (the backward kernels'
 launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
@@ -265,7 +295,8 @@ objects phase's two DAG actors and its runtime-env task; the ops phase's
 pool actors; the membership phase's zombie and successor actors, its
 restart actor and task; the observe phase's logging actor, crashed task and
 collective actors; the graphs phase's compiled actors; the data phase's
-trainer worker and HTTP replica) under
+trainer worker and HTTP replica; the operate phase's job task, replacement
+task and traced call) under
 "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
@@ -2741,9 +2772,15 @@ def phase_parallel():
     (_par_moe). Returns the model paths' launches, summed over the ranks."""
     import tempfile
 
+    import torch
+
     t0 = time.perf_counter()
     _parallel_nccl()
-    print(f"[parallel] (a) {time.perf_counter() - t0:.1f} s", flush=True)
+    # The ranks and the smoke's second process share the card with this one.
+    torch.cuda.empty_cache()
+    print(f"[parallel] (a) {time.perf_counter() - t0:.1f} s; this process keeps "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved while the ranks run",
+          flush=True)
     n = PARALLEL_WORLD
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4100,9 +4137,10 @@ def phase_elastic():
 
 # ----------------------------------------------------------------- objects
 OBJ_POOL = 2 << 30  # the phase's object store per node
-# Layers put in (a): 3.24 GB, 1.51x the pool (16 before the ops phase came,
-# 12 before the observe phase: the smoke's time; 8 still spill).
-OBJ_LAYERS = 8
+# Layers put in (a): 2.43 GB, 1.13x the pool (16 before the ops phase came,
+# 12 before the observe phase, 8 before the operate phase: the smoke's time;
+# 6 still spill, past the raylet's 0.8 threshold).
+OBJ_LAYERS = 6
 # One Llama-2-7B block's seven weight matrices (Meta's published config:
 # d_model 4096, d_ff 11008), bf16: 202.4 M params, 404.8 MB.
 OBJ_LAYER_SHAPES = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
@@ -4301,7 +4339,7 @@ def _wait_until_obj(pred, what, timeout_s=60.0):
 
 
 def _objects_spill(rt, runtime, cluster, smi):
-    """(a): 12 layers through a 2 GiB pool and back, bitwise, with a GPU
+    """(a): OBJ_LAYERS layers through a 2 GiB pool and back, bitwise, with a GPU
     task on a spilled one; everything gone once the refs drop."""
     import torch
 
@@ -4560,7 +4598,7 @@ def _objects_runtime_env(rt, cluster, smi, tmp):
 def phase_objects():
     """The object plane and what rides it on the cluster runtime (a fresh
     init() with a 2 GiB pool per node, GPU 0 on every node; Llama-2-7B
-    layers as dicts of bf16 CUDA tensors from seeds): (a) 12 layers (2.3x
+    layers as dicts of bf16 CUDA tensors from seeds): (a) 6 layers (1.13x
     the pool) put and read back bitwise through spill to disk, a GPU task
     on a spilled layer, nothing left once the refs drop; (b) broadcast of a
     layer to 3 added nodes, each node's actor gets it with no pull, a layer
@@ -5712,7 +5750,7 @@ def phase_observe():
 
 # ----------------------------------------------------------------- graphs
 GRAPH_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
-GRAPH_ITERS = 32
+GRAPH_ITERS = 16
 GRAPH_INFLIGHT = 2
 GRAPH_SEEDS = (6001, 6002)  # the two actors' seeds; q/k/v from (seed, iteration)
 # (b): the cgraph_execute_p99 rule's threshold, the shipped rule's. At 200 ms the
@@ -6014,9 +6052,9 @@ def phase_graphs():
     init() whose head leases GPU 0, with the cgraph_execute_p99 rule at
     GRAPH_P99_MS (for_s 0.5, a 5 s window) as the GCS's only watchdog rule:
     (a) two num_gpus=0.5 actors run K1 at the serve shape, an allreduce edge
-    sums their outputs, a MultiOutputNode returns both members' results: 32
+    sums their outputs, a MultiOutputNode returns both members' results: 16
     iterations with max_inflight=2 bitwise equal to the eager twin, K1 within
-    2^-6 per entry and launched 32 times in each actor's process, the
+    2^-6 per entry and launched 16 times in each actor's process, the
     raylet's profile RPC (1 s) merged into a Perfetto trace; (b) actor 1
     stalls: slo_alert firing then cleared on node_events, active_alerts, a
     watchdog.alert incident with the latency series in its metrics.json, the
@@ -6547,6 +6585,549 @@ def phase_data():
     return {"data trainer worker": trainer_launches, "data http replica": replica_launches}
 
 
+OPERATE_TOL = 2 ** -6  # K1's per-entry bound at the serve shape (the kernel phase's)
+OPERATE_TIMEOUT_S = 180
+OPERATE_HB = {"RAY_TPU_HEARTBEAT_INTERVAL_S": "0.25", "RAY_TPU_HEARTBEAT_TIMEOUT_S": "1.5"}
+# (a)'s job entrypoint, written to a file and run by the job supervisor: it
+# attaches by address="auto" and runs one num_gpus=1 K1 task at the serve shape.
+OPERATE_JOB = '''import json, os, time
+
+t_script = time.perf_counter()
+import ray_tpu_torch as rt  # noqa: E402 (torch loads in the task, not in this driver)
+
+rt.init(address="auto")
+init_s = time.perf_counter() - t_script
+
+
+@rt.remote(num_gpus=1)
+def k1(seed, shape):
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    t0 = time.perf_counter()
+    o = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    g, w = o.float(), ref.float()
+    err = ((g - w).abs() / (w.abs() + w.pow(2).mean().sqrt())).max().item()
+    return {"err": err, "launches": launches, "first_call_ms": ms, "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+t0 = time.perf_counter()
+out = rt.get(k1.remote(SEED, SHAPE), timeout=300)
+out["task_s"] = time.perf_counter() - t0
+out["init_s"], out["script_s"] = init_s, time.perf_counter() - t_script
+print("OPERATE_JOB " + json.dumps(out), flush=True)
+rt.shutdown()
+'''
+
+
+def _operate_k1(seed: int):
+    """(b)'s task on the replacement node: K1 at the serve shape against its
+    plain version, its launches and the device ids it sees."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    _zero_launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(CLUSTER_SERVE_SHAPE, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    return {"err": entry_err(o, ref), "launches": launches, "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _operate_cli(env, *args, timeout=OPERATE_TIMEOUT_S):
+    """One `python -m ray_tpu_torch.scripts` command; a non-zero exit fails
+    the phase with its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts", *args], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        _fail(f"operate: `{' '.join(args[:2])}` exited {out.returncode}:\n"
+              f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def _operate_http(port: int, path: str, raw: bool = False):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        body = r.read()
+    return body.decode() if raw else json.loads(body)
+
+
+def _operate_cli_path(rt, tmp, smi, meanwhile):
+    """(a): up, status, submit --wait, logs, the dashboard's routes, down;
+    `meanwhile()` runs in this process after `status`, while the GPU node's
+    zygote imports its device stack. Returns the job task's launches and
+    what `meanwhile` returned."""
+    import glob
+
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    from ray_tpu_torch.utils import state
+
+    env = dict(os.environ, HOME=tmp)
+    env.pop("RAY_TPU_ADDRESS", None)
+    config = os.path.join(tmp, "cluster.json")
+    with open(config, "w") as f:
+        json.dump({"cluster_name": "smoke-operate", "provider": {"type": "local"},
+                   "head": {"num_cpus": 2, "num_gpus": 0},
+                   "workers": {"count": 1, "cpus": 2, "gpus": 1}}, f)
+    nums, session, down = {}, None, False
+    t0 = time.perf_counter()
+    up = _operate_cli(env, "up", config, "--timeout", "120")
+    nums["up_cmd_s"] = time.perf_counter() - t0
+    m = re.search(r"head \+ (\d+)/1 worker instances in ([\d.]+) s \(session dir: (\S+)\)", up)
+    if not m or m.group(1) != "1":
+        _fail(f"operate (a): `up` said {up!r}")
+    nums["up_running_s"], session = float(m.group(2)), m.group(3)
+    try:
+        with open(os.path.join(session, "keeper.json")) as f:
+            keeper = json.load(f)["pid"]
+        status = _operate_cli(env, "status")
+        if "nodes alive: 2" not in status or not re.search(r"^resources: .*GPU 1\b", status, re.M):
+            _fail(f"operate (a): `status` said {status!r}")
+        t0 = time.perf_counter()
+        during = meanwhile()
+        nums["meanwhile_s"] = time.perf_counter() - t0
+        # This process attaches as a driver (init by session dir) for the
+        # dashboard, and first waits for the GPU node's zygote to import the
+        # flash op's device stack, so the job's task forks warm.
+        rt.init(address=session)
+        try:
+            gpu = [n for n in state.list_nodes() if n["Alive"] and n["Resources"].get("GPU")]
+            if len(gpu) != 1 or gpu[0]["Labels"].get("ray_tpu_cloud_id") != "local-1":
+                _fail(f"operate (a): the GPU node's record {gpu}")
+            nums["zygote_wait_s"] = _operate_warm_node(gpu[0]["sock"])
+            job_file = os.path.join(tmp, "operate_job.py")
+            with open(job_file, "w") as f:
+                f.write(OPERATE_JOB.replace("SEED", "4242").replace(
+                    "SHAPE", repr(tuple(CLUSTER_SERVE_SHAPE))))
+            t0 = time.perf_counter()
+            sub = _operate_cli(env, "submit", "--wait", "--timeout", "240", "--",
+                               sys.executable, job_file, timeout=300)
+            nums["submit_s"] = time.perf_counter() - t0
+            job_id = re.search(r"submitted (\S+):", sub).group(1)
+            line = next((ln for ln in sub.splitlines() if ln.startswith("OPERATE_JOB ")), None)
+            if f"{job_id}: SUCCEEDED" not in sub or line is None:
+                _fail(f"operate (a): `submit --wait` said {sub[-3000:]!r}")
+            job = json.loads(line[len("OPERATE_JOB "):])
+            logs = _operate_cli(env, "logs", job_id)
+            if line not in logs.splitlines():
+                _fail(f"operate (a): `logs {job_id}` lacks the job's line: {logs[-2000:]!r}")
+            if (job["err"] > OPERATE_TOL or job["launches"]["flash_fwd"] != 1
+                    or job["cuda_visible_devices"] != "0"):
+                _fail(f"operate (a): the job's K1 task {job} (tol {OPERATE_TOL})")
+            port = start_dashboard(port=0)
+            try:
+                jobs = _operate_http(port, "/api/jobs")
+                nodes = _operate_http(port, "/api/nodes")
+                metrics = _operate_http(port, "/metrics", raw=True)
+                history = _operate_http(port, "/api/metrics_history?name=raytpu_gcs_rpc_total")
+                alerts = _operate_http(port, "/api/alerts")
+            finally:
+                stop_dashboard()
+            # The node's CPU share needs /proc/stat's totals to move between
+            # two reads; where the machine's /proc/stat stands still it is
+            # absent, and it is only reported here.
+            want = ("raytpu_gcs_rpc_total{", "raytpu_node_mem_used_bytes{",
+                    "raytpu_proc_rss_bytes{", "raytpu_proc_fd_count{")
+            nums["cpu_gauge"] = "raytpu_node_cpu_percent{" in metrics
+            labels = [n["Labels"] for n in nodes if n["Alive"] and n["Labels"]]
+            if ([j["status"] for j in jobs if j["job_id"] == job_id] != ["SUCCEEDED"]
+                    or len([n for n in nodes if n["Alive"]]) != 2
+                    or labels != [{"ray_tpu_cloud_id": "local-1"}]
+                    or not all(w in metrics for w in want) or not history
+                    or not isinstance(alerts, list)):
+                _fail(f"operate (a): the dashboard read jobs {jobs}, nodes' labels {labels}, "
+                      f"series {[w for w in want if w in metrics]}, history {len(history)} "
+                      f"series, alerts {alerts}")
+            nums["rpc_series"] = metrics.count("raytpu_gcs_rpc_total{")
+        finally:
+            rt.shutdown()
+        t0 = time.perf_counter()
+        _operate_cli(env, "down", config)
+        down = True
+        nums["down_s"] = time.perf_counter() - t0
+    finally:
+        if session is not None and not down:
+            subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts", "down", config],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                           capture_output=True, timeout=OPERATE_TIMEOUT_S)
+    left = _cluster_processes(session) + ([keeper] if _pid_alive(keeper) else [])
+    pools = glob.glob(f"/dev/shm/rtpt_{os.path.basename(session)}*")
+    if left or pools or os.path.exists(session):
+        _fail(f"operate (a): after `down`, processes {left}, pools {pools}, session dir "
+              f"{os.path.exists(session)}")
+    print(f"[operate] (a) {smi}: `up` {nums['up_cmd_s']:.3f} s (head + 1 GPU node RAY_RUNNING "
+          f"through its label {nums['up_running_s']:.3f} s); status 2 nodes, GPU 1; (b) and (c) "
+          f"meanwhile {nums['meanwhile_s']:.1f} s, then the GPU node's zygote device stack "
+          f"{nums['zygote_wait_s']:.3f} s more; `submit --wait` {nums['submit_s']:.3f} s -> SUCCEEDED (the entrypoint "
+          f"{job['script_s']:.3f} s: attach {job['init_s']:.3f} s, the task {job['task_s']:.3f} "
+          f"s), K1 "
+          f"{job['err']:.4g} per entry (tol {OPERATE_TOL}), first call {job['first_call_ms']:.3f} "
+          f"ms, launches {job['launches']} in pid {job['pid']}; the line in `logs`; dashboard "
+          f"jobs/nodes/metrics ({nums['rpc_series']} raytpu_gcs_rpc_total series, the "
+          f"reporter's memory, RSS and fd gauges, its CPU share "
+          f"{'present' if nums['cpu_gauge'] else 'absent'})/history/alerts; `down` "
+          f"{nums['down_s']:.3f} s, nothing left", flush=True)
+    return job["launches"], during
+
+
+def _operate_warm_node(sock: str) -> float:
+    """Waits until the zygote of the node whose raylet serves `sock` has
+    imported its device stack (as _warm_zygote does for the head); returns
+    the seconds waited."""
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    raylet = RpcClient(sock)
+    try:
+        t0 = time.perf_counter()
+        while not raylet.call("zygote_stats").get("device_stack"):
+            if time.perf_counter() - t0 > 120:
+                _fail("operate (a): the GPU node's zygote never imported its device stack")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+    finally:
+        raylet.close()
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            return f.read().rsplit(b")", 1)[1].split()[0] != b"Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _operate_replace(rt, smi):
+    """(b): the v2 reconciler over a LocalNodeProvider on a head with no GPU
+    brings a {"cpus": 2, "gpus": 1} node; its raylet is killed; the
+    reconciler replaces the node and a K1 task runs on the replacement."""
+    import glob
+
+    from ray_tpu_torch.autoscaler_v2 import InstanceManager, LocalNodeProvider
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    # A 0.25 s heartbeat and a 1.5 s timeout for this part's daemons, the
+    # replacement raylet's included (each reads them at its start).
+    saved = {k: os.environ.get(k) for k in OPERATE_HB}
+    os.environ.update(OPERATE_HB)
+    nums, session = {}, None
+    try:
+        rt.init(num_cpus=2, num_gpus=0)
+        runtime = current_runtime()
+        cluster, session = runtime._cluster, runtime._cluster.session_dir
+        im = InstanceManager(LocalNodeProvider(cluster), gcs=runtime._gcs,
+                             shape={"cpus": 2.0, "gpus": 1.0})
+        im.set_target(1)
+        t0 = time.perf_counter()
+        if not im.wait_running(1, timeout=60.0):
+            _fail(f"operate (b): the GPU node never reached RAY_RUNNING: {im.counts()}")
+        nums["first_up_s"] = time.perf_counter() - t0
+        (first,) = im.instances.values()
+        cluster._procs[first.node_id].kill()  # the raylet alone: its node dies with it
+        t_kill = time.perf_counter()
+        dead = replaced = None
+        while replaced is None:
+            im.reconcile()
+            if dead is None and first.status in ("TERMINATING", "TERMINATED"):
+                dead = time.perf_counter() - t_kill
+            running = [i for i in im.instances.values()
+                       if i.status == "RAY_RUNNING" and i is not first]
+            if running:
+                replaced = time.perf_counter() - t_kill
+                second = running[0]
+            elif time.perf_counter() - t_kill > 90:
+                _fail(f"operate (b): no replacement in 90 s: {im.counts()}")
+            time.sleep(0.02)
+        if rt.available_resources().get("GPU") != 1.0:
+            _fail(f"operate (b): resources after the replacement {rt.available_resources()}")
+        t0 = time.perf_counter()
+        out = rt.get(rt.remote(num_gpus=1)(_operate_k1).remote(777), timeout=OPERATE_TIMEOUT_S)
+        nums["k1_s"] = time.perf_counter() - t0
+        node_of_task = {n["NodeID"] for n in rt.nodes() if n["Alive"] and n["Resources"].get("GPU")}
+        if (out["err"] > OPERATE_TOL or out["launches"]["flash_fwd"] != 1
+                or out["cuda_visible_devices"] != "0" or node_of_task != {second.node_id}):
+            _fail(f"operate (b): the replacement's K1 task {out}, GPU nodes {node_of_task} "
+                  f"(tol {OPERATE_TOL})")
+        history = first.history + [first.status]
+    finally:
+        rt.shutdown()
+        for k, v in saved.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    left = _cluster_processes(session)
+    pools = glob.glob(f"/dev/shm/rtpt_{os.path.basename(session)}*")
+    if left or pools:
+        _fail(f"operate (b): processes {left} or pools {pools} outlived shutdown")
+    print(f"[operate] (b) {smi}: GPU node RAY_RUNNING {nums['first_up_s']:.3f} s; raylet "
+          f"killed -> instance terminated {dead:.3f} s -> replacement RAY_RUNNING "
+          f"{replaced:.3f} s (history {history}); replacement -> first K1 result "
+          f"{nums['k1_s']:.3f} s, {out['err']:.4g} per entry, launches {out['launches']} in "
+          f"pid {out['pid']}; nothing left", flush=True)
+    return out["launches"]
+
+
+def _operate_glue(tmp, smi):
+    """(c): in this process, which holds a CUDA context: the reporter's
+    device gauge, a traced K1 call, the device memory snapshot."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.utils import internal_metrics as imet
+    from ray_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    q, k, v = (torch.randn(CLUSTER_SERVE_SHAPE, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    torch.cuda.synchronize()
+    imet.ReporterAgent().collect_once()
+    gauge, allocated = imet.DEVICE_MEM_USED.labels(device="0").read(), torch.cuda.memory_allocated(0)
+    if gauge != allocated:
+        _fail(f"operate (c): the device gauge {gauge} != memory_allocated(0) {allocated}")
+    trace_dir = os.path.join(tmp, "trace")
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.device_trace(trace_dir):
+        o = fa.flash_attention(q, k, v, causal=True)
+    trace_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "flash_fwd" in e.get("name", "")]
+    if not kernels or launches["flash_fwd"] != 1:
+        _fail(f"operate (c): the trace names no flash_fwd kernel ({len(events)} events, "
+              f"launches {launches})")
+    ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    err = entry_err(o, ref)
+    snap = os.path.join(tmp, "device_memory.pickle")
+    profiling.save_device_memory_profile(snap)
+    size = os.path.getsize(snap)
+    if err > OPERATE_TOL or size <= 0:
+        _fail(f"operate (c): K1 {err:.4g} per entry, snapshot {size} bytes")
+    print(f"[operate] (c) {smi}: raytpu_device_mem_used_bytes{{device=\"0\"}} {gauge:.0f} == "
+          f"torch.cuda.memory_allocated(0); the trace ({trace_s:.3f} s) names "
+          f"{kernels[0]['name'][:60]!r}, {kernels[0].get('dur')} us; K1 {err:.4g} per entry; "
+          f"memory snapshot {size} bytes", flush=True)
+    del q, k, v, o, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_operate():
+    """The operator surface and the device glue: (a) through the CLI with
+    HOME at a temp dir: `up` a JSON config (the local provider; a head with
+    no GPU and one worker of 2 CPUs and 1 GPU, which reaches RAY_RUNNING
+    through its cloud-id label), `status` (2 nodes, GPU 1), `submit --wait`
+    of an entrypoint that attaches with init(address="auto") and runs a
+    num_gpus=1 K1 task at the serve shape against its plain version (the
+    task forked warm: the phase waits for that node's zygote device stack),
+    its line in `submit`'s output and in `logs`, the dashboard's /api/jobs,
+    /api/nodes (the worker's label), /metrics (raytpu_gcs_rpc_total and the
+    reporter's node gauges), /api/metrics_history and /api/alerts from this
+    process attached by session dir, then `down`: no process of the session,
+    no keeper, no pool; (b) and (c) run after `status`, while that zygote
+    imports; (b) autoscaler_v2's InstanceManager over a
+    LocalNodeProvider on init(num_gpus=0) brings a GPU node, its raylet is
+    killed, the reconciler replaces it and a K1 task runs on the replacement
+    (death -> replacement RAY_RUNNING -> first K1 result); (c) here, with a
+    CUDA context: the reporter's device gauge equals
+    torch.cuda.memory_allocated(0), one K1 call under profiling.device_trace
+    leaves a trace naming the flash_fwd kernel, save_device_memory_profile
+    writes a snapshot. Returns the launches of each path."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-operate-")
+    part_s = {}
+
+    def meanwhile():
+        t0 = time.perf_counter()
+        replaced = _operate_replace(rt, smi)
+        part_s["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        traced = _operate_glue(tmp, smi)
+        part_s["c"] = time.perf_counter() - t0
+        return replaced, traced
+
+    try:
+        t0 = time.perf_counter()
+        job_launches, (replace_launches, traced_launches) = _operate_cli_path(
+            rt, tmp, smi, meanwhile)
+        a_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[operate] {smi}: parts (a) {a_s:.1f} s with (b) {part_s['b']:.1f} s and (c) "
+          f"{part_s['c']:.1f} s inside it; phase {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return {"operate job task": job_launches, "operate replacement task": replace_launches,
+            "operate traced call": traced_launches}
+
+
+# ------------------------------------------------------------------ lanes
+# The phases below run in a second process of this script beside the main
+# one, which goes on with the rest once the kernels are timed (the kernel and
+# gptj phases run alone). Each starts its own cluster and waits on processes
+# starting, heartbeats and deadlines more than on the card: one after the
+# other, the smoke's 23 phases took 1000-1360 s of its 1200 s limit on one
+# H100 (PERF.md, section 5). The second process waits for the main one's
+# parallel phase (4 ranks of ~14 GiB) to end before LANE_AFTER_PARALLEL, so
+# that the two never hold more than the card's memory at once; its own
+# earlier phases hold a few GiB.
+LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic")
+LANE_AFTER_PARALLEL = "data"
+LANE_DEADLINE_S = 1080  # from the smoke's start; the driver stops it at 1200
+LANE_POLL_S = 0.5
+
+
+def _run_lane(tmp: str) -> int:
+    """The second process: LANE_PHASES in order; their launches and seconds
+    go to <tmp>/lane.json (any failure exits 1 first)."""
+    import ctypes
+    import signal
+
+    # Ends with the main process, whichever way that ends (PR_SET_PDEATHSIG);
+    # the clusters it starts end with it in turn.
+    ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGTERM), 0, 0, 0)
+    phases = {name: globals()[f"phase_{name}"] for name in LANE_PHASES}
+    out = {"by_path": {}, "phase_s": {}, "waited_s": 0.0}
+    for name, phase in phases.items():
+        if name == LANE_AFTER_PARALLEL:
+            t0 = time.perf_counter()
+            while not os.path.exists(os.path.join(tmp, "parallel.done")):
+                time.sleep(LANE_POLL_S)
+            out["waited_s"] = round(time.perf_counter() - t0, 1)
+            print(f"[lane] waited {out['waited_s']} s for the main process's parallel phase "
+                  f"before {name}", flush=True)
+        t0 = time.perf_counter()
+        out["by_path"].update(phase())
+        out["phase_s"][name] = round(time.perf_counter() - t0, 1)
+    with open(os.path.join(tmp, "lane.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class _Lane:
+    """The second process (`--lane <tmp>`), its log in <tmp>/lane.log. In
+    its own process group, so that stop() reaches it and what it started
+    (the clusters' daemons also exit with their parent)."""
+
+    def __init__(self, t_main: float):
+        import tempfile
+
+        self.t_main = t_main
+        self.tmp = tempfile.mkdtemp(prefix="chip-smoke-lane-")
+        self.log = open(os.path.join(self.tmp, "lane.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lane", self.tmp],
+            stdout=self.log, stderr=subprocess.STDOUT, start_new_session=True)
+        self.printed = 0
+
+    def parallel_done(self) -> None:
+        open(os.path.join(self.tmp, "parallel.done"), "w").close()
+
+    def _print_log(self) -> None:
+        """Prints what the lane logged since the last call."""
+        path = os.path.join(self.tmp, "lane.log")
+        if not os.path.exists(path):
+            return  # stopped before
+        with open(path, errors="replace") as f:
+            f.seek(self.printed)
+            text = f.read()
+            self.printed = f.tell()
+        if text:
+            print(text, end="" if text.endswith("\n") else "\n", flush=True)
+
+    def join(self):
+        """Waits for the lane to end; its log, then its (launches by path,
+        seconds by phase, seconds waited for the parallel phase)."""
+        while self.proc.poll() is None:
+            if time.perf_counter() - self.t_main > LANE_DEADLINE_S:
+                self.stop()
+                _fail(f"lane: {LANE_PHASES} did not end within {LANE_DEADLINE_S} s of the "
+                      f"smoke's start")
+            time.sleep(LANE_POLL_S)
+        self._print_log()
+        if self.proc.returncode != 0:
+            _fail(f"lane: the second process ({', '.join(LANE_PHASES)}) exited "
+                  f"{self.proc.returncode}")
+        with open(os.path.join(self.tmp, "lane.json")) as f:
+            out = json.load(f)
+        return out["by_path"], out["phase_s"], out["waited_s"]
+
+    def stop(self) -> None:
+        """Ends the lane's process group, if it still runs, prints what it
+        logged and not yet printed, and removes its directory."""
+        import shutil
+        import signal
+
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(15)
+            except subprocess.TimeoutExpired:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait()
+        self.log.close()
+        self._print_log()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+class _MemorySampler:
+    """Samples, every second, the card's memory in use by every process (one
+    cudaMemGetInfo from this process) and the host's MemAvailable; keeps the
+    peak and the low for each phase of the main process that is running."""
+
+    def __init__(self):
+        import threading
+
+        self.phase, self.peaks, self.stop_ev = "", {}, threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True, name="smoke-memory")
+        self.thread.start()
+
+    @staticmethod
+    def _host_available_gib() -> float:
+        with open("/proc/meminfo") as f:
+            for ln in f:
+                if ln.startswith("MemAvailable:"):
+                    return int(ln.split()[1]) / 2 ** 20
+        return float("nan")
+
+    def _run(self) -> None:
+        import torch
+
+        while not self.stop_ev.wait(1.0):
+            free, total = torch.cuda.mem_get_info()
+            used, host = (total - free) / 2 ** 30, self._host_available_gib()
+            dev, low = self.peaks.get(self.phase, (0.0, float("inf")))
+            self.peaks[self.phase] = (max(dev, used), min(low, host))
+
+    def close(self) -> str:
+        self.stop_ev.set()
+        self.thread.join(5)
+        return ", ".join(f"{p} {d:.1f} / {h:.1f}" for p, (d, h) in self.peaks.items())
+
+
 def main() -> int:
     import argparse
 
@@ -6560,19 +7141,27 @@ def main() -> int:
                     help="trace the serve phase, one more train step, and one step each of "
                          "the fit phase's trainer and plain runs with torch.profiler, and print "
                          "device time by kernel")
+    ap.add_argument("--lane", metavar="DIR",
+                    help="run the phases of the second process, writing their results into "
+                         "DIR (the smoke starts this process itself)")
     args = ap.parse_args()
+    if args.lane:
+        return _run_lane(args.lane)
     if args.parallel_rank:
         rank, world, url, out = args.parallel_rank
         _parallel_rank(int(rank), int(world), url, out)
         return 0
 
-    t_main, phase_s = time.perf_counter(), {}
+    t_main, phase_s, sampler = time.perf_counter(), {}, None
 
     def timed(phase, *a, **kw):
         """Runs one phase; keeps its wall seconds for the line before the JSON."""
+        name = phase.__name__[len("phase_"):]
+        if sampler is not None:
+            sampler.phase = name
         t0 = time.perf_counter()
         out = phase(*a, **kw)
-        phase_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 1)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
         return out
 
     name = timed(phase_device)
@@ -6581,20 +7170,34 @@ def main() -> int:
     timed(phase_paged)
     for row, n in zip((fwd_row, dq_row, dkv_row), timed(phase_gptj).values()):
         row["at_d256"]["launches"] = n
-    fwd_row["launches"] = timed(phase_serve, profile=args.profile)
-    by_path = timed(phase_deploy)
-    timed(phase_train_parity)
-    train_launches = timed(phase_train, profile=args.profile)
-    timed(phase_zero)
-    timed(phase_checkpoint)
-    fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
-    by_path.update(fit_launches)
-    by_path.update(timed(phase_tune, fit_step_ms))
-    for phase in (phase_parallel, phase_cluster, phase_elastic, phase_objects, phase_ops,
-                  phase_membership, phase_observe, phase_graphs, phase_data):
-        by_path.update(timed(phase))
-    print(f"[smoke] seconds by phase {phase_s}; whole smoke "
-          f"{time.perf_counter() - t_main:.1f} s", flush=True)
+    # The kernels are timed: from here on a second process runs LANE_PHASES.
+    lane, sampler = _Lane(t_main), _MemorySampler()
+    try:
+        by_path = timed(phase_parallel)
+        lane.parallel_done()
+        fwd_row["launches"] = timed(phase_serve, profile=args.profile)
+        by_path.update(timed(phase_deploy))
+        timed(phase_train_parity)
+        train_launches = timed(phase_train, profile=args.profile)
+        timed(phase_zero)
+        timed(phase_checkpoint)
+        fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
+        by_path.update(fit_launches)
+        by_path.update(timed(phase_tune, fit_step_ms))
+        for phase in (phase_cluster, phase_objects, phase_operate):
+            by_path.update(timed(phase))
+        sampler.phase = "waiting for the second process"
+        lane_paths, lane_s, waited_s = lane.join()
+        by_path.update(lane_paths)
+    finally:
+        lane.stop()
+        memory = sampler.close()
+    print(f"[smoke] the card's memory in use by every process, peak GiB / the host's "
+          f"MemAvailable, low GiB, while each phase of the main process ran: {memory}",
+          flush=True)
+    print(f"[smoke] seconds by phase {phase_s}; in the second process beside them {lane_s}, "
+          f"after {waited_s} s waiting for the parallel phase before {LANE_AFTER_PARALLEL}; "
+          f"whole smoke {time.perf_counter() - t_main:.1f} s", flush=True)
     dq_row["launches"] = train_launches["flash_bwd_dq"]
     dkv_row["launches"] = train_launches["flash_bwd_dkv"]
     for row in (fwd_row, dq_row, dkv_row):

@@ -16,9 +16,14 @@ leased to workers through CUDA_VISIBLE_DEVICES), with spill to disk,
 `broadcast`, runtime envs, out-of-band collective groups (collective), DAG
 authoring (dag) and compiled graphs (cgraph), and its operator surface
 (utils: the state API with metrics history and SLO alerts, metrics, pubsub;
-observability: logs, flight dumps, incidents, the watchdog), and Data
+observability: logs, flight dumps, incidents, the watchdog), Data
 (data: lazy datasets with streaming execution, fed to TorchTrainer's
-`datasets=` and to Serve's FeatureTable).
+`datasets=` and to Serve's FeatureTable), and the operator's tools: node
+labels and `init(address=<session dir> | "auto")`, jobs, the dashboard,
+the command line (`python -m ray_tpu_torch.scripts`), the v1 and v2
+autoscalers over accelerators.LocalNodeProvider, the lock-order detector
+(utils.lock_order) and the device glue (utils.profiling over
+torch.profiler, the reporter's device-memory gauge).
 
 Subpackages that need torch load on first use (PEP 562 `__getattr__`), so
 that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)

@@ -1,14 +1,16 @@
-"""ray_tpu_torch.accelerators: accelerator detection and visibility (the
-port of ray_tpu/accelerators/__init__.py and accelerator.py, with a GPU
-manager in place of the TPU one).
+"""ray_tpu_torch.accelerators: accelerator detection, visibility and
+provisioning (the port of ray_tpu/accelerators/__init__.py, accelerator.py,
+cpu.py and node_provider.py, with a GPU manager in place of the TPU one).
 
 The registry half of the reference's accelerator package (reference:
 python/ray/_private/accelerators/__init__.py
-get_accelerator_manager_for_resource). The built-in family is GPU;
-`register_accelerator_manager` adds or replaces one (tests swap in a
-manager with a fake device count). The JAX package's node-provider half
-(autoscaling) is ROADMAP Queue 1 item 8. Nothing here imports torch at
-import time.
+get_accelerator_manager_for_resource): the built-in families are CPU and
+GPU; `register_accelerator_manager` adds or replaces one (tests swap in a
+manager with a fake device count). The node-provider half
+(node_provider.py) is what the autoscalers drive: `LocalNodeProvider`
+starts labelled raylets on this machine. The JAX package's GCE TPU-VM
+provider waits for a GPU counterpart of its TPU topology (ROADMAP). Nothing
+here imports torch at import time.
 """
 
 from __future__ import annotations
@@ -16,12 +18,17 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from .accelerator import AcceleratorManager
+from .cpu import CpuAcceleratorManager
 from .gpu import CUDA_VISIBLE_DEVICES_ENV, GpuAcceleratorManager
+from .node_provider import LocalNodeProvider, NodeProvider
 
 __all__ = [
     "AcceleratorManager",
     "CUDA_VISIBLE_DEVICES_ENV",
+    "CpuAcceleratorManager",
     "GpuAcceleratorManager",
+    "LocalNodeProvider",
+    "NodeProvider",
     "get_accelerator_manager",
     "register_accelerator_manager",
 ]
@@ -39,6 +46,8 @@ def register_accelerator_manager(manager: AcceleratorManager, override: bool = F
 
 
 def _ensure_builtin() -> None:
+    if "CPU" not in _registry:
+        _registry["CPU"] = CpuAcceleratorManager()
     if "GPU" not in _registry:
         _registry["GPU"] = GpuAcceleratorManager()
 

@@ -17,15 +17,19 @@ pickled; `init()` starts a cluster on this machine (a GCS, a raylet, worker
 processes and a shared-memory object store; core/cluster_runtime.py), where
 functions and arguments travel through core/serialization.py;
 `init(address="tcp://host:port")` attaches to a cluster's head as a remote
-client. Also here: `broadcast` (one object to every node through the
-raylets' push tree), DAG authoring (`fn.bind`, `actor.method.bind`; dag.py)
-and the `runtime_env` option (core/runtime_env.py). Left out: an address
-that names a local session dir or "auto".
+client, `init(address=<session dir>)` to a head on this machine as a driver,
+and `init(address="auto")` to the session the port's CLI recorded last
+(`~/.ray_tpu_torch/latest_session`), else to `$RAY_TPU_ADDRESS`; with no
+address, `$RAY_TPU_ADDRESS` is used when set (a job's entrypoint gets it).
+Also here: `broadcast` (one object to every node through the raylets' push
+tree), DAG authoring (`fn.bind`, `actor.method.bind`; dag.py) and the
+`runtime_env` option (core/runtime_env.py).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 from . import exceptions as exc
@@ -103,11 +107,15 @@ def init(
     remote client (core/client_runtime.py; RAY_TPU_AUTH_TOKEN must hold the
     cluster's token). Otherwise it starts a head on this machine: a GCS, one
     raylet with num_cpus CPUs and num_gpus GPUs (default: the CUDA devices
-    the process sees), `num_workers` prestarted workers and their zygote."""
+    the process sees), `num_workers` prestarted workers and their zygote.
+    `address` may also name a running head's session dir on this machine, or
+    "auto" (module docstring); with none, `$RAY_TPU_ADDRESS` when set."""
     if runtime_base.is_initialized():
         if ignore_reinit_error:
             return
         raise RuntimeError("ray_tpu_torch.init() called twice; pass ignore_reinit_error=True")
+    if address is None and not local_mode:
+        address = os.environ.get("RAY_TPU_ADDRESS") or None
     if local_mode:
         if address is not None:
             raise ValueError("local_mode=True takes no address")
@@ -115,11 +123,17 @@ def init(
 
         rt = LocalRuntime(resources=resources, num_cpus=num_cpus, num_gpus=num_gpus)
     elif address is not None:
-        if not address.startswith("tcp://"):
-            raise ValueError(f"address must be tcp://host:port (a head's GCS), got {address!r}")
-        from .core.client_runtime import ClientRuntime
+        from .core.cluster_runtime import resolve_address
 
-        rt = ClientRuntime.connect_tcp(address)
+        address = resolve_address(address)
+        if address.startswith("tcp://"):
+            from .core.client_runtime import ClientRuntime
+
+            rt = ClientRuntime.connect_tcp(address)
+        else:
+            from .core.cluster_runtime import ClusterRuntime
+
+            rt = ClusterRuntime.connect(address)
         if namespace:
             rt._namespace = namespace
     else:

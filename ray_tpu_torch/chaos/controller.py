@@ -1,8 +1,8 @@
 """Seeded, deterministic fault injection (copy of
 ray_tpu/chaos/controller.py for the PyTorch port, trimmed to the points
 the port has: the channel's reads and writes, the LLM engine's decode
-step, task execution, the zygote's spawn, the collective groups and the
-control plane's RPC calls and connects).
+step, task execution, the zygote's spawn, the collective groups, the
+control plane's RPC calls and connects, and the node provider's poll).
 
 Every injection site calls ``maybe_inject(point, detail)``; with no
 controller armed that is one global load and a ``None`` check. Each rule
@@ -17,7 +17,8 @@ in the environment (``RAY_TPU_CHAOS_SEED`` seeds the rules), or
 
 Rule fields: ``point`` (see POINTS), ``action`` (``kill`` SIGKILLs the
 process, ``raise``, ``delay`` sleeps ``delay_s``, ``drop`` swallows the
-message), ``match`` (substring(s) the site's detail must contain),
+message, ``preempt`` gives the instance a preemption notice with a
+``delay_s`` grace, 5 s by default), ``match`` (substring(s) the site's detail must contain),
 ``after`` (skip the first N matching hits), ``times`` (at most N fires,
 -1 = unlimited), ``prob`` (per-hit probability from the rule's RNG).
 """
@@ -69,11 +70,19 @@ POINT_ACTIONS = {
     # Partitions (chaos/net.py) ride the same sites.
     "net.call": ("drop", "delay", "raise"),  # RpcClient.call/notify, detail "addr|method"
     "net.connect": ("drop", "raise"),  # RpcClient._new_sock, detail = the address
+    # accelerators/node_provider.py LocalNodeProvider.poll, once per running
+    # instance per round, detail = its cloud id: `preempt` turns it into a
+    # preemption casualty (notice now, the machines gone after the grace).
+    "provider.poll": ("preempt",),
 }
 POINTS = tuple(POINT_ACTIONS)
 
-_ACTIONS = ("kill", "raise", "delay", "drop")
+_ACTIONS = ("kill", "raise", "delay", "drop", "preempt")
+# A `preempt` grace must outlive the supervisors' reaction (the node-event
+# long poll and the control loops' ticks), or the drain path under test
+# becomes a blunt node death.
 _DEFAULT_DELAY_S = 0.05
+_DEFAULT_PREEMPT_GRACE_S = 5.0
 
 
 @dataclasses.dataclass
@@ -88,7 +97,7 @@ class ChaosRule:
     after: int = 0
     times: int = 1
     prob: float = 1.0
-    # None = the default 0.05 s; resolved in validate().
+    # None = the default: 0.05 s for `delay`, a 5 s grace for `preempt`.
     delay_s: Optional[float] = None
     # Mutable per-process state (not part of the spec).
     hits: int = 0
@@ -111,7 +120,8 @@ class ChaosRule:
                 f"{sorted(POINT_ACTIONS[self.point])}"
             )
         if self.delay_s is None:
-            self.delay_s = _DEFAULT_DELAY_S
+            self.delay_s = (_DEFAULT_PREEMPT_GRACE_S if self.action == "preempt"
+                            else _DEFAULT_DELAY_S)
         if isinstance(self.match, list):
             self.match = tuple(self.match)
         return self

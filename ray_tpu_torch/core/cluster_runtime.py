@@ -50,9 +50,17 @@ captured output from the `logs` pubsub channel with `(name pid=...
 node=...)` prefixes, deduplicated and rate-limited (logs.DedupPrinter;
 RAY_TPU_LOG_TO_DRIVER=0 turns it off); `_log_recent` keeps the last lines.
 
-Left out (ROADMAP Queue 1, item 3.3's remainder): node labels and
-session.json, `init(address=)` with a session dir or "auto" (tcp:// only),
-and streaming returns through a remote client.
+Sessions and labels. The head writes `<session_dir>/session.json` (the GCS
+socket and TCP address, the head raylet's socket and store, its node id):
+`ClusterRuntime.connect(session_dir)` attaches a driver to a running head
+through it, which is what `init(address=<session dir> | "auto")` does
+(api.py). Every node may carry labels, key/value tags given at
+`Cluster(labels=)`, `add_node(labels=)` or `start_worker_node(labels=)`; the
+raylet registers with them, the GCS keeps them in its snapshot and log,
+and list_nodes / `nodes()` show them as `Labels`.
+
+Left out (ROADMAP Queue 1, item 3.3's remainder): streaming returns through
+a remote client.
 """
 
 from __future__ import annotations
@@ -364,6 +372,16 @@ class ClusterRuntime(Runtime):
         if namespace:
             rt._namespace = namespace
         return rt
+
+    @classmethod
+    def connect(cls, session_dir: str) -> "ClusterRuntime":
+        """Attaches a driver to a running head on this machine through its
+        session dir's session.json. The head's process keeps the cluster:
+        this runtime's shutdown() closes only its own connections."""
+        with open(os.path.join(session_dir, "session.json")) as f:
+            info = json.load(f)
+        return cls.attach(gcs_sock=info["gcs_sock"], raylet_sock=info["head_raylet_sock"],
+                          store_path=info["head_store"], node_id=info["head_node_id"])
 
     @classmethod
     def attach(cls, gcs_sock: str, raylet_sock: str, store_path: str, node_id: str,
@@ -1075,6 +1093,37 @@ class ClusterRuntime(Runtime):
 # ------------------------------------------------------------------ sessions
 
 
+def session_pointer_path() -> str:
+    """The file in which the port's CLI records the session it started last
+    (read at each call, so a changed HOME is honoured). The JAX package's
+    CLI keeps its own (~/.ray_tpu/latest_session): the port's CLI never
+    attaches to a JAX head."""
+    return os.path.expanduser("~/.ray_tpu_torch/latest_session")
+
+
+def resolve_address(address: str) -> str:
+    """What `init(address=)` attaches to: a tcp:// head as it is; "auto" the
+    session recorded in session_pointer_path(), else $RAY_TPU_ADDRESS; any
+    other value must be a session dir that holds a session.json."""
+    if address == "auto":
+        try:
+            with open(session_pointer_path()) as f:
+                address = f.read().strip()
+        except OSError:
+            address = os.environ.get("RAY_TPU_ADDRESS", "")
+        if not address or address == "auto":
+            raise ConnectionError(
+                f"address='auto' found no session: {session_pointer_path()} is missing "
+                "and RAY_TPU_ADDRESS is unset (start one with `python -m "
+                "ray_tpu_torch.scripts start`)")
+    if address.startswith("tcp://"):
+        return address
+    if not os.path.isfile(os.path.join(address, "session.json")):
+        raise ValueError(f"address must be tcp://host:port (a head's GCS), a session dir "
+                         f"holding a session.json, or 'auto'; got {address!r}")
+    return address
+
+
 def _node_processes(session_dir: str, node_id: str) -> List[int]:
     """pids of one node's processes on this machine: its raylet and Popen'd
     workers name the raylet's socket on their command line, its zygote and
@@ -1204,9 +1253,10 @@ class Cluster:
     def __init__(self, num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
                  resources: Optional[Dict[str, float]] = None,
                  object_store_memory: Optional[int] = None, num_workers: int = 0,
-                 head_port: Optional[int] = None, node_ip: str = "127.0.0.1"):
+                 head_port: Optional[int] = None, node_ip: str = "127.0.0.1",
+                 labels: Optional[Dict[str, Any]] = None):
         """`num_workers` idle workers are started on the head at boot (the
-        raylet's prestart floor). `head_port` makes a head other hosts can
+        raylet's prestart floor); `labels` are the head node's. `head_port` makes a head other hosts can
         join (reference: `ray start --head --port`): the GCS also listens on
         tcp://node_ip:head_port (0: an ephemeral port; `gcs_tcp_address` is
         the bound one), and every raylet serves and advertises a tcp://
@@ -1261,7 +1311,17 @@ class Cluster:
                 num_gpus = get_accelerator_manager("GPU").get_current_node_num_accelerators()
             if num_gpus:
                 head_res["GPU"] = float(num_gpus)
-            self.head_node_id = self.add_node(resources=head_res, num_workers=num_workers)
+            self.head_node_id = self.add_node(resources=head_res, num_workers=num_workers,
+                                              labels=labels)
+            info = {
+                "gcs_sock": self.gcs_sock,
+                "gcs_tcp_address": self.gcs_tcp_address,
+                "head_raylet_sock": self._sock_for(self.head_node_id),
+                "head_store": self._store_for(self.head_node_id),
+                "head_node_id": self.head_node_id,
+            }
+            with open(os.path.join(self.session_dir, "session.json"), "w") as f:
+                json.dump(info, f)
         except BaseException:
             self.shutdown()
             raise
@@ -1297,13 +1357,15 @@ class Cluster:
 
     def add_node(self, num_cpus: Optional[float] = None,
                  resources: Optional[Dict[str, float]] = None, num_workers: int = 0,
-                 num_gpus: Optional[float] = None) -> str:
+                 num_gpus: Optional[float] = None,
+                 labels: Optional[Dict[str, Any]] = None) -> str:
         """Starts a raylet with these resources (CPU 1 unless given) and
         `num_workers` prestarted idle workers. With `num_gpus` the node
         leases that many CUDA device ids ("0".., or the ids this process's
         CUDA_VISIBLE_DEVICES names) and starts each worker with
         CUDA_VISIBLE_DEVICES set to its lease, as the head does; nodes added
-        on one machine lease the same ids, so they share its cards."""
+        on one machine lease the same ids, so they share its cards. `labels`
+        are the node's key/value tags (list_nodes' `Labels`)."""
         node_id = uuid.uuid4().hex[:12]
         res = dict(resources or {})
         if num_cpus is not None:
@@ -1313,9 +1375,8 @@ class Cluster:
         res.setdefault("CPU", 1.0)
         cmd = [sys.executable, "-m", "ray_tpu_torch.core.raylet", node_id,
                self._sock_for(node_id), self._store_for(node_id), self.gcs_sock,
-               json.dumps(res), str(self._store_capacity), str(int(num_workers))]
-        if self._tcp_mode:
-            cmd.append(f"tcp://{self._node_ip}:0")
+               json.dumps(res), str(self._store_capacity), str(int(num_workers)),
+               f"tcp://{self._node_ip}:0" if self._tcp_mode else "", json.dumps(labels or {})]
         self._procs[node_id] = _spawn_daemon(self.log_dir, cmd, f"raylet_{node_id}")
         RpcClient(self._sock_for(node_id)).call("ping")
         return node_id
@@ -1405,13 +1466,15 @@ class Cluster:
 def start_worker_node(gcs_address: str, node_ip: Optional[str] = None,
                       num_cpus: Optional[float] = None, num_gpus: Optional[float] = None,
                       resources: Optional[Dict[str, float]] = None,
-                      object_store_memory: Optional[int] = None) -> dict:
+                      object_store_memory: Optional[int] = None,
+                      labels: Optional[Dict[str, Any]] = None) -> dict:
     """Starts a raylet on THIS host that joins a head's GCS over TCP
     (reference: `ray start --address=head:port`). The raylet serves its own
     workers over a UDS in a session dir of its own, advertises
     tcp://node_ip:<ephemeral port> to the cluster and holds its own pool.
     node_ip defaults to this host's address on the route to the GCS. The
     caller holds the node's session lock, as a driver holds its cluster's.
+    `labels` are the node's key/value tags.
     Returns {node_id, session_dir, sock, proc, shutdown}; `shutdown()` stops
     the raylet (and its workers) and removes the pool and the session dir."""
     import socket
@@ -1448,7 +1511,8 @@ def start_worker_node(gcs_address: str, node_ip: Optional[str] = None,
     sock = os.path.join(session_dir, f"raylet_{node_id}.sock")
     proc = _spawn_daemon(log_dir, [sys.executable, "-m", "ray_tpu_torch.core.raylet", node_id,
                                    sock, store, gcs_address, json.dumps(res), str(capacity),
-                                   "0", f"tcp://{node_ip}:0"], "raylet")
+                                   "0", f"tcp://{node_ip}:0", json.dumps(labels or {})],
+                         "raylet")
     done = []
 
     def shutdown() -> None:

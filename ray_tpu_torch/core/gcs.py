@@ -26,7 +26,10 @@ delta channel, preemption notices and the DRAINING node state
 nodes' heartbeats), the state API's tables (`list_tasks` with each task's
 transition history, `list_objects`, `node_summary`), the user and internal
 metrics tables (`report_metrics`, `report_internal_metrics`), the error
-table (`report_error`, published on `error_reports`), ping and stop.
+table (`report_error`, published on `error_reports`), each node's labels
+(`register_node(labels=)`, list_nodes' `Labels`), the per-method RPC count
+and latency (`_observe_rpc`, called by core/rpc.py's server), ping and stop.
+Its locks come from utils/lock_order.py (`gcs.state`, `gcs.incidents`).
 Membership is epoch-fenced: every registration stamps the node's next
 epoch, and the raylet's mutations (heartbeat, node_sync, actor reports,
 location removals) carry the epoch they were granted. A node declared dead
@@ -92,6 +95,7 @@ from ..observability import watchdog as _watchdog
 from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
+from ..utils import lock_order
 
 _log = logging.getLogger("ray_tpu_torch.gcs")
 
@@ -143,7 +147,7 @@ class GcsService(ChaosPartitionRpc):
         # One lock over every table. The JAX copy splits nodes, actors and
         # objects into key-hashed shards (gcs_shards.py); no trace of this
         # runtime has shown the lock contended, so the port keeps one.
-        self._lock = threading.RLock()
+        self._lock = lock_order.tracked_rlock("gcs.state")
         self._nodes: Dict[str, dict] = {}
         self._node_epochs: Dict[str, int] = {}
         self._alive_count = 0
@@ -187,7 +191,7 @@ class GcsService(ChaosPartitionRpc):
                                             if snapshot_path else None)
         # The anomaly trigger bus: incident records (a bounded ring) under
         # their own lock; the open incident takes triggers in its window.
-        self._incident_lock = threading.Lock()
+        self._incident_lock = lock_order.tracked_lock("gcs.incidents")
         self._incidents: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
         self._open_incident: Optional[str] = None
         self._snapshot_path = snapshot_path
@@ -333,10 +337,12 @@ class GcsService(ChaosPartitionRpc):
 
     # -------------------------------------------------------------- nodes
     def register_node(self, node_id: str, sock_path: str, store_path: str,
-                      resources: dict) -> dict:
+                      resources: dict, labels: Optional[dict] = None) -> dict:
         """Registers a node with its next epoch: a fenced incarnation that
         rejoins gets a new number, and whatever still carries the old one
-        stays rejected."""
+        stays rejected. `labels` (the node's key/value tags: a provider's
+        cloud id, a slice's name and index) ride the record, the snapshot
+        and the log, and come back in list_nodes' `Labels`."""
         with self._lock:
             epoch = self._node_epochs.get(node_id, 0) + 1
             self._node_epochs[node_id] = epoch
@@ -348,6 +354,7 @@ class GcsService(ChaosPartitionRpc):
                 "store": store_path,
                 "resources": dict(resources),
                 "available": dict(resources),
+                "labels": dict(labels or {}),
                 "alive": True,
                 "epoch": epoch,
                 "last_hb": time.monotonic(),
@@ -546,6 +553,7 @@ class GcsService(ChaosPartitionRpc):
             "Epoch": n.get("epoch"),
             "Fenced": bool(n.get("fenced")),
             "State": cls._node_state(n),
+            "Labels": dict(n.get("labels") or {}),
             "sock": n["sock"], "store": n["store"],
         }
 
@@ -608,7 +616,7 @@ class GcsService(ChaosPartitionRpc):
         return {"op": "upsert", "NodeID": nid, "Alive": bool(n["alive"]),
                 "Draining": bool(n.get("draining")), "Fenced": bool(n.get("fenced")),
                 "Epoch": n.get("epoch", 0), "State": cls._node_state(n),
-                "Labels": {}, "Resources": dict(n["resources"]),
+                "Labels": dict(n.get("labels") or {}), "Resources": dict(n["resources"]),
                 "sock": n["sock"], "store": n["store"]}
 
     def _publish_node_delta(self, node_id: str) -> None:
@@ -1599,6 +1607,15 @@ class GcsService(ChaosPartitionRpc):
         if self._history is None:
             return []
         return self._history.query(name=name, tags=tags, window_s=window_s, as_rate=as_rate)
+
+    def _observe_rpc(self, method: str, latency_ms: float) -> None:
+        """Per-method RPC accounting, called by core/rpc.py's server after
+        each request (the raylet defines no such hook, so its task path pays
+        nothing). A long poll's duration is its subscriber's wait, not GCS
+        work, and stays out of the latency histogram."""
+        imet.GCS_RPC_TOTAL.inc(method=method)
+        if method not in ("pubsub_poll", "pubsub_poll2"):
+            imet.GCS_RPC_LATENCY.observe(latency_ms, method=method)
 
     def active_alerts(self) -> List[dict]:
         """The SLO watchdog's firing alerts (empty when it is disarmed)."""

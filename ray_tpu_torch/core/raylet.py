@@ -58,7 +58,10 @@ signal's number when killed), the task it ran and the last 50 lines of its
 raylet forwards its anomaly triggers to the GCS (postmortem.arm_client).
 `profile` samples this raylet's threads for N seconds
 (utils/sampling_profiler.py) and leaves a JSON dump that the Perfetto
-merge reads. This module never imports torch.
+merge reads. The raylet registers with its node's labels, runs the
+per-node ReporterAgent (CPU, memory, RSS and fd gauges;
+utils/internal_metrics.py) and makes its locks through utils/lock_order.py.
+This module never imports torch.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ from ..observability import postmortem as _postmortem
 from ..observability.flight_recorder import record as _flight_record
 from ..utils import config
 from ..utils import internal_metrics as imet
+from ..utils import lock_order
 from .heartbeat import HeartbeatCodec
 from .ids import ObjectID
 from .object_transport import StoredError
@@ -158,8 +162,12 @@ class RayletService(ChaosPartitionRpc):
         store_capacity: int,
         prestart: int = 0,
         advertise_address: Optional[str] = None,
+        labels: Optional[Dict[str, Any]] = None,
     ):
         self.node_id = node_id
+        # Key/value tags this node registers with (a provider's cloud id, a
+        # slice's name and index): list_nodes' `Labels`.
+        self.labels = dict(labels or {})
         self.sock_path = sock_path
         # What other nodes and the GCS dial: on a cluster that spans hosts,
         # a tcp:// endpoint; this node's own workers keep the UDS.
@@ -184,7 +192,7 @@ class RayletService(ChaosPartitionRpc):
         if n_gpus and len(ids) < n_gpus:
             # Fewer leasable ids than declared: schedule against the ids.
             self.total["GPU"] = self.available["GPU"] = float(len(ids))
-        self._res_lock = threading.Lock()
+        self._res_lock = lock_order.tracked_lock("raylet.resources")
         # Placement-group bundles hosted here: (pg_id, bundle_index) ->
         # {"reserved", "free", "gpus"}. Reserved resources are debited from
         # `available`, so heartbeats reflect the lease (reference:
@@ -197,7 +205,7 @@ class RayletService(ChaosPartitionRpc):
         # socket; the lease holds its resources until returned (reference:
         # HandleRequestWorkerLease, node_manager.cc:1797).
         self._leases: Dict[str, Dict[str, Any]] = {}
-        self._workers_lock = threading.Lock()
+        self._workers_lock = lock_order.tracked_lock("raylet.workers")
         # Ids a batched zygote spawn asked for and not yet registered: a forked
         # child can poll before its registration lands, and must not be told
         # to stop.
@@ -208,12 +216,12 @@ class RayletService(ChaosPartitionRpc):
         # reconnect must not run twice.
         self._seen_submits: "collections.OrderedDict[Tuple[str, int], List[str]]" = (
             collections.OrderedDict())
-        self._seen_lock = threading.Lock()
+        self._seen_lock = lock_order.tracked_lock("raylet.seen_submits")
         self._pending: "queue.Queue" = queue.Queue()
         self._sched_wake = threading.Event()
         self._waiting: List[dict] = []
         self._actors: Dict[str, dict] = {}
-        self._actor_lock = threading.Lock()
+        self._actor_lock = lock_order.tracked_lock("raylet.actors")
         self._remote_raylets: Dict[str, RpcClient] = {}
         self._stop = threading.Event()
         self._draining = False
@@ -240,7 +248,7 @@ class RayletService(ChaosPartitionRpc):
         self._loc_buf: List[str] = []
         self._evt_buf: List[dict] = []
         self._started_buf: List[str] = []
-        self._buf_lock = threading.Lock()
+        self._buf_lock = lock_order.tracked_lock("raylet.gcs_sync_buf")
         self._buf_wake = threading.Event()
         self._deferred_deletes: Set[str] = set()
         # Local objects in seal order (True = primary, False = a pulled
@@ -252,7 +260,7 @@ class RayletService(ChaosPartitionRpc):
         self._objects_lock = threading.Lock()
         # Serialises whole evict/spill/restore sequences: concurrent
         # ensure_space calls must not unlink each other's fresh files.
-        self._evict_lock = threading.Lock()
+        self._evict_lock = lock_order.tracked_lock("raylet.evict")
         # Spills land next to the raylet socket, in the session dir on
         # disk: spilling into tmpfs would not relieve the pool's memory.
         self._spill_dir = os.path.join(os.path.dirname(sock_path) or ".", f"spill_{node_id}")
@@ -269,13 +277,18 @@ class RayletService(ChaosPartitionRpc):
         # from a daemon that already imported the worker stack and torch;
         # until it is up, or when it is down, they Popen.
         self._pool = WorkerPoolManager(self, prestart=prestart)
-        reg = self.gcs.call("register_node", node_id, self.advertised, store_path, self.total)
+        reg = self.gcs.call("register_node", node_id, self.advertised, store_path, self.total,
+                            self.labels)
         self._cluster_size = reg.get("nodes", 1)
         self.epoch = reg.get("epoch", 0)
         # This raylet's `raytpu_*` records flush through its GCS client.
         imet.configure(node_id=node_id, reporter=f"raylet_{node_id}",
                        sink=lambda recs: self.gcs.call("report_internal_metrics",
                                                        f"raylet_{node_id}", recs, timeout=10.0))
+        # The node's CPU, memory, RSS and fd gauges (the raylet never imports
+        # torch, so it reports no device gauge).
+        self._reporter = imet.ReporterAgent()
+        self._reporter.start()
         self._threads = [
             threading.Thread(target=self._scheduler_loop, daemon=True, name="sched"),
             threading.Thread(target=self._heartbeat_loop, daemon=True, name="hb"),
@@ -1957,7 +1970,7 @@ class RayletService(ChaosPartitionRpc):
                     # take the epoch it grants (reference: the
                     # RayletNotifyGCSRestart path, core_worker.proto:441).
                     reg = self.gcs.call("register_node", self.node_id, self.advertised,
-                                        self.store_path, self.total)
+                                        self.store_path, self.total, self.labels)
                     self.epoch = reg.get("epoch", self.epoch)
                     self._hb_codec.force_full()
             except Exception as e:  # noqa: BLE001 - retried next tick
@@ -2066,7 +2079,7 @@ class RayletService(ChaosPartitionRpc):
                 self._spilled.clear()
             self._draining = False
             reg = self.gcs.call("register_node", self.node_id, self.advertised,
-                                self.store_path, self.total)
+                                self.store_path, self.total, self.labels)
             self.epoch = reg.get("epoch", 0)
             self._cluster_size = reg.get("nodes", self._cluster_size)
             # The GCS built this node's record afresh: the next beat carries
@@ -2279,6 +2292,7 @@ class RayletService(ChaosPartitionRpc):
     def stop(self) -> bool:
         """Stops every worker of this node and the raylet's loops."""
         self._stop.set()
+        self._reporter.stop()
         # A trigger after the stop must not dial the GCS through this raylet.
         _postmortem.disarm(self._trigger_forward)
         with self._workers_lock:
@@ -2307,7 +2321,8 @@ class RayletService(ChaosPartitionRpc):
 
 def main(argv: List[str]) -> None:
     node_id, sock_path, store_path, gcs_sock, resources_json, capacity, prestart = argv[:7]
-    tcp_spec = argv[7] if len(argv) > 7 else None
+    tcp_spec = (argv[7] if len(argv) > 7 else "") or None
+    labels = json.loads(argv[8]) if len(argv) > 8 else {}
     from ..observability import logs as _logs
     from ..observability.flight_recorder import install_crash_hooks
     from .gcs import exit_with_parent
@@ -2324,7 +2339,8 @@ def main(argv: List[str]) -> None:
     servers = [RpcServer(tcp_spec, None)] if tcp_spec else []
     service = RayletService(node_id, sock_path, store_path, gcs_sock,
                             json.loads(resources_json), int(capacity), int(prestart),
-                            advertise_address=servers[0].address if servers else None)
+                            advertise_address=servers[0].address if servers else None,
+                            labels=labels)
     for server in servers:
         server.service = service
     servers.append(RpcServer(sock_path, service))

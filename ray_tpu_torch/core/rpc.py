@@ -131,17 +131,24 @@ class RpcServer:
                     if not (first.startswith(_AUTH_PREFIX) and hmac.compare_digest(
                             first[len(_AUTH_PREFIX):], server_self._auth.encode())):
                         return  # not the shared secret: dropped unanswered
+                # The per-method count and latency hook: only a service that
+                # defines _observe_rpc pays for the timing (the GCS does; the
+                # raylet's task path stays without it).
+                observe = getattr(server_self.service, "_observe_rpc", None)
                 while True:
                     try:
                         raw = _recv_msg(sock)
                     except (ConnectionError, OSError):
                         return
                     req_id, method, args, kwargs = pickle.loads(raw)
+                    t0 = time.perf_counter() if observe else 0.0
                     if req_id is None:
                         try:
                             getattr(server_self.service, method)(*args, **kwargs)
                         except BaseException:  # noqa: BLE001 - one-way: no caller to tell
                             pass
+                        if observe:
+                            observe(method, (time.perf_counter() - t0) * 1e3)
                         continue
                     try:
                         result = getattr(server_self.service, method)(*args, **kwargs)
@@ -151,6 +158,8 @@ class RpcServer:
                             reply = pickle.dumps((req_id, False, e))
                         except Exception:
                             reply = pickle.dumps((req_id, False, RuntimeError(repr(e))))
+                    if observe:
+                        observe(method, (time.perf_counter() - t0) * 1e3)
                     try:
                         _send_msg(sock, reply)
                     except (ConnectionError, OSError):

@@ -26,9 +26,8 @@ When the raylet is fenced (core/raylet.py `_fence`), `on_fence` drains the
 zygote's parked children: no pre-forked worker outlives the incarnation that
 forked it.
 
-Left out: the autoscaler_v2 InstanceManager's forecast relay (ROADMAP Queue
-1 item 3.8 and its autoscaler, item 8; the GCS takes a forecast from any
-caller).
+Pool sizes follow the GCS's demand forecast (each heartbeat's `pool_hint`),
+which autoscaler_v2's InstanceManager relays (`set_pending_actors`).
 """
 
 from __future__ import annotations

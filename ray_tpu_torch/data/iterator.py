@@ -9,8 +9,8 @@ an explicit device: the caller's `device`, else the training worker's (its
 CUDA device, or the CPU under ScalingConfig(use_gpu=False)), else the
 current CUDA device, raising without one; with `mesh=` the tensors become
 DTensors over its batch axes (parallel/sharding.py `shard_batch`). Host to
-device copies are plain `.to(device)`: pinned-memory staging is ROADMAP
-Queue 1 item 8.
+device copies are plain `.to(device)`: pinned-memory staging is a speed
+change left for a later PR (ROADMAP's held findings).
 """
 
 from __future__ import annotations

@@ -26,8 +26,8 @@ latency derive from the same ring.
 
 The GCS owns the instance (fed from each `report_internal_metrics` merge)
 and serves the `metrics_history` RPC; `utils/state.py`'s
-`metrics_history()` reads it (the dashboard's `/api/metrics_history` and
-`ray-tpu top` are ROADMAP Queue 1 item 8). Disable with
+`metrics_history()` reads it, and so do the dashboard's
+`/api/metrics_history` and `python -m ray_tpu_torch.scripts top`. Disable with
 RAY_TPU_METRICS_HISTORY=0; tune with RAY_TPU_METRICS_HISTORY_RESOLUTION_S /
 _SAMPLES / _ROLLUP_S / _ROLLUP_SAMPLES. Standard library only.
 """

@@ -24,8 +24,8 @@ of ray_tpu/observability/postmortem.py).
 
 4. **Reports.** `render_report` turns a bundle into a markdown incident
    report: trigger chain, suspect channel/rank/node, the last N flight
-   events per involved process, and the goodput/MFU impact window. The
-   port has no command line (ROADMAP Queue 1 item 8): call it from Python.
+   events per involved process, and the goodput/MFU impact window
+   (`python -m ray_tpu_torch.scripts postmortem [incident]`).
 
 Env knobs:
 - RAY_TPU_POSTMORTEM=0          disable the bus entirely (GCS side)
@@ -46,8 +46,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from .flight_recorder import record as _flight_record
 
 # Catalog of anomaly trigger kinds, closed: the JAX package's for the sites
-# the port has. The job manager's kind comes with its module (ROADMAP
-# Queue 1 item 8).
+# the port has.
 TRIGGERS = {
     "watchdog.alert": "SLO watchdog rule transitioned to firing",
     "node.dead": "heartbeat-timeout node death declared by the GCS",
@@ -56,6 +55,7 @@ TRIGGERS = {
     "cgraph.crash": "compiled-graph exec loop died on an actor",
     "chaos.inject": "chaos controller armed a fault at an injection point",
     "coll.timeout": "collective op/rendezvous timeout naming a stalled rank",
+    "job.failed": "submitted job entrypoint exited nonzero",
     "debug.manual": "operator-requested harvest (GcsService.debug_harvest)",
 }
 

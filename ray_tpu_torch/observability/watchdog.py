@@ -25,8 +25,8 @@ on the incident bus (observability/postmortem.py), and writes a flight
 dump, at most one per `_DUMP_MIN_INTERVAL_S`, so the context around the
 breach is on disk before anyone asks. Clearing publishes the matching
 ``"cleared"`` event. Firing alerts are read with `utils/state.py`'s
-`active_alerts()` (the CLI's and the dashboard's views are ROADMAP Queue 1
-item 8).
+`active_alerts()`, the dashboard's `/api/alerts` and the CLI's `status` and
+`top`.
 
 Config: RAY_TPU_WATCHDOG=0 disarms; RAY_TPU_WATCHDOG_RULES takes a JSON list
 of rule dicts that REPLACES the defaults (include ``{"defaults": true}`` as

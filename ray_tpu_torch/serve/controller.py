@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .. import api
 from .. import tracing as _tracing
+from ..utils import lock_order
 
 _log = logging.getLogger(__name__)
 
@@ -409,7 +410,9 @@ class ServeController:
         self._replicas: Dict[str, List[Any]] = {}  # app -> replica handles
         self._app_gen: Dict[str, int] = {}  # bumped on deploy/delete
         self._version = 0
-        self._lock = threading.Lock()
+        self._lock = lock_order.tracked_lock("serve.controller")
+        # One reconcile pass at a time (deploy()'s own and the loop's).
+        self._reconcile_lock = lock_order.tracked_lock("serve.reconcile")
         self._stop = threading.Event()
         # Preemption awareness: replicas on a departing node are replaced
         # (and de-routed) before the machine dies, not found dead after.
@@ -526,7 +529,18 @@ class ServeController:
         """Drives actual replica sets toward targets (reference:
         deployment_state.py DeploymentState.update). Write-back is guarded
         by a per-app generation so a concurrent deploy()/delete_app() (which
-        resets the replica list) is never clobbered by an in-flight pass."""
+        resets the replica list) is never clobbered by an in-flight pass.
+
+        Passes never overlap. deploy() runs one in its caller's thread while
+        the control loop runs its own every 0.25 s; two passes that both
+        read the new app's empty list would each create a replica, and the
+        later write-back would replace the earlier one's list, leaving a live
+        replica that no list names but that a handle may already route to.
+        The JAX controller (ray_tpu/serve/controller.py:522) has that race."""
+        with self._reconcile_lock:
+            self._reconcile_pass()
+
+    def _reconcile_pass(self) -> None:
         with self._lock:
             apps = dict(self._apps)
             gens = dict(self._app_gen)

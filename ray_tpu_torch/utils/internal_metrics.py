@@ -3,8 +3,9 @@ PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
 compiled graphs and the feed's channels, Data's executors and operator
 pools, the chaos controller, the cluster
 runtime (its object plane, fast path, GCS and error table included), the
-trainer, the GCS's trigger bus and heartbeat lag, and the raylet's log
-monitor record into.
+trainer, the GCS's trigger bus, RPCs and heartbeat lag, the raylet's log
+monitor, the lock-order detector (utils/lock_order.py) and the per-node
+ReporterAgent record into.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
@@ -22,6 +23,13 @@ loses at most one interval. A forked child starts its own flusher and does
 not report what its parent recorded before the fork.
 `RAY_TPU_INTERNAL_METRICS=0` turns every instrument into a no-op and starts
 no flusher.
+
+`ReporterAgent` runs in each raylet (and in any process that starts one): it
+reads the node's CPU and memory, the process's RSS and open fds from /proc,
+and each visible CUDA device's `torch.cuda.memory_allocated` -- only where
+torch is already imported and CUDA already initialised in that process, so
+the reporter never creates a CUDA context (the raylet, which never imports
+torch, reports no device gauge).
 """
 
 from __future__ import annotations
@@ -265,6 +273,12 @@ class Histogram(InternalMetric):
 
     def observe(self, value: float, **tags: str) -> None:
         self.labels(**tags).observe(value)
+
+
+def help_texts() -> Dict[str, str]:
+    """name -> description, for Prometheus # HELP lines."""
+    with _lock:
+        return {m.name: m.description for m in _registry.values()}
 
 
 def snapshot() -> Dict[str, Dict[Tuple, Any]]:
@@ -633,7 +647,19 @@ ZYGOTE_FORK_LATENCY = Histogram(
     component="zygote",
     tag_keys=("mode",),
 )
-# --- GCS: pubsub and the error table (core/gcs.py) -------------------------
+# --- GCS: RPCs, pubsub and the error table (core/gcs.py) -------------------
+GCS_RPC_TOTAL = Counter(
+    "raytpu_gcs_rpc_total",
+    "GCS RPCs served, by method",
+    component="gcs",
+    tag_keys=("method",),
+)
+GCS_RPC_LATENCY = Histogram(
+    "raytpu_gcs_rpc_latency_ms",
+    "GCS RPC handler latency, by method",
+    component="gcs",
+    tag_keys=("method",),
+)
 GCS_PUBSUB_BACKLOG = Gauge(
     "raytpu_gcs_pubsub_backlog",
     "Entries retained across GCS pubsub channel logs",
@@ -705,3 +731,140 @@ NODE_HEARTBEAT_LAG = Gauge(
     component="gcs",
     tag_keys=("node",),
 )
+# --- the lock-order detector (utils/lock_order.py) --------------------------
+LOCK_ORDER_VIOLATIONS = Counter(
+    "raytpu_lock_order_violations_total",
+    "Lock-order hazards seen by the dynamic detector (RAY_TPU_LOCK_ORDER=1), "
+    "by kind: cycle (AB/BA inversion), self (non-reentrant re-acquire), "
+    "long_hold (critical section past the hold threshold)",
+    component="runtime",
+    tag_keys=("kind",),
+)
+# --- the per-node reporter (ReporterAgent below) -----------------------------
+NODE_CPU_PERCENT = Gauge(
+    "raytpu_node_cpu_percent",
+    "Node-wide CPU utilization (from /proc/stat)",
+    component="reporter",
+)
+NODE_MEM_USED = Gauge(
+    "raytpu_node_mem_used_bytes",
+    "Node memory in use (MemTotal - MemAvailable)",
+    component="reporter",
+)
+PROC_RSS = Gauge(
+    "raytpu_proc_rss_bytes",
+    "Resident set size of the reporting daemon",
+    component="reporter",
+)
+PROC_FD_COUNT = Gauge(
+    "raytpu_proc_fd_count",
+    "Open file descriptors of the reporting daemon",
+    component="reporter",
+)
+DEVICE_MEM_USED = Gauge(
+    "raytpu_device_mem_used_bytes",
+    "CUDA memory allocated by the reporting process, by device "
+    "(torch.cuda.memory_allocated; only where CUDA is already initialised)",
+    component="reporter",
+    tag_keys=("device",),
+)
+
+
+class ReporterAgent:
+    """Per-node system-stats collector (reference:
+    dashboard/modules/reporter/reporter_agent.py:336; the JAX package's
+    ReporterAgent): /proc reads into the reporter gauges every `interval_s`,
+    flushed by the process's flusher.
+    Every read is best-effort: a missing /proc degrades to no gauge."""
+
+    def __init__(self, interval_s: float = 1.0):
+        self.interval_s = interval_s
+        self._prev_cpu: Optional[Tuple[float, float]] = None  # (busy, total)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        if not _enabled or self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="reporter-agent")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.collect_once()
+            except Exception:  # noqa: BLE001 - one bad round; the next tick retries
+                pass
+
+    def collect_once(self) -> None:
+        cpu = self._cpu_percent()
+        if cpu is not None:
+            NODE_CPU_PERCENT.set(cpu)
+        mem = self._node_mem_used()
+        if mem is not None:
+            NODE_MEM_USED.set(mem)
+        rss = self._proc_rss()
+        if rss is not None:
+            PROC_RSS.set(rss)
+        try:
+            PROC_FD_COUNT.set(len(os.listdir("/proc/self/fd")))
+        except OSError:
+            pass
+        for dev, used in self._device_mem():
+            DEVICE_MEM_USED.set(used, device=dev)
+
+    def _cpu_percent(self) -> Optional[float]:
+        try:
+            with open("/proc/stat") as f:
+                vals = [float(v) for v in f.readline().split()[1:]]
+        except (OSError, ValueError, IndexError):
+            return None
+        total = sum(vals)
+        idle = vals[3] + (vals[4] if len(vals) > 4 else 0.0)  # idle + iowait
+        busy = total - idle
+        prev, self._prev_cpu = self._prev_cpu, (busy, total)
+        if prev is None or total <= prev[1]:
+            return None
+        return 100.0 * (busy - prev[0]) / (total - prev[1])
+
+    @staticmethod
+    def _node_mem_used() -> Optional[float]:
+        try:
+            fields = {}
+            with open("/proc/meminfo") as f:
+                for line in f:
+                    k, _, rest = line.partition(":")
+                    fields[k] = float(rest.split()[0]) * 1024
+            return fields["MemTotal"] - fields["MemAvailable"]
+        except (OSError, KeyError, ValueError, IndexError):
+            return None
+
+    @staticmethod
+    def _proc_rss() -> Optional[float]:
+        try:
+            with open("/proc/self/statm") as f:
+                return float(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError, IndexError):
+            return None
+
+    @staticmethod
+    def _device_mem() -> List[Tuple[str, float]]:
+        """(device index, torch.cuda.memory_allocated) for each device this
+        process sees -- only when torch is already imported and CUDA already
+        initialised here: asking any earlier would import torch into a
+        daemon, or create a CUDA context in a process that has none."""
+        import sys
+
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return []
+        try:
+            if not torch.cuda.is_initialized():
+                return []
+            return [(str(i), float(torch.cuda.memory_allocated(i)))
+                    for i in range(torch.cuda.device_count())]
+        except Exception:  # noqa: BLE001 - a broken CUDA runtime reports nothing
+            return []

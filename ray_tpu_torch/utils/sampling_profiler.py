@@ -10,9 +10,8 @@ GCS, raylet and worker entry points call `maybe_start_from_env`): each
 process writes <dir>/<name>-<pid>.txt, hottest stacks first, and a
 structured ``profile_*.json`` twin that observability/perfetto.py's
 `collect_profiles` merges into the Perfetto timeline. On demand: the
-raylet's `profile` RPC samples that raylet for N seconds (`run_for`); the
-CLI that asks every raylet (`ray-tpu debug profile`) is ROADMAP Queue 1
-item 8. (reference: ray._private.profiling and the dashboard's flame-graph
+raylet's `profile` RPC samples that raylet for N seconds (`run_for`);
+`python -m ray_tpu_torch.scripts debug profile` asks every raylet at once. (reference: ray._private.profiling and the dashboard's flame-graph
 endpoint.) Standard library only.
 """
 

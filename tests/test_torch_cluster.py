@@ -66,8 +66,12 @@ def torch_cluster():
 @pytest.fixture(params=PKGS)
 def c(request):
     """The cluster of the case's package only: a failed boot of one package
-    errors that package's cases and no others."""
-    return request.getfixturevalue(f"{request.param}_cluster")
+    errors that package's cases and no others. A hang (a JAX-side case once
+    held its xdist worker until the whole run was cut; ROADMAP Queue 3)
+    fails its case instead."""
+    cl = request.getfixturevalue(f"{request.param}_cluster")
+    with torch_modes.case_time_limit(request, 180):
+        yield cl
 
 
 def test_tasks_and_chained_deps(c):

@@ -164,7 +164,10 @@ def clusters():
 def c(request, clusters):
     cl = clusters[request.param]
     cl.base.set_runtime(cl.runtime)
-    yield cl
+    # A hang (one JAX-side case once hung after a chaos-raised rendezvous
+    # under load; ROADMAP Queue 3) fails its case instead of the whole run.
+    with torch_modes.case_time_limit(request, 180):
+        yield cl
     cl.base.set_runtime(None)
 
 

@@ -18,9 +18,10 @@ The cases (from tests/test_chaos.py and tests/test_elastic.py):
      downsize <= growback;
   6. Serve replaces a replica on a draining node while a client keeps
      calling.
-The JAX cases drive the preemption with autoscaler_v2's provider; the port
-has no autoscaler yet (ROADMAP Queue 1 item 8), so both packages go through
-`_preempt` here, which does what `LocalNodeProvider.inject_preemption` does:
+The JAX cases drive the preemption with autoscaler_v2's provider; both
+packages go through `_preempt` here (the provider's own path is
+tests/test_torch_autoscaler.py's), which does what
+`LocalNodeProvider.inject_preemption` does:
 `report_preemption`, then `remove_node` at the deadline; `add_node` brings
 the replacement.
 

@@ -12,8 +12,8 @@ in-process `GcsService` of each package: a counter's rate query across two
 flushes; a registered node that never beats, whose heartbeat-lag alert lands
 on `node_events` with a flight dump and opens a `watchdog.alert` incident;
 and a harvest whose bundle's `metrics.json` and manifest goodput are not
-empty. The cases that need the dashboard, the autoscaler or the CLI wait for
-ROADMAP Queue 1 item 8.
+empty. The cases that need the dashboard, the autoscaler or the CLI are in
+tests/test_torch_jobs.py and tests/test_torch_autoscaler.py.
 """
 
 import importlib

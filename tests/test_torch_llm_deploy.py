@@ -19,6 +19,7 @@ import functools
 import importlib
 import sys
 import threading
+import time
 from types import SimpleNamespace
 
 import jax
@@ -108,13 +109,59 @@ def test_engine_chaos_decode_fault_fails_fast_then_recovers(pk):
         eng.close()
 
 
+def _served_by(handle):
+    """The replica a one-replica deployment's handle routed its calls to: the
+    one in the list it fetched when it chose. The controller's list can name
+    another by the time the case reads it: the JAX controller's deploy() and
+    its control loop can run reconcile passes at once, each creating a
+    replica, and the later write-back replaces the list that the handle
+    already routed from (ROADMAP Queue 3; the port serialises its passes)."""
+    assert len(handle._replicas) == 1, handle._replicas
+    return handle._replicas[0]
+
+
 def test_deployment_streaming(pk):
-    handle = _deploy_stub(pk, "llm-stream")
-    got = bounded(lambda: list(handle.options(stream=True).remote([1, 2, 3], 5)))
+    handle = _deploy_stub(pk, "llm-stream").options(stream=True)
+    got = bounded(lambda: list(handle.remote([1, 2, 3], 5)))
     assert got == _stub_tokens([1, 2, 3], 5)
-    replica = _replica_for(pk, "llm-stream")
+    replica = _served_by(handle)
     stats = wait_for(lambda: (s := _engine_stats(pk, replica))["kv"]["used_pages"] == 0 and s)
     assert stats and stats["tokens_emitted"] >= 5
+
+
+def test_port_controller_reconcile_passes_do_not_overlap(monkeypatch):
+    """deploy()'s reconcile and the control loop's never run at once in the
+    port, so a new app gets one replica and the published list names every
+    replica made. Replica creation is held open until a second pass enters
+    (or 1 s): two overlapping passes would each create one and the later
+    write-back would orphan the earlier one's."""
+    from ray_tpu_torch.serve import controller as ctl
+
+    made, both_in = [], threading.Barrier(2, timeout=1.0)
+
+    def remote(**_opts):
+        def wrap(_cls):
+            def create(*_a, **_k):
+                try:
+                    both_in.wait()  # a second pass creating at the same time?
+                except threading.BrokenBarrierError:
+                    pass
+                made.append(SimpleNamespace(_id=len(made)))
+                return made[-1]
+            return SimpleNamespace(remote=create)
+        return wrap
+
+    monkeypatch.setattr(ctl, "api", SimpleNamespace(remote=remote, kill=lambda *a, **k: None,
+                                                    get=lambda *a, **k: None))
+    c = ctl.ServeController()
+    try:
+        c.deploy("app", b"blob", (), {}, num_replicas=1, max_ongoing=4, autoscaling=None,
+                 actor_options={})
+        time.sleep(0.6)  # the loop's passes (every 0.25 s) find the app satisfied
+        _, replicas = c.get_replicas("app")
+        assert [r._id for r in made] == [r._id for r in replicas] == [0]
+    finally:
+        c._stop.set()
 
 
 def test_handle_stream_close_cancels_and_frees_pages(pk):

@@ -283,9 +283,10 @@ def test_stream_is_incremental(rt):
 def test_init_without_local_mode_is_refused_by_the_port():
     """init() without local_mode starts the port's cluster, as the JAX
     package's does (ray_tpu/api.py): a GCS, a raylet and worker processes,
-    torn down again by shutdown(). An address attaches to a running head as
-    a remote client (tests/test_torch_tcp_cluster.py), and only a tcp://
-    one: anything else is refused."""
+    torn down again by shutdown(). An address attaches to a running head: a
+    tcp:// one as a remote client (tests/test_torch_tcp_cluster.py), a
+    session dir as a driver (tests/test_torch_autoscaler.py); anything else
+    is refused."""
     from ray_tpu_torch.core.cluster_runtime import ClusterRuntime
 
     ray_tpu_torch.shutdown()

@@ -7,8 +7,9 @@ hit with its refill, env-key sub-pools, a forecast presizing the pool,
 batched actor registration, pool stats on the heartbeat, and the zygote's
 death, respawn and rebuild).
 
-`test_instance_manager_relays_forecast` waits for the autoscaler (ROADMAP
-Queue 1 item 8); `test_on_fence_drains_prefork` for epoch fencing (item
+`test_instance_manager_relays_forecast` is
+tests/test_torch_autoscaler.py's `test_instance_manager_relays_forecast_once`;
+`test_on_fence_drains_prefork` waits for epoch fencing (item
 3.9), the only caller of the pool's fence hook.
 
 Env keys: both packages key workers by their runtime env, and a worker
