@@ -275,10 +275,28 @@ Phases, each printing its own line, any failure exits non-zero:
      whose trace names the flash_fwd kernel, and save_device_memory_profile's
      snapshot. (b) and (c) run after (a)'s `status`, while the GPU node's
      zygote imports its device stack.
+  24. rl: the RL stack (ray_tpu_torch.rl), which runs no flash kernel (its
+     launches 0): (a) from the same params and seeded batches at the tuned
+     examples' widths, 5 updates of the learner on CUDA against the same on
+     the CPU, TF32 off, for ppo_loss, impala_loss with V-trace, dqn_loss and
+     SAC's update (256, 256) with the same noise: losses within 1e-5
+     (relative) and every leaf within 1e-5 of its norm, one update's
+     CUDA-event and host ms; (b) on a fresh init() whose head leases GPU 0,
+     the ppo_cartpole tuned example (2 env-runner actors x 8 envs on the
+     CPU, rollout 64) with its learner on cuda:0 in this process, for 60 s or
+     until its 475 target: each iteration's sample, learn and weight-sync
+     seconds, env steps/s and mean return, the learner's params on CUDA,
+     finite losses, the best mean of 5 iterations RL_PPO_MARGIN above the
+     first iteration's, the runners' raytpu_rl_env_steps_total equal to the
+     steps sampled; (c) on that cluster DQN on CartPole (64, 64) and SAC on
+     Pendulum (256, 256), learners on CUDA: finite losses, the target
+     network equal to the learner after every 128 updates and still in
+     between, SAC's targets exactly (1 - tau) t + tau q after an update,
+     each update's ms; nothing left after shutdown.
 Phases 1-5 run alone, in this order. Then a second process of this script
-(`--lane`) runs ops, membership, observe, graphs, data and elastic, in that
-order (data once the main process's parallel phase has ended), while the
-main process runs parallel, serve, deploy, train-parity, train, zero,
+(`--lane`) runs ops, membership, observe, graphs, data, elastic and rl, in
+that order (data once the main process's parallel phase has ended), while
+the main process runs parallel, serve, deploy, train-parity, train, zero,
 checkpoint, fit, tune, cluster, objects and operate; the second process's
 lines are printed when it ends, and its failure fails the smoke.
 Then a line of the card's peak memory in use and the host's lowest
@@ -296,7 +314,7 @@ pool actors; the membership phase's zombie and successor actors, its
 restart actor and task; the observe phase's logging actor, crashed task and
 collective actors; the graphs phase's compiled actors; the data phase's
 trainer worker and HTTP replica; the operate phase's job task, replacement
-task and traced call) under
+task and traced call; the rl phase, 0) under
 "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
@@ -6982,6 +7000,370 @@ def phase_operate():
             "operate traced call": traced_launches}
 
 
+RL_TOL = 1e-5  # (a): losses (relative; absolute below 1) and each leaf (of its norm)
+RL_UPDATES = 5  # (a): updates on the card and on the CPU from the same params
+RL_PPO_BUDGET_S = 60.0  # (b): the PPO run's wall budget
+RL_PPO_MAX_ITERS = 400
+RL_PPO_WINDOW = 5  # (b): iterations in a windowed mean return
+# (b): best windowed mean minus the first iteration's, at least. On one H100
+# (700 W) the phase alone went from 14.5 to a best window of 467.4 in 109
+# iterations (22 s); beside the main process the host runs fewer iterations
+# in the budget, so the gate asks for under half of that rise.
+RL_PPO_MARGIN = 200.0
+RL_PPO_PRINT = 10  # (b): iterations per printed line
+RL_DQN_ITERS = 6  # (c): 128 env steps each; learning from the third
+RL_DQN_TARGET_EVERY = 128  # (c): updates between target syncs, two learning iterations
+RL_SAC_ITERS = 4  # (c): 128 env steps each; learning from the third
+RL_TIMEOUT_S = 30
+
+
+def _rl_batch(kind, rng):
+    """A seeded batch at the tuned examples' shapes: PPO's 256-row
+    minibatch, IMPALA's 64 x 8 rollout, DQN's 128 rows, SAC's 256 (numpy)."""
+    import numpy as np
+
+    if kind == "impala":
+        T, N = 64, 8
+        dones = (rng.random((T, N)) < 0.05).astype(np.float32)
+        mask = np.ones((T, N), np.float32)
+        mask[1:][dones[:-1] > 0] = 0.0
+        return {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, size=(T, N)),
+                "logp": np.full((T, N), -0.69, np.float32)
+                + 0.05 * rng.normal(size=(T, N)).astype(np.float32),
+                "rewards": np.ones((T, N), np.float32), "dones": dones,
+                "terminateds": dones, "mask": mask,
+                "last_obs": rng.normal(size=(N, 4)).astype(np.float32)}
+    if kind == "sac":
+        B = 256
+        return {"obs": rng.normal(size=(B, 3)).astype(np.float32),
+                "actions": rng.uniform(-2, 2, size=(B, 1)).astype(np.float32),
+                "rewards": -rng.uniform(0, 10, size=B).astype(np.float32),
+                "next_obs": rng.normal(size=(B, 3)).astype(np.float32),
+                "terminateds": np.zeros(B, np.float32)}
+    B = 256 if kind == "ppo" else 128
+    b = {"obs": rng.normal(size=(B, 4)).astype(np.float32), "actions": rng.integers(0, 2, B)}
+    if kind == "ppo":
+        b.update(logp=np.full(B, -0.69, np.float32) + 0.05 * rng.normal(size=B).astype(np.float32),
+                 advantages=rng.normal(size=B).astype(np.float32),
+                 returns=rng.normal(size=B).astype(np.float32) * 5,
+                 mask=np.ones(B, np.float32))
+    else:
+        b["targets"] = rng.normal(size=B).astype(np.float32) * 3
+    return b
+
+
+def _rl_leaf_errs(got, want):
+    """max |got - want| / ||want|| per leaf of two JAX-layout trees."""
+    import numpy as np
+
+    from ray_tpu_torch.models.convert import flatten
+
+    (gp, gl), (wp, wl) = flatten(got), flatten(want)
+    if gp != wp:
+        _fail(f"rl: param trees differ in their paths {gp} / {wp}")
+    return [float(np.max(np.abs(np.float64(g) - np.float64(w)))) / max(float(np.linalg.norm(w)),
+                                                                        1e-30)
+            for g, w in zip(gl, wl)]
+
+
+def _rl_rel(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1.0)
+
+
+def _rl_timed(fn):
+    """(CUDA-event ms, host ms) of one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def _rl_parity(smi):
+    """(a) RL_UPDATES updates of each learner on CUDA against the same on the
+    CPU, from the same params and batches, TF32 off."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.convert import rl_params_to_numpy
+    from ray_tpu_torch.rl import dqn, impala, module as rmod, ppo
+    from ray_tpu_torch.rl.learner import TorchLearner
+    from ray_tpu_torch.rl.sac import SACLearner, SquashedGaussianModule
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        disc = rmod.DiscretePolicyModule(rmod.DiscretePolicyConfig(obs_dim=4, n_actions=2,
+                                                                   hidden=(64, 64)))
+        qmod = dqn.QModule(rmod.DiscretePolicyConfig(obs_dim=4, n_actions=2, hidden=(64, 64)))
+        cases = {
+            "ppo_loss": (disc, functools.partial(ppo.ppo_loss, clip=0.2, vf_coeff=0.5,
+                                                 ent_coeff=0.005), 3e-4, 0.5, "ppo"),
+            "impala_loss+vtrace": (disc, functools.partial(
+                impala.impala_loss, gamma=0.99, vf_coeff=0.5, ent_coeff=0.01), 5e-4, 1.0,
+                "impala"),
+            "dqn_loss": (qmod, dqn.dqn_loss, 1e-3, 10.0, "dqn"),
+        }
+        for i, (name, (module, loss, lr, clip, kind)) in enumerate(cases.items()):
+            tree = rl_params_to_numpy(module.init_params(torch.Generator().manual_seed(i)))
+            rng = np.random.default_rng(30 + i)
+            batches = [_rl_batch(kind, rng) for _ in range(RL_UPDATES)]
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                learner = TorchLearner(module, loss, lr=lr, grad_clip=clip, device=dev)
+                learner.set_weights(tree)
+                runs[dev] = ([learner.update(b)["total_loss"] for b in batches], learner)
+            loss_err = max(_rl_rel(g, w) for g, w in zip(runs["cuda"][0], runs["cpu"][0]))
+            leaf_err = max(_rl_leaf_errs(runs["cuda"][1].get_weights(),
+                                         runs["cpu"][1].get_weights()))
+            ev_ms, host_ms = _rl_timed(lambda: runs["cuda"][1].update(batches[0]))
+            print(f"[rl] (a) {smi}: {name}, {RL_UPDATES} updates on cuda vs cpu: losses "
+                  f"{runs['cuda'][0][0]:.6f} .. {runs['cuda'][0][-1]:.6f}, max rel err "
+                  f"{loss_err:.3e}, max leaf err {leaf_err:.3e} of its norm (tol {RL_TOL}); one "
+                  f"update {ev_ms:.3f} ms by CUDA events, {host_ms:.3f} ms host", flush=True)
+            if not loss_err <= RL_TOL or not leaf_err <= RL_TOL:
+                _fail(f"rl: {name} on the card left the CPU's trajectory")
+
+        module = SquashedGaussianModule(3, 1, hidden=(256, 256), low=-2.0, high=2.0)
+        tree = rl_params_to_numpy(module.init_params(torch.Generator().manual_seed(7)))
+        target = {"q1": tree["q1"], "q2": tree["q2"]}
+        rng = np.random.default_rng(40)
+        batches = [_rl_batch("sac", rng) for _ in range(RL_UPDATES)]
+        noises = [{k: rng.normal(size=(256, 1)).astype(np.float32) for k in ("next", "pi")}
+                  for _ in range(RL_UPDATES)]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            learner = SACLearner(module, gamma=0.99, tau=0.005, actor_lr=3e-4, critic_lr=3e-4,
+                                 alpha_lr=3e-4, target_entropy=-1.0, seed=0, device=dev)
+            learner.load(tree, target)
+            metrics = [learner.update(b, noise=n) for b, n in zip(batches, noises)]
+            runs[dev] = ([{k: float(v) for k, v in m.items()} for m in metrics], learner)
+        loss_err = max(_rl_rel(g[k], w[k]) for g, w in zip(runs["cuda"][0], runs["cpu"][0])
+                       for k in ("q_loss", "pi_loss", "alpha_loss"))
+        got, want = runs["cuda"][1].state(), runs["cpu"][1].state()
+        leaf_err = max(_rl_leaf_errs(got["params"], want["params"])
+                       + _rl_leaf_errs(got["target_q"], want["target_q"]))
+        ev_ms, host_ms = _rl_timed(lambda: runs["cuda"][1].update(batches[0], noise=noises[0]))
+        print(f"[rl] (a) {smi}: SAC's update (256, 256), {RL_UPDATES} updates with the same "
+              f"noise on cuda vs cpu: q_loss {runs['cuda'][0][-1]['q_loss']:.6f}, max rel err of "
+              f"q/pi/alpha losses {loss_err:.3e}, max leaf err {leaf_err:.3e} of its norm (tol "
+              f"{RL_TOL}); one update {ev_ms:.3f} ms by CUDA events, {host_ms:.3f} ms host",
+              flush=True)
+        if not loss_err <= RL_TOL or not leaf_err <= RL_TOL:
+            _fail("rl: SAC's update on the card left the CPU's trajectory")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _rl_env_steps(state) -> float:
+    return sum(m["value"] for m in state.internal_metrics()
+               if m["name"] == "raytpu_rl_env_steps_total")
+
+
+def _rl_ppo(smi, state):
+    """(b) the ppo_cartpole tuned example on this cluster, the learner on
+    cuda:0 here, for RL_PPO_BUDGET_S (or until its 475 target)."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.tuned_examples import REGRESSIONS
+
+    spec = REGRESSIONS["ppo_cartpole"]
+    t0 = time.perf_counter()
+    algo = spec.build()
+    build_s = time.perf_counter() - t0
+    devices = {str(p.device) for p in algo.learner_group._learner.params.parameters()}
+    if devices != {"cuda:0"}:
+        _fail(f"rl: the PPO learner's params are on {devices}, not cuda:0")
+    rows, t0 = [], time.perf_counter()
+    while time.perf_counter() - t0 < RL_PPO_BUDGET_S and len(rows) < RL_PPO_MAX_ITERS:
+        t_it = time.perf_counter()
+        r = algo.train()
+        r["wall_s"] = time.perf_counter() - t_it
+        if not all(np.isfinite(r[k]) for k in ("total_loss", "policy_loss", "vf_loss")):
+            _fail(f"rl: PPO iteration {r['iteration']} gave a loss that is not finite: {r}")
+        rows.append(r)
+        returns = [x["episode_return_mean"] for x in rows[-RL_PPO_WINDOW:]]
+        if len(returns) == RL_PPO_WINDOW and np.nanmean(returns) >= spec.target_return:
+            break
+    run_s = time.perf_counter() - t0
+    for i in range(0, len(rows), RL_PPO_PRINT):
+        part = rows[i:i + RL_PPO_PRINT]
+
+        def col(key, fmt):
+            return " ".join(format(x[key], fmt) for x in part)
+
+        print(f"[rl] (b) {smi}: iterations {i + 1}-{i + len(part)}: sample s {col('sample_s', '.3f')}"
+              f"; learn s {col('learn_s', '.3f')}; sync s {col('sync_s', '.3f')}; env steps/s "
+              + " ".join(f"{x['num_env_steps_sampled'] / x['wall_s']:.0f}" for x in part)
+              + f"; episode_return_mean {col('episode_return_mean', '.1f')}", flush=True)
+    # An iteration in which no episode ended has no mean return (NaN).
+    returns = [x["episode_return_mean"] for x in rows if np.isfinite(x["episode_return_mean"])]
+    if len(returns) < RL_PPO_WINDOW:
+        _fail(f"rl: PPO ran {len(rows)} iterations, {len(returns)} with a mean return")
+    first = returns[0]
+    best = float(max(np.mean(returns[i:i + RL_PPO_WINDOW])
+                     for i in range(len(returns) - RL_PPO_WINDOW + 1)))
+    steps = sum(x["num_env_steps_sampled"] for x in rows)
+    deadline = time.monotonic() + RL_TIMEOUT_S
+    while (counted := _rl_env_steps(state)) != steps and time.monotonic() < deadline:
+        time.sleep(0.25)
+    print(f"[rl] (b) {smi}: ppo_cartpole (2 env-runner actors x 8 envs, rollout 64, the learner "
+          f"on cuda:0): build {build_s:.1f} s, {len(rows)} iterations, {steps} env steps in "
+          f"{run_s:.1f} s ({steps / run_s:.0f} steps/s); first iteration's mean return "
+          f"{first:.1f}, best mean of {RL_PPO_WINDOW} iterations {best:.1f} (margin "
+          f"{RL_PPO_MARGIN}); raytpu_rl_env_steps_total {counted:.0f}", flush=True)
+    if not best >= first + RL_PPO_MARGIN:
+        _fail(f"rl: PPO's best windowed mean return {best:.1f} does not clear the first "
+              f"iteration's {first:.1f} by {RL_PPO_MARGIN}")
+    if counted != steps:
+        _fail(f"rl: the runners counted {counted} env steps, PPO sampled {steps}")
+
+
+def _rl_dqn(smi):
+    """(c) DQN at the dqn_cartpole example's widths: the target network
+    equals the learner's weights after every RL_DQN_TARGET_EVERY updates and
+    holds still in between."""
+    import numpy as np
+
+    from ray_tpu_torch.models.convert import rl_params_to_numpy
+    from ray_tpu_torch.rl.dqn import DQNConfig
+    from ray_tpu_torch.rl.learner import batch_to_device
+
+    algo = DQNConfig(env="CartPole-v1", buffer_capacity=100_000, train_batch_size=128,
+                     updates_per_iteration=64, target_update_freq=RL_DQN_TARGET_EVERY,
+                     learning_starts=256, epsilon_decay_steps=20_000, lr=1e-3).build()
+    target = rl_params_to_numpy(algo.target_params)["q"]
+    syncs = 0
+    for _ in range(RL_DQN_ITERS):
+        r = algo.train()
+        now = rl_params_to_numpy(algo.target_params)["q"]
+        online = algo.learner_group.get_weights()["q"]
+        if r["num_updates"] and not np.isfinite(r["td_error_mean"]):
+            _fail(f"rl: DQN's TD error is not finite: {r}")
+        synced = r["num_updates"] > 0 and r["num_updates"] % RL_DQN_TARGET_EVERY == 0
+        want = online if synced else target
+        if max(_rl_leaf_errs(now, want)) != 0.0:
+            _fail(f"rl: DQN's target after {r['num_updates']} updates is not "
+                  f"{'the learner' if synced else 'the previous target'}")
+        if synced:
+            syncs += 1
+        elif r["num_updates"] and max(_rl_leaf_errs(now, online)) == 0.0:
+            _fail("rl: DQN's target followed the learner between syncs")
+        target = now
+    batch = batch_to_device(algo.buffer.sample(128), algo.device)
+    batch["targets"] = algo._compute_targets(algo.target_params, algo.target_params, batch)
+    ms = _time_ms(lambda: algo.learner_group.update(batch), iters=20, warmup=3)
+    print(f"[rl] (c) {smi}: DQN (64, 64) on cuda, {RL_DQN_ITERS} iterations, "
+          f"{r['num_updates']} updates, {syncs} target syncs every {RL_DQN_TARGET_EVERY}, "
+          f"td_error_mean {r['td_error_mean']:.4f}, epsilon {r['epsilon']:.3f}; one update "
+          f"(128 rows) {ms:.3f} ms", flush=True)
+    if syncs < 1:
+        _fail("rl: DQN's target never synced")
+
+
+def _rl_sac(smi):
+    """(c) SAC at the sac_pendulum example's widths (256, 256): finite
+    losses, and one update's targets exactly (1 - tau) t + tau q."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl.sac import SACConfig
+
+    algo = SACConfig(env="Pendulum-v1", learning_starts=256).build()
+    for _ in range(RL_SAC_ITERS):
+        r = algo.train()
+    if not r["num_updates"] or not all(np.isfinite(r[k]) for k in ("q_loss", "pi_loss")):
+        _fail(f"rl: SAC's losses are not finite or it did not learn: {r}")
+    lrn = algo.learner
+    before = [t.detach().clone() for t in lrn.target_q.parameters()]
+    lrn.update(algo.buffer.sample(256))
+    online = [*lrn.params.q1.parameters(), *lrn.params.q2.parameters()]
+    tau = algo.config.tau
+    with torch.no_grad():
+        err = max(float(torch.max(torch.abs(t - ((1 - tau) * b + tau * o)))
+                        / torch.linalg.vector_norm(t))
+                  for t, b, o in zip(lrn.target_q.parameters(), before, online))
+        moved = min(float(torch.max(torch.abs(t - b)))
+                    for t, b in zip(lrn.target_q.parameters(), before))
+    batch = algo.buffer.sample(256)
+    ms = _time_ms(lambda: lrn.update(batch), iters=20, warmup=3)
+    print(f"[rl] (c) {smi}: SAC (256, 256) on cuda, {RL_SAC_ITERS} iterations, "
+          f"{r['num_updates']} updates, q_loss {r['q_loss']:.4f}, pi_loss {r['pi_loss']:.4f}, "
+          f"alpha {r['alpha']:.4f}; the polyak target within {err:.2e} of its norm of "
+          f"(1 - {tau}) t + {tau} q, each leaf moved (min max-step {moved:.2e}); one update "
+          f"(256 rows) {ms:.3f} ms", flush=True)
+    if not err <= 1e-6 or not moved > 0:
+        _fail("rl: SAC's targets did not move as tau says")
+
+
+def phase_rl():
+    """RL on the card: (a) the learner's update on CUDA against the CPU from
+    the same params and batches (PPO, IMPALA with V-trace, DQN, and SAC's
+    update with the same noise), TF32 off: losses and every leaf within
+    1e-5; (b) on a fresh init() whose head leases GPU 0, the ppo_cartpole
+    tuned example (2 env-runner actors x 8 envs on the CPU, rollout 64) with
+    its learner on cuda:0 in this process for RL_PPO_BUDGET_S: each
+    iteration's sample / learn / sync seconds, env steps/s and mean return,
+    the learner's params on CUDA, finite losses, the best windowed mean
+    return RL_PPO_MARGIN above the first iteration's, the runners'
+    raytpu_rl_env_steps_total equal to the steps sampled; (c) DQN on
+    CartPole and SAC on Pendulum on that cluster, learners on CUDA: finite
+    losses, the target network synced every target_update_freq updates and
+    still between, SAC's polyak targets as tau says, update ms; nothing
+    left after shutdown. RL runs no flash kernel: the path's launches are 0.
+    Returns them."""
+    import glob
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_base import current_runtime
+    from ray_tpu_torch.utils import state
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    parts = {}
+    t0 = time.perf_counter()
+    _rl_parity(smi)
+    parts["a"] = time.perf_counter() - t0
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rt.init()
+    session_dir = current_runtime()._cluster.session_dir
+    ours = f"/dev/shm/rtpt_{os.path.basename(session_dir)}"
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            _fail(f"rl: cluster_resources {rt.cluster_resources()}")
+        _rl_ppo(smi, state)
+        parts["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _rl_dqn(smi)
+        _rl_sac(smi)
+        parts["c"] = time.perf_counter() - t0
+    finally:
+        t0 = time.perf_counter()
+        rt.shutdown()
+        parts["shutdown"] = time.perf_counter() - t0
+    launches = _launch_counts()
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(ours + "*")
+    print(f"[rl] {smi}: parts {', '.join(f'({k}) {v:.1f} s' for k, v in parts.items())}; "
+          f"launches {launches}; processes left {left}, pools left {sorted(pools)}; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if left or pools:
+        _fail("rl: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    if any(launches.values()):
+        _fail(f"rl: the RL path launched flash kernels: {launches}")
+    return {"rl": launches}
+
+
+
 # ------------------------------------------------------------------ lanes
 # The phases below run in a second process of this script beside the main
 # one, which goes on with the rest once the kernels are timed (the kernel and
@@ -6992,7 +7374,7 @@ def phase_operate():
 # parallel phase (4 ranks of ~14 GiB) to end before LANE_AFTER_PARALLEL, so
 # that the two never hold more than the card's memory at once; its own
 # earlier phases hold a few GiB.
-LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic")
+LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic", "rl")
 LANE_AFTER_PARALLEL = "data"
 LANE_DEADLINE_S = 1080  # from the smoke's start; the driver stops it at 1200
 LANE_POLL_S = 0.5

@@ -23,7 +23,9 @@ labels and `init(address=<session dir> | "auto")`, jobs, the dashboard,
 the command line (`python -m ray_tpu_torch.scripts`), the v1 and v2
 autoscalers over accelerators.LocalNodeProvider, the lock-order detector
 (utils.lock_order) and the device glue (utils.profiling over
-torch.profiler, the reporter's device-memory gauge).
+torch.profiler, the reporter's device-memory gauge), and RL (rl: RLModule,
+the learner on the card, env runners on the port's own CartPole and
+Pendulum, PPO, IMPALA/APPO, DQN, SAC, CQL, offline and multi-agent).
 
 Subpackages that need torch load on first use (PEP 562 `__getattr__`), so
 that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
@@ -59,7 +61,7 @@ from .core.placement_group import (  # noqa: F401
 from .exceptions import BackpressureError, KVPoolExhaustedError, RayTpuError  # noqa: F401
 
 _LAZY_SUBMODULES = ("train", "tune", "serve", "models", "ops", "parallel", "air",
-                    "observability", "collective", "dag", "cgraph", "data")
+                    "observability", "collective", "dag", "cgraph", "data", "rl")
 
 
 def __getattr__(name):

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .transformer import Params, TransformerConfig, map_tree, param_spec
 
@@ -253,3 +254,157 @@ def moe_params_from_numpy(tree, cfg, device=None):
     spec = {"router": ((d, E),), "w_up": ((E, d, f),), "w_down": ((E, f, d),)}
     _check_tree(tree, spec)
     return {k: to_tensor(tree[k]).to(device=dev, dtype=cfg.dtype) for k in spec}
+
+
+# -------------------------------------------------------------------- RL
+
+
+def _rl_leaf_map(obj, fn_net, fn_leaf):
+    """Walks an RL params object in the JAX tree's layout: an RLParams'
+    named MLPs, trainable tensors and buffers become the keys, an MLP a list
+    of {"w", "b"} layers, a tensor a leaf. `fn_net(linear)` gives a layer's
+    dict, `fn_leaf(name, tensor)` a leaf (None drops it)."""
+    from ..rl.module import MLP
+
+    if isinstance(obj, MLP):
+        return [fn_net(layer) for layer in obj]
+    if isinstance(obj, torch.Tensor):
+        return fn_leaf("", obj)
+    if isinstance(obj, dict):
+        items = obj.items()
+    else:
+        items = [*obj.named_children(), *obj.named_parameters(recurse=False),
+                 *obj.named_buffers(recurse=False)]
+    out = {}
+    for name, value in items:
+        if isinstance(value, torch.Tensor):
+            leaf = fn_leaf(name, value)
+            if leaf is not None:
+                out[name] = leaf
+        else:
+            out[name] = _rl_leaf_map(value, fn_net, fn_leaf)
+    return out
+
+
+def rl_params_to_numpy(params):
+    """The port's RL params (rl/module.py RLParams, an MLP, or a dict of
+    them) -> the JAX package's tree of numpy arrays: each MLP a list of
+    {"w": (din, dout), "b": (dout,)} layers, each named tensor a leaf."""
+    return _rl_leaf_map(
+        params,
+        lambda lin: {"w": tensor_to_numpy(lin.weight).T.copy(), "b": tensor_to_numpy(lin.bias)},
+        lambda name, t: tensor_to_numpy(t))
+
+
+# Leaves of the JAX trees that no optimizer steps (DQN's synced epsilon).
+RL_BUFFER_LEAVES = ("epsilon",)
+
+
+def rl_params_from_numpy(tree, device=None):
+    """The JAX package's RL param tree (numpy leaves; a list of {"w", "b"}
+    layers per network, arrays for "log_std" / "log_alpha" / "epsilon") ->
+    RLParams on `device` with the same values, each layer an nn.Linear whose
+    weight is w transposed. The MLP widths come from the shapes; the leaves
+    named in RL_BUFFER_LEAVES become buffers, the others parameters."""
+    from .._device import resolve_device
+    from ..rl.module import MLP, RLParams
+
+    dev = resolve_device(device)
+
+    def mlp(layers):
+        if not layers or any(set(layer) != {"w", "b"} for layer in layers):
+            raise ValueError("an RL network is a list of {'w', 'b'} layers")
+        dims = [np.shape(layers[0]["w"])[0]] + [np.shape(layer["w"])[1] for layer in layers]
+        net = MLP(dims, dtype=to_tensor(layers[0]["w"]).dtype)
+        with torch.no_grad():
+            for lin, layer in zip(net, layers):
+                lin.weight.copy_(to_tensor(layer["w"]).T)
+                lin.bias.copy_(to_tensor(layer["b"]))
+        return net.to(dev)
+
+    nets, tensors, buffers = {}, {}, {}
+    for name, value in tree.items():
+        if isinstance(value, (list, tuple)):
+            nets[name] = mlp(value)
+        elif name in RL_BUFFER_LEAVES:
+            buffers[name] = to_tensor(value).to(dev)
+        else:
+            tensors[name] = to_tensor(value).to(dev)
+    return RLParams(nets, tensors, buffers)
+
+
+def _rl_view(params):
+    """The JAX tree's layout over the optimizer's own Parameter objects (w
+    left as stored, (dout, din)), buffers dropped: what opt_state_to_torch
+    and opt_state_from_numpy key by."""
+    return _rl_leaf_map(params, lambda lin: {"w": lin.weight, "b": lin.bias},
+                        lambda name, t: t if isinstance(t, nn.Parameter) else None)
+
+
+def _rl_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _rl_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rl_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _rl_transpose_w(tree):
+    if isinstance(tree, dict):
+        return {k: (v.T.copy() if k == "w" and not isinstance(v, (dict, list)) else
+                    _rl_transpose_w(v)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rl_transpose_w(v) for v in tree]
+    return tree
+
+
+def _rl_buffer_zeros(params, tree):
+    """Adds zero moments for the buffer leaves, as optax keeps for them."""
+    if isinstance(params, nn.Module) and not isinstance(tree, list):
+        for name, buf in params.named_buffers(recurse=False):
+            tree[name] = np.zeros(tuple(buf.shape), tensor_to_numpy(buf).dtype)
+    return tree
+
+
+def rl_opt_state_to_numpy(optimizer: torch.optim.Optimizer, params):
+    """The Adam state of `optimizer` over `params` (RLParams, an MLP, a dict
+    of them or one tensor) as optax adam's ScaleByAdamState in the JAX
+    tree's layout: {"count", "mu", "nu"}, numpy, w moments (din, dout), zero
+    moments for buffers (optax steps every leaf of the tree)."""
+    state = opt_state_to_torch(optimizer, _rl_view(params))
+    moments = {k: _rl_buffer_zeros(params, _rl_transpose_w(_rl_map(tensor_to_numpy, state[k])))
+               for k in ("mu", "nu")}
+    return {"count": tensor_to_numpy(state["count"]), **moments}
+
+
+def _find_adam_state(state):
+    """The ScaleByAdamState inside optax's chain state (a tuple of states),
+    or the dict of rl_opt_state_to_numpy."""
+    if isinstance(state, dict) or all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def rl_opt_state_from_numpy(state, optimizer: torch.optim.Optimizer, params) -> None:
+    """Loads optax's Adam state (a chain state such as
+    `optax.chain(clip_by_global_norm(g), adam(lr))`'s, a ScaleByAdamState,
+    or rl_opt_state_to_numpy's dict) into `optimizer` for `params`, bit for
+    bit; the buffers' moments are dropped."""
+    adam = _find_adam_state(state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the given optimizer state")
+    count, mu, nu = _adam_fields(adam)
+    view = _rl_view(params)
+
+    def keep(moments):
+        moments = _rl_map(np.asarray, moments)
+        if isinstance(moments, dict):
+            moments = {k: v for k, v in moments.items() if k not in RL_BUFFER_LEAVES}
+        return _rl_transpose_w(moments)
+
+    opt_state_from_numpy({"count": count, "mu": keep(mu), "nu": keep(nu)}, optimizer, view)

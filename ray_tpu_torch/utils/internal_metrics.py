@@ -558,6 +558,17 @@ TRAIN_ELASTIC_RESIZES = Counter(
     component="train",
     tag_keys=("direction",),
 )
+RL_ENV_STEPS = Counter(
+    "raytpu_rl_env_steps_total",
+    "Environment steps sampled by env runners",
+    component="rl",
+)
+RL_SAMPLE_TIME = Histogram(
+    "raytpu_rl_sample_time_ms",
+    "EnvRunner.sample() wall time",
+    component="rl",
+    boundaries=[1, 5, 10, 50, 100, 500, 1000, 5000, 10000, 60000],
+)
 CHECKPOINTS_RESTORED = Counter(
     "raytpu_checkpoints_restored_total",
     "Training attempts resumed from a checkpoint after a gang failure",

@@ -18,8 +18,10 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
+    # gymnasium and gym: the card's machine has neither (rl/envs.py keeps the
+    # port's own copies of the two environments it runs).
     return top in ("jax", "jaxlib", "ray_tpu", "optax", "orbax", "flax", "ml_dtypes",
-                   "cloudpickle")
+                   "cloudpickle", "gymnasium", "gym")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,7 +47,7 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'ml_dtypes', 'orbax',\n"
-        "                              'cloudpickle')]\n"
+        "                              'cloudpickle', 'gymnasium', 'gym')]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
