@@ -109,7 +109,17 @@ Phases, each printing its own line, any failure exits non-zero:
      tcp://127.0.0.1:0 with an auth token and a worker node joined by
      start_worker_node, this process a remote client (init(address=)): the
      bf16 tensor through its put, a num_gpus=1 task on the joined node and
-     its get, bitwise; a connection without the token refused;
+     its get, bitwise; a connection without the token refused; (d1) a
+     num_gpus=1 actor on the joined node reads 32 serve-shape bf16 (q, k, v)
+     records, staged from CUDA tensors here, first through the channel's TCP
+     stream (a spec whose ring path this process cannot see), then through
+     its ring: each runs K1 on its card, a sample held within 2^-6 per entry
+     of the plain version, the records equal on both transports (MB/s of
+     each); (d2) a num_returns="streaming" num_gpus=1 task on the joined node
+     yields K1's output for 8 serve-shape inputs, iterated by this remote
+     client, each item bitwise equal to the same task's non-streaming return
+     (first item's latency, seconds per item); every cluster in the smoke
+     boots its GCS with 8 hot-table shards;
   16. elastic: node drain and preemption on a fresh init() whose head leases
      GPU 0, nodes added (Cluster.add_node(num_gpus=1)) and removed, notices
      through the GCS's report_preemption: (a) TorchTrainer with one NCCL
@@ -186,7 +196,8 @@ Phases, each printing its own line, any failure exits non-zero:
      old handle's next K1 call, get_actor by name, a KV value, every node
      Alive again, and a new num_gpus=0.5 task seeing CUDA_VISIBLE_DEVICES
      "0" and running K1 (seconds from the kill to its result, and its
-     parts); (c) nothing left after shutdown.
+     parts), its 8 shards' log segments replayed; (c) nothing left after
+     shutdown.
   20. observe: logs, dumps, spans and post-mortems on a fresh init() whose head
      leases GPU 0, with tracing on and a 3 s collective op timeout: (a) once
      the zygote has imported its device stack, a named num_gpus=0.5 actor's
@@ -293,11 +304,22 @@ Phases, each printing its own line, any failure exits non-zero:
      network equal to the learner after every 128 updates and still in
      between, SAC's targets exactly (1 - tau) t + tau q after an update,
      each update's ms; nothing left after shutdown.
+  25. shards: the sharded GCS as a control plane for 1000 nodes: a GCS
+     daemon (python -m ray_tpu_torch.core.gcs, its snapshot pushed out to an
+     hour) behind its RpcServer on a UDS, 1000 thin stub raylets multiplexed
+     over 32 client threads: (a) a registration storm through register_nodes
+     in batches of 125 at 8 shards; (b) the same storm one register_node at
+     a time on a fresh GCS at 1 shard; (c) 3 heartbeat rounds through the
+     delta codec against (a)'s GCS; (d) a kill -9 of that GCS and a restart
+     from its 8 log segments alone, every node back at its epoch:
+     registrations/s of (a) and (b), the heartbeat RTT p50 and p99,
+     raytpu_gcs_shard_lock_wait_ms's count and p99, the restart's seconds
+     (host figures; the phase asserts correctness, no speed).
 Phases 1-5 run alone, in this order. Then a second process of this script
 (`--lane`) runs ops, membership, observe, graphs, data, elastic and rl, in
 that order (data once the main process's parallel phase has ended), while
 the main process runs parallel, serve, deploy, train-parity, train, zero,
-checkpoint, fit, tune, cluster, objects and operate; the second process's
+checkpoint, fit, tune, cluster, objects, operate and shards; the second process's
 lines are printed when it ends, and its failure fails the smoke.
 Then a line of the card's peak memory in use and the host's lowest
 MemAvailable while each phase of the main process ran, a line of each
@@ -307,7 +329,8 @@ launches from the "hot" train run; each kernel's numbers at head_dim 256,
 with the gptj phase's launches, under "at_d256"; its launches in the fit,
 tune, parallel, cluster and elastic phases' model paths (ring, ulysses,
 pipeline, the TP meshes and TP x SP; the deploy phase's cluster replica; the
-cluster's actor, NCCL trainer worker and gloo ranks; the preempted and
+cluster's actor, NCCL trainer worker and gloo ranks, the TCP part's stream
+reader actor and streaming task; the preempted and
 restored workers, each elastic world, the old and new Serve replicas; the
 objects phase's two DAG actors and its runtime-env task; the ops phase's
 pool actors; the membership phase's zombie and successor actors, its
@@ -2960,6 +2983,182 @@ def _cluster_node_echo(x):
     return x, str(x.device), rt.get_runtime_context().get_node_id(), os.getpid()
 
 
+CLUSTER_STREAM_RECORDS = 32  # (d1): serve-shape (q, k, v) records per transport
+CLUSTER_STREAM_SAMPLE = (0, 15, 31)  # (d1): records whose K1 output is held against plain
+CLUSTER_STREAM_CAPACITY = 128 << 20  # (d1): the ring; a 24 MiB record fits in half
+CLUSTER_STREAM_ITEMS = 8  # (d2): K1 outputs a streaming task yields
+
+
+def _cluster_serve_qkv(seed: int, index: int):
+    """Serve-shape bf16 q, k, v on the card from a (seed, index) pair."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + index)
+    return tuple(torch.randn(CLUSTER_SERVE_SHAPE, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(3))
+
+
+def _qkv_digest(qkv) -> int:
+    """A sum over the bit patterns of q, k and v, on the card."""
+    import torch
+
+    return sum(int(t.view(torch.int16).sum(dtype=torch.int64)) for t in qkv)
+
+
+class _StreamReaderActor:
+    """(d1): hosts channel readers on its node and runs K1 on each record."""
+
+    def warm(self):
+        """One K1 call before the measured runs: the kernel library's load and
+        the first dispatch stay out of the transports' time."""
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_attention(*_cluster_serve_qkv(0, 0), causal=True)
+        torch.cuda.synchronize()
+
+    def open(self, capacity):
+        import tempfile
+
+        from ray_tpu_torch.core.channel import ChannelReader
+
+        self.reader = ChannelReader(tempfile.mkdtemp(prefix="chip-smoke-chan-"),
+                                    capacity=capacity)
+        return self.reader.spec()
+
+    def consume(self, n, sample):
+        import torch
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        _zero_launch_counts()
+        worst, digests, devices = 0.0, [], set()
+        for i in range(n):
+            rec = self.reader.read(timeout=CLUSTER_TIMEOUT_S)
+            q, k, v = rec["qkv"]
+            devices.add(str(q.device))
+            o = fa.flash_attention(q, k, v, causal=True)
+            if rec["i"] in sample:
+                o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True,
+                                                  scale=q.shape[-1] ** -0.5)
+                worst = max(worst, entry_err(o, o_ref))
+            digests.append((rec["i"], _qkv_digest((q, k, v))))
+        torch.cuda.synchronize()
+        self.reader.close()
+        return {"launches": _launch_counts(), "worst": worst, "digests": digests,
+                "devices": sorted(devices), "pid": os.getpid()}
+
+
+def _cluster_stream_gen(n: int, seed: int):
+    """(d2): K1's output for n serve-shape inputs, one item each, with the
+    K1 launches of this process so far."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    _zero_launch_counts()
+    for i in range(n):
+        o = fa.flash_attention(*_cluster_serve_qkv(seed, i), causal=True)
+        torch.cuda.synchronize()
+        yield o, _launch_counts()["flash_fwd"]
+
+
+def _cluster_stream_all(n: int, seed: int):
+    """(d2)'s non-streaming twin: the same outputs in one return."""
+    return [o for o, _ in _cluster_stream_gen(n, seed)]
+
+
+def _cluster_channel(rt, joined_id, smi):
+    """(d1): the channel's TCP stream, then its ring, into a K1 actor on the
+    joined node; returns the actor's K1 launches over both."""
+    import torch
+
+    from ray_tpu_torch.core.channel import ChannelSpec, ChannelWriter
+
+    records = [_cluster_serve_qkv(7, i) for i in range(CLUSTER_STREAM_RECORDS)]
+    want = [(i, _qkv_digest(r)) for i, r in enumerate(records)]
+    nbytes = sum(t.numel() * t.element_size() for r in records for t in r)
+    actor = rt.remote(num_gpus=1)(_StreamReaderActor).remote()
+    rows, launches, ok = [], {}, True
+    try:
+        rt.get(actor.warm.remote(), timeout=CLUSTER_TIMEOUT_S)
+        for transport in ("stream", "ring"):
+            spec = rt.get(actor.open.remote(CLUSTER_STREAM_CAPACITY), timeout=CLUSTER_TIMEOUT_S)
+            if transport == "stream":  # a writer on another host: the ring is not here
+                spec = ChannelSpec(spec.name, spec.ring_path + ".on-another-host",
+                                   spec.uds_path, spec.tcp_addr, spec.capacity)
+            done = actor.consume.remote(CLUSTER_STREAM_RECORDS, CLUSTER_STREAM_SAMPLE)
+            writer = ChannelWriter(spec)
+            took = "stream" if writer._stream is not None else "ring"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, qkv in enumerate(records):
+                writer.write({"i": i, "qkv": qkv}, timeout=CLUSTER_TIMEOUT_S)
+            write_s = time.perf_counter() - t0
+            res = rt.get(done, timeout=CLUSTER_TIMEOUT_S)
+            total_s = time.perf_counter() - t0
+            writer.close()
+            for name, n in res["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            same = res["digests"] == want
+            ok = ok and (took == transport and same and res["devices"] == ["cuda:0"]
+                         and res["launches"]["flash_fwd"] == CLUSTER_STREAM_RECORDS
+                         and res["worst"] <= FWD_TOL["bfloat16"][0])
+            rows.append(f"{transport} (taken: {took}) {nbytes / total_s / 1e6:.1f} MB/s "
+                        f"({total_s:.3f} s to the last K1, writes {write_s:.3f} s), records equal "
+                        f"{same}, on {res['devices']} in pid {res['pid']}, K1 "
+                        f"{res['launches']['flash_fwd']} launches, sampled worst "
+                        f"{res['worst']:.6f}")
+    finally:
+        rt.kill(actor)
+    print(f"[cluster] (d1) {smi}: {CLUSTER_STREAM_RECORDS} records of bf16 (q, k, v) "
+          f"{CLUSTER_SERVE_SHAPE} ({nbytes / 2 ** 20:.0f} MiB) staged from CUDA tensors here "
+          f"into a num_gpus=1 actor on the joined node: {'; '.join(rows)}", flush=True)
+    if not ok:
+        _fail("cluster: (d1) the channel's records or K1 on the joined node were wrong, or "
+              "the writer did not take the transport it was given")
+    return launches
+
+
+def _cluster_client_stream(rt, smi):
+    """(d2): a streaming GPU task on the joined node, iterated by this remote
+    client; returns its K1 launches."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    n, seed = CLUSTER_STREAM_ITEMS, 11
+    gen = rt.remote(num_gpus=1, num_returns="streaming")(_cluster_stream_gen)
+    t0 = time.perf_counter()
+    it = iter(gen.remote(n, seed))
+    items, counts = [], []
+    for ref in it:
+        o, count = rt.get(ref, timeout=CLUSTER_TIMEOUT_S)
+        items.append(o)
+        counts.append(count)
+        if len(items) == 1:
+            first_s = time.perf_counter() - t0
+    all_s = time.perf_counter() - t0
+    whole = rt.get(rt.remote(num_gpus=1)(_cluster_stream_all).remote(n, seed),
+                   timeout=CLUSTER_TIMEOUT_S)
+    same = len(items) == len(whole) == n and all(
+        torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(items, whole))
+    q, k, v = _cluster_serve_qkv(seed, 0)
+    o_ref, _ = fa.reference_flash_fwd(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    err = entry_err(items[0], o_ref)
+    print(f"[cluster] (d2) {smi}: a num_returns='streaming' num_gpus=1 task on the joined node "
+          f"yielded {len(items)} K1 outputs {CLUSTER_SERVE_SHAPE} to this remote client: first "
+          f"item {first_s:.3f} s after the call, then {(all_s - first_s) / max(1, n - 1):.3f} s "
+          f"per item; each bitwise equal to the non-streaming return {same}; item 0 on "
+          f"{items[0].device} within {err:.6f} per entry of the plain version here; the task's "
+          f"K1 launches {counts}", flush=True)
+    if not same or counts != list(range(1, n + 1)) or not err <= FWD_TOL["bfloat16"][0]:
+        _fail("cluster: (d2) the remote client's stream differs from the task's return, or K1 "
+              "missed on the joined node")
+    return {"flash_fwd": counts[-1], "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
 def _cluster_tcp(smi):
     """Part (d): a head that other hosts can join, on tcp://127.0.0.1:0 with
     an auth token, and a worker node joined through start_worker_node with
@@ -3018,6 +3217,10 @@ def _cluster_tcp(smi):
                 refused = True
             finally:
                 os.environ["RAY_TPU_AUTH_TOKEN"] = token
+            del w_up
+            launches = {"cluster tcp stream reader actor (d1)":
+                        _cluster_channel(rt, joined["node_id"], smi),
+                        "cluster tcp client stream task (d2)": _cluster_client_stream(rt, smi)}
         finally:
             rt.shutdown()
     finally:
@@ -3043,6 +3246,7 @@ def _cluster_tcp(smi):
         _fail("cluster: the head's TCP port served a connection without the token")
     if left or pools:
         _fail("cluster: processes or pools of the TCP cluster outlived its shutdown")
+    return launches
 
 
 class _FlashActor:
@@ -3512,7 +3716,7 @@ def phase_cluster():
               f"{sorted(pools)}", flush=True)
         if left or pools:
             _fail("cluster: processes or /dev/shm/rtpt_* pools outlived shutdown")
-        _cluster_tcp(smi)
+        launches.update(_cluster_tcp(smi))
         print(f"[cluster] phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
         return launches
     finally:
@@ -5239,6 +5443,10 @@ def _mem_restart(rt, runtime, cluster, smi):
     alive_before = sorted(n["NodeID"] for n in gcs.call("list_nodes") if n["Alive"])
     logs = glob.glob(os.path.join(cluster.log_dir, "raylet_*.jsonl"))  # their records
     log_bytes = sum(os.path.getsize(p) for p in logs)
+    # The GCS's hot tables are in shards, a log segment each: the restart
+    # replays every one.
+    segments = sorted(glob.glob(cluster.gcs_snapshot + ".wal.s*"))
+    seg_bytes = sum(os.path.getsize(p) for p in segments)
     t0 = time.perf_counter()
     cluster.restart_gcs()
     restart_s = time.perf_counter() - t0
@@ -5258,8 +5466,9 @@ def _mem_restart(rt, runtime, cluster, smi):
     rep = rt.get(actor.report.remote(), timeout=MEM_TIMEOUT_S)
     epochs = {n["NodeID"][:12]: n["Epoch"] for n in gcs.call("list_nodes")}
     log_growth = sum(os.path.getsize(p) for p in logs) - log_bytes
-    print(f"[membership] (b) {smi}: GCS killed and restarted in {restart_s:.3f} s (snapshot "
-          f"interval 3600 s: the log alone); the old handle's K1 call back {old_handle_s:.3f} s "
+    print(f"[membership] (b) {smi}: GCS with {cluster.gcs_shards} shards killed and restarted "
+          f"in {restart_s:.3f} s (snapshot interval 3600 s: the log alone, {len(segments)} shard "
+          f"segments of {seg_bytes} bytes and the control segment); the old handle's K1 call back {old_handle_s:.3f} s "
           f"after the kill, get_actor('mem_wal') called, KV value {kv!r}, every node "
           f"({len(alive_before)}) Alive after {alive_s:.3f} s (epochs {epochs}), a new "
           f"num_gpus=0.5 task (pid {task_pid}, CUDA_VISIBLE_DEVICES={visible!r}) ran K1 "
@@ -5272,6 +5481,9 @@ def _mem_restart(rt, runtime, cluster, smi):
           f"{log_growth} bytes over the restart", flush=True)
     if kv != b"survives":
         _fail("membership: the KV value did not survive the GCS restart")
+    if cluster.gcs_shards != 8 or len(segments) != 8:
+        _fail(f"membership: the GCS ran {cluster.gcs_shards} shards with {len(segments)} log "
+              f"segments, want the default 8 and 8")
     if visible != "0" or task_launches["flash_fwd"] != 1 or not err <= MEM_TOL:
         _fail("membership: the new GPU task did not see device 0 or its K1 missed")
     if rep["launches"]["flash_fwd"] != rep["calls"] or not rep["worst"] <= MEM_TOL:
@@ -7374,6 +7586,173 @@ def phase_rl():
 # parallel phase (4 ranks of ~14 GiB) to end before LANE_AFTER_PARALLEL, so
 # that the two never hold more than the card's memory at once; its own
 # earlier phases hold a few GiB.
+# ---------------------------------------------------------------- shards
+SHARDS_NODES = 1000  # stub raylets
+SHARDS_THREADS = 32  # client threads they are multiplexed over
+SHARDS_BATCH = 125  # (a): nodes per register_nodes call
+SHARDS_HB_ROUNDS = 3
+SHARDS_ENV = {"RAY_TPU_GCS_SNAPSHOT_INTERVAL_S": "3600",  # (d): the log alone
+              # Stub raylets beat only in (c): no node may expire meanwhile.
+              "RAY_TPU_HEARTBEAT_TIMEOUT_S": "3600"}
+SHARDS_TIMEOUT_S = 120
+
+
+def _shards_gcs(tmp: str, tag: str, shards: int):
+    """A GCS daemon with `shards` shards on <tmp>/<tag>.sock, its snapshot
+    and logs beside it; (process, client, snapshot path)."""
+    from ray_tpu_torch.core.cluster_runtime import _spawn_daemon
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    sock = os.path.join(tmp, f"{tag}.sock")
+    snap = os.path.join(tmp, f"{tag}.snapshot")
+    proc = _spawn_daemon(tmp, [sys.executable, "-m", "ray_tpu_torch.core.gcs", sock, snap], tag,
+                         {**SHARDS_ENV, "RAY_TPU_GCS_SHARDS": str(shards)})
+    return proc, RpcClient(sock, connect_timeout=SHARDS_TIMEOUT_S), snap
+
+
+def _shards_storm(sock: str, jobs, fn):
+    """Runs fn(client, job) for every job over SHARDS_THREADS threads, each
+    with its own client; (results in job order, wall seconds)."""
+    import concurrent.futures
+    import threading
+
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    local = threading.local()
+
+    def run(job):
+        cli = getattr(local, "cli", None)
+        if cli is None:
+            cli = local.cli = RpcClient(sock)
+        return fn(cli, job)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SHARDS_THREADS) as pool:
+        out = list(pool.map(run, jobs))
+    return out, time.perf_counter() - t0
+
+
+def _hist_quantile(counts, boundaries, q: float) -> float:
+    """The upper bound of the bucket that holds quantile q."""
+    want, seen = q * sum(counts), 0
+    for i, n in enumerate(counts):
+        seen += n
+        if n and seen >= want:
+            return boundaries[i] if i < len(boundaries) else float("inf")
+    return float("nan")
+
+
+def phase_shards():
+    """The sharded GCS under 1000 stub raylets (host figures; correctness
+    asserted, no speed). Returns the launches of each path: none."""
+    import shutil
+    import signal
+    import tempfile
+
+    from ray_tpu_torch.core.heartbeat import HeartbeatCodec
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-shards-")
+    procs = []
+    node_ids = [f"stub{i:04d}" + os.urandom(10).hex() for i in range(SHARDS_NODES)]
+    specs = [{"node_id": nid, "sock": os.path.join(tmp, f"raylet_{nid}.sock"),
+              "store": f"/dev/shm/stub_{nid}", "resources": {"CPU": 8.0, "GPU": 1.0},
+              "labels": {"stub": "1"}} for nid in node_ids]
+    try:
+        # (a) register_nodes in batches of 125, 8 shards.
+        proc, gcs8, snap8 = _shards_gcs(tmp, "gcs8", 8)
+        procs.append(proc)
+        batches = [specs[i:i + SHARDS_BATCH] for i in range(0, SHARDS_NODES, SHARDS_BATCH)]
+        got, batch_s = _shards_storm(gcs8.path, batches,
+                                     lambda cli, b: cli.call("register_nodes", b))
+        epochs = {s["node_id"]: r["epoch"] for b, rs in zip(batches, got) for s, r in zip(b, rs)}
+        # (b) one register_node at a time, a fresh GCS at 1 shard.
+        proc1, gcs1, _ = _shards_gcs(tmp, "gcs1", 1)
+        procs.append(proc1)
+        single, single_s = _shards_storm(
+            gcs1.path, specs, lambda cli, sp: cli.call(
+                "register_node", sp["node_id"], sp["sock"], sp["store"], sp["resources"],
+                sp["labels"]))
+        one_ok = (all(r["ok"] and r["epoch"] == 1 for r in single)
+                  and gcs1.call("node_summary")["alive"] == SHARDS_NODES)
+        gcs1.call("stop")
+        # (c) heartbeat rounds through the delta codec, against (a)'s GCS.
+        codecs = {nid: HeartbeatCodec() for nid in node_ids}
+        slices = [node_ids[i::SHARDS_THREADS] for i in range(SHARDS_THREADS)]
+
+        def beat_round(cli, nids, rnd):
+            rtts = []
+            for nid in nids:
+                avail, stats = codecs[nid].encode(
+                    {"CPU": 8.0 - rnd, "GPU": 1.0},
+                    {"bytes_in_use": 1 << 20, "num_workers": rnd, "wall_ts": time.time()})
+                t0 = time.perf_counter()
+                r = cli.call("heartbeat", nid, avail, stats, epochs[nid])
+                rtts.append(time.perf_counter() - t0)
+                if not r["ok"]:
+                    raise RuntimeError(f"heartbeat of {nid} refused: {r}")
+            return rtts
+
+        rtts = []
+        for rnd in range(SHARDS_HB_ROUNDS):
+            out, _ = _shards_storm(gcs8.path, slices,
+                                   lambda cli, nids, rnd=rnd: beat_round(cli, nids, rnd))
+            rtts.extend(x for part in out for x in part)
+        rtts.sort()
+        hb_p50, hb_p99 = rtts[len(rtts) // 2] * 1e3, rtts[int(0.99 * len(rtts))] * 1e3
+        summary = gcs8.call("node_summary")
+        time.sleep(1.5)  # the daemon's own metrics flush once a second
+        waits = [m for m in gcs8.call("internal_metrics")
+                 if m["name"] == "raytpu_gcs_shard_lock_wait_ms"]
+        bounds = waits[0]["boundaries"] if waits else []
+        counts = [sum(c) for c in zip(*(m["counts"] for m in waits))] if waits else []
+        wait_n, wait_p99 = sum(counts), _hist_quantile(counts, bounds, 0.99)
+        shards_seen = sorted(int(m["tags"]["shard"]) for m in waits)
+        # (d) kill -9 and a restart from the log segments alone.
+        segments = sorted(f for f in os.listdir(tmp) if f.startswith("gcs8.snapshot.wal.s"))
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=10)
+        gcs8.close()
+        t0 = time.perf_counter()
+        proc2, gcs8b, _ = _shards_gcs(tmp, "gcs8", 8)
+        procs.append(proc2)
+        gcs8b.call("ping")
+        restart_s = time.perf_counter() - t0
+        back = {n["NodeID"]: n["Epoch"] for n in gcs8b.call("list_nodes")}
+        after = gcs8b.call("node_summary")
+        gcs8b.call("stop")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    regs_a, regs_b = SHARDS_NODES / batch_s, SHARDS_NODES / single_s
+    print(f"[shards] {smi}: {SHARDS_NODES} stub raylets over {SHARDS_THREADS} client threads; "
+          f"(a) register_nodes in batches of {SHARDS_BATCH} at 8 shards: {regs_a:.0f} "
+          f"registrations/s ({batch_s:.3f} s), alive {summary['alive']}; (b) one register_node "
+          f"at a time at 1 shard: {regs_b:.0f} registrations/s ({single_s:.3f} s), all at epoch "
+          f"1 {one_ok}; (c) {SHARDS_HB_ROUNDS} heartbeat rounds through the delta codec: RTT p50 "
+          f"{hb_p50:.3f} ms, p99 {hb_p99:.3f} ms over {len(rtts)} beats; "
+          f"raytpu_gcs_shard_lock_wait_ms count {wait_n}, p99 <= {wait_p99} ms over shards "
+          f"{shards_seen}; (d) kill -9 and a restart from {len(segments)} log segments alone: "
+          f"{restart_s:.3f} s to its first answer, {len(back)} nodes back, every epoch equal "
+          f"{back == epochs}, alive {after['alive']}; phase {time.perf_counter() - phase_t0:.1f} s "
+          f"(host figures)", flush=True)
+    if len(epochs) != SHARDS_NODES or set(epochs.values()) != {1} or summary["alive"] != SHARDS_NODES:
+        _fail("shards: (a) not every node registered once through register_nodes")
+    if not one_ok:
+        _fail("shards: (b) not every node registered once at 1 shard")
+    if len(segments) != 8 or back != epochs or after["alive"] != SHARDS_NODES:
+        _fail("shards: (d) the restarted GCS did not replay every node's epoch from its 8 "
+              "segments")
+    if shards_seen != list(range(8)) or not wait_n:
+        _fail(f"shards: raytpu_gcs_shard_lock_wait_ms was not reported for every shard "
+              f"({shards_seen})")
+    return {}
+
+
 LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic", "rl")
 LANE_AFTER_PARALLEL = "data"
 LANE_DEADLINE_S = 1080  # from the smoke's start; the driver stops it at 1200
@@ -7566,7 +7945,7 @@ def main() -> int:
         fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
         by_path.update(fit_launches)
         by_path.update(timed(phase_tune, fit_step_ms))
-        for phase in (phase_cluster, phase_objects, phase_operate):
+        for phase in (phase_cluster, phase_objects, phase_operate, phase_shards):
             by_path.update(timed(phase))
         sampler.phase = "waiting for the second process"
         lane_paths, lane_s, waited_s = lane.join()

@@ -32,6 +32,7 @@ that the cluster's daemons (`python -m ray_tpu_torch.core.gcs`, `...raylet`)
 start without importing torch.
 """
 
+from ._version import version as __version__  # noqa: F401
 from . import exceptions  # noqa: F401
 from .api import (  # noqa: F401
     ObjectRef,

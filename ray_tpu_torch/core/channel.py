@@ -1,29 +1,43 @@
 """Preallocated SPSC channels (copy of ray_tpu/core/channel.py for the
-PyTorch port): the transport of compiled graphs' edges (cgraph/) and of the
-LLM feed (serve/llm/feed.py).
+PyTorch port): the transport of compiled graphs' edges (cgraph/), of Data's
+channel feed (data/feed.py) and of the LLM feed (serve/llm/feed.py).
 
-One transport, the node-local **shm ring**: an mmap'd ring buffer file
-holding length-prefixed pickled records, plus a tiny UDS used purely for
-blocking wakeups (data never rides it). Writer blocks when the ring is
-full (backpressure), reader blocks when empty. Positions are monotonic
-u64s so free space is one subtraction. Nodes of the port's cluster on one
-host share it; the JAX copy's TCP stream transport for writers on other
-hosts is ROADMAP Queue 1 item 3.3's remainder.
+Two transports behind one descriptor:
+
+- **shm ring** (node-local): an mmap'd ring buffer file holding
+  length-prefixed records, plus a tiny UDS used purely for blocking wakeups
+  (data never rides it). Writer blocks when the ring is full
+  (backpressure), reader blocks when empty. Positions are monotonic u64s
+  so free space is one subtraction.
+- **tcp stream** (a writer on another host): length-prefixed frames over
+  one persistent socket; the kernel's flow control is the backpressure.
+  The reader listens beside its UDS and advertises RAY_TPU_NODE_IP, else
+  127.0.0.1.
+
+The READER hosts the channel (creates the ring file and the listeners);
+writers attach by descriptor, and take the ring when its file is on their
+filesystem, else the stream. The reader reads either through one `read`.
+
+The stream is authenticated, where the JAX copy's accepts any connection
+and unpickles what arrives: the reader opens its TCP listener only when
+RAY_TPU_AUTH_TOKEN is set (the control plane's rule, core/rpc.py), the
+writer's first frame carries the token, and the reader compares it with
+hmac.compare_digest and drops a connection that does not match. A writer
+that cannot see the ring of a reader with no listener raises an error that
+names the token.
 
 Records pickle through the object plane's reducer (core/serialization.py),
-not plain pickle: a torch tensor travels as its bytes, a CUDA one staged to
-host memory by the writer and rebuilt on the reader's current CUDA device,
-and a reader with no CUDA device raises instead of getting a tensor on a
-device it cannot use (plain pickle would rebuild it on the writer's device
-index).
-
-The READER hosts the channel (creates the ring file + listener); writers
-attach by descriptor.
+not plain pickle, on either transport: a torch tensor travels as its bytes,
+a CUDA one staged to host memory by the writer and rebuilt on the reader's
+current CUDA device, and a reader with no CUDA device raises instead of
+getting a tensor on a device it cannot use (plain pickle would rebuild it
+on the writer's device index).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hmac
 import mmap
 import os
 import select
@@ -35,7 +49,12 @@ from typing import Any, Optional
 
 from ..chaos.controller import maybe_inject as _chaos_inject
 from . import serialization
+from .rpc import AUTH_TOKEN_ENV
 from ..observability.flight_recorder import record as _flight_record
+
+# The stream writer's first frame: RTPUCHAN:<token>.
+_AUTH_PREFIX = b"RTPUCHAN:"
+_AUTH_TIMEOUT_S = 5.0  # a connected writer's token must arrive within this
 
 
 def _apply_channel_chaos(point: str, name: str) -> bool:
@@ -109,21 +128,23 @@ def validate_capacity(capacity: int, max_message: int = 0) -> int:
 
 
 class ChannelSpec:
-    """Serializable descriptor a writer uses to attach."""
+    """Serializable descriptor a writer uses to attach. `tcp_addr` is the
+    reader's (host, port), None when it serves no stream."""
 
-    __slots__ = ("name", "ring_path", "uds_path", "capacity")
+    __slots__ = ("name", "ring_path", "uds_path", "tcp_addr", "capacity")
 
-    def __init__(self, name, ring_path, uds_path, capacity):
+    def __init__(self, name, ring_path, uds_path, tcp_addr, capacity):
         validate_capacity(capacity)
         self.name = name
         self.ring_path = ring_path
         self.uds_path = uds_path
+        self.tcp_addr = tuple(tcp_addr) if tcp_addr is not None else None
         self.capacity = capacity
 
     def __reduce__(self):
         return (
             ChannelSpec,
-            (self.name, self.ring_path, self.uds_path, self.capacity),
+            (self.name, self.ring_path, self.uds_path, self.tcp_addr, self.capacity),
         )
 
 
@@ -236,8 +257,19 @@ def _token(sock: Optional[socket.socket]) -> None:
         pass  # peer gone; positions/closed flag are authoritative
 
 
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("socket closed")
+        buf += chunk
+    return bytes(buf)
+
+
 class ChannelReader:
-    """Reader end; hosts the ring + listener. One reader per channel."""
+    """Reader end; hosts the ring and the listeners. One reader per
+    channel."""
 
     def __init__(
         self,
@@ -259,19 +291,61 @@ class ChannelReader:
         self._uds_srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
         self._uds_srv.bind(self.uds_path)
         self._uds_srv.listen(2)
-        self._conn: Optional[socket.socket] = None  # wakeup/credit
+        # The stream's listener, only with the shared secret to check.
+        self._token = os.environ.get(AUTH_TOKEN_ENV)
+        self._tcp_srv: Optional[socket.socket] = None
+        self.tcp_addr = None
+        if self._token:
+            srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            srv.bind(("0.0.0.0", 0))
+            srv.listen(2)
+            self._tcp_srv = srv
+            self.tcp_addr = (os.environ.get("RAY_TPU_NODE_IP") or "127.0.0.1",
+                             srv.getsockname()[1])
+        self._conn: Optional[socket.socket] = None  # wakeup/credit (ring)
+        self._stream: Optional[socket.socket] = None  # data (stream)
+        self._stream_hdr = bytearray()  # the frame being read: its length,
+        self._frame: Optional[bytearray] = None  # its payload
+        self._frame_got = 0
 
     def spec(self) -> ChannelSpec:
-        return ChannelSpec(self.name, self.ring_path, self.uds_path, self.capacity)
+        return ChannelSpec(self.name, self.ring_path, self.uds_path, self.tcp_addr,
+                           self.capacity)
 
     def _accept(self, timeout: Optional[float]) -> None:
-        """Waits for a writer to attach over the UDS."""
-        r, _, _ = select.select([self._uds_srv], [], [], timeout)
-        if not r:
-            raise TimeoutError(f"channel {self.name}: no writer attached")
-        conn, _ = self._uds_srv.accept()
-        conn.setblocking(False)
-        self._conn = conn
+        """Waits for a writer to attach over the UDS (ring) or over TCP
+        (stream, after its token checks out)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        servers = [s for s in (self._uds_srv, self._tcp_srv) if s is not None]
+        while self._conn is None and self._stream is None:
+            remain = None if deadline is None else max(0.0, deadline - time.monotonic())
+            r, _, _ = select.select(servers, [], [], remain)
+            if not r:
+                raise TimeoutError(f"channel {self.name}: no writer attached")
+            conn, _ = r[0].accept()
+            if r[0] is self._uds_srv:
+                conn.setblocking(False)
+                self._conn = conn
+            elif self._authenticated(conn):
+                conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                self._stream = conn
+            else:
+                _flight_record("chan.auth_refused", self.name)
+                conn.close()
+
+    def _authenticated(self, conn: socket.socket) -> bool:
+        """Reads a stream writer's first frame and compares its token."""
+        conn.settimeout(_AUTH_TIMEOUT_S)
+        try:
+            (n,) = _LEN.unpack(_recv_exact(conn, _LEN.size))
+            if n > 4096:
+                return False
+            first = _recv_exact(conn, n)
+        except (OSError, ConnectionError):
+            return False
+        return first.startswith(_AUTH_PREFIX) and hmac.compare_digest(
+            first[len(_AUTH_PREFIX):], self._token.encode())
 
     def read(self, timeout: Optional[float] = None) -> Any:
         return serialization.loads(self.read_bytes(timeout))
@@ -279,14 +353,15 @@ class ChannelReader:
     def read_bytes(self, timeout: Optional[float] = None) -> bytes:
         if self._closed:
             raise ChannelClosed(self.name)
-        if self._conn is None:
+        if self._conn is None and self._stream is None:
             self._accept(timeout)
         _apply_channel_chaos("chan.read", self.name)
         # Flight-recorder bracket: a `chan.read_wait` with no matching
         # `chan.read` in a hang dump names the blocked channel.
         _flight_record("chan.read_wait", self.name)
         try:
-            payload = self._read_ring(timeout)
+            payload = (self._read_stream(timeout) if self._stream is not None
+                       else self._read_ring(timeout))
         except TimeoutError:
             _flight_record("chan.read_timeout", self.name)
             raise
@@ -323,13 +398,41 @@ class ChannelReader:
                 if wpos == rpos:
                     raise ChannelClosed(self.name)
 
+    def _read_stream(self, timeout: Optional[float]) -> bytes:
+        """One frame off the stream, received into a buffer of its size.
+        What a timeout cut short stays for the next read."""
+        sock = self._stream
+        sock.settimeout(timeout)
+        try:
+            while len(self._stream_hdr) < _LEN.size:
+                chunk = sock.recv(_LEN.size - len(self._stream_hdr))
+                if not chunk:
+                    raise ChannelClosed(self.name)
+                self._stream_hdr += chunk
+            if self._frame is None:
+                self._frame = bytearray(_LEN.unpack(self._stream_hdr)[0])
+                self._frame_got = 0
+            view = memoryview(self._frame)
+            while self._frame_got < len(self._frame):
+                got = sock.recv_into(view[self._frame_got:])
+                if not got:
+                    raise ChannelClosed(self.name)
+                self._frame_got += got
+        except socket.timeout:
+            raise TimeoutError(f"channel {self.name}: empty after {timeout}s") from None
+        except OSError as e:
+            raise ChannelClosed(self.name) from e
+        payload, self._frame = bytes(self._frame), None
+        self._stream_hdr = bytearray()
+        return payload
+
     def close(self) -> None:
         if self._closed:
             return  # idempotent: teardown and loop-exit cascade both close
         self._closed = True
         with contextlib.suppress(Exception):
             self._ring.set_reader_closed()
-        for s in (self._conn, self._uds_srv):
+        for s in (self._conn, self._stream, self._uds_srv, self._tcp_srv):
             if s is not None:
                 with contextlib.suppress(OSError):
                     s.close()
@@ -357,6 +460,7 @@ class ChannelWriter:
         self._closed = False
         self._ring: Optional[_Ring] = None
         self._sock: Optional[socket.socket] = None
+        self._stream: Optional[socket.socket] = None
         self._m_msgs = self._m_bytes = self._m_hwm = None
         self._hwm = 0
         if metrics_label:
@@ -365,24 +469,50 @@ class ChannelWriter:
             self._m_msgs = imet.CGRAPH_CHANNEL_MSGS.labels(channel=metrics_label)
             self._m_bytes = imet.CGRAPH_CHANNEL_BYTES.labels(channel=metrics_label)
             self._m_hwm = imet.CGRAPH_RING_HWM.labels(channel=metrics_label)
+        token = os.environ.get(AUTH_TOKEN_ENV)
+        if not os.path.exists(spec.ring_path) and (spec.tcp_addr is None or not token):
+            raise ConnectionError(
+                f"cannot attach channel {spec.name}: its ring {spec.ring_path} is not on "
+                f"this host, and the TCP stream needs {AUTH_TOKEN_ENV} set for the reader "
+                f"and the writer (reader listening: {spec.tcp_addr is not None}, token "
+                f"here: {bool(token)})")
         deadline = time.monotonic() + connect_timeout
         last: Optional[Exception] = None
         while time.monotonic() < deadline:
             try:
-                s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-                try:
-                    s.connect(spec.uds_path)
-                    self._ring = _Ring(spec.ring_path, spec.capacity, create=False)
-                except OSError:
-                    s.close()
-                    raise
-                s.setblocking(False)
-                self._sock = s
+                if os.path.exists(spec.ring_path):
+                    self._attach_ring(spec)
+                else:
+                    self._attach_stream(spec, token)
                 return
             except OSError as e:
                 last = e
                 time.sleep(0.05)
         raise ConnectionError(f"cannot attach channel {spec.name}: {last}")
+
+    def _attach_ring(self, spec: ChannelSpec) -> None:
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            s.connect(spec.uds_path)
+            self._ring = _Ring(spec.ring_path, spec.capacity, create=False)
+        except OSError:
+            s.close()
+            raise
+        s.setblocking(False)
+        self._sock = s
+
+    def _attach_stream(self, spec: ChannelSpec, token: str) -> None:
+        """The ring is on another host's filesystem: the stream, whose first
+        frame is the token."""
+        s = socket.create_connection(spec.tcp_addr, timeout=5.0)
+        try:
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            first = _AUTH_PREFIX + token.encode()
+            s.sendall(_LEN.pack(len(first)) + first)
+        except OSError:
+            s.close()
+            raise
+        self._stream = s
 
     def write(self, value: Any, timeout: Optional[float] = None) -> None:
         self.write_bytes(serialization.dumps(value), timeout)
@@ -404,6 +534,22 @@ class ChannelWriter:
         _flight_record("chan.write", (self.spec.name, len(payload)))
 
     def _write_bytes_inner(self, payload: bytes, timeout: Optional[float]) -> None:
+        if self._stream is not None:
+            self._stream.settimeout(timeout)
+            try:
+                self._stream.sendall(_LEN.pack(len(payload)))
+                self._stream.sendall(payload)
+            except socket.timeout:
+                # Part of the frame may be on the wire: the stream cannot
+                # carry another one.
+                self.close()
+                raise TimeoutError(
+                    f"channel {self.spec.name}: peer stalled after {timeout}s (backpressure)"
+                ) from None
+            except OSError as e:
+                raise ChannelClosed(self.spec.name) from e
+            self._record_write(len(payload), None)
+            return
         ring = self._ring
         # Half-capacity record cap: guarantees wrap-tail + record always fit
         # in an empty ring ((cap-off)+rec < cap), so a full-size record can
@@ -442,7 +588,7 @@ class ChannelWriter:
             return
         self._m_msgs.inc()
         self._m_bytes.inc(float(nbytes))
-        if occupancy > self._hwm:
+        if occupancy is not None and occupancy > self._hwm:
             self._hwm = occupancy
             self._m_hwm.set(float(occupancy))
 
@@ -458,8 +604,9 @@ class ChannelWriter:
             with contextlib.suppress(Exception):
                 self._ring.set_writer_closed()
             _token(self._sock)
-        if self._sock is not None:
-            with contextlib.suppress(OSError):
-                self._sock.close()
+        for s in (self._sock, self._stream):
+            if s is not None:
+                with contextlib.suppress(OSError):
+                    s.close()
         if self._ring is not None:
             self._ring.close()

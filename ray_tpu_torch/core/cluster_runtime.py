@@ -59,8 +59,8 @@ through it, which is what `init(address=<session dir> | "auto")` does
 raylet registers with them, the GCS keeps them in its snapshot and log,
 and list_nodes / `nodes()` show them as `Labels`.
 
-Left out (ROADMAP Queue 1, item 3.3's remainder): streaming returns through
-a remote client.
+A remote client (core/client_runtime.py) iterates streaming returns too:
+each step is one long poll on its gateway raylet.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ from .. import tracing as _tracing
 from ..utils import config
 from . import serialization
 from ..native.build import shm_pool_lib
+from .gcs_shards import resolve_shard_count
 from .ids import ActorID, ObjectID, TaskID
 from .object_transport import StoredError
 from .rpc import RpcClient, require_auth_token
@@ -830,31 +831,43 @@ class ClusterRuntime(Runtime):
         h_item, h_header = item_oid.hex(), header_oid.hex()
         deadline = None if timeout is None else time.monotonic() + timeout
         last_remote_check = 0.0
+        header_seen = False
         while True:
             if h_item in self._memstore or self._store.contains(item_oid):
-                with self._ref_lock:
-                    if h_item not in self._owned:
-                        self._owned.add(h_item)
-                        if h_item not in self._memstore:
-                            self._escaped.add(h_item)
+                self._adopt_stream_item(h_item)
                 return item_oid
             if h_header in self._memstore or self._store.contains(header_oid):
                 hdr = self._get_one(header_oid, None)
                 if index >= hdr.get(STREAM_COUNT_KEY, 0):
                     return None
+                header_seen = True
             if deadline is not None and time.monotonic() >= deadline:
                 raise exc.GetTimeoutError(f"stream item {index} of {task_id.hex()[:12]} timed out")
             now = time.monotonic()
             if now - last_remote_check > 2.0:
                 last_remote_check = now
+                # The raylet pulls in an item made on another node. Once the
+                # header is here the wait is for the item alone: a header
+                # already local satisfies a wait for either, which would
+                # return before the item's pull starts (the JAX copy's
+                # in-cluster stream then blocks from its second remote item).
+                want = [h_item] if header_seen else [h_item, h_header]
                 try:
-                    self._raylet.call("wait_objects", [h_item, h_header], 1, 0.2, True,
-                                      timeout=10.0)
+                    self._raylet.call("wait_objects", want, 1, 0.2, True, timeout=10.0)
                 except Exception:  # noqa: BLE001 - advisory
                     pass
                 continue
             with self._fast_seal_cv:
                 self._fast_seal_cv.wait(timeout=0.05)
+
+    def _adopt_stream_item(self, h: str) -> None:
+        """First sight of a stream item the task made: this process owns it,
+        and one outside its memstore lives in a store (escaped)."""
+        with self._ref_lock:
+            if h not in self._owned:
+                self._owned.add(h)
+                if h not in self._memstore:
+                    self._escaped.add(h)
 
     def stream_done(self, task_id) -> None:
         prefix = task_id.hex()[:24]
@@ -1154,12 +1167,14 @@ def _running(pid: int) -> bool:
         return False
 
 
-def _spawn_daemon(log_dir: str, cmd: List[str], name: str) -> subprocess.Popen:
+def _spawn_daemon(log_dir: str, cmd: List[str], name: str,
+                  env_extra: Optional[Dict[str, str]] = None) -> subprocess.Popen:
     """Spawns a daemon with stdout/stderr captured under `log_dir`, from the
     directory that holds this package (so that `python -m ray_tpu_torch...`
-    finds it whatever the caller's cwd)."""
+    finds it whatever the caller's cwd), with this process's environment
+    and `env_extra` over it."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env = dict(os.environ)
+    env = {**os.environ, **(env_extra or {})}
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     with open(os.path.join(log_dir, f"{name}.out"), "ab", buffering=0) as out, \
             open(os.path.join(log_dir, f"{name}.err"), "ab", buffering=0) as err:
@@ -1292,7 +1307,12 @@ class Cluster:
                              self.gcs_snapshot]
             if self._tcp_mode:
                 self._gcs_cmd.append(f"tcp://{node_ip}:{int(head_port)}")
-            self._procs["gcs"] = _spawn_daemon(self.log_dir, self._gcs_cmd, "gcs")
+            # The GCS's hot-table shard count (core/gcs_shards.py), fixed for
+            # the cluster's life: a restarted GCS gets the same one.
+            self.gcs_shards = resolve_shard_count()
+            self._gcs_env = {"RAY_TPU_GCS_SHARDS": str(self.gcs_shards)}
+            self._procs["gcs"] = _spawn_daemon(self.log_dir, self._gcs_cmd, "gcs",
+                                               self._gcs_env)
             self._gcs = RpcClient(self.gcs_sock)
             self._gcs.call("ping")
             if self._tcp_mode:
@@ -1327,15 +1347,16 @@ class Cluster:
             raise
 
     def restart_gcs(self) -> None:
-        """Kills the GCS daemon and starts it again with the same command:
-        its tables come back from the snapshot and the write-ahead log, and
+        """Kills the GCS daemon and starts it again with the same command and
+        shard count: its tables come back from the snapshot and every
+        segment of the write-ahead log, and
         the raylets' heartbeats find it again (a raylet it lost registers
         anew). Every client (the driver's, the raylets', the workers')
         reconnects on its next call."""
         proc = self._procs.pop("gcs")
         proc.kill()
         proc.wait(timeout=5.0)
-        self._procs["gcs"] = _spawn_daemon(self.log_dir, self._gcs_cmd, "gcs")
+        self._procs["gcs"] = _spawn_daemon(self.log_dir, self._gcs_cmd, "gcs", self._gcs_env)
         probe = RpcClient(self.gcs_sock)  # waits out the daemon's boot
         try:
             probe.call("ping")

@@ -29,7 +29,8 @@ metrics tables (`report_metrics`, `report_internal_metrics`), the error
 table (`report_error`, published on `error_reports`), each node's labels
 (`register_node(labels=)`, list_nodes' `Labels`), the per-method RPC count
 and latency (`_observe_rpc`, called by core/rpc.py's server), ping and stop.
-Its locks come from utils/lock_order.py (`gcs.state`, `gcs.incidents`).
+Its locks come from utils/lock_order.py (`gcs.state`, `gcs.shardNN`,
+`gcs.incidents`).
 Membership is epoch-fenced: every registration stamps the node's next
 epoch, and the raylet's mutations (heartbeat, node_sync, actor reports,
 location removals) carry the epoch they were granted. A node declared dead
@@ -38,13 +39,30 @@ stale epoch, gets StaleNodeEpochError and never flips the node back alive:
 its raylet kills its workers and registers again as a fresh incarnation
 (`node_fenced` on `node_events`).
 
-Durability: with a snapshot path, the control tables are pickled to it
-every GCS_SNAPSHOT_INTERVAL_S (tmp file + os.replace), and every mutation
-between two snapshots is appended to one write-ahead log beside it. A GCS
-restarted on the same path loads the snapshot and replays the log over it,
-so actors, named actors, placement groups, the KV and the node epochs
-survive; raylets keep beating with their epochs, and one the GCS lost
-registers again.
+Hot tables in shards (core/gcs_shards.py). Nodes with their epochs, actors,
+and the object directory with its frees, borrows and deferred frees live in
+RAY_TPU_GCS_SHARDS (default 8) key-hashed shards, `crc32(key) % count`, each
+with its own lock (`gcs.shardNN`), its own log segment and an alive-node
+counter, so a heartbeat reads the alive count in O(shards) and touches only
+its node's shard. Names, placement groups, the KV, tasks, incidents and the
+metrics tables stay under `gcs.state`. Lock order: `gcs.state` may be held
+while a shard lock is taken, never the other way round, and shard locks
+nest in ascending index only; a join across shards (placement, the
+stranded-actor sweep, frees, listings) takes them one at a time, in
+ascending order. `register_nodes` admits a batch with one group commit per
+shard touched. With RAY_TPU_GCS_SHARDS=1 it is one lock and one segment.
+
+Durability: with a snapshot path, the tables are pickled to it every
+GCS_SNAPSHOT_INTERVAL_S (tmp file + os.replace), the sharded ones merged
+under their table names, and every mutation between two snapshots is
+appended to a write-ahead log beside it: the control tables' to
+`<snapshot>.wal`, each shard's to `<snapshot>.wal.sNN`. A GCS restarted on
+the same path loads the snapshot and replays every `<snapshot>.wal*` file
+over it, routing each record by its table and key under the current shard
+count (so a log of a single-file GCS, or of another shard count, recovers
+whole), then snapshots and truncates every segment at once. Actors, named
+actors, placement groups, the KV and the node epochs survive; raylets keep
+beating with their epochs, and one the GCS lost registers again.
 
 Incidents (observability/postmortem.py): the GCS arms the trigger bus in
 its own process, and takes remote triggers through `report_trigger`. A
@@ -69,23 +87,27 @@ handler), publishing `slo_alert` firing and cleared events on
 history of its window as `metrics.json`, and the last goodput and MFU in
 its manifest.
 
-Left out: the JAX copy's key-hashed shards (core/gcs_shards.py: no trace of
-the port has shown the one lock contended) and the TPU slice strategy
-SLICE_GANG. This module never imports torch.
+Left out: the TPU slice strategy SLICE_GANG. `mark_node_dead` is the
+counterpart of the JAX copy's `drain_node`. This module never imports
+torch.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import copy
 import logging
 import os
 import pickle
 import sys
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
+from . import gcs_shards as _gsh
 from . import heartbeat as _hb
+from .gcs_shards import encode_wal_record, iter_wal_records  # noqa: F401 - the codec's old home
 from ..chaos.net import ChaosPartitionRpc
 from ..exceptions import (ActorNameTakenError, PlacementGroupError, SchedulingError,
                           StaleNodeEpochError)
@@ -100,31 +122,7 @@ from ..utils import lock_order
 _log = logging.getLogger("ray_tpu_torch.gcs")
 
 TASK_TABLE_CAP = 50_000
-FREED_CAP = 200_000
-
-
-def encode_wal_record(table: str, key: Any, value: Any) -> bytes:
-    """One length-prefixed write-ahead-log record (the codec of
-    ray_tpu/core/gcs_shards.py)."""
-    rec = pickle.dumps((table, key, value))
-    return len(rec).to_bytes(4, "little") + rec
-
-
-def iter_wal_records(data: bytes) -> Iterator[Tuple[str, Any, Any]]:
-    """Decodes a write-ahead log, tolerating a torn tail (a crash mid-
-    append): the partial record and anything after it are dropped."""
-    pos = 0
-    while pos + 4 <= len(data):
-        n = int.from_bytes(data[pos:pos + 4], "little")
-        pos += 4
-        if pos + n > len(data):
-            return
-        try:
-            table, key, value = pickle.loads(data[pos:pos + n])
-        except Exception:  # noqa: BLE001 - a corrupt tail: what came before is applied
-            return
-        pos += n
-        yield table, key, value
+FREED_CAP = 200_000  # free tombstones kept, split over the shards (1024 each at least)
 
 
 def _is_hard_affinity(strategy: str) -> bool:
@@ -135,27 +133,25 @@ def _is_hard_affinity(strategy: str) -> bool:
 
 
 class GcsService(ChaosPartitionRpc):
-    # The tables a snapshot holds. Object locations, frees and borrows ride
-    # the snapshot only (a high-rate data plane, rebuilt by the raylets'
-    # syncs); the rest is also written ahead, mutation by mutation.
+    # The tables a snapshot holds, the sharded ones merged under these names
+    # (the single-lock GCS's format). Object locations, frees and borrows
+    # ride the snapshot only (a high-rate data plane, rebuilt by the
+    # raylets' syncs); the rest is also written ahead, mutation by mutation.
     _PERSISTED = ("_nodes", "_node_epochs", "_actors", "_named", "_pgs", "_kv",
                   "_objects", "_freed", "_borrows", "_deferred_free")
     _WAL_TABLES = ("_nodes", "_node_epochs", "_actors", "_named", "_pgs", "_kv")
+    _CONTROL = ("_named", "_pgs", "_kv")
+    # Sharded table -> its attribute on a GcsShard.
+    _SHARD_ATTRS = {"_nodes": "nodes", "_node_epochs": "node_epochs", "_actors": "actors",
+                    "_objects": "objects", "_freed": "freed", "_borrows": "borrows",
+                    "_deferred_free": "deferred_free"}
 
     def __init__(self, snapshot_path: Optional[str] = None,
-                 session_dir: Optional[str] = None):
-        # One lock over every table. The JAX copy splits nodes, actors and
-        # objects into key-hashed shards (gcs_shards.py); no trace of this
-        # runtime has shown the lock contended, so the port keeps one.
+                 session_dir: Optional[str] = None, shards: Optional[int] = None):
+        # The control lock, over every table that is not in a shard.
         self._lock = lock_order.tracked_rlock("gcs.state")
-        self._nodes: Dict[str, dict] = {}
-        self._node_epochs: Dict[str, int] = {}
-        self._alive_count = 0
-        self._actors: Dict[str, dict] = {}
-        self._objects: Dict[str, Set[str]] = {}
-        self._freed: "collections.OrderedDict[str, bool]" = collections.OrderedDict()
-        self._borrows: Dict[str, int] = {}
-        self._deferred_free: Set[str] = set()
+        self._nshards = _gsh.resolve_shard_count(shards)
+        self._shards = _gsh.make_shards(self._nshards)
         self._named: Dict[Tuple[str, str], str] = {}
         self._kv: Dict[str, bytes] = {}
         self._pgs: Dict[str, dict] = {}
@@ -171,7 +167,8 @@ class GcsService(ChaosPartitionRpc):
         # Demand forecasts by source, {source: (launches expected, expiry)}:
         # each heartbeat reply hands a node its share as `pool_hint`, so its
         # warm pool is sized before the launches arrive; each actor
-        # registration consumes one unit.
+        # registration consumes one unit. Replaced whole on every write, so
+        # the heartbeat reads it without the control lock.
         self._demand_forecast: Dict[str, Tuple[int, float]] = {}
         # The pubsub log: channel -> [(seq, message)], a bounded ring per
         # channel; subscribers long-poll with their cursor.
@@ -201,10 +198,13 @@ class GcsService(ChaosPartitionRpc):
         if snapshot_path:
             self._load_snapshot()
             self._replay_wal()
-            self._alive_count = sum(1 for n in self._nodes.values() if n["alive"])
             self._wal_f = open(self._wal_path, "ab")
-            # What was replayed is folded into one snapshot at once, and the
-            # log starts empty.
+            for sh in self._shards:
+                sh.wal_open(_gsh.wal_segment_path(snapshot_path, sh.index))
+                sh.recount_alive()
+            # What was replayed (a single-file log, segments of another shard
+            # count) is folded into one snapshot at once and every segment
+            # starts empty, so each live segment is of this shard count.
             self._save_snapshot()
         self._health = threading.Thread(target=self._health_loop, daemon=True, name="health")
         self._health.start()
@@ -221,36 +221,81 @@ class GcsService(ChaosPartitionRpc):
         # watchdog's alerts) publish straight to _trigger.
         _postmortem.arm(self._trigger)
 
+    # ------------------------------------------------------ shard routing
+    def _shard_for(self, key: str) -> _gsh.GcsShard:
+        """The shard of a node id, an actor id or an object id."""
+        return self._shards[_gsh.shard_index(key, self._nshards)]
+
+    def _by_shard(self, keys) -> Dict[int, List[str]]:
+        """Groups keys by shard index; callers walk the groups in ascending
+        order."""
+        out: Dict[int, List[str]] = {}
+        for k in keys:
+            out.setdefault(_gsh.shard_index(k, self._nshards), []).append(k)
+        return out
+
+    @contextlib.contextmanager
+    def _locked(self, sh: _gsh.GcsShard):
+        """A shard's lock with its wait measured
+        (raytpu_gcs_shard_lock_wait_ms). `gcs.state` may be held on entry;
+        never take it while a shard lock is held."""
+        t0 = time.perf_counter()
+        with sh.lock:
+            imet.GCS_SHARD_LOCK_WAIT.observe((time.perf_counter() - t0) * 1e3,
+                                             shard=str(sh.index))
+            yield sh
+
+    def _alive_nodes(self) -> int:
+        """The alive count off the shards' counters, without a lock (a torn
+        read across counters is at worst one heartbeat stale)."""
+        return sum(sh.alive_count for sh in self._shards)
+
     # -------------------------------------------------------- persistence
     def _load_snapshot(self) -> None:
+        """Loads the snapshot, each sharded table's records onto their
+        shards (the constructor's, before any other thread)."""
         try:
             with open(self._snapshot_path, "rb") as f:
                 data = pickle.load(f)
         except (OSError, EOFError, pickle.UnpicklingError):
             return
+        for name in self._CONTROL:
+            if name in data:
+                setattr(self, name, data[name])
         now = time.monotonic()
-        with self._lock:
-            for name in self._PERSISTED:
-                if name in data:
-                    setattr(self, name, data[name])
-            for n in self._nodes.values():
-                # A loaded node gets a fresh heartbeat window; one that is
-                # really gone expires through the health loop.
-                n["last_hb"] = now
+        for name, attr in self._SHARD_ATTRS.items():
+            merged = data.get(name)
+            if merged is None:
+                continue
+            if isinstance(merged, (set, frozenset)):
+                for key in merged:
+                    getattr(self._shard_for(key), attr).add(key)
+                continue
+            for key, value in merged.items():
+                if name == "_nodes":
+                    # A loaded node gets a fresh heartbeat window; one that
+                    # is really gone expires through the health loop.
+                    value["last_hb"] = now
+                getattr(self._shard_for(key), attr)[key] = value
 
     def _replay_wal(self) -> None:
-        """Applies the log over the loaded snapshot, in order; a torn tail
-        is dropped (iter_wal_records)."""
-        try:
-            with open(self._wal_path, "rb") as f:
-                data = f.read()
-        except OSError:
-            return
-        with self._lock:
+        """Applies every log of this snapshot over it: the control segment
+        (with the sharded tables' records of a single-file GCS) first, then
+        the shard segments, each record routed by its table and key under
+        the current shard count. A torn tail is dropped (iter_wal_records).
+        Runs in the constructor, before any other thread."""
+        for path in _gsh.discover_wal_paths(self._snapshot_path):
+            try:
+                with open(path, "rb") as f:
+                    data = f.read()
+            except OSError:
+                continue
             for table, key, value in iter_wal_records(data):
                 if table not in self._WAL_TABLES:
                     continue
-                d = getattr(self, table)
+                attr = self._SHARD_ATTRS.get(table)
+                d = (getattr(self, table) if attr is None
+                     else getattr(self._shard_for(key), attr))
                 if value is None:
                     d.pop(key, None)
                 else:
@@ -259,9 +304,11 @@ class GcsService(ChaosPartitionRpc):
                         value["last_hb"] = time.monotonic()
 
     def _persist_delta(self, table: str, key: Any, value: Any) -> None:
-        """Appends one mutation to the log (value None deletes). Called with
-        self._lock held, as the snapshot's cut of the log is taken under it:
-        no record can fall between the two."""
+        """Appends one control-table mutation (_named, _pgs, _kv) to the
+        control segment (value None deletes). Called with self._lock held,
+        as the snapshot's cut of the segment is taken under it: no record
+        can fall between the two. A sharded table's mutation goes to its
+        shard's segment under that shard's lock (GcsShard.wal_append)."""
         if self._wal_f is None:
             return
         try:
@@ -273,22 +320,45 @@ class GcsService(ChaosPartitionRpc):
                 _log.warning("WAL append failed; durability degraded to snapshots: %r", e)
 
     def _save_snapshot(self) -> None:
-        """Pickles the persisted tables under the lock, with the log's
-        length at that moment; writes the file outside it (tmp +
-        os.replace); only then drops the covered prefix of the log, so a
-        failed write or a crash in between loses nothing."""
+        """Copies the control tables under the control lock and each shard's
+        tables under its lock, with each segment's length at that moment;
+        pickles and writes the file outside every lock (tmp + os.replace);
+        only then drops each segment's covered prefix, so a failed write or
+        a crash in between loses nothing."""
         if not self._snapshot_path:
             return
+        data: Dict[str, Any] = {}
         with self._lock:
-            try:
-                blob = pickle.dumps({name: getattr(self, name) for name in self._PERSISTED})
-            except Exception as e:  # noqa: BLE001 - the log still holds everything
-                _log.warning("GCS snapshot failed to pickle: %r", e)
-                return
+            for name in self._CONTROL:
+                data[name] = copy.copy(getattr(self, name))
             covered = 0
             if self._wal_f is not None:
                 self._wal_f.flush()
                 covered = self._wal_f.tell()
+        for name in self._SHARD_ATTRS:
+            data[name] = set() if name == "_deferred_free" else {}
+        data["_freed"] = collections.OrderedDict()
+        shard_covered: List[int] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                for name, attr in self._SHARD_ATTRS.items():
+                    part = getattr(sh, attr)
+                    if isinstance(part, set):
+                        data[name] |= part
+                    elif name == "_objects":
+                        data[name].update((h, set(locs)) for h, locs in part.items())
+                    elif name in ("_nodes", "_actors"):
+                        # Deep: a heartbeat rewrites a record's nested dicts
+                        # while the pickle (outside the lock) walks them.
+                        data[name].update(copy.deepcopy(part))
+                    else:
+                        data[name].update(part)
+                shard_covered.append(sh.wal_covered())
+        try:
+            blob = pickle.dumps(data)
+        except Exception as e:  # noqa: BLE001 - the logs still hold everything
+            _log.warning("GCS snapshot failed to pickle: %r", e)
+            return
         tmp = self._snapshot_path + ".tmp"
         try:
             with open(tmp, "wb") as f:
@@ -297,45 +367,97 @@ class GcsService(ChaosPartitionRpc):
         except OSError as e:
             _log.warning("GCS snapshot write failed (retried next interval): %r", e)
             return
-        if not covered:
+        if covered:
+            with self._lock:
+                self._rotate_control_wal(covered)
+        for sh, cov in zip(self._shards, shard_covered):
+            if cov:
+                with self._locked(sh):
+                    sh.wal_rotate(cov)
+
+    def _rotate_control_wal(self, covered: int) -> None:
+        """Drops the control segment's first `covered` bytes (now in the
+        snapshot); self._lock held."""
+        if self._wal_f is None:
             return
-        with self._lock:
-            if self._wal_f is None:
-                return
-            try:
-                self._wal_f.flush()
-                with open(self._wal_path, "rb") as rf:
-                    rf.seek(covered)
-                    suffix = rf.read()
-                self._wal_f.close()
-                with open(self._wal_path, "wb") as wf:
-                    wf.write(suffix)
+        try:
+            self._wal_f.flush()
+            with open(self._wal_path, "rb") as rf:
+                rf.seek(covered)
+                suffix = rf.read()
+            self._wal_f.close()
+            with open(self._wal_path, "wb") as wf:
+                wf.write(suffix)
+            self._wal_f = open(self._wal_path, "ab")
+        except OSError as e:
+            _log.warning("WAL rotation failed: %r", e)
+            try:  # never leave the log closed
                 self._wal_f = open(self._wal_path, "ab")
-            except OSError as e:
-                _log.warning("WAL rotation failed: %r", e)
-                try:  # never leave the log closed
-                    self._wal_f = open(self._wal_path, "ab")
-                except OSError:
-                    self._wal_f = None
+            except OSError:
+                self._wal_f = None
 
     def _nodes_view_for(self, nids) -> Dict[str, dict]:
-        """Resolves node ids to {sock, store, alive}."""
+        """Resolves node ids to {sock, store, alive}, one shard at a time in
+        ascending order: the join of object reads and frees."""
         out: Dict[str, dict] = {}
-        with self._lock:
-            for nid in set(nids):
-                n = self._nodes.get(nid)
-                if n is not None:
-                    out[nid] = {"sock": n["sock"], "store": n["store"], "alive": n["alive"]}
+        groups = self._by_shard(set(nids))
+        for idx in sorted(groups):
+            with self._locked(self._shards[idx]) as sh:
+                for nid in groups[idx]:
+                    n = sh.nodes.get(nid)
+                    if n is not None:
+                        out[nid] = {"sock": n["sock"], "store": n["store"],
+                                    "alive": n["alive"]}
         return out
 
     def _node_sock(self, node_id: str, alive_only: bool = True) -> Optional[str]:
-        with self._lock:
-            n = self._nodes.get(node_id)
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             if n is None or (alive_only and not n["alive"]):
                 return None
             return n["sock"]
 
     # -------------------------------------------------------------- nodes
+    @staticmethod
+    def _register_node_locked(sh: _gsh.GcsShard, node_id: str, sock_path: str,
+                              store_path: str, resources: dict, labels: Optional[dict],
+                              wal_out: List[Tuple[str, Any, Any]]) -> int:
+        """Inserts one node record with its next epoch (its shard's lock
+        held), collecting the log records into `wal_out` for one group
+        commit; returns the epoch."""
+        epoch = sh.node_epochs.get(node_id, 0) + 1
+        sh.node_epochs[node_id] = epoch
+        prev = sh.nodes.get(node_id)
+        if prev is None or not prev["alive"]:
+            sh.alive_count += 1
+        sh.nodes[node_id] = {
+            "sock": sock_path,
+            "store": store_path,
+            "resources": dict(resources),
+            "available": dict(resources),
+            "labels": dict(labels or {}),
+            "alive": True,
+            "epoch": epoch,
+            "last_hb": time.monotonic(),
+        }
+        wal_out.append(("_node_epochs", node_id, epoch))
+        wal_out.append(("_nodes", node_id, sh.nodes[node_id]))
+        return epoch
+
+    def _post_register(self, registered: List[Tuple[str, int]]) -> None:
+        """After registrations, outside every lock: the flight records, the
+        stranded-actor sweep (new capacity is its retry trigger), and each
+        node's `node_added` event and node-table row."""
+        for node_id, epoch in registered:
+            _flight_record("node.added", (node_id[:12], epoch))
+        self._kick_stranded_restarts()
+        for node_id, epoch in registered:
+            # Capacity waiters (TorchTrainer's renegotiation) block on
+            # node_events: a join is as much a lifecycle event as a drain.
+            self.pubsub_publish("node_events", {"event": "node_added", "node_id": node_id,
+                                                "epoch": epoch, "ts": time.time()})
+            self._publish_node_delta(node_id)
+
     def register_node(self, node_id: str, sock_path: str, store_path: str,
                       resources: dict, labels: Optional[dict] = None) -> dict:
         """Registers a node with its next epoch: a fenced incarnation that
@@ -343,73 +465,78 @@ class GcsService(ChaosPartitionRpc):
         stays rejected. `labels` (the node's key/value tags: a provider's
         cloud id, a slice's name and index) ride the record, the snapshot
         and the log, and come back in list_nodes' `Labels`."""
-        with self._lock:
-            epoch = self._node_epochs.get(node_id, 0) + 1
-            self._node_epochs[node_id] = epoch
-            prev = self._nodes.get(node_id)
-            if prev is None or not prev["alive"]:
-                self._alive_count += 1
-            self._nodes[node_id] = {
-                "sock": sock_path,
-                "store": store_path,
-                "resources": dict(resources),
-                "available": dict(resources),
-                "labels": dict(labels or {}),
-                "alive": True,
-                "epoch": epoch,
-                "last_hb": time.monotonic(),
-            }
-            self._persist_delta("_node_epochs", node_id, epoch)
-            self._persist_delta("_nodes", node_id, self._nodes[node_id])
-            nodes = self._alive_count
-        _flight_record("node.added", (node_id[:12], epoch))
-        self._kick_stranded_restarts()
-        # Capacity waiters (TorchTrainer's renegotiation) block on
-        # node_events: a join is as much a lifecycle event as a drain.
-        self.pubsub_publish("node_events", {"event": "node_added", "node_id": node_id,
-                                            "epoch": epoch, "ts": time.time()})
-        self._publish_node_delta(node_id)
+        wal: List[Tuple[str, Any, Any]] = []
+        with self._locked(self._shard_for(node_id)) as sh:
+            epoch = self._register_node_locked(sh, node_id, sock_path, store_path,
+                                               resources, labels, wal)
+            sh.wal_append_many(wal)
+        nodes = self._alive_nodes()
+        self._post_register([(node_id, epoch)])
         return {"ok": True, "nodes": nodes, "epoch": epoch}
 
+    def register_nodes(self, specs: List[dict]) -> List[dict]:
+        """Batched registration: one RPC admits a storm of nodes. The batch
+        is applied per shard, in ascending shard order, each shard's records
+        landing as one group commit (one write and one flush per shard
+        touched). Spec keys: node_id, sock, store, resources, labels."""
+        epochs: Dict[str, int] = {}
+        groups: Dict[int, List[dict]] = {}
+        for s in specs:
+            groups.setdefault(_gsh.shard_index(s["node_id"], self._nshards), []).append(s)
+        for idx in sorted(groups):
+            wal: List[Tuple[str, Any, Any]] = []
+            with self._locked(self._shards[idx]) as sh:
+                for s in groups[idx]:
+                    epochs[s["node_id"]] = self._register_node_locked(
+                        sh, s["node_id"], s["sock"], s["store"], s.get("resources") or {},
+                        s.get("labels"), wal)
+                sh.wal_append_many(wal)
+        nodes = self._alive_nodes()
+        self._post_register([(s["node_id"], epochs[s["node_id"]]) for s in specs])
+        return [{"ok": True, "nodes": nodes, "epoch": epochs[s["node_id"]]} for s in specs]
+
     # ------------------------------------------------------------ fencing
-    def _mark_fenced_locked(self, node_id: str, n: dict) -> bool:
-        """Stamps FENCED on a dead or stale node record (self._lock held);
-        True on the first fencing of this incarnation."""
+    @staticmethod
+    def _mark_fenced_locked(sh: _gsh.GcsShard, node_id: str, n: dict) -> bool:
+        """Stamps FENCED on a dead or stale node record (its shard's lock
+        held); True on the first fencing of this incarnation."""
         if n.get("fenced"):
             return False
         if n["alive"]:
-            self._alive_count -= 1
+            sh.alive_count -= 1
         n["alive"] = False  # fencing implies dead: never resurrected in place
         n["fenced"] = True
         n["fenced_ts"] = time.time()
-        self._persist_delta("_nodes", node_id, n)
+        sh.wal_append("_nodes", node_id, n)
         return True
 
-    def _fence_verdict_locked(self, node_id: str, n: dict,
+    def _fence_verdict_locked(self, sh: _gsh.GcsShard, node_id: str, n: dict,
                               epoch: Optional[int]) -> Optional[Tuple[Optional[int], bool]]:
-        """Judges one raylet call against the membership record (self._lock
-        held, so a handler that also mutates the record does both under one
-        acquisition). None when the caller is current, else (current epoch,
-        newly fenced). Only a dead-marked record is stamped FENCED: a stale
-        epoch against an alive record is an old incarnation talking after
-        its successor registered, and the successor's record stays as it
-        is."""
+        """Judges one raylet call against the membership record (its shard's
+        lock held, so a handler that also mutates the record does both
+        under one acquisition). None when the caller is current, else
+        (current epoch, newly fenced). Only a dead-marked record is stamped
+        FENCED: a stale epoch against an alive record is an old incarnation
+        talking after its successor registered, and the successor's record
+        stays as it is."""
         cur = n.get("epoch")
         stale = epoch is not None and cur is not None and epoch != cur
         if n["alive"] and not stale:
             return None
-        newly = self._mark_fenced_locked(node_id, n) if not n["alive"] else False
+        newly = self._mark_fenced_locked(sh, node_id, n) if not n["alive"] else False
         return cur, newly
 
     def _reject_stale_node(self, node_id: str, epoch: Optional[int], context: str) -> None:
         """The fence: raises StaleNodeEpochError when `node_id` is
         dead-marked or `epoch` is not its current one. A caller that never
-        registered (a driver) passes."""
-        with self._lock:
-            n = self._nodes.get(node_id)
+        registered (a driver) passes. Judged under the node's shard lock,
+        which is released before the caller takes the shard of what it
+        mutates: sequential, never nested."""
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             if n is None:
                 return
-            verdict = self._fence_verdict_locked(node_id, n, epoch)
+            verdict = self._fence_verdict_locked(sh, node_id, n, epoch)
         if verdict is not None:
             self._raise_fenced(node_id, epoch, verdict, context)
 
@@ -437,17 +564,21 @@ class GcsService(ChaosPartitionRpc):
     def heartbeat(self, node_id: str, available: Optional[dict] = None,
                   stats: Optional[dict] = None, epoch: Optional[int] = None) -> dict:
         """The 1 Hz fan-in. Payloads are deltas (core/heartbeat.py). A beat
-        from a dead-marked node or an old epoch is fenced, never applied: a
-        zombie flipped back alive in place would keep its workers, and a
-        named actor the GCS already rescheduled would run twice. An unknown
-        node (a GCS that lost it) gets ok False and registers again."""
-        alive = self._alive_count
+        touches only its node's shard: never the control lock, never a scan
+        of the node table. A beat from a dead-marked node or an old epoch
+        is fenced, never applied: a zombie flipped back alive in place would
+        keep its workers, and a named actor the GCS already rescheduled
+        would run twice. An unknown node (a GCS that lost it) gets ok False
+        and registers again."""
+        alive = self._alive_nodes()
+        now = time.monotonic()
+        expected = sum(k for k, exp in self._demand_forecast.values() if k > 0 and now < exp)
         raylet_drained = False
-        with self._lock:
-            n = self._nodes.get(node_id)
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             if n is None:
                 return {"ok": False, "nodes": alive}
-            verdict = self._fence_verdict_locked(node_id, n, epoch)
+            verdict = self._fence_verdict_locked(sh, node_id, n, epoch)
             if verdict is None:
                 if stats:
                     _hb.apply_heartbeat(n, available, dict(stats))
@@ -463,8 +594,6 @@ class GcsService(ChaosPartitionRpc):
                 elif available is not None:
                     n["available"] = dict(available)
                 n["last_hb"] = time.monotonic()
-            now = time.monotonic()
-            expected = sum(k for k, exp in self._demand_forecast.values() if k > 0 and now < exp)
         if verdict is not None:
             self._raise_fenced(node_id, epoch, verdict, "heartbeat")
         pool_hint = -(-expected // alive) if expected > 0 and alive > 0 else 0
@@ -480,21 +609,24 @@ class GcsService(ChaosPartitionRpc):
         that source's previous one, and it expires after `ttl_s`, so a
         reporter that died leaves no pool pinned high."""
         with self._lock:
-            self._demand_forecast[str(source)] = (max(0, int(n)),
-                                                  time.monotonic() + max(0.0, float(ttl_s)))
+            fc = dict(self._demand_forecast)
+            fc[str(source)] = (max(0, int(n)), time.monotonic() + max(0.0, float(ttl_s)))
+            self._demand_forecast = fc
         return True
 
     def _consume_forecast(self, n: int) -> None:
         """Registered launches are no longer expected: they draw the
         forecasts down, sources in sorted order."""
         with self._lock:
-            for src in sorted(self._demand_forecast):
+            fc = dict(self._demand_forecast)
+            for src in sorted(fc):
                 if n <= 0:
                     break
-                k, exp = self._demand_forecast[src]
+                k, exp = fc[src]
                 take = min(k, n)
-                self._demand_forecast[src] = (k - take, exp)
+                fc[src] = (k - take, exp)
                 n -= take
+            self._demand_forecast = fc
 
     # ---------------------------------------------------- preemption/drain
     def report_preemption(self, node_id: str, deadline_s: float = 30.0,
@@ -506,15 +638,15 @@ class GcsService(ChaosPartitionRpc):
         `node_draining` is published once on `node_events`, so gang
         supervisors (the trainer, the Serve controller) checkpoint or replace
         before the machine dies at the deadline."""
-        with self._lock:
-            n = self._nodes.get(node_id)
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             if n is None:
                 return False
             already = bool(n.get("draining"))
             n["draining"] = True
             n["drain_reason"] = reason
             n["drain_deadline"] = time.time() + max(0.0, deadline_s)
-            self._persist_delta("_nodes", node_id, n)
+            sh.wal_append("_nodes", node_id, n)
             sock = n["sock"] if n["alive"] else None
         if already:
             return True
@@ -559,11 +691,14 @@ class GcsService(ChaosPartitionRpc):
 
     def list_nodes(self, limit: Optional[int] = None) -> List[dict]:
         """Every node's record; `limit` bounds the reply, in node-id order."""
-        with self._lock:
-            nids = sorted(self._nodes) if limit is not None else list(self._nodes)
-            if limit is not None:
-                nids = nids[:max(0, int(limit))]
-            return [self._node_entry(nid, self._nodes[nid]) for nid in nids]
+        out: List[dict] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                out.extend(self._node_entry(nid, n) for nid, n in sh.nodes.items())
+        if limit is not None:
+            out.sort(key=lambda e: e["NodeID"])
+            out = out[:max(0, int(limit))]
+        return out
 
     def node_summary(self) -> dict:
         """Membership counts by state and the summed capacity and availability
@@ -571,20 +706,21 @@ class GcsService(ChaosPartitionRpc):
         by_state: Dict[str, int] = {}
         resources: Dict[str, float] = {}
         available: Dict[str, float] = {}
-        draining = 0
-        with self._lock:
-            for n in self._nodes.values():
-                st = self._node_state(n)
-                by_state[st] = by_state.get(st, 0) + 1
-                draining += bool(n.get("draining"))
-                if n["alive"]:
-                    for k, v in n["resources"].items():
-                        resources[k] = resources.get(k, 0.0) + v
-                    for k, v in n["available"].items():
-                        available[k] = available.get(k, 0.0) + v
-            return {"total": len(self._nodes), "alive": self._alive_count,
-                    "draining": draining, "by_state": by_state, "resources": resources,
-                    "available": available}
+        draining = total = 0
+        for sh in self._shards:
+            with self._locked(sh):
+                for n in sh.nodes.values():
+                    total += 1
+                    st = self._node_state(n)
+                    by_state[st] = by_state.get(st, 0) + 1
+                    draining += bool(n.get("draining"))
+                    if n["alive"]:
+                        for k, v in n["resources"].items():
+                            resources[k] = resources.get(k, 0.0) + v
+                        for k, v in n["available"].items():
+                            available[k] = available.get(k, 0.0) + v
+        return {"total": total, "alive": self._alive_nodes(), "draining": draining,
+                "by_state": by_state, "resources": resources, "available": available}
 
     def stats(self) -> dict:
         """Cluster-wide counters (reference: src/ray/stats/metric.h, the
@@ -596,16 +732,21 @@ class GcsService(ChaosPartitionRpc):
         with self._lock:
             for rec in self._tasks.values():
                 tasks[rec["state"]] = tasks.get(rec["state"], 0) + 1
-            for a in self._actors.values():
-                actors[a["state"]] = actors.get(a["state"], 0) + 1
-            for n in self._nodes.values():
-                if n["alive"]:
-                    s = n.get("stats") or {}
-                    for k in store:
-                        store[k] += int(s.get(k, 0))
-            return {"tasks": tasks, "actors": actors, "objects_indexed": len(self._objects),
-                    "store": store, "nodes_alive": self._alive_count,
-                    "placement_groups": len(self._pgs)}
+            n_pgs = len(self._pgs)
+        objects_indexed = 0
+        for sh in self._shards:
+            with self._locked(sh):
+                for a in sh.actors.values():
+                    actors[a["state"]] = actors.get(a["state"], 0) + 1
+                objects_indexed += len(sh.objects)
+                for n in sh.nodes.values():
+                    if n["alive"]:
+                        s = n.get("stats") or {}
+                        for k in store:
+                            store[k] += int(s.get(k, 0))
+        return {"tasks": tasks, "actors": actors, "objects_indexed": objects_indexed,
+                "store": store, "nodes_alive": self._alive_nodes(),
+                "placement_groups": n_pgs}
 
     # The `node_table` channel: one slim row per membership or lifecycle
     # change (registered, draining, dead), so a subscriber mirrors the table
@@ -620,8 +761,8 @@ class GcsService(ChaosPartitionRpc):
                 "sock": n["sock"], "store": n["store"]}
 
     def _publish_node_delta(self, node_id: str) -> None:
-        with self._lock:
-            n = self._nodes.get(node_id)
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             row = self._slim_node(node_id, n) if n is not None else None
         if row is not None:
             self.pubsub_publish("node_table", row)
@@ -635,23 +776,26 @@ class GcsService(ChaosPartitionRpc):
         with self._pubsub_cv:
             log = self._pubsub.get("node_table", [])
             seq = log[-1][0] if log else 0
-        with self._lock:
-            nodes = [self._slim_node(nid, n) for nid, n in self._nodes.items()]
+        nodes: List[dict] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                nodes.extend(self._slim_node(nid, n) for nid, n in sh.nodes.items())
         imet.GCS_PUBSUB_RESYNCS.inc(channel="node_table.snapshot")
         return {"seq": seq, "nodes": nodes}
 
     def node_info(self, node_id: str) -> Optional[dict]:
-        with self._lock:
-            n = self._nodes.get(node_id)
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             return dict(n) if n else None
 
     def _resource_sum(self, key: str) -> Dict[str, float]:
         out: Dict[str, float] = {}
-        with self._lock:
-            for n in self._nodes.values():
-                if n["alive"]:
-                    for k, v in n[key].items():
-                        out[k] = out.get(k, 0.0) + v
+        for sh in self._shards:
+            with self._locked(sh):
+                for n in sh.nodes.values():
+                    if n["alive"]:
+                        for k, v in n[key].items():
+                            out[k] = out.get(k, 0.0) + v
         return out
 
     def cluster_resources(self) -> Dict[str, float]:
@@ -660,28 +804,37 @@ class GcsService(ChaosPartitionRpc):
     def available_resources(self) -> Dict[str, float]:
         return self._resource_sum("available")
 
+    def _live_nodes(self, exclude: Set[str] = frozenset()) -> List[Tuple[str, dict]]:
+        """(node id, record copy) of every alive, not-draining node outside
+        `exclude`, one shard at a time, in node-id order (a stable order
+        under any shard layout). A draining node is leaving: work placed
+        there would be lost at the preemption deadline."""
+        out: List[Tuple[str, dict]] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                out.extend((nid, {"sock": n["sock"], "store": n["store"],
+                                  "resources": dict(n["resources"]),
+                                  "available": dict(n["available"])})
+                           for nid, n in sh.nodes.items()
+                           if n["alive"] and not n.get("draining") and nid not in exclude)
+        out.sort(key=lambda e: e[0])
+        return out
+
     def pick_node(self, resources: dict, exclude: Optional[List[str]] = None,
                   mode: str = "pack") -> Optional[dict]:
         """Best-fit node for a resource request (the cluster-level half of the
         two-level scheduler; reference: cluster_resource_scheduler.h:44 and
         the spread policy). "pack" picks the most-utilized feasible node,
         "spread" round-robins over feasible nodes."""
-        exclude = set(exclude or [])
         feasible: List[dict] = []
-        with self._lock:
-            for nid, n in self._nodes.items():
-                if nid in exclude or not n["alive"] or n.get("draining"):
-                    # A draining node is leaving: work placed there would
-                    # be lost at the preemption deadline.
-                    continue
-                avail = n["available"]
-                if all(avail.get(k, 0.0) >= v for k, v in resources.items()):
-                    used = 1.0 - sum(avail.values()) / (sum(n["resources"].values()) or 1.0)
-                    feasible.append({"node_id": nid, "sock": n["sock"],
-                                     "store": n["store"], "_used": used})
+        for nid, n in self._live_nodes(set(exclude or [])):
+            avail = n["available"]
+            if all(avail.get(k, 0.0) >= v for k, v in resources.items()):
+                used = 1.0 - sum(avail.values()) / (sum(n["resources"].values()) or 1.0)
+                feasible.append({"node_id": nid, "sock": n["sock"], "store": n["store"],
+                                 "_used": used})
         if not feasible:
             return None
-        feasible.sort(key=lambda e: e["node_id"])  # a stable order for the round robin
         if mode == "spread":
             with self._lock:
                 self._spread_rr += 1
@@ -704,25 +857,28 @@ class GcsService(ChaosPartitionRpc):
             lag_records: List[dict] = []
             sample_lag = tick % 10 == 0 and self._history is not None
             lag = imet.NODE_HEARTBEAT_LAG
-            now = time.monotonic()
-            with self._lock:
-                for nid, n in self._nodes.items():
-                    if not n["alive"]:
-                        continue
-                    if now - n["last_hb"] > config.HEARTBEAT_TIMEOUT_S:
-                        n["alive"] = False
-                        self._alive_count -= 1
-                        self._persist_delta("_nodes", nid, n)
-                        dead.append(nid)
-                    elif sample_lag:
-                        # Each alive node's heartbeat lag once a second, the
-                        # signal of the heartbeat_lag rule. Built by hand
-                        # from the catalog entry and merged at once: an
-                        # in-process GcsService has no flusher wired to it.
-                        lag_records.append({
-                            "name": lag.name, "kind": lag.kind, "value": now - n["last_hb"],
-                            "tags": {"component": lag.component, "node_id": "gcs",
-                                     lag.tag_keys[0]: nid[:12]}})
+            for sh in self._shards:
+                with self._locked(sh):
+                    now = time.monotonic()
+                    for nid, n in sh.nodes.items():
+                        if not n["alive"]:
+                            continue
+                        if now - n["last_hb"] > config.HEARTBEAT_TIMEOUT_S:
+                            n["alive"] = False
+                            sh.alive_count -= 1
+                            sh.wal_append("_nodes", nid, n)
+                            dead.append(nid)
+                        elif sample_lag:
+                            # Each alive node's heartbeat lag once a second,
+                            # the signal of the heartbeat_lag rule. Built by
+                            # hand from the catalog entry and merged at once:
+                            # an in-process GcsService has no flusher wired
+                            # to it.
+                            lag_records.append({
+                                "name": lag.name, "kind": lag.kind,
+                                "value": now - n["last_hb"],
+                                "tags": {"component": lag.component, "node_id": "gcs",
+                                         lag.tag_keys[0]: nid[:12]}})
             if lag_records:
                 self.report_internal_metrics("gcs", lag_records)
             for nid in dead:
@@ -730,14 +886,15 @@ class GcsService(ChaosPartitionRpc):
 
     def mark_node_dead(self, node_id: str) -> bool:
         """A node known to be gone (its raylet was killed by the cluster that
-        started it): declared dead now instead of after the heartbeat timeout."""
-        with self._lock:
-            n = self._nodes.get(node_id)
+        started it): declared dead now instead of after the heartbeat
+        timeout. The counterpart of the JAX copy's `drain_node`."""
+        with self._locked(self._shard_for(node_id)) as sh:
+            n = sh.nodes.get(node_id)
             if n is None or not n["alive"]:
                 return False
             n["alive"] = False
-            self._alive_count -= 1
-            self._persist_delta("_nodes", node_id, n)
+            sh.alive_count -= 1
+            sh.wal_append("_nodes", node_id, n)
         self._on_node_death(node_id)
         return True
 
@@ -764,20 +921,28 @@ class GcsService(ChaosPartitionRpc):
         if cli is not None:
             cli.close()
         restart: List[str] = []
-        with self._lock:
-            for locs in self._objects.values():
-                locs.discard(node_id)
-            for aid, a in self._actors.items():
-                if a.get("node_id") == node_id and a["state"] in (
-                        "ALIVE", "PENDING", "RESTARTING"):
-                    a["state"] = "RESTARTING" if self._can_restart(a) else "DEAD"
-                    a["node_id"] = None
-                    if a["state"] == "DEAD":
-                        a["death_reason"] = f"node {node_id[:8]} died"
-                        self._drop_name(aid, a)
-                    else:
-                        restart.append(aid)
-                    self._persist_delta("_actors", aid, a)
+        name_drops: List[Tuple[str, dict]] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                for locs in sh.objects.values():
+                    locs.discard(node_id)
+                for aid, a in sh.actors.items():
+                    if a.get("node_id") == node_id and a["state"] in (
+                            "ALIVE", "PENDING", "RESTARTING"):
+                        a["state"] = "RESTARTING" if self._can_restart(a) else "DEAD"
+                        a["node_id"] = None
+                        if a["state"] == "DEAD":
+                            a["death_reason"] = f"node {node_id[:8]} died"
+                            # The name table is under the control lock, never
+                            # taken while a shard lock is held: dropped below.
+                            name_drops.append((aid, dict(a)))
+                        else:
+                            restart.append(aid)
+                        sh.wal_append("_actors", aid, a)
+        if name_drops:
+            with self._lock:
+                for aid, a in name_drops:
+                    self._drop_name(aid, a)
         if restart:
             threading.Thread(target=lambda: [self._restart_actor(a) for a in restart],
                              daemon=True).start()
@@ -799,15 +964,17 @@ class GcsService(ChaosPartitionRpc):
         """Re-places and re-creates one RESTARTING actor. No capacity now:
         it stays RESTARTING and is retried when a node registers and on the
         health loop's cadence."""
+        sh = self._shard_for(actor_id)
         with self._lock:
             if actor_id in self._actor_restarting:
                 return
-            a = self._actors.get(actor_id)
-            if a is None or a["state"] != "RESTARTING" or a.get("node_id"):
-                return
-            resources = dict(a["resources"])
-            pg_id, bundle_index = a.get("pg_id"), a.get("bundle_index", -1)
-            strategy = a.get("strategy", "DEFAULT")
+            with self._locked(sh):
+                a = sh.actors.get(actor_id)
+                if a is None or a["state"] != "RESTARTING" or a.get("node_id"):
+                    return
+                resources = dict(a["resources"])
+                pg_id, bundle_index = a.get("pg_id"), a.get("bundle_index", -1)
+                strategy = a.get("strategy", "DEFAULT")
             self._actor_restarting.add(actor_id)
         try:
             node = (self.pick_bundle(pg_id, bundle_index) if pg_id
@@ -822,62 +989,65 @@ class GcsService(ChaosPartitionRpc):
                 elif not pg_id and _is_hard_affinity(strategy):
                     reason = "hard NodeAffinity target unavailable for restart"
                 if reason is not None:
-                    with self._lock:
-                        a = self._actors.get(actor_id)
+                    with self._lock, self._locked(sh):
+                        a = sh.actors.get(actor_id)
                         if a is not None and a["state"] == "RESTARTING" and not a.get("node_id"):
                             a["state"] = "DEAD"
                             a["death_reason"] = reason
                             self._drop_name(actor_id, a)
-                            self._persist_delta("_actors", actor_id, a)
+                            sh.wal_append("_actors", actor_id, a)
                 return
-            with self._lock:
-                a = self._actors.get(actor_id)
+            with self._locked(sh):
+                a = sh.actors.get(actor_id)
                 if a is None or a["state"] != "RESTARTING" or a.get("node_id"):
                     return
                 a["node_id"] = node["node_id"]
                 spec_blob = a["spec_blob"]
-                self._persist_delta("_actors", actor_id, a)
+                sh.wal_append("_actors", actor_id, a)
             try:
                 self._raylet_call(node["sock"], "create_actor", spec_blob,
                                   node.get("bundle_index", -1))
             except Exception as e:  # noqa: BLE001 - retried on the health loop's cadence
                 _log.warning("restart of actor %s on %s failed (%r); will retry",
                              actor_id[:8], node["node_id"][:8], e)
-                with self._lock:
-                    a = self._actors.get(actor_id)
+                with self._locked(sh):
+                    a = sh.actors.get(actor_id)
                     if a is not None and a["state"] == "RESTARTING":
                         # Stranded again, and so persisted: a record still
                         # pinned to the failed target after a GCS restart
                         # would hide from the stranded sweep for good.
                         a["node_id"] = None
-                        self._persist_delta("_actors", actor_id, a)
+                        sh.wal_append("_actors", actor_id, a)
                 return
-            with self._lock:
-                a = self._actors.get(actor_id)
+            with self._locked(sh):
+                a = sh.actors.get(actor_id)
                 if a is not None:
                     a["num_restarts"] += 1
-                    self._persist_delta("_actors", actor_id, a)
+                    sh.wal_append("_actors", actor_id, a)
         finally:
             with self._lock:
                 self._actor_restarting.discard(actor_id)
+
+    def _stranded_actors(self) -> List[str]:
+        """RESTARTING actors without a node, one shard at a time."""
+        out: List[str] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                out.extend(aid for aid, a in sh.actors.items()
+                           if a["state"] == "RESTARTING" and not a.get("node_id"))
+        return out
 
     def _kick_stranded_restarts(self) -> None:
         """One off-thread sweep over RESTARTING actors without a node, only
         when there is one."""
         with self._lock:
-            if self._stranded_sweep_inflight:
-                return
-            if not any(a["state"] == "RESTARTING" and not a.get("node_id")
-                       for a in self._actors.values()):
+            if self._stranded_sweep_inflight or not self._stranded_actors():
                 return
             self._stranded_sweep_inflight = True
 
         def sweep():
             try:
-                with self._lock:
-                    ids = [aid for aid, a in self._actors.items()
-                           if a["state"] == "RESTARTING" and not a.get("node_id")]
-                for aid in ids:
+                for aid in self._stranded_actors():
                     self._restart_actor(aid)
             finally:
                 with self._lock:
@@ -894,8 +1064,8 @@ class GcsService(ChaosPartitionRpc):
         aff = decode_node_affinity(strategy)
         if aff is not None:
             target_id, soft = aff
-            with self._lock:
-                n = self._nodes.get(target_id)
+            with self._locked(self._shard_for(target_id)) as sh:
+                n = sh.nodes.get(target_id)
                 if n is not None and n["alive"] and all(
                         n["resources"].get(k, 0.0) >= v for k, v in resources.items()):
                     return {"node_id": target_id, "sock": n["sock"], "store": n["store"]}
@@ -925,15 +1095,10 @@ class GcsService(ChaosPartitionRpc):
             return node
         node = self._place_with_strategy(resources, strategy)
         if node is None and not _is_hard_affinity(strategy):
-            feasible = []
-            with self._lock:
-                feasible.extend(
-                    {"node_id": nid, "sock": n["sock"], "store": n["store"]}
-                    for nid, n in self._nodes.items()
-                    if n["alive"] and not n.get("draining")
-                    and all(n["resources"].get(k, 0.0) >= v for k, v in resources.items()))
+            feasible = [{"node_id": nid, "sock": n["sock"], "store": n["store"]}
+                        for nid, n in self._live_nodes()
+                        if all(n["resources"].get(k, 0.0) >= v for k, v in resources.items())]
             if feasible:
-                feasible.sort(key=lambda f: f["node_id"])
                 with self._lock:
                     self._overflow_rr += 1
                     node = feasible[self._overflow_rr % len(feasible)]
@@ -947,9 +1112,10 @@ class GcsService(ChaosPartitionRpc):
 
     def create_actors(self, specs: List[dict]) -> List[dict]:
         """Batched register + place + forward: one driver RPC registers a
-        burst of actors, and the GCS forwards the creations grouped per
-        target raylet. Per-spec failures come back as the exception object
-        in that spec's slot."""
+        burst of actors, the records are committed per actor shard (one
+        group commit each, in ascending order), and the GCS forwards the
+        creations grouped per target raylet. Per-spec failures come back as
+        the exception object in that spec's slot."""
         results: List[Optional[dict]] = [None] * len(specs)
         placed = []
         for i, s in enumerate(specs):
@@ -964,10 +1130,17 @@ class GcsService(ChaosPartitionRpc):
                 continue
             placed.append((i, s, node))
         self._consume_forecast(len(placed))
-        with self._lock:
-            for i, s, node in placed:
-                self._actors[s["actor_id"]] = rec = self._actor_record(s, node)
-                self._persist_delta("_actors", s["actor_id"], rec)
+        groups: Dict[int, list] = {}
+        for entry in placed:
+            groups.setdefault(_gsh.shard_index(entry[1]["actor_id"], self._nshards),
+                              []).append(entry)
+        for idx in sorted(groups):
+            wal: List[Tuple[str, Any, Any]] = []
+            with self._locked(self._shards[idx]) as sh:
+                for i, s, node in groups[idx]:
+                    sh.actors[s["actor_id"]] = rec = self._actor_record(s, node)
+                    wal.append(("_actors", s["actor_id"], rec))
+                sh.wal_append_many(wal)
         by_sock: Dict[str, List[Tuple[int, bytes, int]]] = {}
         for i, s, node in placed:
             bi = node.get("bundle_index", -1)
@@ -980,14 +1153,14 @@ class GcsService(ChaosPartitionRpc):
                 _log.warning("create_actor_batch forward to %s failed: %r", sock, e)
                 for i, _, _ in items:
                     aid = specs[i]["actor_id"]
-                    with self._lock:
-                        a = self._actors.get(aid)
+                    with self._lock, self._locked(self._shard_for(aid)) as sh:
+                        a = sh.actors.get(aid)
                         if a is not None and a["state"] == "PENDING":
                             a["state"] = "DEAD"
                             a["death_reason"] = f"creation forward failed: {e!r}"
                             a["node_id"] = None
                             self._drop_name(aid, a)
-                            self._persist_delta("_actors", aid, a)
+                            sh.wal_append("_actors", aid, a)
                     results[i] = {"error": e}
         return results
 
@@ -1006,9 +1179,9 @@ class GcsService(ChaosPartitionRpc):
         self._consume_forecast(1)
         spec = {"spec_blob": spec_blob, "resources": resources, "max_restarts": max_restarts,
                 "pg_id": pg_id, "strategy": strategy, "name": name, "namespace": namespace}
-        with self._lock:
-            self._actors[actor_id] = rec = self._actor_record(spec, node)
-            self._persist_delta("_actors", actor_id, rec)
+        with self._locked(self._shard_for(actor_id)) as sh:
+            sh.actors[actor_id] = rec = self._actor_record(spec, node)
+            sh.wal_append("_actors", actor_id, rec)
         return node
 
     def _release_name_claim(self, key: Optional[Tuple[str, str]], actor_id: str) -> None:
@@ -1047,17 +1220,22 @@ class GcsService(ChaosPartitionRpc):
         rescheduled would point the record at the duplicate."""
         self._reject_stale_node(node_id, epoch, "actor_started")
         out: Dict[str, bool] = {}
-        with self._lock:
-            for aid in actor_ids:
-                a = self._actors.get(aid)
-                if a and (a["state"] == "DEAD" or a.get("node_id") not in (None, node_id)):
-                    out[aid] = False
-                    continue
-                if a:
-                    a["state"] = "ALIVE"
-                    a["node_id"] = node_id
-                    self._persist_delta("_actors", aid, a)
-                out[aid] = True
+        groups = self._by_shard(actor_ids)
+        for idx in sorted(groups):
+            wal: List[Tuple[str, Any, Any]] = []
+            with self._locked(self._shards[idx]) as sh:
+                for aid in groups[idx]:
+                    a = sh.actors.get(aid)
+                    if a and (a["state"] == "DEAD" or a.get("node_id") not in (None, node_id)):
+                        out[aid] = False
+                        continue
+                    if a:
+                        a["state"] = "ALIVE"
+                        a["node_id"] = node_id
+                        wal.append(("_actors", aid, a))
+                    out[aid] = True
+                if wal:
+                    sh.wal_append_many(wal)
         return out
 
     def actor_died(self, actor_id: str, reason: str, no_restart: bool = False,
@@ -1068,8 +1246,10 @@ class GcsService(ChaosPartitionRpc):
         report must not flip the rescheduled successor to RESTARTING."""
         if node_id is not None:
             self._reject_stale_node(node_id, epoch, "actor_died")
-        with self._lock:
-            a = self._actors.get(actor_id)
+        # The control lock first (the name drop needs it), then the actor's
+        # shard: the one legal nesting.
+        with self._lock, self._locked(self._shard_for(actor_id)) as sh:
+            a = sh.actors.get(actor_id)
             if a is None:
                 return {"restart": False}
             if node_id is not None and a.get("node_id") not in (None, node_id):
@@ -1079,20 +1259,21 @@ class GcsService(ChaosPartitionRpc):
                 a["death_reason"] = reason
                 a["node_id"] = None
                 self._drop_name(actor_id, a)
-                self._persist_delta("_actors", actor_id, a)
+                sh.wal_append("_actors", actor_id, a)
                 return {"restart": False}
             a["state"] = "RESTARTING"
             a["node_id"] = None
-            self._persist_delta("_actors", actor_id, a)
+            sh.wal_append("_actors", actor_id, a)
         self._kick_stranded_restarts()
         return {"restart": True}
 
     def get_actor(self, actor_id: str) -> Optional[dict]:
-        with self._lock:
-            a = self._actors.get(actor_id)
+        with self._locked(self._shard_for(actor_id)) as sh:
+            a = sh.actors.get(actor_id)
             if a is None:
                 return None
             out = {k: v for k, v in a.items() if k != "spec_blob"}
+        # The node's shard is taken after the actor's is released.
         out["sock"] = self._node_sock(out["node_id"], alive_only=False) if out["node_id"] else None
         return out
 
@@ -1103,41 +1284,53 @@ class GcsService(ChaosPartitionRpc):
     def list_actors(self, limit: int = 1000) -> List[dict]:
         """The actor table's summary (reference: the state API's
         list_actors); supervisors map actors to nodes with it."""
-        with self._lock:
-            out = [{"actor_id": aid, "state": a["state"], "node_id": a.get("node_id"),
-                    "name": a.get("name"), "namespace": a.get("namespace"),
-                    "num_restarts": a.get("num_restarts", 0),
-                    "max_restarts": a.get("max_restarts", 0), "pg_id": a.get("pg_id"),
-                    "death_reason": a.get("death_reason", "")}
-                   for aid, a in self._actors.items()]
+        out: List[dict] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                out.extend({"actor_id": aid, "state": a["state"], "node_id": a.get("node_id"),
+                            "name": a.get("name"), "namespace": a.get("namespace"),
+                            "num_restarts": a.get("num_restarts", 0),
+                            "max_restarts": a.get("max_restarts", 0), "pg_id": a.get("pg_id"),
+                            "death_reason": a.get("death_reason", "")}
+                           for aid, a in sh.actors.items())
         return out[-limit:]
 
     # ------------------------------------------------------------ objects
     def list_objects(self, limit: int = 1000) -> List[dict]:
         """The object directory: each object's locations, borrows and whether
         its free waits on a borrower."""
-        with self._lock:
-            return [{"object_id": h, "locations": sorted(locs),
-                     "borrows": self._borrows.get(h, 0),
-                     "pending_free": h in self._deferred_free}
-                    for h, locs in list(self._objects.items())[-limit:]]
+        out: List[dict] = []
+        for sh in self._shards:
+            with self._locked(sh):
+                out.extend({"object_id": h, "locations": sorted(locs),
+                            "borrows": sh.borrows.get(h, 0),
+                            "pending_free": h in sh.deferred_free}
+                           for h, locs in list(sh.objects.items())[-limit:])
+        return out[-limit:]
+
+    def add_object_location(self, oid_hex: str, node_id: str) -> bool:
+        """Indexes one copy of an object on a node (a raylet's syncs batch
+        these through node_sync)."""
+        with self._locked(self._shard_for(oid_hex)) as sh:
+            sh.objects.setdefault(oid_hex, set()).add(node_id)
+        return True
 
     def remove_object_location(self, oid_hex: str, node_id: str,
                                epoch: Optional[int] = None) -> bool:
         """A node dropped its copy (replica eviction); fenced like every
         raylet mutation."""
         self._reject_stale_node(node_id, epoch, "remove_object_location")
-        with self._lock:
-            locs = self._objects.get(oid_hex)
+        with self._locked(self._shard_for(oid_hex)) as sh:
+            locs = sh.objects.get(oid_hex)
             if locs is not None:
                 locs.discard(node_id)
                 if not locs:
-                    del self._objects[oid_hex]
+                    del sh.objects[oid_hex]
         return True
 
     def get_object_locations(self, oid_hex: str) -> List[dict]:
-        with self._lock:
-            locs = list(self._objects.get(oid_hex, ()))
+        with self._locked(self._shard_for(oid_hex)) as sh:
+            locs = list(sh.objects.get(oid_hex, ()))
         view = self._nodes_view_for(locs)
         return [{"node_id": nid, "sock": view[nid]["sock"], "store": view[nid]["store"]}
                 for nid in locs if nid in view and view[nid]["alive"]]
@@ -1145,10 +1338,12 @@ class GcsService(ChaosPartitionRpc):
     def get_object_locations_batch(self, oid_hexes: List[str]) -> Dict[str, List[dict]]:
         """One round trip for a raylet's whole wait set."""
         found: Dict[str, List[str]] = {}
-        with self._lock:
-            for h in oid_hexes:
-                if self._objects.get(h):
-                    found[h] = list(self._objects[h])
+        groups = self._by_shard(oid_hexes)
+        for idx in sorted(groups):
+            with self._locked(self._shards[idx]) as sh:
+                for h in groups[idx]:
+                    if sh.objects.get(h):
+                        found[h] = list(sh.objects[h])
         view = self._nodes_view_for({nid for locs in found.values() for nid in locs})
         return {h: [{"node_id": nid, "sock": view[nid]["sock"]}
                     for nid in locs if nid in view and view[nid]["alive"]]
@@ -1176,19 +1371,26 @@ class GcsService(ChaosPartitionRpc):
         if not ready:
             return
         freed: List[Tuple[str, List[str]]] = []
-        with self._lock:
-            for h in (h for b in ready for h in b):
-                if self._borrows.get(h, 0) > 0:
-                    self._deferred_free.add(h)
-                else:
-                    self._release_locked(h, freed)
+        groups = self._by_shard(h for b in ready for h in b)
+        for idx in sorted(groups):
+            with self._locked(self._shards[idx]) as sh:
+                for h in groups[idx]:
+                    if sh.borrows.get(h, 0) > 0:
+                        sh.deferred_free.add(h)
+                    else:
+                        self._release_locked(sh, h, freed)
         self._delete_on_nodes(freed)
 
-    def _release_locked(self, h: str, freed: List[Tuple[str, List[str]]]) -> None:
-        self._freed[h] = True
-        while len(self._freed) > FREED_CAP:
-            self._freed.popitem(last=False)
-        locs = self._objects.pop(h, None)
+    def _release_locked(self, sh: _gsh.GcsShard, h: str,
+                        freed: List[Tuple[str, List[str]]]) -> None:
+        """Tombstones `h` and collects (h, its locations) for the delete
+        (its shard's lock held; the nodes are resolved after it is
+        released)."""
+        sh.freed[h] = True
+        cap = max(1024, FREED_CAP // self._nshards)
+        while len(sh.freed) > cap:
+            sh.freed.popitem(last=False)
+        locs = sh.objects.pop(h, None)
         if locs:
             freed.append((h, list(locs)))
 
@@ -1211,16 +1413,18 @@ class GcsService(ChaosPartitionRpc):
     def update_borrows(self, deltas: Dict[str, int]) -> bool:
         """Batched borrow-count adjustments from non-owner processes."""
         freed: List[Tuple[str, List[str]]] = []
-        with self._lock:
-            for h in deltas:
-                c = self._borrows.get(h, 0) + deltas[h]
-                if c > 0:
-                    self._borrows[h] = c
-                    continue
-                self._borrows.pop(h, None)
-                if h in self._deferred_free:
-                    self._deferred_free.discard(h)
-                    self._release_locked(h, freed)
+        groups = self._by_shard(deltas)
+        for idx in sorted(groups):
+            with self._locked(self._shards[idx]) as sh:
+                for h in groups[idx]:
+                    c = sh.borrows.get(h, 0) + deltas[h]
+                    if c > 0:
+                        sh.borrows[h] = c
+                        continue
+                    sh.borrows.pop(h, None)
+                    if h in sh.deferred_free:
+                        sh.deferred_free.discard(h)
+                        self._release_locked(sh, h, freed)
         self._delete_on_nodes(freed)
         return True
 
@@ -1234,12 +1438,14 @@ class GcsService(ChaosPartitionRpc):
         locations."""
         self._reject_stale_node(node_id, epoch, "node_sync")
         stale: List[str] = []
-        with self._lock:
-            for h in sealed:
-                if h in self._freed:
-                    stale.append(h)
-                else:
-                    self._objects.setdefault(h, set()).add(node_id)
+        groups = self._by_shard(sealed)
+        for idx in sorted(groups):
+            with self._locked(self._shards[idx]) as sh:
+                for h in groups[idx]:
+                    if h in sh.freed:
+                        stale.append(h)
+                    else:
+                        sh.objects.setdefault(h, set()).add(node_id)
         with self._lock:
             for evt in events:
                 tid = evt["task_id"]
@@ -1318,10 +1524,7 @@ class GcsService(ChaosPartitionRpc):
             raise PlacementGroupError(
                 "SLICE_GANG places bundles on the hosts of one TPU slice; "
                 "the port's nodes carry GPUs")
-        avail: Dict[str, dict] = {}
-        with self._lock:
-            avail.update((nid, dict(n["available"])) for nid, n in self._nodes.items()
-                         if n["alive"] and nid not in banned and not n.get("draining"))
+        avail = {nid: n["available"] for nid, n in self._live_nodes(banned)}
         order = sorted(avail, key=lambda nid: -sum(avail[nid].values()))
 
         def fits(nid, b):
@@ -1391,9 +1594,9 @@ class GcsService(ChaosPartitionRpc):
                             _, avail = self._raylet_call(sock, "node_resources")
                         except Exception:  # noqa: BLE001 - the next heartbeat refreshes it
                             continue
-                        with self._lock:
-                            if nid in self._nodes:
-                                self._nodes[nid]["available"] = dict(avail)
+                        with self._locked(self._shard_for(nid)) as sh:
+                            if nid in sh.nodes:
+                                sh.nodes[nid]["available"] = dict(avail)
                 with self._lock:
                     removed = pg_id in self._removed_pgs
                     if not removed:
@@ -1434,8 +1637,8 @@ class GcsService(ChaosPartitionRpc):
                 self._removed_pgs.popitem(last=False)
         if pg:
             for i, (nid, bundle) in enumerate(zip(pg["placements"], pg["bundles"])):
-                with self._lock:
-                    n = self._nodes.get(nid)
+                with self._locked(self._shard_for(nid)) as sh:
+                    n = sh.nodes.get(nid)
                     sock = n["sock"] if n and n["alive"] else None
                     if n:
                         for k, v in bundle.items():
@@ -1461,8 +1664,8 @@ class GcsService(ChaosPartitionRpc):
             if bundle_index >= len(pg["placements"]):
                 return None
             nid = pg["placements"][bundle_index]
-        with self._lock:
-            n = self._nodes.get(nid)
+        with self._locked(self._shard_for(nid)) as sh:
+            n = sh.nodes.get(nid)
             if n is None or not n["alive"]:
                 return None
             return {"node_id": nid, "sock": n["sock"], "store": n["store"],
@@ -1788,9 +1991,11 @@ class GcsService(ChaosPartitionRpc):
                 return  # a GCS that stopped meanwhile harvests nothing
             inc["state"] = "harvesting"
         try:
-            with self._lock:
-                nodes = [(nid, n["sock"], int(n.get("clock_offset_us") or 0))
-                         for nid, n in self._nodes.items() if n["alive"]]
+            nodes = []
+            for sh in self._shards:
+                with self._locked(sh):
+                    nodes.extend((nid, n["sock"], int(n.get("clock_offset_us") or 0))
+                                 for nid, n in sh.nodes.items() if n["alive"])
             pids: Dict[str, dict] = {str(os.getpid()): {"node": "gcs", "offset_us": 0}}
             node_info: Dict[str, dict] = {}
             logs: List[dict] = []

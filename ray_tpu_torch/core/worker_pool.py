@@ -182,7 +182,7 @@ class WorkerPoolManager:
         """The parked pool's target: the same demand over its own floor
         (parked children cost shared pages only, so the floor stays above
         zero even when the idle pool's is zero)."""
-        if self._zygote is None:
+        if self._zygote is None or not config.WORKER_ZYGOTE:
             return 0
         return min(config.WORKER_POOL_PREFORK_MAX,
                    max(config.WORKER_POOL_PREFORK, self._demand()))
@@ -364,7 +364,9 @@ class WorkerPoolManager:
         r = self._raylet
         proc = self._zygote_proc
         died = self._zygote_failed.is_set() or (proc is not None and proc.poll() is not None)
-        if died:
+        if not config.WORKER_ZYGOTE:
+            pass  # RAY_TPU_WORKER_ZYGOTE=0: every spawn Popens
+        elif died:
             self._zygote = None
             if not self._stop.is_set() and time.monotonic() >= self._respawn_not_before:
                 _log.warning("zygote daemon died (exit %s): respawning and rebuilding the pool",
@@ -388,7 +390,12 @@ class WorkerPoolManager:
         if first:
             # The prestart floor, in one go, before the first burst.
             self._refill(self._prestart, force=True)
-            self._ensure_prefork()
+            if config.WORKER_POOL:
+                self._ensure_prefork()
+            self._update_gauges()
+            return
+        if not config.WORKER_POOL:
+            # RAY_TPU_WORKER_POOL=0: the boot prestart only, forks on demand.
             self._update_gauges()
             return
         self._refill(self.target())

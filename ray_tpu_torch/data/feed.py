@@ -17,8 +17,8 @@ ring blocks the feeder's write — consumer-stall backpressure propagates
 feeder -> shard iterator -> streaming executor -> source, with no
 unbounded queue anywhere.
 
-The port's channel has no TCP transport (ROADMAP Queue 1 item 3.3's
-remainder): the feeder and its consumers share one host.
+A consumer on another host than its feeder reads over the channel's TCP
+stream (core/channel.py; it needs RAY_TPU_AUTH_TOKEN on both ends).
 """
 
 from __future__ import annotations

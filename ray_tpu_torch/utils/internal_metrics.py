@@ -676,6 +676,13 @@ GCS_PUBSUB_BACKLOG = Gauge(
     "Entries retained across GCS pubsub channel logs",
     component="gcs",
 )
+GCS_SHARD_LOCK_WAIT = Histogram(
+    "raytpu_gcs_shard_lock_wait_ms",
+    "Wait to acquire a GCS hot-table shard lock, by shard index: the "
+    "contention left after key-hash partitioning (core/gcs_shards.py)",
+    component="gcs",
+    tag_keys=("shard",),
+)
 GCS_PUBSUB_DELTAS = Counter(
     "raytpu_pubsub_deltas_total",
     "Delta entries delivered to pubsub_poll2 subscribers, by channel",

@@ -457,13 +457,12 @@ def test_reader_close_unblocks_writer_backpressure(tmp_path, name):
 @pytest.mark.parametrize("name", PKGS)
 def test_channel_spec_validates_capacity(tmp_path, name):
     ch = _pkg(name).channel
-    # The JAX spec also carries a TCP address; the port's channel is the
-    # shared-memory ring only (ROADMAP Queue 1 item 3.3's remainder).
-    addr = (("127.0.0.1", 1),) if name == "jax" else ()
+    # Both specs carry the reader's TCP address beside its ring.
+    addr = ("127.0.0.1", 1)
     with pytest.raises(ValueError, match="capacity"):
-        ch.ChannelSpec("x", "/tmp/r", "/tmp/s", *addr, 0)
+        ch.ChannelSpec("x", "/tmp/r", "/tmp/s", addr, 0)
     with pytest.raises(TypeError):
-        ch.ChannelSpec("x", "/tmp/r", "/tmp/s", *addr, "big")
+        ch.ChannelSpec("x", "/tmp/r", "/tmp/s", addr, "big")
     with pytest.raises(ValueError, match="aligned"):
         ch.ChannelReader(str(tmp_path), capacity=1 << 10, max_message=1 << 10)
     assert ch.required_capacity(0) >= 64

@@ -1,6 +1,5 @@
 """GCS persistence and restart, the port against the JAX package: each case of
-tests/test_gcs_restart.py, and the shard-free cases of
-tests/test_gcs_shards.py, runs on both packages with the same assertions.
+tests/test_gcs_restart.py runs on both packages with the same assertions.
 
   - A cluster whose GCS is killed and started again keeps its actors (an old
     handle still calls its actor), its named actors and its KV; new tasks
@@ -8,17 +7,15 @@ tests/test_gcs_shards.py, runs on both packages with the same assertions.
     hour, the write-ahead log alone brings the KV and a named actor back.
   - The log's record codec round-trips and tolerates a torn tail; a seeded
     mix of single and batched registrations replays to a model's epochs
-    after a crash; a torn half record at the end of the log leaves every
-    node whole; a fence survives a restart; actor records survive one.
+    after a crash; a torn half record at the end of a shard's log segment
+    leaves every node whole; a fence survives a restart; actor records
+    survive one.
 
-The JAX GCS splits its tables into key-hashed shards, each with its own log
-segment; the port keeps one lock and one log (ROADMAP Queue 1 item 3.9:
-core/gcs_shards.py waits for a trace that shows the lock contended). So
-test_gcs_shards.py's shard cases stay out: shard routing and the shard
-count's clamp, a reboot under another shard count, the fence on every
-shard, the per-shard alive counters of a batch and under concurrent
-batches. Where a case reads the tables, the JAX side reads its shards and
-the port its one table.
+Both GCSes split nodes, actors and objects into key-hashed shards with a log
+segment each (core/gcs_shards.py); the in-process cases here run both at the
+JAX file's shard count. tests/test_torch_gcs_shards.py runs the rest of
+tests/test_gcs_shards.py's cases on both packages, and a log written by the
+single-file GCS replaying into the sharded one.
 
 Every case runs under its own time limit (torch_modes.case_time_limit).
 """
@@ -40,7 +37,7 @@ PKGS = ("jax", "torch")
 ROOT = {"jax": "ray_tpu", "torch": "ray_tpu_torch"}
 UNIT_LIMIT_S = 60
 CLUSTER_LIMIT_S = 300
-JAX_SHARDS = 4  # the JAX file's own shard count
+SHARDS = 4  # tests/test_gcs_shards.py's shard count
 
 
 def _pkg(name):
@@ -64,39 +61,30 @@ def unit_limit(request):
 
 # ------------------------------------------------------------ in process
 def _service(p, tmp_path, tag="gcs"):
-    """A GcsService persisting under tmp_path (the JAX one with its shards)."""
-    path = str(tmp_path / f"{tag}.snapshot")
-    if p.name == "jax":
-        return p.gcs.GcsService(snapshot_path=path, session_dir=str(tmp_path),
-                                shards=JAX_SHARDS)
-    return p.gcs.GcsService(snapshot_path=path)
+    """A GcsService persisting under tmp_path, at the JAX file's shard count."""
+    return p.gcs.GcsService(snapshot_path=str(tmp_path / f"{tag}.snapshot"),
+                            session_dir=str(tmp_path), shards=SHARDS)
 
 
 def _node_tables(svc):
-    """[(node records, actor records)] per shard (JAX) or the one table."""
-    if hasattr(svc, "_shards"):
-        return [(sh.nodes, sh.actors) for sh in svc._shards]
-    return [(svc._nodes, svc._actors)]
+    """[(node records, actor records)] per shard."""
+    return [(sh.nodes, sh.actors) for sh in svc._shards]
+
+
+def _shards_mod(p):
+    return importlib.import_module(f"{ROOT[p.name]}.core.gcs_shards")
 
 
 def _wal_codec(p):
-    if p.name == "jax":
-        from ray_tpu.core import gcs_shards
-
-        return gcs_shards.encode_wal_record, gcs_shards.iter_wal_records
-    return p.gcs.encode_wal_record, p.gcs.iter_wal_records
+    return _shards_mod(p).encode_wal_record, _shards_mod(p).iter_wal_records
 
 
 def _register(svc, nid, cpus=4.0):
-    args = (nid, f"/tmp/{nid}.sock", f"/tmp/{nid}.store", {"CPU": cpus})
-    return svc.register_node(*args, {}) if hasattr(svc, "_shards") else svc.register_node(*args)
+    return svc.register_node(nid, f"/tmp/{nid}.sock", f"/tmp/{nid}.store", {"CPU": cpus}, {})
 
 
 def _register_batch(svc, batch):
-    """One batched registration on the JAX GCS; the port's raylets register
-    one by one, so the batch goes as single registrations there."""
-    if not hasattr(svc, "register_nodes"):
-        return [_register(svc, n, cpus=2.0) for n in batch]
+    """One batched registration (register_nodes)."""
     return svc.register_nodes([{"node_id": n, "sock": f"/t/{n}", "store": f"/s/{n}",
                                 "resources": {"CPU": 2.0}, "labels": {}} for n in batch])
 
@@ -151,14 +139,9 @@ def test_wal_replay_matches_model_across_restart(p, tmp_path, unit_limit):
 
 
 def _log_path(p, tmp_path, nid):
-    """The log file that holds `nid`'s records: its shard's segment (JAX) or
-    the one log."""
-    snap = str(tmp_path / "gcs.snapshot")
-    if p.name == "jax":
-        from ray_tpu.core import gcs_shards
-
-        return gcs_shards.wal_segment_path(snap, gcs_shards.shard_index(nid, JAX_SHARDS))
-    return snap + ".wal"
+    """The log segment that holds `nid`'s records: its shard's."""
+    gsh = _shards_mod(p)
+    return gsh.wal_segment_path(str(tmp_path / "gcs.snapshot"), gsh.shard_index(nid, SHARDS))
 
 
 def test_wal_replay_tolerates_mid_batch_torn_tail(p, tmp_path, unit_limit):

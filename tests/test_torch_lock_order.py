@@ -245,3 +245,56 @@ def test_control_plane_boot_paths_create_tracked_locks(lo):
         assert name in names, name
     controller = importlib.import_module(f"{pkg}.serve.controller")
     assert "serve.controller" in controller.ServeController.__init__.__code__.co_consts
+
+
+def test_sharded_gcs_paths_keep_one_lock_order(lo, tmp_path):
+    """The GCS's paths over its shards, armed: registrations (single and
+    batched), heartbeats, actor registration, start and death with restart,
+    object syncs, borrows and frees, the listings, a node's death and a
+    snapshot leave no cycle, no edge from a shard lock to `gcs.state`, and
+    shard locks nested only in ascending index."""
+    pkg = lo.__name__.split(".")[0]
+    gcs = importlib.import_module(f"{pkg}.core.gcs")
+    svc = gcs.GcsService(snapshot_path=str(tmp_path / "gcs.snapshot"),
+                         session_dir=str(tmp_path), shards=4)
+    try:
+        nodes = [f"lock-node-{i:02d}" + "0" * 12 for i in range(6)]
+        epochs = {n: svc.register_node(n, f"/t/{n}", f"/s/{n}", {"CPU": 4.0}, {})["epoch"]
+                  for n in nodes[:3]}
+        for n, r in zip(nodes[3:], svc.register_nodes([
+                {"node_id": n, "sock": f"/t/{n}", "store": f"/s/{n}",
+                 "resources": {"CPU": 4.0}, "labels": {}} for n in nodes[3:]])):
+            epochs[n] = r["epoch"]
+        for n in nodes:
+            svc.heartbeat(n, {"CPU": 4.0}, {"full": True, "wall_ts": time.time()}, epochs[n])
+        aids = [f"lock-actor-{i:02d}" + "0" * 20 for i in range(8)]
+        for i, aid in enumerate(aids):
+            r = svc.register_actor(aid, b"spec", {"CPU": 0.5}, 1, f"a{i}", "default")
+            svc.actor_started(aid, r["node_id"], epochs[r["node_id"]])
+        oids = [f"{i:040x}" for i in range(16)]
+        svc.node_sync(nodes[0], oids, [{"task_id": "t1", "state": "RUNNING"}], epochs[nodes[0]])
+        svc.update_borrows({oids[0]: 1})
+        svc.free_objects(oids[:4])
+        svc.flush_frees()
+        svc.update_borrows({oids[0]: -1})
+        svc.actor_died(aids[0], "test", node_id=svc.get_actor(aids[0])["node_id"],
+                       epoch=epochs[svc.get_actor(aids[0])["node_id"]])
+        svc.list_nodes(), svc.list_nodes(3), svc.node_summary(), svc.stats()
+        svc.list_actors(), svc.list_objects(), svc.node_table_snapshot()
+        svc.get_object_locations_batch(oids)
+        svc.pick_node({"CPU": 1.0}), svc.pick_node({"CPU": 1.0}, mode="spread")
+        (svc.mark_node_dead if pkg == "ray_tpu_torch" else svc.drain_node)(nodes[1])
+        svc._save_snapshot()
+        time.sleep(0.5)  # the restart threads run their placements
+    finally:
+        svc.stop()  # also disarms the trigger bus the service armed in this process
+    assert not [v for v in lo.violations() if v["kind"] == "cycle"], lo.violations()
+    graph = lo.order_graph()
+    # The shard locks were tracked: gcs.state is held while they are taken.
+    assert any(a.startswith("gcs.shard") for a in graph.get("gcs.state", ())), graph
+    for held, acquired in graph.items():
+        if held.startswith("gcs.shard"):
+            assert "gcs.state" not in acquired, (held, acquired)
+            for a in acquired:
+                if a.startswith("gcs.shard"):
+                    assert a > held, (held, a)

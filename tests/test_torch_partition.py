@@ -104,10 +104,11 @@ def _boot(p, **kwargs):
     return cluster, runtime
 
 
-def _declare_dead(svc, node_id):
+def _declare_dead(p, svc, node_id):
     """The GCS declares a node dead at once (JAX: drain_node, the port:
-    mark_node_dead), as the heartbeat expiry does."""
-    if hasattr(svc, "drain_node"):
+    mark_node_dead, its counterpart by design), as the heartbeat expiry
+    does."""
+    if p.name == "jax":
         svc.drain_node(node_id)
     else:
         svc.mark_node_dead(node_id)
@@ -130,7 +131,7 @@ def test_heartbeat_from_dead_node_fenced_not_resurrected(p, unit_limit):
     try:
         reg = svc.register_node("nodeA", "/tmp/nope.sock", "/tmp/nope", {"CPU": 2.0})
         assert reg["epoch"] == 1
-        _declare_dead(svc, "nodeA")
+        _declare_dead(p, svc, "nodeA")
 
         with pytest.raises(p.exc.StaleNodeEpochError) as ei:
             svc.heartbeat("nodeA", {"CPU": 2.0}, None, 1)
@@ -163,7 +164,7 @@ def test_stale_epoch_rejected_on_mutation_rpcs(p, unit_limit):
     svc = p.gcs.GcsService()
     try:
         svc.register_node("nodeB", "/tmp/b.sock", "/tmp/b", {"CPU": 1.0})
-        _declare_dead(svc, "nodeB")
+        _declare_dead(p, svc, "nodeB")
         with pytest.raises(p.exc.StaleNodeEpochError):
             svc.node_sync("nodeB", ["ab" * 12], [], 1)
         with pytest.raises(p.exc.StaleNodeEpochError):

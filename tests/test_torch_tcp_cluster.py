@@ -2,7 +2,9 @@
 tests/test_tcp_cluster.py's six cases, each run on both packages (the head
 announces its TCP address, a joined node registers and runs tasks, objects
 cross nodes over TCP, the auth token gates connections, `parse_address`
-rejects a portless tcp address, and a remote-client driver).
+rejects a portless tcp address, and a remote-client driver), and streaming
+returns through a remote client (tests/torch_stream_cases.py) against a
+driver inside the cluster.
 
 Simulated on one machine through loopback: the head serves its GCS on a
 TCP port, and a worker "host" joins with `start_worker_node` given only that
@@ -35,6 +37,7 @@ serialization.register_pickle_by_value(sys.modules[__name__])
 PKGS = ("jax", "torch")
 TOKEN = "tcp-cluster-test-token"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT_PKG = {"jax": "ray_tpu", "torch": "ray_tpu_torch"}
 
 
 @pytest.fixture(scope="module")
@@ -214,3 +217,56 @@ def test_remote_client_driver(c):
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          timeout=300, cwd=ROOT)
     assert "CLIENT_OK" in out.stdout, (out.stdout, out.stderr[-2000:])
+
+
+def test_remote_client_streams(tcp_clusters, request):
+    """Streaming returns through a remote client. The reference is the JAX
+    driver inside its cluster, with the streams on its own node: the items
+    in order, the end of the stream, the error at the index it was raised,
+    and a cancel ending an endless stream. The port's remote client gives
+    exactly that with the streams on the joined node, and so does the port's
+    driver inside its cluster.
+
+    Two faults of the JAX package the port does not copy: its remote client
+    blocks on the first item (its stream_next looks for the item in a local
+    pool the client does not have), and its in-cluster driver blocks on the
+    second item made on another node (a wait for "item or header" returns
+    at once once the header is local, before the item's pull starts). The
+    JAX client is held to the first, with a short bound."""
+    import json
+
+    import torch_stream_cases
+
+    with torch_modes.case_time_limit(request, 300):
+        head = jrt.NodeAffinitySchedulingStrategy(jrt.get_runtime_context().get_node_id(),
+                                                  soft=False)
+        reference = torch_stream_cases.observe(jrt, bound_s=30,
+                                               options={"scheduling_strategy": head})
+        assert reference["task"] == [0, 10, 20, 30, 40, "end"], reference
+        assert reference["actor"] == [100, 101, 102, "end"], reference
+        assert reference["error"][0] == 1 and "boom" in reference["error"][1], reference
+        assert reference["error"][2] == "end", reference
+        assert reference["cancel"][0] == 0 and reference["cancel"][2], reference
+        reference = json.loads(json.dumps(reference))
+        inside = torch_stream_cases.observe(trt, bound_s=30)
+        assert json.loads(json.dumps(inside)) == reference
+
+        remote = {}
+        for name, bound, first in (("jax", 5, True), ("torch", 30, False)):
+            script = textwrap.dedent(f"""
+                import json, sys
+                sys.path.insert(0, {os.path.join(ROOT, "tests")!r})
+                import {ROOT_PKG[name]} as rt
+                import torch_stream_cases
+
+                rt.init(address={tcp_clusters[name].cluster.gcs_tcp_address!r})
+                seen = torch_stream_cases.observe(rt, bound_s={bound}, only_first={first})
+                print("OBSERVED=" + json.dumps(seen), flush=True)
+                """)
+            out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                                 timeout=180, cwd=ROOT)
+            line = [ln for ln in out.stdout.splitlines() if ln.startswith("OBSERVED=")]
+            assert line, (out.stdout[-2000:], out.stderr[-3000:])
+            remote[name] = json.loads(line[0][len("OBSERVED="):])
+        assert remote["jax"] == {"task": ["blocked"]}
+        assert remote["torch"] == reference
