@@ -316,10 +316,10 @@ Phases, each printing its own line, any failure exits non-zero:
      raytpu_gcs_shard_lock_wait_ms's count and p99, the restart's seconds
      (host figures; the phase asserts correctness, no speed).
 Phases 1-5 run alone, in this order. Then a second process of this script
-(`--lane`) runs ops, membership, observe, graphs, data, elastic and rl, in
-that order (data once the main process's parallel phase has ended), while
-the main process runs parallel, serve, deploy, train-parity, train, zero,
-checkpoint, fit, tune, cluster, objects, operate and shards; the second process's
+(`--lane`) runs ops, membership, observe, graphs, data, elastic, rl, operate
+and shards, in that order (data once the main process's parallel phase has
+ended), while the main process runs parallel, serve, deploy, train-parity,
+train, zero, checkpoint, fit, tune, cluster, objects and gang; the second process's
 lines are printed when it ends, and its failure fails the smoke.
 Then a line of the card's peak memory in use and the host's lowest
 MemAvailable while each phase of the main process ran, a line of each
@@ -2180,6 +2180,8 @@ def phase_tune(fit_step_ms: float):
 # PARALLEL_WORLD processes sharing the card over gloo (b).
 PARALLEL_WORLD = 4
 PARALLEL_TIMEOUT_S = 900
+# Where ray_tpu_torch is imported from when not this checkout (--package-root).
+_PACKAGE_ROOT = None
 # (b)'s attention at Llama-2-7B's width: (b, global s, heads, head_dim).
 PAR_ATTN_SHAPE = (1, 8192, 32, 128)
 PAR_SEQ = 2048
@@ -2448,7 +2450,9 @@ def _check_shards(label, loss, loss_ref, got, want, launches, log, t):
     }
     log(f"{label}: loss {loss:.6f} vs {loss_ref:.6f} (rel diff {diff:.3g}, tol {rtol}); worst "
         f"leaf gradient shard |g - g_ref| / |g_ref| {worst:.3g} ({max(diffs, key=diffs.get)}; "
-        f"tol {grad_rtol}); planted faults read {planted}; launches {launches}")
+        f"tol {grad_rtol}); every leaf's "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(diffs.items()))
+        + f"; planted faults read {planted}; launches {launches}")
     if not (math.isfinite(loss) and diff <= rtol and worst <= grad_rtol):
         _fail(f"parallel: {label} disagrees with the unsplit model: loss {diff:.3g}, "
               f"gradients {diffs}")
@@ -2497,20 +2501,25 @@ def _par_tensor(rank, n, meshes, mesh_sp):
     shard_tree: the first step's loss and this rank's gradient shard of every
     leaf against the unsplit model's, then the TP_STEPS steps' losses; on TP_SP_MESH,
     next_token_loss with ring and Ulysses against the same. Then in bf16 one
-    forward and backward per TP mesh, with each kernel's launches. Returns
-    ({path: launches}, log lines, seconds)."""
+    forward and backward per TP mesh, with each kernel's launches. The
+    embedding and the untied head keep their "tensor" split (vocab 32000
+    over 4 and 2), and the loss is the vocab-parallel one. Returns
+    ({path: launches}, log lines, seconds, {fp32 mesh: this rank's peak
+    GiB over its TP_STEPS steps}."""
     import torch
 
     from ray_tpu_torch.models import transformer as tfm
     from ray_tpu_torch.parallel import shard_tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    lines, secs, launches = [], {}, {}
+    lines, secs, launches, peaks = [], {}, {}, {}
     cfg = _tp_cfg(torch.float32)
     tokens = _tp_tokens(cfg.vocab_size)
     ref_losses, ref_grads = _tp_reference(rank, n, cfg, tokens)
     for label, mesh in meshes.items():
         t_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["tensor"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         init, step = tfm.build_train_step(cfg, tfm.adamw(TP_LR), device="cuda", mesh=mesh)
         params, opt = init(torch.Generator(device="cuda").manual_seed(40))
         _zero_launch_counts()
@@ -2526,6 +2535,7 @@ def _par_tensor(rank, n, meshes, mesh_sp):
         t0 = time.perf_counter()
         losses += [step(params, opt, tokens).item() for _ in range(TP_STEPS - 1)]
         torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
         secs[f"{label} first step"] = first_s
         secs[f"{label} next {TP_STEPS - 1} steps"] = time.perf_counter() - t0
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
@@ -2573,7 +2583,7 @@ def _par_tensor(rank, n, meshes, mesh_sp):
             _fail(f"parallel: bf16 {label} loss {loss.item()}")
         del params, loss
         torch.cuda.empty_cache()
-    return launches, lines, secs
+    return launches, lines, secs, peaks
 
 
 def _moe_check(label, got, want, log):
@@ -2714,9 +2724,10 @@ def _moe_world1(mesh):
     return secs[1], _moe_dropped(full, x, cfg)
 
 
-def _parallel_rank(rank: int, world: int, url: str, out_path: str) -> None:
-    """One rank of (b): joins the gloo group, runs _par_attention and
-    _par_model, and writes its results as JSON to out_path."""
+def _parallel_rank(rank: int, world: int, url: str, out_path: str, tp_only: bool) -> None:
+    """One rank of (b): joins the gloo group, runs _par_attention,
+    _par_model, _par_tensor and _par_moe (only _par_tensor with `tp_only`),
+    and writes its results as JSON to out_path."""
     import torch
     import torch.distributed as dist
 
@@ -2733,23 +2744,28 @@ def _parallel_rank(rank: int, world: int, url: str, out_path: str) -> None:
         tp_meshes = {label: build_device_mesh(axis_sizes=axes) for label, axes in TP_MESHES.items()}
         mesh_sp = build_device_mesh(axis_sizes=TP_SP_MESH)
         mesh_expert = build_device_mesh(axis_sizes={"expert": world})
-        attention = _par_attention(rank, world, mesh_seq)
-        torch.cuda.empty_cache()
-        launches, lines, secs = _par_model(rank, world, mesh_seq, mesh_stage)
-        peak_b = torch.cuda.max_memory_allocated() / 2**30
-        torch.cuda.reset_peak_memory_stats()
+        if tp_only:
+            attention, launches, lines, secs, peak_b = {}, {}, [], {}, 0.0
+        else:
+            attention = _par_attention(rank, world, mesh_seq)
+            torch.cuda.empty_cache()
+            launches, lines, secs = _par_model(rank, world, mesh_seq, mesh_stage)
+            peak_b = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        tp_launches, tp_lines, tp_secs = _par_tensor(rank, world, tp_meshes, mesh_sp)
+        tp_launches, tp_lines, tp_secs, tp_peaks = _par_tensor(rank, world, tp_meshes, mesh_sp)
         peak_c = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         t2 = time.perf_counter()
-        moe_lines, moe_secs, dropped = _par_moe(rank, world, mesh_expert)
+        moe_lines, moe_secs, dropped = ([], [], 0) if tp_only else \
+            _par_moe(rank, world, mesh_expert)
         result = {"attention": attention, "launches": {**launches, **tp_launches},
                   "lines": lines, "tp_lines": tp_lines, "moe_lines": moe_lines,
                   "secs": {**secs, "rank_s": time.perf_counter() - t0},
                   "tp_secs": {**tp_secs, "part_s": t2 - t1},
                   "moe": {"s": moe_secs, "part_s": time.perf_counter() - t2,
                           "dropped": dropped},
+                  "tp_peak_gib": tp_peaks,
                   "peak_gib": {"b": peak_b, "c": peak_c,
                                "d": torch.cuda.max_memory_allocated() / 2**30}}
     finally:
@@ -2758,14 +2774,17 @@ def _parallel_rank(rank: int, world: int, url: str, out_path: str) -> None:
         json.dump(result, f)
 
 
-def _run_ranks(world: int, tmp: str):
-    """Starts `world` processes of this script as ranks of (b), waits for all
-    of them (any failure or the deadline stops every one) and returns their
+def _run_ranks(world: int, tmp: str, tp_only: bool = False):
+    """Starts `world` processes of this script as ranks of (b) (of (c) alone
+    with `tp_only`), on the package this process imported, waits for all of
+    them (any failure or the deadline stops every one) and returns their
     results."""
     url = f"file://{tmp}/rendezvous"
+    extra = (["--tp-only"] if tp_only else []) + \
+        (["--package-root", _PACKAGE_ROOT] if _PACKAGE_ROOT else [])
     logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
-                               str(r), str(world), url, f"{tmp}/rank{r}.json"],
+                               str(r), str(world), url, f"{tmp}/rank{r}.json", *extra],
                               stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.monotonic() + PARALLEL_TIMEOUT_S
     failed = None
@@ -2880,6 +2899,11 @@ def phase_parallel():
             "tensor=2 x seq=2 ring": {k: sp_ring for k in by_path["ring"]},
             "tensor=2 x seq=2 ulysses": {k: layers * n for k in by_path["ring"]}}
     print(f"[parallel] (b)-(c) model paths' launches across ranks {by_path}", flush=True)
+    print(f"[parallel] (c) fp32 TP peak memory per rank GiB (torch.cuda.max_memory_allocated, "
+          f"each mesh's {TP_STEPS} steps; the embedding, the head and the logits split over "
+          f"'tensor'): " + "; ".join(
+              f"{label} {[round(r['tp_peak_gib'][label], 3) for r in results]}"
+              for label in TP_MESHES), flush=True)
     if by_path != want:
         _fail(f"parallel: model launches {by_path}, want {want}")
     print(f"[parallel] (d) tokens dropped by the capacity: {results[0]['moe']['dropped']} of "
@@ -2893,6 +2917,32 @@ def phase_parallel():
           f"(d) {[round(r['moe']['part_s'], 1) for r in results]}; phase {phase_s:.1f} s",
           flush=True)
     return by_path
+
+
+def phase_tp_memory():
+    """Part (c) of the parallel phase alone (--tp-memory): PARALLEL_WORLD gloo
+    ranks sharing the card run _par_tensor, gates included, on the package
+    this process imported (--package-root names another commit's), and
+    each rank's peak memory per fp32 TP mesh is printed. Compare two
+    versions within one call to the card: its power limit can differ
+    between calls."""
+    import tempfile
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = _run_ranks(PARALLEL_WORLD, tmp, tp_only=True)
+    where = os.path.dirname(os.path.dirname(os.path.abspath(ray_tpu_torch.__file__)))
+    for r, res in enumerate(results):
+        for line in res["tp_lines"]:
+            print(f"[tp_memory] (c) rank {r}: {line}", flush=True)
+    print(f"[tp_memory] {_smi()}, ray_tpu_torch from {where}: fp32 TP peak memory per rank "
+          f"GiB (torch.cuda.max_memory_allocated, each mesh's {TP_STEPS} steps): " + "; ".join(
+              f"{label} {[round(r['tp_peak_gib'][label], 3) for r in results]}"
+              for label in TP_MESHES)
+          + f"; (c) seconds per rank {[round(r['tp_secs']['part_s'], 1) for r in results]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ------------------------------------------------------------------ cluster
@@ -6980,7 +7030,9 @@ def _operate_cli_path(rt, tmp, smi, meanwhile):
             labels = [n["Labels"] for n in nodes if n["Alive"] and n["Labels"]]
             if ([j["status"] for j in jobs if j["job_id"] == job_id] != ["SUCCEEDED"]
                     or len([n for n in nodes if n["Alive"]]) != 2
-                    or labels != [{"ray_tpu_cloud_id": "local-1"}]
+                    or len(labels) != 1 or labels[0].get("ray_tpu_cloud_id") != "local-1"
+                    # the GPU node's slice: its host's NVLink domain (PR 22)
+                    or not labels[0].get("slice_name")
                     or not all(w in metrics for w in want) or not history
                     or not isinstance(alerts, list)):
                 _fail(f"operate (a): the dashboard read jobs {jobs}, nodes' labels {labels}, "
@@ -7753,7 +7805,324 @@ def phase_shards():
     return {}
 
 
-LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic", "rl")
+# ------------------------------------------------------------------- gang
+
+# Three labelled 2-host GPU slices on the one card (each host leases device
+# 0), and two 2-rank gloo TorchTrainers placed by SLICE_GANG at once, on
+# Llama-2-7B's width in fp32 at depth 1 (_cluster_data_cfg, as the cluster
+# phase's data=2 trainer and elastic (b)): one uninterrupted, one whose
+# member's host is killed once its rank 0 has finished GANG_KILL_AT steps.
+# Rank 0 checkpoints after step 0 only (two 5.6 GB checkpoints would be held
+# per run otherwise); the trainer has persisted it by the end of step 2, so
+# the resumed attempt always starts from it.
+GANG_SLICES = ("gang-slice-a", "gang-slice-b", "gang-slice-c")
+GANG_STEPS = 4
+GANG_KILL_AT = 3
+GANG_TIMEOUT_S = 300
+
+
+def _gang_wait(pred, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            _fail(f"gang: {what} did not happen in {timeout_s:.0f} s")
+        time.sleep(0.05)
+
+
+def _gang_loop(config):
+    """One rank of the gang's gloo world on its slice host's card: the
+    data-parallel step on the global batch, deterministic, TF32 off; rank 0
+    checkpoints after step 0 (restored from train.get_checkpoint()), marks
+    each finished step in config["scratch"] with its slice's name,
+    and its last report carries the record: each step's loss, and each
+    attempt's ranks' slices, pid, launches and the wall time of each of its
+    steps, with params_sha256."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = train.get_context().get_world_rank(), train.get_context().get_world_size()
+    device = _worker_device()
+    cfg = _cluster_data_cfg()
+    init, step = tfm.build_train_step(cfg, tfm.adamw(config["lr"]), device=device,
+                                      mesh=train.get_mesh())
+    params, opt = init(torch.Generator(device=device).manual_seed(0))
+    local = _local_tree(params, opt)
+    record, start, ck = {"losses": [], "attempts": []}, 0, train.get_checkpoint()
+    if ck is not None:
+        last, meta = _restore_state(ck.path, local, opt)
+        record, start = meta["record"], last + 1
+    slices = [None] * world
+    dist.all_gather_object(slices, [os.environ.get("RAY_TPU_SLICE_NAME"),
+                                    os.environ.get("RAY_TPU_SLICE_WORKER_ID")])
+    attempt = {"slices": slices, "pid": os.getpid(), "step_t": []}
+    record["attempts"].append(attempt)
+    _zero_launch_counts()
+    sources = {}
+    for i in range(start, config["steps"]):
+        loss = step(params, opt, _cluster_data_batch(i, cfg.vocab_size)).item()
+        record["losses"].append([i, loss])
+        attempt["step_t"].append([i, time.time()])
+        attempt["launches"] = _launch_counts()
+        ckpt = None
+        if rank == 0 and i == 0:
+            sources[i] = _save_state(config["scratch"], local, opt, i, record)
+            ckpt = train.Checkpoint(sources[i])
+        metrics = {"step": i, "loss": loss}
+        if i == config["steps"] - 1:
+            metrics["record"] = record
+            metrics["params_sha256"] = _params_sha256(local)
+        train.report(metrics, checkpoint=ckpt)
+        if rank == 0:  # the step's marker names the gang's slice
+            with open(os.path.join(config["scratch"], f"step_{i}"), "w") as f:
+                f.write(os.environ.get("RAY_TPU_SLICE_NAME") or "")
+        _drop_copied(sources, i)
+
+
+def _gang_fit(tmp, name, max_failures):
+    """The gang's TorchTrainer.fit() (its Result, seconds) with its own
+    scratch dir for markers and checkpoints."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig, RunConfig,
+                                     ScalingConfig, TorchBackendConfig, TorchTrainer)
+
+    scratch = os.path.join(tmp, f"{name}_scratch")
+    os.makedirs(scratch)
+    trainer = TorchTrainer(
+        _gang_loop, train_loop_config={"lr": 1e-4, "steps": GANG_STEPS, "scratch": scratch},
+        scaling_config=ScalingConfig(num_workers=2, mesh=MeshSpec(data=-1),
+                                     backend=TorchBackendConfig(backend="gloo"),
+                                     resources_per_worker={"CPU": 1.0, "GPU": 1.0},
+                                     placement_strategy="SLICE_GANG"),
+        run_config=RunConfig(name=name, storage_path=tmp,
+                             failure_config=FailureConfig(max_failures=max_failures),
+                             checkpoint_config=CheckpointConfig(num_to_keep=1)))
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    if result.error is not None:
+        _fail(f"gang: the {name} run failed: {result.error!r}")
+    return result, time.perf_counter() - t0, scratch
+
+
+def _gang_boot_seconds(cluster):
+    """The slice detection's cost: one `nvidia-smi -q` read by
+    detect_slice_spec, and add_node's seconds for a GPU node that detects
+    its slice (the session's first: it reads the report), one that reads the
+    first one's answer, and one given a slice label (no detection). The
+    nodes are removed again: each is a one-host slice of its own."""
+    import tempfile
+
+    from ray_tpu_torch.accelerators.gpu import GpuAcceleratorManager
+
+    out = {}
+    t0 = time.perf_counter()
+    GpuAcceleratorManager().detect_slice_spec(1)
+    out["nvidia-smi -q read"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        GpuAcceleratorManager().detect_slice_spec(1, cache_dir=d)
+        t0 = time.perf_counter()
+        GpuAcceleratorManager().detect_slice_spec(1, cache_dir=d)
+        out["cached read"] = time.perf_counter() - t0
+    for what, labels in (("add_node detecting", None), ("add_node cached", None),
+                         ("add_node labelled", {"slice_name": "gang-boot", "worker_index": 0})):
+        t0 = time.perf_counter()
+        nid = cluster.add_node(num_cpus=1, num_gpus=1, labels=labels)
+        out[what] = time.perf_counter() - t0
+        cluster.remove_node(nid)
+    return out
+
+
+def _gang_groups(runtime, hosts):
+    """The CREATED SLICE_GANG groups: id -> (the slices of their hosts,
+    their placements)."""
+    return {gid: ({hosts.get(n) for n in pg["placements"]}, pg["placements"])
+            for gid, pg in runtime.placement_group_table().items()
+            if pg["strategy"] == "SLICE_GANG" and pg["state"] == "CREATED"}
+
+
+def _gang_pg(runtime, state="CREATED"):
+    """The one SLICE_GANG group in `state`, or None."""
+    found = [pg for pg in runtime.placement_group_table().values()
+             if pg["strategy"] == "SLICE_GANG" and pg["state"] == state]
+    return found[0] if len(found) == 1 else None
+
+
+def _gang_k1(seed: int):
+    """The pending gang's task in bundle 0: K1 at the serve shape against
+    its plain version, its launches, and the slice it sees."""
+    out = _operate_k1(seed)
+    out["slice"] = [os.environ.get("RAY_TPU_SLICE_NAME"),
+                    os.environ.get("RAY_TPU_SLICE_WORKER_ID")]
+    return out
+
+
+def phase_gang():
+    """SLICE_GANG on GPU slices (init() with a head leasing no GPU): first the
+    slice detection's cost (_gang_boot_seconds); (a) three labelled 2-host
+    slices on the card and two 2-rank gloo TorchTrainers placed by
+    SLICE_GANG at once, one uninterrupted, one with max_failures=1 whose
+    member's host is killed after GANG_KILL_AT steps: that gang co-fails
+    and moves whole to another slice, and the resumed run's losses and
+    params_sha256 must equal the uninterrupted run's bitwise; (b) with the
+    slices gone, a pending gang gets a slice from Autoscaler(
+    LocalGPUSliceProvider) and runs K1 in bundle 0 (<= 2^-6 per entry
+    against its plain version). Seconds: kill -> gang CREATED on another
+    slice -> first fresh step; pending -> slice up -> K1 result. Returns
+    the launches of each path."""
+    import glob
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler, LocalGPUSliceProvider
+    from ray_tpu_torch.core.placement_group import (PlacementGroupSchedulingStrategy,
+                                                    placement_group, remove_placement_group)
+    from ray_tpu_torch.core.runtime_base import current_runtime
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-gang-",
+                           dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    rt.init(num_cpus=8, num_gpus=0)
+    runtime = current_runtime()
+    cluster = runtime._cluster
+    session_dir = cluster.session_dir
+    launches = {}
+    try:
+        boot_s = _gang_boot_seconds(cluster)
+        print(f"[gang] {smi}: slice detection, seconds: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in boot_s.items()), flush=True)
+        hosts = {cluster.add_node(num_cpus=2, num_gpus=1,
+                                  labels={"slice_name": sl, "worker_index": w}): sl
+                 for sl in GANG_SLICES for w in range(2)}
+        # (a) an uninterrupted run and one with a member's host killed, at once
+        times = {}
+
+        def kill_member(scratch):
+            marker = os.path.join(scratch, f"step_{GANG_KILL_AT - 1}")
+            _gang_wait(lambda: os.path.exists(marker) or "end" in times, GANG_TIMEOUT_S,
+                       "the gang's kill step")
+            if "end" in times:
+                return
+            with open(marker) as f:
+                first = f.read()
+            groups = _gang_groups(runtime, hosts)
+            mine = [g for g, (slices, _) in groups.items() if slices == {first}]
+            if len(mine) != 1:
+                _fail(f"gang: no one group holds slice {first!r}: {groups}")
+            others = set(groups) - set(mine)  # the uninterrupted run's
+            old = groups[mine[0]][1]
+            times["kill"] = time.time()
+            cluster.remove_node(old[1])
+
+            def moved():
+                return [pl for g, (slices, pl) in _gang_groups(runtime, hosts).items()
+                        if g not in others and len(slices) == 1 and first not in slices]
+
+            _gang_wait(lambda: moved(), GANG_TIMEOUT_S, "the gang's re-placement on a slice")
+            times["created"] = time.time()
+            times["moved"] = (first, old, moved()[0])
+
+        t_plain, box_plain = _in_background(_gang_fit, tmp, "gang_uninterrupted", 0)
+        t, box = _in_background(kill_member, os.path.join(tmp, "gang_cofail_scratch"))
+        resumed, resumed_s, _ = _gang_fit(tmp, "gang_cofail", 1)
+        times["end"] = True
+        for th, bx, what in ((t, box, "the kill"), (t_plain, box_plain, "the uninterrupted run")):
+            th.join(GANG_TIMEOUT_S)
+            if th.is_alive():
+                _fail(f"gang: {what} did not end within {GANG_TIMEOUT_S} s of the other run")
+            if "error" in bx:
+                raise bx["error"]
+        plain, plain_s, _ = box_plain["value"]
+        if "kill" not in times:
+            _fail("gang: no member was killed")
+        a, b = plain.metrics, resumed.metrics
+        rec_a, rec_b = a["record"], b["record"]
+        attempts = rec_b["attempts"]
+        fresh = min((ts for i, ts in attempts[-1]["step_t"]), default=None)
+        first, old, new = times["moved"]
+        print(f"[gang] (a) {smi}: 2 gloo ranks on SLICE_GANG bundles of {{'CPU': 1, 'GPU': 1}} "
+              f"over three 2-host slices sharing the card, two runs at once, llama2_7b width, "
+              f"{_cluster_data_cfg().n_layers} layer(s), fp32, TF32 off, global batch 2 x {FIT_SEQ}, "
+              f"{GANG_STEPS} steps: uninterrupted fit {plain_s:.1f} s on slices "
+              f"{rec_a['attempts'][0]['slices']}; co-fail fit {resumed_s:.1f} s, attempts' "
+              f"slices {[x['slices'] for x in attempts]}; host {old[1][:12]} of {first} killed "
+              f"after step {GANG_KILL_AT - 1}: kill -> gang CREATED on another slice "
+              f"{_dt(times.get('created'), times['kill']):.2f} s, kill -> first fresh step "
+              f"{_dt(fresh, times['kill']):.2f} s; gang {[n[:12] for n in old]} -> "
+              f"{[n[:12] for n in new]}", flush=True)
+        print(f"[gang] (a) losses uninterrupted {[x for _, x in rec_a['losses']]}, resumed "
+              f"{[x for _, x in rec_b['losses']]}; params_sha256 {a['params_sha256'][:16]} / "
+              f"{b['params_sha256'][:16]}; launches by attempt (rank 0) "
+              f"{[x.get('launches') for x in attempts]}; goodput {b['goodput']:.3f}", flush=True)
+        second = {s for s, _ in attempts[-1]["slices"]}
+        if len(attempts) != 2 or {s for s, _ in attempts[0]["slices"]} != {first} or \
+                len(second) != 1 or first in second:
+            _fail(f"gang: the gang did not move whole: attempts on {attempts}")
+        if rec_b["losses"] != rec_a["losses"] or b["params_sha256"] != a["params_sha256"]:
+            _fail("gang: the resumed run is not bitwise equal to the uninterrupted one")
+        for i, x in enumerate([rec_a["attempts"][0], *attempts]):
+            if not all((x.get("launches") or {"none": 0}).values()):
+                _fail(f"gang: an attempt's rank 0 did not launch every kernel: {x}")
+        launches["gang trainer uninterrupted (rank 0)"] = rec_a["attempts"][0]["launches"]
+        for i, x in enumerate(attempts):
+            launches[f"gang trainer co-fail attempt {i + 1} (rank 0)"] = x["launches"]
+        # (b) the slices gone, a pending gang and the autoscaler
+        for nid in hosts:
+            if nid != old[1]:
+                cluster.remove_node(nid)
+        pg = placement_group([{"CPU": 1.0, "GPU": 1.0}] * 2, strategy="SLICE_GANG")
+        t_pending = time.time()
+        if pg.ready(timeout=1.0) or _gang_pg(runtime, "PENDING") is None:
+            _fail("gang: a gang with no slice to take is not PENDING")
+        scaler = Autoscaler(LocalGPUSliceProvider(cluster), max_nodes=8, upscale_delay_s=0.5,
+                            interval_s=0.5)
+        scaler.start()
+        try:
+            if not pg.ready(timeout=GANG_TIMEOUT_S):
+                _fail("gang: the pending gang was never placed on a provisioned slice")
+            t_up = time.time()
+            task = rt.remote(num_cpus=1, num_gpus=1)(_gang_k1).options(
+                scheduling_strategy=PlacementGroupSchedulingStrategy(
+                    placement_group=pg, placement_group_bundle_index=0))
+            got = rt.get(task.remote(71), timeout=GANG_TIMEOUT_S)
+            t_k1 = time.time()
+            labels = {n["NodeID"]: n.get("Labels") or {} for n in runtime.nodes()}
+            slice_of_0 = labels[pg.bundle_placements[0]].get("slice_name")
+        finally:
+            scaler.stop()
+            remove_placement_group(pg)
+        print(f"[gang] (b) {smi}: pending gang of 2 x {{'CPU': 1, 'GPU': 1}} -> slice "
+              f"{slice_of_0} up and the gang placed {t_up - t_pending:.2f} s -> K1 result in "
+              f"bundle 0 {t_k1 - t_pending:.2f} s (after placement {t_k1 - t_up:.2f} s); K1 "
+              f"per-entry error {got['err']:.3g} (tol 2^-6), launches {got['launches']}, the "
+              f"task's slice {got['slice']}, CUDA_VISIBLE_DEVICES "
+              f"{got['cuda_visible_devices']!r}; upscales {scaler.num_upscales}", flush=True)
+        if got["err"] > 2 ** -6 or got["launches"]["flash_fwd"] < 1:
+            _fail(f"gang: K1 in the provisioned gang's bundle: {got}")
+        if got["slice"] != [slice_of_0, "0"]:
+            _fail(f"gang: bundle 0's task saw slice {got['slice']}, want [{slice_of_0}, 0]")
+        launches["gang pending -> provisioned K1 task"] = got["launches"]
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = _cluster_processes(session_dir)
+    pools = glob.glob(f"/dev/shm/rtpt_{os.path.basename(session_dir)}*")
+    print(f"[gang] processes left {left}, pools left {sorted(pools)}; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if left or pools:
+        _fail("gang: processes or /dev/shm/rtpt_* pools outlived shutdown")
+    return launches
+
+
+LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic", "rl", "operate",
+               "shards")
 LANE_AFTER_PARALLEL = "data"
 LANE_DEADLINE_S = 1080  # from the smoke's start; the driver stops it at 1200
 LANE_POLL_S = 0.5
@@ -7892,12 +8261,13 @@ class _MemorySampler:
 def main() -> int:
     import argparse
 
-    import ray_tpu_torch  # noqa: F401  (fails at once outside a checkout)
-
+    global _PACKAGE_ROOT
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parallel-rank", nargs=4, metavar=("RANK", "WORLD", "INIT_URL", "OUT"),
                     help="run one rank of the parallel phase's gloo world (the phase starts "
                          "these processes itself)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="with --parallel-rank: run only part (c)")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve phase, one more train step, and one step each of "
                          "the fit phase's trainer and plain runs with torch.profiler, and print "
@@ -7905,12 +8275,29 @@ def main() -> int:
     ap.add_argument("--lane", metavar="DIR",
                     help="run the phases of the second process, writing their results into "
                          "DIR (the smoke starts this process itself)")
+    ap.add_argument("--tp-memory", action="store_true",
+                    help="build the kernels and run only part (c) of the parallel phase (the "
+                         "tensor-parallel meshes, gates included), printing each rank's peak "
+                         "memory; no result line")
+    ap.add_argument("--package-root", metavar="DIR",
+                    help="import ray_tpu_torch from DIR (another commit's, unpacked by git "
+                         "archive), here and in the parallel ranks")
     args = ap.parse_args()
+    if args.package_root:
+        _PACKAGE_ROOT = os.path.abspath(args.package_root)
+        sys.path.insert(0, _PACKAGE_ROOT)
+    import ray_tpu_torch  # noqa: F401  (fails at once outside a checkout)
+
     if args.lane:
         return _run_lane(args.lane)
     if args.parallel_rank:
         rank, world, url, out = args.parallel_rank
-        _parallel_rank(int(rank), int(world), url, out)
+        _parallel_rank(int(rank), int(world), url, out, args.tp_only)
+        return 0
+    if args.tp_memory:
+        phase_device()
+        phase_build()
+        phase_tp_memory()
         return 0
 
     t_main, phase_s, sampler = time.perf_counter(), {}, None
@@ -7945,7 +8332,7 @@ def main() -> int:
         fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
         by_path.update(fit_launches)
         by_path.update(timed(phase_tune, fit_step_ms))
-        for phase in (phase_cluster, phase_objects, phase_operate, phase_shards):
+        for phase in (phase_cluster, phase_objects, phase_gang):
             by_path.update(timed(phase))
         sampler.phase = "waiting for the second process"
         lane_paths, lane_s, waited_s = lane.join()

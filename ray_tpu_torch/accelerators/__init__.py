@@ -8,9 +8,11 @@ get_accelerator_manager_for_resource): the built-in families are CPU and
 GPU; `register_accelerator_manager` adds or replaces one (tests swap in a
 manager with a fake device count). The node-provider half
 (node_provider.py) is what the autoscalers drive: `LocalNodeProvider`
-starts labelled raylets on this machine. The JAX package's GCE TPU-VM
-provider waits for a GPU counterpart of its TPU topology (ROADMAP). Nothing
-here imports torch at import time.
+starts labelled raylets on this machine. A GPU host's slice is its NVLink
+domain (gpu.py `detect_slice_spec`), which SLICE_GANG places gangs on. The
+JAX package's GCE TPU-VM provider talks to a TPU VM's metadata server and
+the Cloud TPU API, and stays TPU-only. Nothing here imports torch at
+import time.
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ _private/fake_multi_node/node_provider.py:236 the test double):
 A shape is `{"cpus": c, "gpus": g, "slice_hosts": n, "resources": {...}}`
 (`gpus` where the JAX package has `tpus`); each host is
 `Cluster.add_node(num_cpus=c, num_gpus=g, labels=...)`. The JAX package's
-GceTpuNodeProvider (Cloud TPU REST) is not ported: it waits for a GPU
-counterpart of the TPU topology (ROADMAP). This module never imports torch.
+GceTpuNodeProvider is a Cloud TPU REST client and stays TPU-only. This
+module never imports torch.
 """
 
 from __future__ import annotations

@@ -10,11 +10,16 @@ a node; a node this autoscaler made that stays idle (every resource free,
 no task running on it) for `idle_timeout_s` is released, down to
 `min_nodes`.
 
+A pending SLICE_GANG placement group is slice-shaped demand: with a
+GPUSliceProvider (the counterpart of the JAX package's TPUSliceProvider)
+the loop asks for a whole slice, one host per bundle, all labelled with one
+`slice_name` and their `worker_index` or none at all, after the gang has
+waited `upscale_delay_s`, and nudges the GCS to place the gang at once. A
+gang still pending `gang_reprovision_s` after its slice was asked for (a
+host died while the slice came up) gets another.
+
 The provider here is synchronous (`create_node` returns a node id); the
-asynchronous contract is autoscaler_v2's. Left out: the JAX package's
-TPUSliceProvider / LocalTPUSliceProvider and the gang upscale for pending
-SLICE_GANG placement groups (the port's GCS has no SLICE_GANG; ROADMAP).
-This module never imports torch.
+asynchronous contract is autoscaler_v2's. This module never imports torch.
 """
 
 from __future__ import annotations
@@ -35,6 +40,18 @@ class NodeProvider:
         raise NotImplementedError
 
 
+class GPUSliceProvider(NodeProvider):
+    """A provider that can also allocate a whole GPU slice (the hosts of one
+    NVLink domain) at once: one node per host, every one labelled with the
+    slice's name and its index, all up or none (the counterpart of the JAX
+    package's TPUSliceProvider; reference: the slice-atomic provisioning the
+    TPU-{pod}-head idiom approximates, accelerators/tpu.py:334-397)."""
+
+    def create_slice(self, num_hosts: int, gpus_per_host: float,
+                     cpus_per_host: float = 2.0) -> List[str]:
+        raise NotImplementedError
+
+
 class LocalNodeProvider(NodeProvider):
     """Adds raylet processes to a local `Cluster` (the test and e2e
     provider)."""
@@ -50,6 +67,37 @@ class LocalNodeProvider(NodeProvider):
 
     def terminate_node(self, node_id: str) -> None:
         self._cluster.remove_node(node_id)
+
+
+class LocalGPUSliceProvider(LocalNodeProvider, GPUSliceProvider):
+    """Slices of raylets on this machine, over a local `Cluster` (reference:
+    autoscaler/_private/fake_multi_node/node_provider.py:236). Nodes on one
+    machine lease the same device ids, so the hosts of a slice share its
+    cards."""
+
+    def __init__(self, cluster, num_cpus_per_node: float = 2.0):
+        super().__init__(cluster, num_cpus_per_node)
+        self._slice_seq = 0
+
+    def create_slice(self, num_hosts: int, gpus_per_host: float,
+                     cpus_per_host: float = 2.0) -> List[str]:
+        self._slice_seq += 1
+        slice_name = f"local-slice-{self._slice_seq}"
+        nodes: List[str] = []
+        try:
+            for i in range(num_hosts):
+                nodes.append(self._cluster.add_node(
+                    num_cpus=cpus_per_host, num_gpus=gpus_per_host or None,
+                    labels={"slice_name": slice_name, "worker_index": i}))
+        except Exception:
+            # All or none: a partial slice is of no use to a gang.
+            for nid in nodes:
+                try:
+                    self.terminate_node(nid)
+                except Exception:  # noqa: BLE001 - best effort; the first error is raised
+                    pass
+            raise
+        return nodes
 
 
 class Autoscaler:
@@ -70,6 +118,12 @@ class Autoscaler:
         self._managed: List[str] = []  # nodes this autoscaler created
         self._idle_since: Dict[str, float] = {}
         self._demand_since: Optional[float] = None
+        self._gang_demand_since: Dict[str, float] = {}
+        # pg id -> when its slice was asked for: a gang still pending long
+        # after (a host died while the slice came up) gets another; pruned
+        # once the gang is placed or gone.
+        self._gangs_provisioned: Dict[str, float] = {}
+        self.gang_reprovision_s = 60.0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.num_upscales = 0
@@ -121,6 +175,12 @@ class Autoscaler:
         else:
             self._demand_since = None
 
+        # Gang upscale: a pending SLICE_GANG needs a whole slice (reference:
+        # the autoscaler state service reading placement-group demand,
+        # gcs_autoscaler_state_manager.h:30).
+        if isinstance(self._provider, GPUSliceProvider):
+            self._upscale_gangs(gcs, alive, now)
+
         # Downscale: managed nodes idle past the timeout.
         for n in alive:
             nid = n["NodeID"]
@@ -138,3 +198,35 @@ class Autoscaler:
                 self._idle_since.pop(nid, None)
                 self.num_downscales += 1
                 alive = [m for m in alive if m["NodeID"] != nid]
+
+    def _upscale_gangs(self, gcs, alive: List[dict], now: float) -> None:
+        try:
+            pgs = gcs.call("placement_group_table")
+        except Exception:  # noqa: BLE001 - the next tick reads it again
+            pgs = {}
+        for stale in [g for g in self._gangs_provisioned
+                      if g not in pgs or pgs[g].get("state") != "PENDING"]:
+            self._gangs_provisioned.pop(stale, None)
+        for pg_id, pg in pgs.items():
+            if pg.get("state") != "PENDING" or pg.get("strategy") != "SLICE_GANG":
+                self._gang_demand_since.pop(pg_id, None)
+                continue
+            asked = self._gangs_provisioned.get(pg_id)
+            if asked is not None and now - asked < self.gang_reprovision_s:
+                continue  # its slice is on the way
+            if now - self._gang_demand_since.setdefault(pg_id, now) < self.upscale_delay_s:
+                continue
+            bundles = pg.get("bundles") or []
+            if len(alive) + len(bundles) > self.max_nodes:
+                continue
+            gpus = max((b.get("GPU", 0.0) for b in bundles), default=0.0)
+            cpus = max((b.get("CPU", 1.0) for b in bundles), default=1.0)
+            self._managed.extend(self._provider.create_slice(len(bundles), gpus,
+                                                             cpus_per_host=max(1.0, cpus)))
+            self._gangs_provisioned[pg_id] = now
+            self.num_upscales += 1
+            try:
+                # Place it now; the waiter's ready() poll would get there too.
+                gcs.call("retry_pending_placement_group", pg_id)
+            except Exception:  # noqa: BLE001 - an advisory nudge
+                pass

@@ -21,9 +21,10 @@ the raylets' warm pools from it.
 Providers: `FakeCloudProvider` (tests) and, re-exported from
 accelerators/node_provider.py, `NodeProvider` and `LocalNodeProvider`
 (labelled raylets on this machine; shape `{"cpus", "gpus", "slice_hosts"}`).
-The JAX package's GCETPUProvider (the gcloud CLI) is not ported: it waits
-for a GPU counterpart of the TPU topology (ROADMAP). This module never
-imports torch.
+A multi-host shape is a GPU slice (one NVLink domain's hosts), as the
+v1 loop's GPUSliceProvider gives a pending SLICE_GANG. The JAX package's
+GCETPUProvider drives the gcloud CLI for Cloud TPU VMs and stays TPU-only:
+it has no counterpart here. This module never imports torch.
 """
 
 from __future__ import annotations

@@ -87,7 +87,14 @@ handler), publishing `slo_alert` firing and cleared events on
 history of its window as `metrics.json`, and the last goodput and MFU in
 its manifest.
 
-Left out: the TPU slice strategy SLICE_GANG. `mark_node_dead` is the
+SLICE_GANG places every bundle of a group on the hosts of ONE slice (nodes
+labelled with one `slice_name`: a GPU host's NVLink domain, or a slice a
+provider labelled), smallest fitting slice first, or nowhere. A CREATED gang
+with a member on a dead node co-fails: it goes RESCHEDULING, every sibling
+bundle is released and the whole gang is placed again on another slice; it
+stays RESCHEDULING, retried on each registration and every 2 s, while none
+fits. Its state is in the snapshot and the log like every group's, so a
+restarted GCS carries a RESCHEDULING gang on. `mark_node_dead` is the
 counterpart of the JAX copy's `drain_node`. This module never imports
 torch.
 """
@@ -198,6 +205,11 @@ class GcsService(ChaosPartitionRpc):
         if snapshot_path:
             self._load_snapshot()
             self._replay_wal()
+            for pg in self._pgs.values():
+                # A gang snapshotted mid-replan resumes as RESCHEDULING: only
+                # that state is retried.
+                if pg.get("state") == "REPLANNING":
+                    pg["state"] = "RESCHEDULING"
             self._wal_f = open(self._wal_path, "ab")
             for sh in self._shards:
                 sh.wal_open(_gsh.wal_segment_path(snapshot_path, sh.index))
@@ -450,6 +462,7 @@ class GcsService(ChaosPartitionRpc):
         node's `node_added` event and node-table row."""
         for node_id, epoch in registered:
             _flight_record("node.added", (node_id[:12], epoch))
+        self._kick_stranded_gangs()
         self._kick_stranded_restarts()
         for node_id, epoch in registered:
             # Capacity waiters (TorchTrainer's renegotiation) block on
@@ -852,6 +865,9 @@ class GcsService(ChaosPartitionRpc):
             if tick % snap_every == 0:
                 self._save_snapshot()
             if tick % 20 == 0:
+                # Stranded gangs retry as capacity frees, not only when a
+                # node registers.
+                self._kick_stranded_gangs()
                 self._kick_stranded_restarts()
             dead = []
             lag_records: List[dict] = []
@@ -946,6 +962,19 @@ class GcsService(ChaosPartitionRpc):
         if restart:
             threading.Thread(target=lambda: [self._restart_actor(a) for a in restart],
                              daemon=True).start()
+        # A SLICE_GANG with a member here co-fails: the whole gang moves.
+        gangs: List[str] = []
+        with self._lock:
+            for pg_id, pg in self._pgs.items():
+                if (pg["strategy"] == "SLICE_GANG" and pg.get("state") == "CREATED"
+                        and node_id in pg["placements"]):
+                    pg["state"] = "RESCHEDULING"
+                    self._persist_delta("_pgs", pg_id, pg)
+                    gangs.append(pg_id)
+        if gangs:
+            _flight_record("node.gang_cofail", (node_id[:12], len(gangs)))
+            threading.Thread(target=lambda: [self._reschedule_gang(g) for g in gangs],
+                             daemon=True, name="gang-reschedule").start()
 
     # ------------------------------------------------------------- actors
     @staticmethod
@@ -1519,11 +1548,10 @@ class GcsService(ChaosPartitionRpc):
     # --------------------------------------------------- placement groups
     def _plan_bundles(self, bundles: List[dict], strategy: str, banned: Set[str]) -> List[str]:
         """Placement planning against the current resource view (reference:
-        bundle_scheduling_policy.h PACK/SPREAD/STRICT_PACK/STRICT_SPREAD)."""
+        bundle_scheduling_policy.h PACK/SPREAD/STRICT_PACK/STRICT_SPREAD, and
+        SLICE_GANG)."""
         if strategy == "SLICE_GANG":
-            raise PlacementGroupError(
-                "SLICE_GANG places bundles on the hosts of one TPU slice; "
-                "the port's nodes carry GPUs")
+            return self._plan_slice_gang(bundles, banned)
         avail = {nid: n["available"] for nid, n in self._live_nodes(banned)}
         order = sorted(avail, key=lambda nid: -sum(avail[nid].values()))
 
@@ -1551,9 +1579,99 @@ class GcsService(ChaosPartitionRpc):
             placements.append(chosen)
         return placements
 
-    def _release_bundles(self, pg_id: str, reserved: List[Tuple[str, int]]) -> None:
+    def _plan_slice_gang(self, bundles: List[dict], banned: Set[str]) -> List[str]:
+        """SLICE_GANG: every bundle on the hosts of ONE slice (alive nodes
+        labelled with one slice_name, in worker_index order), one bundle per
+        host in turn, or the group fails as a whole: a program sharded over
+        a slice must see all of it. The smallest slice that fits goes first,
+        so a large one is not fragmented (reference: the TPU-{pod}-head idiom,
+        python/ray/_private/accelerators/tpu.py:334-397, as the JAX package
+        makes it a policy of its own)."""
+        slices: Dict[str, List[Tuple[int, str, dict]]] = {}
+        for sh in self._shards:
+            with self._locked(sh):
+                for nid, n in sh.nodes.items():
+                    labels = n.get("labels") or {}
+                    if (not n["alive"] or nid in banned or n.get("draining")
+                            or not labels.get("slice_name")):
+                        continue
+                    slices.setdefault(str(labels["slice_name"]), []).append(
+                        (int(labels.get("worker_index", 0)), nid, dict(n["available"])))
+        for name in sorted(slices, key=lambda sl: (len(slices[sl]), sl)):
+            hosts = sorted(slices[name], key=lambda h: (h[0], h[1]))
+            avail = {nid: av for _, nid, av in hosts}
+            order = [nid for _, nid, _ in hosts]
+            placements: List[str] = []
+            for bundle in bundles:
+                chosen = None
+                for j in range(len(order)):
+                    nid = order[(len(placements) + j) % len(order)]
+                    if all(avail[nid].get(k, 0.0) >= v for k, v in bundle.items()):
+                        chosen = nid
+                        break
+                if chosen is None:
+                    break
+                for k, v in bundle.items():
+                    avail[chosen][k] = avail[chosen].get(k, 0.0) - v
+                placements.append(chosen)
+            if len(placements) == len(bundles):
+                return placements
+        raise PlacementGroupError(
+            f"no slice can host all {len(bundles)} bundles of the gang at once")
+
+    def _reschedule_gang(self, pg_id: str) -> None:
+        """A gang member died: release every sibling bundle and place the
+        WHOLE gang again (no partial restart). One rescheduler at a time
+        (REPLANNING); a gang no slice can take goes back to RESCHEDULING,
+        retried on the next registration or health tick."""
+        with self._lock:
+            pg = self._pgs.get(pg_id)
+            if pg is None or pg.get("state") != "RESCHEDULING":
+                return
+            pg["state"] = "REPLANNING"  # not logged: the log keeps RESCHEDULING
+            placements, bundles = list(pg["placements"]), pg["bundles"]
+        self._release_bundles(pg_id, list(zip(placements, range(len(placements)))),
+                              alive_only=True)
+        for nid, bundle in zip(placements, bundles):
+            self._give_back(nid, bundle)
+        try:
+            self.create_placement_group(pg_id, bundles, "SLICE_GANG")
+            _flight_record("node.gang_replaced", (pg_id[:12],))
+        except Exception as e:  # noqa: BLE001 - no slice fits yet: retried
+            with self._lock:
+                pg = self._pgs.get(pg_id)
+                if pg is not None and pg.get("state") == "REPLANNING":
+                    pg["state"] = "RESCHEDULING"
+            _log.info("gang %s waits for a slice: %s", pg_id[:12], e)
+
+    def _give_back(self, nid: str, bundle: dict) -> Optional[str]:
+        """Returns a released bundle's resources to the node's view at once
+        (its next heartbeat confirms them); the node's socket if it is
+        alive."""
+        with self._locked(self._shard_for(nid)) as sh:
+            n = sh.nodes.get(nid)
+            if n is None:
+                return None
+            for k, v in bundle.items():
+                n["available"][k] = min(n["resources"].get(k, 0.0),
+                                        n["available"].get(k, 0.0) + v)
+            return n["sock"] if n["alive"] else None
+
+    def _kick_stranded_gangs(self) -> None:
+        """Retries every RESCHEDULING gang (new capacity may complete a
+        slice) on a thread of its own: a refused lease's RPCs must not hold
+        the health loop."""
+        with self._lock:
+            stranded = [g for g, pg in self._pgs.items() if pg.get("state") == "RESCHEDULING"]
+        if not stranded:
+            return
+        threading.Thread(target=lambda: [self._reschedule_gang(g) for g in stranded],
+                         daemon=True, name="gang-reschedule").start()
+
+    def _release_bundles(self, pg_id: str, reserved: List[Tuple[str, int]],
+                         alive_only: bool = False) -> None:
         for nid, i in reserved:
-            sock = self._node_sock(nid, alive_only=False)
+            sock = self._node_sock(nid, alive_only=alive_only)
             if sock:
                 try:
                     self._raylet_call(sock, "release_bundle", pg_id, i)
@@ -1637,13 +1755,7 @@ class GcsService(ChaosPartitionRpc):
                 self._removed_pgs.popitem(last=False)
         if pg:
             for i, (nid, bundle) in enumerate(zip(pg["placements"], pg["bundles"])):
-                with self._locked(self._shard_for(nid)) as sh:
-                    n = sh.nodes.get(nid)
-                    sock = n["sock"] if n and n["alive"] else None
-                    if n:
-                        for k, v in bundle.items():
-                            n["available"][k] = min(n["resources"].get(k, 0.0),
-                                                    n["available"].get(k, 0.0) + v)
+                sock = self._give_back(nid, bundle)
                 if sock:
                     try:
                         self._raylet_call(sock, "release_bundle", pg_id, i)
@@ -1693,6 +1805,7 @@ class GcsService(ChaosPartitionRpc):
             if pg.get("state") == "CREATED":
                 return {"placements": pg["placements"]}
             if pg.get("state") != "PENDING" or pg_id in self._pg_creating:
+                # A RESCHEDULING gang is the GCS's own to retry.
                 return None
             self._pg_creating.add(pg_id)
             bundles, strategy = pg["bundles"], pg["strategy"]

@@ -84,6 +84,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from .. import exceptions as exc
 from .. import tracing as _tracing
 from ..accelerators import get_accelerator_manager
+from ..accelerators.gpu import slice_env
 from ..chaos.net import ChaosPartitionRpc
 from ..observability import postmortem as _postmortem
 from ..observability.flight_recorder import record as _flight_record
@@ -192,6 +193,21 @@ class RayletService(ChaosPartitionRpc):
         if n_gpus and len(ids) < n_gpus:
             # Fewer leasable ids than declared: schedule against the ids.
             self.total["GPU"] = self.available["GPU"] = float(len(ids))
+        if ids and "slice_name" not in self.labels:
+            # A GPU host's NVLink domain is its slice (SLICE_GANG reads the
+            # labels), as a TPU host's slice is in the JAX package; labels
+            # the caller gave (a provider's fake slice) win. The session's
+            # first raylet on this host reads it; the others read its answer.
+            try:
+                spec = self._gpu_manager.detect_slice_spec(
+                    len(ids), cache_dir=os.path.dirname(sock_path) or ".")
+            except Exception:  # noqa: BLE001 - an unreadable topology: no slice
+                spec = None
+            if spec is not None and spec.slice_name:
+                self.labels.setdefault("slice_name", spec.slice_name)
+                self.labels.setdefault("worker_index", spec.worker_index)
+                if spec.generation:
+                    self.labels.setdefault("gpu_generation", spec.generation)
         self._res_lock = lock_order.tracked_lock("raylet.resources")
         # Placement-group bundles hosted here: (pg_id, bundle_index) ->
         # {"reserved", "free", "gpus"}. Reserved resources are debited from
@@ -1565,6 +1581,10 @@ class RayletService(ChaosPartitionRpc):
             desc["runtime_env"] = entry["runtime_env"]
         if entry.get("_gpus"):
             desc["gpu"] = sorted(entry["_gpus"])
+        if self._entry_bundle_key(entry) is not None and self.labels.get("slice_name"):
+            # A bundle's worker on a slice host learns the slice's identity.
+            desc["slice"] = [str(self.labels["slice_name"]),
+                             int(self.labels.get("worker_index", 0))]
         return json.dumps(desc, sort_keys=True) if desc else ""
 
     def _pop_idle_locked(self, env_key: str) -> Optional[_Worker]:
@@ -1608,9 +1628,13 @@ class RayletService(ChaosPartitionRpc):
         env = dict(os.environ)
         env["RAY_TPU_WORKER"] = "1"
         env["RAY_TPU_LOG_DIR"] = self._log_dir  # the worker's JSONL beside its .out/.err
+        desc = json.loads(env_key) if env_key else {}
+        slice_name, worker_index = desc.get("slice") or (None, 0)
         if self._has_gpus:
-            ids = json.loads(env_key).get("gpu", []) if env_key else []
-            env.update(self._gpu_manager.worker_visibility_env(ids))
+            env.update(self._gpu_manager.worker_visibility_env(
+                desc.get("gpu", []), slice_name=slice_name, worker_index=worker_index))
+        else:
+            env.update(slice_env(slice_name, worker_index))
         log_base = os.path.join(self._log_dir, f"worker_{worker_id}")
         argv = [self.sock_path, self.store_path, self.gcs_sock, worker_id, self.node_id]
         return worker_id, argv, env, log_base

@@ -5,7 +5,8 @@ Quantities are fixed-point integers (1/10000 granularity), so fractional
 resources round-trip without float drift. The JAX package detects TPU
 chips through its accelerator registry and carries a TpuSliceSpec per
 node for slice-gang leases; the port counts CPUs and CUDA devices
-(`GPU`), and has no slice topology.
+(`GPU`), and a GPU host's GpuSliceSpec names the NVLink domain it sits in
+(accelerators/gpu.py `detect_slice_spec`), the slice a SLICE_GANG leases.
 """
 
 from __future__ import annotations
@@ -22,6 +23,26 @@ MEMORY = "memory"
 OBJECT_STORE_MEMORY = "object_store_memory"
 
 _IMPLICIT_PREFIX = "node:"
+
+
+@dataclass(frozen=True)
+class GpuSliceSpec:
+    """The NVLink domain a GPU host belongs to: the counterpart of the JAX
+    package's TpuSliceSpec. A GB200 NVL72 rack, for example, is 18 hosts x
+    4 GPUs in one domain; an HGX H100 board is one host x 8 GPUs on its
+    NVSwitches. All hosts of one domain share `slice_name`, and a SLICE_GANG
+    leases them atomically, so a program sharded over the domain always
+    sees all of it."""
+
+    slice_name: str = ""           # unique per NVLink domain
+    generation: str = ""           # "h100", "b200", ... from the device name
+    gpus_per_host: int = 1
+    hosts_per_slice: int = 1       # where known: detection says 1 (see gpu.py)
+    worker_index: int = 0          # this host's index within the domain
+
+    @property
+    def total_gpus(self) -> int:
+        return self.gpus_per_host * self.hosts_per_slice
 
 
 def to_fixed(v: float) -> int:

@@ -26,7 +26,12 @@ rank reads its leaves' local shards, gathers a layer's weights over "fsdp"
 where it uses them, runs the column-parallel products (wq/wk/wv,
 w_gate/w_up) on its columns and the row-parallel ones (wo, w_down) on its
 rows with the sum over "tensor" after them, and names every collective
-(see _Shard). Nothing relies on DTensor's sharding propagation, which the
+(see _Shard). The embedding and the head keep their "tensor" split too
+(JAX's rules split both, so GSPMD never holds the whole [d, vocab] head or
+the whole logits on one chip): each rank looks up its d/T columns of the
+embedding, an untied head gives each rank its vocab/T columns of the
+logits, and the loss is `parallel.cross_entropy`'s vocab-parallel one (see
+_hidden). Nothing relies on DTensor's sharding propagation, which the
 flash op and torch.utils.checkpoint do not go through.
 """
 
@@ -45,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops.flash_attention import attention_reference, flash_attention
 from ..parallel.collectives import (_all_reduce, all_gather, axis_index, grad_sum, tp_copy,
                                     tp_gather, tp_reduce, tp_split)
+from ..parallel.cross_entropy import vocab_parallel_nll
 from ..parallel.mesh import axes_group, data_parallel_rank, mesh_shape
 from ..parallel.pipeline import pipeline_apply, shard_stage_params, split_stacked_layers
 from ..parallel.sharding import PartitionSpec, dim_axes, grad_group, local_shard, spec_of
@@ -573,10 +579,17 @@ def _local_params(params: Params, mesh, batch: Tuple[str, ...]):
     return map_tree(lambda _: next(it), params), specs
 
 
+def _tensor_dim(spec, ndim: int) -> Optional[int]:
+    """The dim of a leaf that `spec` splits over "tensor", if any."""
+    dims = [d for d, axes in enumerate(dim_axes(spec, ndim)) if "tensor" in axes]
+    return dims[0] if dims else None
+
+
 def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh):
-    """(final-norm hidden states [batch, seq, d], the head [d, vocab] as
-    used) of tokens [batch, seq]. With cfg.remat and grad enabled, each
-    layer recomputes in the backward.
+    """(final-norm hidden states [batch, seq, d], the head [d, vocab] or this
+    rank's part of it, how that part is used: None, "column" or "row") of
+    tokens [batch, seq]. With cfg.remat and grad enabled, each layer
+    recomputes in the backward.
 
     With a DeviceMesh (parallel.build_device_mesh) every rank passes the
     GLOBAL tokens, as the JAX function takes the global array, and gets ITS
@@ -584,9 +597,21 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh):
     (RoPE at their global positions; "full" and "naive" attend over the
     gathered sequence). Params are plain tensors (whole on every rank) or
     DTensors (parallel.shard_tree): each rank computes on its shards (see
-    _Shard), gathering the embedding and the head whole. Each leaf's
-    gradient is summed over the batch ranks in the backward, so every rank
-    gets its shard of the global gradient."""
+    _Shard). Each leaf's gradient is summed over the batch ranks in the
+    backward, so every rank gets its shard of the global gradient.
+
+    The embedding [vocab, d] (spec (fsdp, tensor)) is gathered over "fsdp"
+    only: each rank looks up its d/T columns for its tokens and the
+    [b, s, d/T] rows are gathered over "tensor" (tp_gather, whose backward
+    keeps the rank's slice), so no rank holds the whole table or its whole
+    gradient. An untied head [d, vocab] (spec (fsdp, tensor)) is
+    column-parallel ("column": gathered over "fsdp" on d, each rank's
+    product gives its vocab/T columns of the logits). The tied head
+    (embedding.T, its d over "tensor") is row-parallel ("row": each rank
+    multiplies its d/T columns and the partial logits are summed over
+    "tensor", so those logits are whole on every rank). A dim the clamp
+    left whole (a vocab or d that "tensor" does not divide) is gathered
+    whole as before, and the head's product is the plain one (None)."""
     b, s = tokens.shape
     if mesh is None:
         emb = params["embed"]["embedding"]
@@ -595,24 +620,45 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh):
         x = emb[tokens.long()]
         for i in range(cfg.n_layers):
             x = layer(x, _layer_params(params, i), cfg, cos, sin)
-        return _norm(x, params["final_norm"]["scale"], cfg), _head(params)
+        return _norm(x, params["final_norm"]["scale"], cfg), _head(params), None
     rows, start, s_local, batch = _local_shard(mesh, b, s)
     params, specs = _local_params(params, mesh, batch)
     shard = _plan(params, specs, cfg, mesh)
     if mesh_shape(mesh)["seq"] > 1 and cfg.attn_impl in ("full", "naive"):
         shard = dataclasses.replace(shard, seq_start=start)
     whole = functools.partial(_gather_dims, mesh=mesh, batch=batch)
-    emb = whole(params["embed"]["embedding"], specs["embed"]["embedding"])
+    emb_spec = specs["embed"]["embedding"]
+    emb_cols = _tensor_dim(emb_spec, 2) == 1
+    emb = whole(params["embed"]["embedding"], emb_spec, keep=("tensor",) if emb_cols else ())
     cos, sin = rope_tables(cfg, s, emb.device)
     cos, sin = cos[start:start + s_local], sin[start:start + s_local]
     x = emb[tokens[rows, start:start + s_local].long()]
+    if emb_cols:
+        x = tp_gather(x, mesh, "tensor", dim=-1)
     layer = _remat_layer(cfg.remat_policy) if cfg.remat and torch.is_grad_enabled() else _layer
     for i in range(cfg.n_layers):
         lp = {g: {k: whole(t[i], PartitionSpec(*specs["blocks"][g][k][1:]), keep=("tensor",))
                   for k, t in leaves.items()} for g, leaves in params["blocks"].items()}
         x = layer(x, lp, cfg, cos, sin, shard)
-    head = emb.T if "lm_head" not in params else whole(params["lm_head"], specs["lm_head"])
-    return _norm(x, params["final_norm"]["scale"], cfg), head
+    x = _norm(x, params["final_norm"]["scale"], cfg)
+    if "lm_head" not in params:
+        return x, emb.T, "row" if emb_cols else None
+    head_spec = specs["lm_head"]
+    head_cols = _tensor_dim(head_spec, 2) == 1
+    head = whole(params["lm_head"], head_spec, keep=("tensor",) if head_cols else ())
+    return x, head, "column" if head_cols else None
+
+
+def _logits(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh):
+    """(logits float32, whether their last dim is this rank's vocab/T
+    columns, in "tensor" rank order, rather than the whole vocab)."""
+    x, head, how = _hidden(params, tokens, cfg, mesh)
+    if how == "column":
+        return torch.matmul(tp_copy(x, mesh), head).float(), True
+    if how == "row":
+        part = torch.matmul(tp_split(x, mesh, dim=-1), head).float()
+        return tp_reduce(part, mesh), False
+    return torch.matmul(x, head).float(), False
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -625,15 +671,21 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None) -> torch.Tensor:
     """tokens [batch, seq] int -> logits [batch, seq, vocab] float32 (with a
-    mesh: this rank's rows and positions, every vocab entry; see _hidden)."""
-    x, head = _hidden(params, tokens, cfg, mesh)
-    return torch.matmul(x, head).float()
+    mesh: this rank's rows and positions, every vocab entry; a
+    vocab-parallel head's columns are gathered over "tensor" at the very
+    end, see _hidden)."""
+    logits, vocab_split = _logits(params, tokens, cfg, mesh)
+    return tp_gather(logits, mesh, "tensor", dim=-1) if vocab_split else logits
 
 
 # ------------------------------------------------------------------ train
 
 
-def _nll_sum(logits, targets, m):
+def _nll_sum(logits, targets, m, mesh=None):
+    """Σ m · nll over the rows; `mesh` given: logits are this rank's vocab
+    columns (parallel.cross_entropy)."""
+    if mesh is not None:
+        return (vocab_parallel_nll(logits, targets, mesh) * m).sum()
     nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
     return (nll.view(targets.shape) * m).sum()
 
@@ -650,7 +702,10 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
     the global last position is masked, and the sum and count are summed
     over the ranks that hold the other parts. The gradient each rank's
     backward computes is its own part's; forward_hidden sums the params'
-    gradients over those ranks.
+    gradients over those ranks. Where the head is split over "tensor" (an
+    untied head whose vocab "tensor" divides) the loss is the
+    vocab-parallel cross-entropy of each rank's logit columns: no
+    [.., vocab] tensor is whole on a rank.
     """
     b, s = tokens.shape
     targets = torch.roll(tokens.long(), -1, dims=1)
@@ -662,9 +717,9 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig
         rows, start, s_local, batch = _local_shard(mesh, b, s)
         targets, m = (t[rows, start:start + s_local] for t in (targets, m))
         group = axes_group(mesh, batch) if batch else None
-    logits = forward(params, tokens, cfg, mesh)
+    logits, vocab_split = _logits(params, tokens, cfg, mesh)
     m = m.to(device=logits.device, dtype=logits.dtype)
-    local = _nll_sum(logits, targets.to(logits.device), m)
+    local = _nll_sum(logits, targets.to(logits.device), m, mesh if vocab_split else None)
     count = m.sum()
     if group is None:
         return local / count.clamp_min(1.0)

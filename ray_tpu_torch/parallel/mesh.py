@@ -39,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +61,46 @@ def default_devices(use_gpu: bool = True) -> List[torch.device]:
             "CPU (ScalingConfig(use_gpu=False))"
         )
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuTopology:
+    """The physical description of a GPU slice (the hosts of one NVLink
+    domain): the counterpart of the JAX package's TpuTopology. `mesh_shape`
+    is () because NVSwitch joins every GPU of the domain to every other,
+    where a TPU slice's chips sit on a torus; any logical mesh maps onto it
+    alike."""
+
+    generation: str = "cpu"  # "h100", "b200", ...; the device type off a card
+    gpus_per_host: int = 1
+    num_hosts: int = 1
+    mesh_shape: Tuple[int, ...] = ()
+
+    @property
+    def num_gpus(self) -> int:
+        return self.gpus_per_host * self.num_hosts
+
+    @staticmethod
+    def detect(use_gpu: bool = True, *, slice_spec=None,
+               device_names: Optional[Sequence[str]] = None) -> "GpuTopology":
+        """This host's slice: its CUDA devices (the generation from their
+        name), the domain's host count from its GpuSliceSpec (read by
+        accelerators/gpu.py `detect_slice_spec` unless given, which says 1:
+        the fabric does not count a domain's hosts). With
+        use_gpu=False, the one CPU device. `device_names` stands in for the
+        CUDA devices' names (a host without a card, in tests)."""
+        from ..accelerators.gpu import GpuAcceleratorManager, gpu_generation
+
+        if device_names is None:
+            devs = default_devices(use_gpu)
+            if devs[0].type != "cuda":
+                return GpuTopology(generation=devs[0].type, gpus_per_host=len(devs))
+            device_names = [torch.cuda.get_device_name(d) for d in devs]
+        if slice_spec is None:
+            slice_spec = GpuAcceleratorManager().detect_slice_spec(len(device_names))
+        return GpuTopology(generation=gpu_generation(device_names[0]),
+                           gpus_per_host=len(device_names),
+                           num_hosts=max(1, int(slice_spec.hosts_per_slice)))
 
 
 @dataclasses.dataclass(frozen=True)

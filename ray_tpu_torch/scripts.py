@@ -317,11 +317,15 @@ def cmd_status(args) -> None:
             # RPCs are refused until it registers afresh.
             mark = "FENCED"
         labels = n.get("Labels") or {}
-        label_info = ""
+        label_info, rest = "", dict(labels)
         if labels.get("slice_name"):
-            label_info = f" slice={labels['slice_name']}[{labels.get('worker_index', 0)}]"
-        elif labels:
-            label_info = " labels=" + ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+            # Where each host sits in its slice (its NVLink domain, detected
+            # or a provider's labels); the node's other labels follow.
+            label_info = f" slice={rest.pop('slice_name')}[{rest.pop('worker_index', 0)}]"
+            if rest.get("gpu_generation"):
+                label_info += f" gpu={rest.pop('gpu_generation')}"
+        if rest:
+            label_info += " labels=" + ",".join(f"{k}={v}" for k, v in sorted(rest.items()))
         epoch_info = f" epoch={n['Epoch']}" if n.get("Epoch") is not None else ""
         pool_info = ""
         if args.verbose:

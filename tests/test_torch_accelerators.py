@@ -18,6 +18,8 @@ from ray_tpu_torch.accelerators import get_accelerator_manager
 from ray_tpu_torch.accelerators.gpu import GpuAcceleratorManager
 from ray_tpu_torch.core import serialization
 
+import torch_modes
+
 serialization.register_pickle_by_value(sys.modules[__name__])
 
 
@@ -111,12 +113,12 @@ def gpu_cluster():
 
     rt.shutdown()
     saved = os.environ.pop("CUDA_VISIBLE_DEVICES", None)
-    cluster = Cluster(num_cpus=4, num_gpus=2)
+    cluster = torch_modes.boot_cluster(Cluster, num_cpus=4, num_gpus=2)
     runtime_base.set_runtime(cluster.runtime())
     try:
         yield rt, cluster
     finally:
-        rt.shutdown()
+        torch_modes.shutdown_cluster(cluster, rt.shutdown)
         if saved is not None:
             os.environ["CUDA_VISIBLE_DEVICES"] = saved
 

@@ -68,7 +68,7 @@ def _agree(request, seen):
 def _boot(p, **kwargs):
     if p.name == "jax":
         return torch_modes.boot_jax_cluster(**kwargs)
-    return p.cluster_mod.Cluster(num_gpus=0, **kwargs)
+    return torch_modes.boot_cluster(p.cluster_mod.Cluster, num_gpus=0, **kwargs)
 
 
 @pytest.fixture(scope="module")
@@ -81,9 +81,8 @@ def clusters():
     finally:
         for cluster, runtime, base in booted.values():
             try:
-                runtime.shutdown()
+                torch_modes.shutdown_cluster(cluster, runtime.shutdown)
             finally:
-                cluster.shutdown()
                 base.set_runtime(None)
 
 

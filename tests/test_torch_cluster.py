@@ -43,8 +43,7 @@ def jax_cluster():
         jbase.set_runtime(jc.runtime())
         yield types.SimpleNamespace(rt=jrt, cluster=jc, node2=jn2, base=jbase)
     finally:
-        jrt.shutdown()
-        jc.shutdown()
+        torch_modes.shutdown_cluster(jc, jrt.shutdown)
 
 
 @pytest.fixture(scope="module")
@@ -53,14 +52,13 @@ def torch_cluster():
     from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
 
     trt.shutdown()
-    tc = TorchCluster(num_cpus=2, num_gpus=0)
+    tc = torch_modes.boot_cluster(TorchCluster, num_cpus=2, num_gpus=0)
     try:
         tn2 = tc.add_node(num_cpus=2, resources={"special": 2.0})
         tbase.set_runtime(tc.runtime())
         yield types.SimpleNamespace(rt=trt, cluster=tc, node2=tn2, base=tbase)
     finally:
-        trt.shutdown()
-        tc.shutdown()
+        torch_modes.shutdown_cluster(tc, trt.shutdown)
 
 
 @pytest.fixture(params=PKGS)

@@ -17,6 +17,8 @@ import pytest
 
 from ray_tpu_torch.core import serialization
 
+import torch_modes
+
 serialization.register_pickle_by_value(sys.modules[__name__])
 
 N_STEPS, LR = 3, 0.05
@@ -27,11 +29,11 @@ def cluster():
     import ray_tpu_torch as rt
 
     rt.shutdown()
-    rt.init(num_cpus=4, num_gpus=0)
+    torch_modes.bounded_init(rt, num_cpus=4, num_gpus=0)
     try:
         yield rt
     finally:
-        rt.shutdown()
+        torch_modes.shutdown_init(rt)
 
 
 @pytest.fixture(scope="module")

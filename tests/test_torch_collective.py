@@ -13,6 +13,7 @@ Each package boots one cluster for the file (every JAX `Cluster()` sweeps
 running `collective_die` in the environment its workers inherit.
 """
 
+import functools
 import importlib
 import json
 import os
@@ -134,7 +135,8 @@ def clusters():
         for name in PKGS:
             Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
             kw = {"num_gpus": 0} if name == "torch" else {}
-            boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+            boot = (torch_modes.boot_jax_cluster if name == "jax"
+                    else functools.partial(torch_modes.boot_cluster, Cluster))
             cluster = boot(num_cpus=4, num_workers=3, **kw)
             booted[name] = types.SimpleNamespace(
                 name=name, cluster=cluster, runtime=cluster.runtime(),
@@ -154,9 +156,8 @@ def clusters():
     finally:
         for c in booted.values():
             try:
-                c.runtime.shutdown()
+                torch_modes.shutdown_cluster(c.cluster, c.runtime.shutdown)
             finally:
-                c.cluster.shutdown()
                 c.base.set_runtime(None)
 
 

@@ -70,7 +70,7 @@ class _Clusters:
             if name == "jax":
                 cluster = bounded(lambda: torch_modes.boot_jax_cluster(num_cpus=2), 120)
             else:
-                cluster = Cluster(num_cpus=2, num_gpus=0)
+                cluster = torch_modes.boot_cluster(Cluster, num_cpus=2, num_gpus=0)
             runtime = cluster.runtime()
             self._booted[name] = types.SimpleNamespace(
                 name=name, pkg=pkg, base=base, cluster=cluster, runtime=runtime,
@@ -84,17 +84,16 @@ class _Clusters:
         return c
 
     def shutdown(self):
+        errors = []
         for c in self._booted.values():
-            def down(c=c):
-                try:
-                    c.runtime.shutdown()
-                finally:
-                    c.cluster.shutdown()
             # A wedged runtime must not hold the worker at teardown either.
-            t = threading.Thread(target=down, daemon=True)
-            t.start()
-            t.join(60)
+            try:
+                torch_modes.shutdown_cluster(c.cluster, c.runtime.shutdown)
+            except BaseException as e:  # noqa: BLE001 - the other still goes down
+                errors.append(e)
         self._booted.clear()
+        if errors:
+            raise errors[0]
 
 
 @pytest.fixture(scope="module")

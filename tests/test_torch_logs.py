@@ -252,7 +252,7 @@ def _boot(name, flight_dir):
             return cluster, cluster.runtime()
         from ray_tpu_torch.core.cluster_runtime import Cluster
 
-        cluster = Cluster(num_cpus=4, num_gpus=0, num_workers=0)
+        cluster = torch_modes.boot_cluster(Cluster, num_cpus=4, num_gpus=0, num_workers=0)
         runtime = cluster.runtime()
         pool = wait_for(lambda: (p := runtime._raylet.call("debug_state")["pool"]).get(
             "zygote_alive") and p.get("preforked", 0) >= 1, timeout=120, interval=0.25)
@@ -276,8 +276,7 @@ def _package_fixture(name, dirs):
             name=name, rt=rt, cluster=cluster, base=base, flight_dir=dirs[name],
             state=importlib.import_module(f"{ROOT[name]}.utils.state"))
     finally:
-        rt.shutdown()
-        cluster.shutdown()
+        torch_modes.shutdown_cluster(cluster, rt.shutdown)
 
 
 @pytest.fixture(scope="module")

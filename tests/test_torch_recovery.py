@@ -47,8 +47,7 @@ def jax_cluster():
         jbase.set_runtime(jc.runtime())
         yield types.SimpleNamespace(rt=jrt, exc=jexc, cluster=jc, base=jbase)
     finally:
-        jrt.shutdown()
-        jc.shutdown()
+        torch_modes.shutdown_cluster(jc, jrt.shutdown)
 
 
 @pytest.fixture(scope="module")
@@ -57,13 +56,12 @@ def torch_cluster():
     from ray_tpu_torch.core.cluster_runtime import Cluster as TorchCluster
 
     trt.shutdown()
-    tc = TorchCluster(num_cpus=4, num_gpus=0)
+    tc = torch_modes.boot_cluster(TorchCluster, num_cpus=4, num_gpus=0)
     try:
         tbase.set_runtime(tc.runtime())
         yield types.SimpleNamespace(rt=trt, exc=texc, cluster=tc, base=tbase)
     finally:
-        trt.shutdown()
-        tc.shutdown()
+        torch_modes.shutdown_cluster(tc, trt.shutdown)
 
 
 @pytest.fixture(params=PKGS)

@@ -18,6 +18,7 @@ RAY_TPU_RUNTIME_ENV_PLUGINS naming that package's stamp plugin
 (tests/_stamp_plugin.py, tests/torch_stamp_plugin.py).
 """
 
+import functools
 import importlib
 import os
 import sys
@@ -52,9 +53,8 @@ def clusters():
     finally:
         for c in booted.values():
             try:
-                c.runtime.shutdown()
+                torch_modes.shutdown_cluster(c.cluster, c.runtime.shutdown)
             finally:
-                c.cluster.shutdown()
                 c.base.set_runtime(None)
 
 
@@ -67,7 +67,8 @@ def c(request, clusters):
         try:
             Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
             kw = {"num_gpus": 0} if name == "torch" else {}
-            boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+            boot = (torch_modes.boot_jax_cluster if name == "jax"
+                    else functools.partial(torch_modes.boot_cluster, Cluster))
             cluster = boot(num_cpus=2, num_workers=1, **kw)
         finally:
             if saved is None:

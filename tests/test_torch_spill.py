@@ -13,6 +13,7 @@ Each package boots one cluster for the file (every JAX `Cluster()` sweeps
 the package's runtime in and out.
 """
 
+import functools
 import importlib
 import os
 import sys
@@ -36,7 +37,8 @@ def _boot(name):
     rt = importlib.import_module(_ROOT[name])
     Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
     kw = {"num_gpus": 0} if name == "torch" else {}
-    boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+    boot = (torch_modes.boot_jax_cluster if name == "jax"
+            else functools.partial(torch_modes.boot_cluster, Cluster))
     cluster = boot(num_cpus=2, num_workers=2, object_store_memory=POOL, **kw)
     far = cluster.add_node(num_cpus=2, resources={"far": 1.0}, num_workers=0)
     others = [cluster.add_node(num_cpus=1, num_workers=0) for _ in range(2)]
@@ -55,9 +57,8 @@ def clusters():
     finally:
         for c in booted.values():
             try:
-                c.runtime.shutdown()
+                torch_modes.shutdown_cluster(c.cluster, c.runtime.shutdown)
             finally:
-                c.cluster.shutdown()
                 c.base.set_runtime(None)
 
 

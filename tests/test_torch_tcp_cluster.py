@@ -53,26 +53,34 @@ def tcp_clusters():
     jrt.shutdown()
     trt.shutdown()
     out, stops = {}, []
+    # What the boots start (two heads, two joined nodes, their workers) is
+    # found as this process's new descendants if a boot or teardown stalls.
+    before = torch_modes.descendants()
     try:
-        jc = torch_modes.boot_jax_cluster(num_cpus=1, head_port=0)
-        stops.append(jc.shutdown)
-        jbase.set_runtime(jc.runtime())
-        stops.append(jrt.shutdown)
-        jj = torch_modes.jax_boot(jax_join, jc.gcs_tcp_address, num_cpus=2,
-                                  resources={"joined": 1.0})
-        stops.append(lambda: jj["proc"].poll() is None and jj["proc"].kill())
-        out["jax"] = types.SimpleNamespace(rt=jrt, cluster=jc, joined=jj, name="jax")
-        tc = TorchCluster(num_cpus=1, num_gpus=0, head_port=0)
-        stops.append(tc.shutdown)
-        tbase.set_runtime(tc.runtime())
-        stops.append(trt.shutdown)
-        tj = torch_join(tc.gcs_tcp_address, num_cpus=2, num_gpus=0, resources={"joined": 1.0})
-        stops.append(tj["shutdown"])
-        out["torch"] = types.SimpleNamespace(rt=trt, cluster=tc, joined=tj, name="torch")
+        with torch_modes.fixture_time_limit(torch_modes.BOOT_LIMIT_S,
+                                            lambda: torch_modes.kill_started_since(before)):
+            jc = torch_modes.boot_jax_cluster(num_cpus=1, head_port=0)
+            stops.append(jc.shutdown)
+            jbase.set_runtime(jc.runtime())
+            stops.append(jrt.shutdown)
+            jj = torch_modes.jax_boot(jax_join, jc.gcs_tcp_address, num_cpus=2,
+                                      resources={"joined": 1.0})
+            stops.append(lambda: jj["proc"].poll() is None and jj["proc"].kill())
+            out["jax"] = types.SimpleNamespace(rt=jrt, cluster=jc, joined=jj, name="jax")
+            tc = torch_modes.boot_cluster(TorchCluster, num_cpus=1, num_gpus=0, head_port=0)
+            stops.append(tc.shutdown)
+            tbase.set_runtime(tc.runtime())
+            stops.append(trt.shutdown)
+            tj = torch_join(tc.gcs_tcp_address, num_cpus=2, num_gpus=0,
+                            resources={"joined": 1.0})
+            stops.append(tj["shutdown"])
+            out["torch"] = types.SimpleNamespace(rt=trt, cluster=tc, joined=tj, name="torch")
         yield out
     finally:
-        for stop in reversed(stops):
-            stop()
+        with torch_modes.fixture_time_limit(torch_modes.TEARDOWN_LIMIT_S,
+                                            lambda: torch_modes.kill_started_since(before)):
+            for stop in reversed(stops):
+                stop()
         if saved is None:
             os.environ.pop("RAY_TPU_AUTH_TOKEN", None)
         else:

@@ -156,6 +156,12 @@ MESHES_4 = {
     "seq4_naive": ({"seq": 4}, {"attn_impl": "naive"}),
     # remat "hot" on the tensor split: two checkpointed regions per layer
     "data2_tensor2_remat_hot": ({"data": 2, "tensor": 2}, {"remat": True, "remat_policy": "hot"}),
+    # the vocab split: the tied head is row-parallel over the embedding's
+    # d/T columns (its logits whole on every rank); an untied head whose
+    # vocab "tensor" does not divide stays whole (the clamp)
+    "tensor4_tied_head": ({"tensor": 4}, {"n_kv_heads": 4, "tie_embeddings": True}),
+    "fsdp2_tensor2_tied_head": ({"fsdp": 2, "tensor": 2}, {"tie_embeddings": True}),
+    "tensor4_untied_head_vocab250": ({"tensor": 4}, {"n_kv_heads": 4, "vocab_size": 250}),
 }
 
 

@@ -44,8 +44,7 @@ def jax_cluster():
         jbase.set_runtime(jc.runtime())
         yield types.SimpleNamespace(name="jax", rt=jrt)
     finally:
-        jrt.shutdown()
-        jc.shutdown()
+        torch_modes.shutdown_cluster(jc, jrt.shutdown)
 
 
 @pytest.fixture(scope="module")
@@ -54,13 +53,12 @@ def torch_cluster():
     from ray_tpu_torch.core.cluster_runtime import Cluster
 
     trt.shutdown()
-    tc = Cluster(num_cpus=4, num_gpus=0, num_workers=2)
+    tc = torch_modes.boot_cluster(Cluster, num_cpus=4, num_gpus=0, num_workers=2)
     try:
         tbase.set_runtime(tc.runtime())
         yield types.SimpleNamespace(name="torch", rt=trt)
     finally:
-        trt.shutdown()
-        tc.shutdown()
+        torch_modes.shutdown_cluster(tc, trt.shutdown)
 
 
 @pytest.fixture(params=PKGS)

@@ -24,6 +24,7 @@ PidHandle, and a batch-forked worker that polls before its registration is
 not told to stop.
 """
 
+import functools
 import importlib
 import json
 import os
@@ -212,7 +213,8 @@ def _boot(name, **kw):
     Cluster = importlib.import_module(f"{_ROOT[name]}.core.cluster_runtime").Cluster
     if name == "torch":
         kw["num_gpus"] = 2  # device ids to lease; no CUDA device is touched
-    boot = torch_modes.boot_jax_cluster if name == "jax" else Cluster
+    boot = (torch_modes.boot_jax_cluster if name == "jax"
+            else functools.partial(torch_modes.boot_cluster, Cluster))
     cluster = boot(num_cpus=4, object_store_memory=192 << 20, **kw)
     runtime = cluster.runtime()
     base.set_runtime(runtime)
@@ -222,9 +224,8 @@ def _boot(name, **kw):
 
 def _stop(c):
     try:
-        c.runtime.shutdown()
+        torch_modes.shutdown_cluster(c.cluster, c.runtime.shutdown)
     finally:
-        c.cluster.shutdown()
         if c.base.maybe_runtime() is c.runtime:
             c.base.set_runtime(None)
 

@@ -243,15 +243,31 @@ def _put_local(out, prefix, tree):
 
 def tp_model(rank, world, data, out):
     """The model on params laid out by shard_tree on the given mesh: this
-    rank's logits, the loss and every leaf's gradient shard; whether each
-    gradient has its param's placements."""
+    rank's logits, the loss (with the inputs' "mask", if any) and every
+    leaf's gradient shard; whether each gradient has its param's
+    placements; how many tensors autograd saved for the loss's backward
+    have a whole-vocab last dim, and how many are the whole [vocab, d]
+    table."""
     mesh = _mesh(data)
     cfg, params = _model(data)
     params = par.shard_tree(params, mesh)
     tokens = _t(data, "tokens")
+    mask = _t(data, "mask") if "mask" in data.files else None
     with torch.no_grad():
         out["logits"] = tfm.forward(params, tokens, cfg, mesh).numpy()
-    loss = tfm.next_token_loss(params, tokens, cfg, mesh)
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = tfm.next_token_loss(params, tokens, cfg, mesh, mask=mask)
+    out["saved_whole_vocab"] = np.int64(sum(1 for sh in saved
+                                            if sh and sh[-1] == cfg.vocab_size))
+    out["saved_whole_table"] = np.int64(sum(1 for sh in saved
+                                            if sh == (cfg.vocab_size, cfg.d_model)))
+    out["saved_count"] = np.int64(len(saved))
     loss.backward()
     out["loss"] = np.float64(loss.item())
     _put_local(out, "grads", tfm.map_tree(lambda t: t.grad, params))
