@@ -97,7 +97,9 @@ Phases, each printing its own line, any failure exits non-zero:
      device 0; a bf16 4096 x 11008 CUDA tensor through put, get and a GPU
      task and back, bitwise, twice (GB/s); flash_attention at the serve
      shape in an actor's process against its plain version; no-op tasks and
-     calls to one actor per second; (b) TorchTrainer with one worker process
+     calls to one actor per second; the runtime's eleven instruments
+     (RUNTIME_INSTRUMENTS) by node, the head, which ran the tasks, reporting
+     its scheduler's and worker pool's; (b) TorchTrainer with one worker process
      over NCCL, the fit phase's model, 4 steps: losses and params_sha256
      bitwise equal to the in-process trainer's and build_train_step's,
      launches 8 / 8 / 8 in the worker, step p50 beside the in-process
@@ -191,7 +193,8 @@ Phases, each printing its own line, any failure exits non-zero:
      held /dev/nvidia* files before); the successor's fixed-seed K1 output
      bitwise equal to the zombie's; the rejoined node's GPU id free again;
      the exactly-once audit (no acknowledged call lost, none applied twice,
-     none from nowhere), one ALIVE record, raytpu_nodes_fenced_total >= 1;
+     none from nowhere), one ALIVE record, raytpu_nodes_fenced_total >= 1
+     and raytpu_actor_restarts_total >= 1;
      (b) the GCS killed and restarted with only its write-ahead log: the
      old handle's next K1 call, get_actor by name, a KV value, every node
      Alive again, and a new num_gpus=0.5 task seeing CUDA_VISIBLE_DEVICES
@@ -315,11 +318,18 @@ Phases, each printing its own line, any failure exits non-zero:
      registrations/s of (a) and (b), the heartbeat RTT p50 and p99,
      raytpu_gcs_shard_lock_wait_ms's count and p99, the restart's seconds
      (host figures; the phase asserts correctness, no speed).
+  26. gang: SLICE_GANG on three labelled 2-host GPU slices: a co-failed gang
+     resumed on another slice bitwise, then a pending gang placed on a slice
+     the autoscaler provisions, K1 in its bundle 0 (phase_gang's docstring).
+  27. soak: the seeded membership soak (chaos/soak.py) with its trainer arm
+     on a cluster of its own for 25 s: the exactly-once audit, no wedged
+     get, one ALIVE counter, and an elastic one-worker CPU TorchTrainer whose
+     history equals the fault-free golden run; no kernel launched.
 Phases 1-5 run alone, in this order. Then a second process of this script
 (`--lane`) runs ops, membership, observe, graphs, data, elastic, rl, operate
 and shards, in that order (data once the main process's parallel phase has
 ended), while the main process runs parallel, serve, deploy, train-parity,
-train, zero, checkpoint, fit, tune, cluster, objects and gang; the second process's
+train, zero, checkpoint, fit, tune, cluster, objects, gang and soak; the second process's
 lines are printed when it ends, and its failure fails the smoke.
 Then a line of the card's peak memory in use and the host's lowest
 MemAvailable while each phase of the main process ran, a line of each
@@ -337,7 +347,7 @@ pool actors; the membership phase's zombie and successor actors, its
 restart actor and task; the observe phase's logging actor, crashed task and
 collective actors; the graphs phase's compiled actors; the data phase's
 trainer worker and HTTP replica; the operate phase's job task, replacement
-task and traced call; the rl phase, 0) under
+task and traced call; the rl and soak phases, 0) under
 "launches_by_path"), and the
 device line last.
 Needs a CUDA device; exits non-zero without one.
@@ -3469,6 +3479,36 @@ def _report_p50(metrics) -> float:
     return statistics.median((t[i] - t[i - 1]) * 1e3 for i in range(1, len(t)))
 
 
+# The runtime's instruments that the raylet, the GCS, the store and the log GC
+# record (utils/internal_metrics.py); `status` and `top` read some of them.
+RUNTIME_INSTRUMENTS = (
+    "raytpu_sched_queue_depth", "raytpu_sched_dispatch_latency_ms", "raytpu_worker_pool_idle",
+    "raytpu_worker_pool_busy", "raytpu_worker_pool_leased", "raytpu_raylet_gcs_sync_total",
+    "raytpu_raylet_gcs_sync_batch", "raytpu_tasks_retried_total", "raytpu_actor_restarts_total",
+    "raytpu_store_puts_total", "raytpu_logs_evicted_total")
+# The scheduler's and worker pool's: every node that ran a task reports these.
+NODE_INSTRUMENTS = RUNTIME_INSTRUMENTS[:5]
+
+
+def _instruments_by_node(records):
+    """{node id: {instrument: value}} of RUNTIME_INSTRUMENTS, a histogram as
+    "n=<count> sum=<sum>", "-" where the node reported none; series of one
+    node and name add up."""
+    out = {}
+    for m in records:
+        if m["name"] not in RUNTIME_INSTRUMENTS:
+            continue
+        node = out.setdefault(m["tags"].get("node_id", "?"), {})
+        if m.get("kind") == "histogram":
+            n, total = node.get(m["name"], (0, 0.0))
+            node[m["name"]] = (n + sum(m.get("counts") or []), total + float(m["value"] or 0.0))
+        else:
+            node[m["name"]] = node.get(m["name"], 0.0) + float(m["value"] or 0.0)
+    return {nid: {k: ("-" if k not in vals else f"n={vals[k][0]} sum={vals[k][1]:.3f}"
+                      if isinstance(vals[k], tuple) else vals[k]) for k in RUNTIME_INSTRUMENTS}
+            for nid, vals in out.items()}
+
+
 def _cluster_processes(session_dir):
     """pids of the processes of one cluster: its GCS, raylets and workers,
     each of which names a socket in the session dir on its command line."""
@@ -3678,6 +3718,27 @@ def phase_cluster():
                   f"at {task_rate:.0f}/s, {CLUSTER_HOST_CALLS} calls to one actor at "
                   f"{actor_rate:.0f}/s, one call and its get in turn {call_ms:.3f} ms",
                   flush=True)
+
+            # (a) the runtime's instruments, flushed once a second; another
+            # commit's package (--package-root) may record none, so it is
+            # read once and not gated
+            from ray_tpu_torch.utils import state
+
+            head = runtime._cluster.head_node_id
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + 15
+            while True:
+                by_node = _instruments_by_node(state.internal_metrics())
+                mine = by_node.get(head, {})
+                missing = [k for k in NODE_INSTRUMENTS if mine.get(k, "-") == "-"]
+                if not missing or _PACKAGE_ROOT or time.monotonic() > deadline:
+                    break
+                time.sleep(0.25)
+            print(f"[cluster] (a) runtime instruments by node after the K1 tasks and the host "
+                  f"rates (the head {head[:12]}; read in {time.perf_counter() - t0:.2f} s): "
+                  f"{ {nid[:12]: vals for nid, vals in sorted(by_node.items())} }", flush=True)
+            if missing and not _PACKAGE_ROOT:
+                _fail(f"cluster: the head node, which ran the tasks, reports no {missing}")
 
             # (b) TorchTrainer, one worker process over NCCL
             t0 = time.perf_counter()
@@ -5437,10 +5498,14 @@ def _mem_partition(rt, runtime, cluster, smi):
         return sum(m["value"] for m in state.internal_metrics()
                    if m["name"] == "raytpu_nodes_fenced_total")
 
+    def restarts_total():
+        return sum(m["value"] for m in state.internal_metrics()
+                   if m["name"] == "raytpu_actor_restarts_total")
+
     deadline = time.monotonic() + 15
-    while fenced_total() < 1 and time.monotonic() < deadline:
+    while (fenced_total() < 1 or restarts_total() < 1) and time.monotonic() < deadline:
         time.sleep(0.1)
-    fenced = fenced_total()
+    fenced, restarts = fenced_total(), restarts_total()
     reps = {"zombie": zombie_rep, "successor": successor_rep}
     print(f"[membership] (a) {smi}: named actor (num_gpus=0.5) on node {victim[:12]}, pid "
           f"{zombie_pid}; partition([[victim], ['gcs']]) at 0 s: declared dead at "
@@ -5455,7 +5520,8 @@ def _mem_partition(rt, runtime, cluster, smi):
           f"{zombie_sha[:16]} successor (pid {successor_pid}) {successor_sha[:16]}; audit: "
           f"{len(acked)} acked, {len(errored)} errored, lost {len(lost)}, doubled "
           f"{len(duped)}, phantom {len(phantom)}; ALIVE records {len(alive)}; "
-          f"raytpu_nodes_fenced_total {fenced:.0f}; K1 launches by instance "
+          f"raytpu_nodes_fenced_total {fenced:.0f}, raytpu_actor_restarts_total {restarts:.0f}; "
+          f"K1 launches by instance "
           f"{ {k: r['launches']['flash_fwd'] for k, r in reps.items()} }, worst per-entry "
           f"error {({k: round(r['worst'], 6) for k, r in reps.items()})} (tol {MEM_TOL})",
           flush=True)
@@ -5472,6 +5538,8 @@ def _mem_partition(rt, runtime, cluster, smi):
               f"{len(alive)} ALIVE records")
     if not fenced >= 1:
         _fail(f"membership: raytpu_nodes_fenced_total reads {fenced}")
+    if not restarts >= 1:
+        _fail(f"membership: raytpu_actor_restarts_total reads {restarts} after mem_k1's restart")
     for k, r in reps.items():
         if r["launches"]["flash_fwd"] != r["calls"] or r["calls"] == 0:
             _fail(f"membership: K1 launched {r['launches']} in the {k} for {r['calls']} calls")
@@ -8121,6 +8189,50 @@ def phase_gang():
     return launches
 
 
+# ------------------------------------------------------------------ soak
+SOAK_SEED = 1030  # tests/test_torch_partition.py's campaign
+SOAK_DURATION_S = 25.0
+SOAK_NODES = 2
+SOAK_HB = {"RAY_TPU_HEARTBEAT_INTERVAL_S": "0.25", "RAY_TPU_HEARTBEAT_TIMEOUT_S": "1.5",
+           "RAY_TPU_CHAOS_SEED": str(SOAK_SEED)}
+
+
+def phase_soak():
+    """The seeded membership soak (ray_tpu_torch/chaos/soak.py) with its
+    trainer arm, on a cluster of its own (a head and SOAK_NODES worker
+    nodes, no GPU): partition, heal, kill and preempt events for
+    SOAK_DURATION_S while a named counter, a task workload and an elastic
+    TorchTrainer (one CPU worker: use_gpu=False, its loop a scalar
+    recurrence) run; the counter's exactly-once audit, no wedged get, one
+    ALIVE counter, and the trainer's history equal to the fault-free golden
+    run. The path launches no kernel. Returns its launches (0)."""
+    from ray_tpu_torch.chaos.soak import run_soak
+
+    phase_t0 = time.perf_counter()
+    smi = _smi()
+    saved = {k: os.environ.get(k) for k in SOAK_HB}
+    os.environ.update(SOAK_HB)
+    _zero_launch_counts()
+    try:
+        result = run_soak(SOAK_SEED, SOAK_DURATION_S, nodes=SOAK_NODES, event_period_s=1.5,
+                          use_trainer=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = _launch_counts()
+    print(f"[soak] {smi}: seed {SOAK_SEED}, {SOAK_DURATION_S:.0f} s of events on "
+          f"{SOAK_NODES} worker nodes: {result.summary()}; launches in this process "
+          f"{launches}; phase {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    if not result.ok or result.trainer_ok is not True:
+        _fail(f"soak: violations {result.violations}, trainer_ok {result.trainer_ok}")
+    if any(launches.values()):
+        _fail(f"soak: the soak's path launched flash kernels: {launches}")
+    return {"soak": launches}
+
+
 LANE_PHASES = ("ops", "membership", "observe", "graphs", "data", "elastic", "rl", "operate",
                "shards")
 LANE_AFTER_PARALLEL = "data"
@@ -8279,6 +8391,10 @@ def main() -> int:
                     help="build the kernels and run only part (c) of the parallel phase (the "
                          "tensor-parallel meshes, gates included), printing each rank's peak "
                          "memory; no result line")
+    ap.add_argument("--cluster-cost", action="store_true",
+                    help="build the kernels and run only the cluster phase, printing its "
+                         "seconds (with --package-root, of another commit's runtime); no "
+                         "result line")
     ap.add_argument("--package-root", metavar="DIR",
                     help="import ray_tpu_torch from DIR (another commit's, unpacked by git "
                          "archive), here and in the parallel ranks")
@@ -8298,6 +8414,14 @@ def main() -> int:
         phase_device()
         phase_build()
         phase_tp_memory()
+        return 0
+    if args.cluster_cost:
+        phase_device()
+        phase_build()
+        t0 = time.perf_counter()
+        phase_cluster()
+        print(f"[cluster-cost] {_PACKAGE_ROOT or 'this checkout'}: cluster phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return 0
 
     t_main, phase_s, sampler = time.perf_counter(), {}, None
@@ -8332,7 +8456,7 @@ def main() -> int:
         fit_launches, fit_step_ms = timed(phase_fit, profile=args.profile)
         by_path.update(fit_launches)
         by_path.update(timed(phase_tune, fit_step_ms))
-        for phase in (phase_cluster, phase_objects, phase_gang):
+        for phase in (phase_cluster, phase_objects, phase_gang, phase_soak):
             by_path.update(timed(phase))
         sampler.phase = "waiting for the second process"
         lane_paths, lane_s, waited_s = lane.join()

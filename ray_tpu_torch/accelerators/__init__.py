@@ -17,7 +17,7 @@ import time.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .accelerator import AcceleratorManager
 from .cpu import CpuAcceleratorManager
@@ -31,6 +31,8 @@ __all__ = [
     "GpuAcceleratorManager",
     "LocalNodeProvider",
     "NodeProvider",
+    "all_accelerator_managers",
+    "detect_accelerators",
     "get_accelerator_manager",
     "register_accelerator_manager",
 ]
@@ -57,3 +59,25 @@ def _ensure_builtin() -> None:
 def get_accelerator_manager(resource_name: str) -> Optional[AcceleratorManager]:
     _ensure_builtin()
     return _registry.get(resource_name)
+
+
+def all_accelerator_managers() -> List[AcceleratorManager]:
+    _ensure_builtin()
+    return list(_registry.values())
+
+
+def detect_accelerators() -> Dict[str, float]:
+    """resource name -> detected count for every family present on this
+    host (CPU excluded: callers own the CPU default and override)."""
+    out: Dict[str, float] = {}
+    for mgr in all_accelerator_managers():
+        name = mgr.get_resource_name()
+        if name == "CPU":
+            continue
+        try:
+            n = mgr.get_current_node_num_accelerators()
+        except Exception:  # noqa: BLE001 - a family that cannot probe has none here
+            n = 0
+        if n:
+            out[name] = float(n)
+    return out

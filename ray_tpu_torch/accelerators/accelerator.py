@@ -35,6 +35,16 @@ class AcceleratorManager:
         """How many accelerators of this family the host carries."""
         raise NotImplementedError
 
+    def get_current_node_accelerator_type(self) -> Optional[str]:
+        """The family-specific type string (a GPU's product name), or None
+        when undetectable."""
+        return None
+
+    def get_current_node_additional_resources(self) -> Dict[str, float]:
+        """Extra custom resources registration should carry (beyond the
+        family's count resource)."""
+        return {}
+
     # ---------------------------------------------------------- validation
     def validate_resource_request_quantity(
         self, quantity: float

@@ -129,6 +129,11 @@ class GpuAcceleratorManager(AcceleratorManager):
         except Exception:  # noqa: BLE001 - no usable CUDA runtime: no GPUs
             return 0
 
+    def get_current_node_accelerator_type(self) -> Optional[str]:
+        """The product name `nvidia-smi -q` reports ("NVIDIA H100 80GB
+        HBM3"), or None where it reports none."""
+        return _report_field(self._smi() or "", "Product Name")
+
     def get_current_process_visible_accelerator_ids(self) -> Optional[List[str]]:
         raw = self._env.get(CUDA_VISIBLE_DEVICES_ENV)
         if raw is None:

@@ -58,6 +58,10 @@ class NodeProvider:
         host of it has joined; None before then."""
         return None
 
+    def node_labels(self, cloud_id: str) -> Dict[str, str]:
+        """Labels the provider stamped on this instance's node(s)."""
+        return {}
+
 
 class LocalNodeProvider(NodeProvider):
     """Real nodes on one machine: every `request` starts raylet processes
@@ -108,7 +112,7 @@ class LocalNodeProvider(NodeProvider):
             for nid in nodes:
                 try:
                     self._cluster.remove_node(nid)
-                except Exception:  # noqa: BLE001 - already gone at the deadline
+                except Exception:  # lint: swallow-ok(node already gone at preemption deadline)
                     pass
             with self._lock:
                 cur = self._instances.get(cloud_id)
@@ -123,7 +127,7 @@ class LocalNodeProvider(NodeProvider):
         with self._lock:
             self._seq += 1
             cloud_id = f"local-{self._seq}"
-            self._instances[cloud_id] = {"status": "pending", "nodes": []}
+            self._instances[cloud_id] = {"status": "pending", "nodes": [], "labels": {}}
         threading.Thread(target=self._allocate, args=(cloud_id, dict(instance.shape)),
                          daemon=True, name="allocate").start()
         return cloud_id
@@ -151,8 +155,8 @@ class LocalNodeProvider(NodeProvider):
             for nid in nodes:
                 try:
                     self._cluster.remove_node(nid)
-                except Exception:  # noqa: BLE001 - best effort per node
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(partial-slice teardown is best-effort per node)
             with self._lock:
                 rec = self._instances.get(cloud_id)
                 if rec is not None:
@@ -162,13 +166,14 @@ class LocalNodeProvider(NodeProvider):
             rec = self._instances.get(cloud_id)
             if rec is not None:
                 rec["nodes"] = nodes
+                rec["labels"] = labels
                 rec["status"] = "running"
         if rec is None:
             # Terminated while allocating: nobody wants these nodes.
             for nid in nodes:
                 try:
                     self._cluster.remove_node(nid)
-                except Exception:  # noqa: BLE001 - best effort per node
+                except Exception:  # lint: swallow-ok(nobody wants these nodes; removal best-effort)
                     pass
 
     def poll(self) -> Dict[str, str]:
@@ -200,11 +205,16 @@ class LocalNodeProvider(NodeProvider):
         mine.sort(key=lambda n: int((n.get("Labels") or {}).get("worker_index", 0)))
         return mine[0]["NodeID"]
 
+    def node_labels(self, cloud_id: str) -> Dict[str, str]:
+        with self._lock:
+            rec = self._instances.get(cloud_id)
+            return dict(rec["labels"]) if rec else {}
+
     def terminate(self, cloud_id: str) -> None:
         with self._lock:
             rec = self._instances.pop(cloud_id, None)
         for nid in (rec or {}).get("nodes", ()):
             try:
                 self._cluster.remove_node(nid)
-            except Exception:  # noqa: BLE001 - already dead
+            except Exception:  # lint: swallow-ok(terminate of an already-dead node)
                 pass

@@ -61,7 +61,7 @@ class ActorManager:
         if kill:
             try:
                 api.kill(tracked.handle)
-            except Exception:  # actor may already be dead
+            except Exception:  # lint: swallow-ok(actor may already be dead)
                 pass
 
     @property

@@ -94,7 +94,8 @@ class LocalGPUSliceProvider(LocalNodeProvider, GPUSliceProvider):
             for nid in nodes:
                 try:
                     self.terminate_node(nid)
-                except Exception:  # noqa: BLE001 - best effort; the first error is raised
+                # lint: swallow-ok(partial-slice teardown best-effort; original error re-raised)
+                except Exception:
                     pass
             raise
         return nodes
@@ -228,5 +229,5 @@ class Autoscaler:
             try:
                 # Place it now; the waiter's ready() poll would get there too.
                 gcs.call("retry_pending_placement_group", pg_id)
-            except Exception:  # noqa: BLE001 - an advisory nudge
+            except Exception:  # lint: swallow-ok(advisory nudge; waiter poll gets there anyway)
                 pass

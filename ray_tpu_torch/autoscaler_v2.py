@@ -144,7 +144,7 @@ class FakeCloudProvider(CloudProvider):
         if rec and rec["node_id"]:
             try:
                 self._cluster.remove_node(rec["node_id"])
-            except Exception:  # noqa: BLE001 - node already gone
+            except Exception:  # lint: swallow-ok(node already gone)
                 pass
 
 
@@ -257,8 +257,8 @@ class InstanceManager:
                     self._gcs.call(
                         "report_demand_forecast", forecast, 60.0, "autoscaler"
                     )
-                except Exception:  # noqa: BLE001 - forecast is an optimization hint; next round retries
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(forecast is an optimization hint; next round retries)
                 else:
                     with self._lock:
                         if self._pending_actors == forecast:
@@ -301,7 +301,7 @@ class InstanceManager:
                     try:
                         self._provider.terminate(inst.cloud_id)
                         inst.to(TERMINATED)
-                    except Exception:  # noqa: BLE001 - terminate retried next reconcile round
+                    except Exception:  # lint: swallow-ok(terminate retried next reconcile round)
                         pass
 
             # 2. Retry failed allocations after backoff.
@@ -356,8 +356,8 @@ class InstanceManager:
         if inst.cloud_id:
             try:
                 self._provider.terminate(inst.cloud_id)
-            except Exception:  # noqa: BLE001 - failed-allocation cleanup; poll reconciles leftovers
-                pass
+            except Exception:
+                pass  # lint: swallow-ok(failed-allocation cleanup; poll reconciles leftovers)
             inst.cloud_id = None
         self._retry_at[inst.instance_id] = now + self.retry_backoff_s * (
             2**inst.retries

@@ -187,8 +187,8 @@ class CompiledGraph:
                         h._invoke("__ray_dag_stop__", (self._dag_id,), {}, 1),
                         timeout=10,
                     )
-                except Exception:  # noqa: BLE001 - unwinding a failed compile: half-started
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(unwinding a failed compile; actors may be half-started)
             for comm in self._comms:
                 comm.destroy()
             for _, r in self._out_readers:
@@ -402,12 +402,12 @@ class CompiledGraph:
         for h in self._handles.values():
             try:
                 api.get(h._invoke("__ray_dag_stop__", (self._dag_id,), {}, 1), timeout=30)
-            except Exception:  # noqa: BLE001 - actor may already be dead
+            except Exception:  # lint: swallow-ok(actor may already be dead)
                 pass
         for comm in self._comms:
             try:
                 comm.destroy()
-            except Exception:  # noqa: BLE001 - gang lost a member; teardown must finish
+            except Exception:  # lint: swallow-ok(gang lost a member; teardown must finish)
                 pass
         for _, w in self._in_writers:
             w.close()

@@ -117,7 +117,7 @@ class ElasticGraph:
         old = len(self._actors)
         try:
             self._graph.teardown()
-        except Exception:  # noqa: BLE001 - tearing down a broken graph before re-forming
+        except Exception:  # lint: swallow-ok(tearing down a broken graph before re-forming)
             pass
         self._actors = actors
         self._graph = _compile(self._build_fn(actors), **self._compile_kwargs)

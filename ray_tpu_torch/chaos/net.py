@@ -286,8 +286,8 @@ def partition(groups: Sequence[Sequence[str]], one_way: bool = False,
         for _m, cli in targets:
             try:
                 cli.call("chaos_heal", spec_id, timeout=10.0)
-            except Exception:  # noqa: BLE001 - the heal_after deadline is the backstop
-                pass
+            except Exception:
+                pass  # lint: swallow-ok(rollback heal; the heal_after deadline is the backstop)
         raise
     if local_blocked is not None:
         install(local_blocked, heal_after=heal_after, spec_id=spec_id)

@@ -14,6 +14,10 @@ checked after every event and at the end:
   attempted, and an op that errored at the client is applied at most once.
 - **No wedged gets**: a background task workload finishes, or raises a
   typed error, within a bound.
+- **Trainer consistency** (``use_trainer``): an elastic ``TorchTrainer.fit``
+  (one CPU worker, ``train_slot`` on every worker node) survives the campaign,
+  and its history equals a fault-free golden run: every step exactly once,
+  no gaps, no repeats.
 
 Events touch worker nodes only (the head, which hosts the driver, is
 spared): ``partition_gcs`` (one node's raylet cut off from the GCS,
@@ -21,25 +25,34 @@ symmetric or one-way, self-healing after a few seconds), ``heal`` (the
 oldest partition early), ``kill`` (a node's processes killed and a
 replacement added), ``preempt`` (a drain notice with a short deadline).
 
-Left out: the JAX tool's trainer arm (``use_trainer``: an elastic trainer's
-history held to a fault-free run) and its command line.
+Usage: ``run_soak(seed, duration_s, nodes=2, use_trainer=False)`` returns a
+SoakResult whose ``ok`` is False when an invariant broke (``summary()`` says
+which). From a shell::
 
-Usage: ``run_soak(seed, duration_s, nodes=2)`` returns a SoakResult whose
-``ok`` is False when an invariant broke (``summary()`` says which).
+    python -m ray_tpu_torch.chaos.soak --seed 7 --duration 60 --nodes 2 [--trainer]
+
+prints the summary and exits 1 when an invariant broke.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import os
 import random
+import tempfile
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Set
+from typing import Any, Dict, List, Optional, Set
+
+from ..observability.logs import get_logger
 
 KV_PREFIX = "soakctr/"
 COUNTER_NAME = "soak_counter"
-_SLOTS = {"soak_slot": 4.0}
+_SLOTS = {"soak_slot": 4.0, "train_slot": 1.0}
+
+_log = get_logger("chaos.soak")
 
 
 class SoakCounter:
@@ -74,6 +87,7 @@ class SoakResult:
         self.violations: List[str] = []
         self.task_rounds = 0
         self.fenced_total = 0.0
+        self.trainer_ok: Optional[bool] = None
 
     @property
     def ok(self) -> bool:
@@ -85,20 +99,60 @@ class SoakResult:
             ev[e["kind"]] = ev.get(e["kind"], 0) + 1
         return (f"events={ev} acked={len(self.ops_acked)} errored={len(self.ops_errored)} "
                 f"task_rounds={self.task_rounds} fenced={self.fenced_total:.0f} "
-                f"violations={self.violations or 'none'}")
+                f"trainer_ok={self.trainer_ok} violations={self.violations or 'none'}")
+
+
+def _golden_trajectory(n_steps: int):
+    """The trainer arm's history in a run without faults."""
+    w = 1.0
+    out = []
+    for step in range(n_steps):
+        w = w * 0.9 + 0.1
+        out.append((step, round(w, 12)))
+    return out
+
+
+def _train_loop(n_steps: int, step_sleep: float, config) -> None:
+    """A scalar recurrence that resumes from its checkpoint: the history it
+    reports is the golden trajectory whatever the faults, if every step is
+    reported once."""
+    from .. import train
+
+    w, start, history = 1.0, 0, []
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        d = ckpt.to_dict()
+        start, w, history = d["step"] + 1, d["w"], list(d["history"])
+    for step in range(start, n_steps):
+        w = w * 0.9 + 0.1
+        history.append((step, round(w, 12)))
+        train.report({"loss": w, "step": step}, checkpoint=train.Checkpoint.from_dict(
+            {"step": step, "w": w, "history": history}))
+        if train.drain_requested():
+            return
+        time.sleep(step_sleep)
+
+
+def _deterministic_train_loop(n_steps: int, step_sleep: float = 0.05):
+    return functools.partial(_train_loop, n_steps, step_sleep)
 
 
 class SoakCampaign:
     """One seeded campaign against a cluster this object boots and owns."""
 
     def __init__(self, seed: int, duration_s: float, *, nodes: int = 2,
-                 cpus_per_node: float = 2.0, event_period_s: float = 1.5):
+                 cpus_per_node: float = 2.0, event_period_s: float = 1.5,
+                 use_trainer: bool = False, trainer_steps: int = 20,
+                 storage_path: Optional[str] = None):
         self.seed = seed
         self.rng = random.Random(seed)
         self.duration_s = duration_s
         self.nodes = nodes
         self.cpus_per_node = cpus_per_node
         self.event_period_s = event_period_s
+        self.use_trainer = use_trainer
+        self.trainer_steps = trainer_steps
+        self.storage_path = storage_path
         self.result = SoakResult()
         self._stop = threading.Event()
         self._partitions: List[Any] = []
@@ -133,6 +187,9 @@ class SoakCampaign:
             threads = [threading.Thread(target=self._counter_client, daemon=True,
                                         name="soak-counter"),
                        threading.Thread(target=self._task_client, daemon=True, name="soak-tasks")]
+            if self.use_trainer:
+                threads.append(threading.Thread(target=self._trainer, daemon=True,
+                                                name="soak-trainer"))
             for t in threads:
                 t.start()
             deadline = time.monotonic() + self.duration_s
@@ -155,7 +212,7 @@ class SoakCampaign:
             for p in self._partitions:
                 try:
                     p.heal()
-                except Exception:  # noqa: BLE001 - the heal_after deadline covers it
+                except Exception:  # lint: swallow-ok(the heal_after deadline covers a failed heal)
                     pass
             try:
                 self.runtime.shutdown()
@@ -187,6 +244,37 @@ class SoakCampaign:
                 if time.monotonic() - t0 >= 59:
                     self.result.violations.append(f"task get wedged >60s: {type(e).__name__}")
             time.sleep(0.1)
+
+    def _trainer(self) -> None:
+        from ..train import FailureConfig, RunConfig, ScalingConfig, TorchTrainer
+
+        with tempfile.TemporaryDirectory(prefix="soak_exp_") as tmp:
+            trainer = TorchTrainer(
+                _deterministic_train_loop(self.trainer_steps),
+                # use_gpu=False: the loop is a scalar recurrence on the CPU.
+                scaling_config=ScalingConfig(
+                    num_workers=1, resources_per_worker={"train_slot": 1.0},
+                    elastic=True, min_workers=1, use_gpu=False),
+                run_config=RunConfig(name=f"soak_{self.seed}",
+                                     storage_path=self.storage_path or tmp,
+                                     failure_config=FailureConfig(max_failures=8)))
+            try:
+                result = trainer.fit()
+                if result.error is not None or result.checkpoint is None:
+                    self.result.trainer_ok = False
+                    self.result.violations.append(
+                        f"trainer did not recover: {result.error!r}")
+                    return
+                history = [tuple(x) for x in result.checkpoint.to_dict()["history"]]
+            except Exception as e:  # noqa: BLE001 - recorded as a violation
+                self.result.trainer_ok = False
+                self.result.violations.append(f"trainer raised: {e!r}")
+                return
+        self.result.trainer_ok = history == _golden_trajectory(self.trainer_steps)
+        if not self.result.trainer_ok:
+            self.result.violations.append(
+                "trainer loss trajectory diverged from the fault-free golden run "
+                f"(got {len(history)} steps)")
 
     # -------------------------------------------------------------- events
     def _alive_workers(self) -> List[str]:
@@ -279,9 +367,29 @@ class SoakCampaign:
 
             self.result.fenced_total = sum(m["value"] for m in state.internal_metrics()
                                            if m["name"] == "raytpu_nodes_fenced_total")
-        except Exception:  # noqa: BLE001 - informational
-            pass
+        except Exception as e:  # noqa: BLE001 - informational: the campaign's verdict stands
+            _log.warning("could not read raytpu_nodes_fenced_total: %r", e)
 
 
 def run_soak(seed: int, duration_s: float, **kwargs) -> SoakResult:
     return SoakCampaign(seed, duration_s, **kwargs).run()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m ray_tpu_torch.chaos.soak",
+                                 description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--seed", type=int,
+                    default=int(os.environ.get("RAY_TPU_CHAOS_SEED", "0") or 0))
+    ap.add_argument("--duration", type=float, default=60.0)
+    ap.add_argument("--nodes", type=int, default=2)
+    ap.add_argument("--event-period", type=float, default=1.5)
+    ap.add_argument("--trainer", action="store_true")
+    args = ap.parse_args(argv)
+    result = run_soak(args.seed, args.duration, nodes=args.nodes,
+                      event_period_s=args.event_period, use_trainer=args.trainer)
+    print(f"soak[{args.seed}]: {result.summary()}")  # console-output: the CLI's report
+    return 0 if result.ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -514,7 +514,7 @@ class _Group:
             cur = self._gcs.call("kv_get", key)
             if cur is not None and cur.decode() == getattr(self, "_addr_str", None):
                 self._gcs.call("kv_del", key)
-        except Exception:  # noqa: BLE001 - guarded delete; a GCS that is down took the keys
+        except Exception:  # lint: swallow-ok(guarded key delete; GCS down means keys die with it)
             pass
         for s in (self._next, self._prev, self._srv):
             if s is not None:
@@ -693,7 +693,7 @@ def _clear_stale_registrations(group_name: str) -> None:
     try:
         for key in gcs.call("kv_keys", f"{_KV_PREFIX}{group_name}/"):
             gcs.call("kv_del", key)
-    except Exception:  # noqa: BLE001 - best effort; the rendezvous re-resolves stale keys
+    except Exception:  # lint: swallow-ok(best-effort sweep; rendezvous guards against stale keys)
         pass
 
 
@@ -723,13 +723,13 @@ def destroy_collective_group_on(actors, group_name: str = "default") -> None:
     for a in actors:
         try:
             refs.append(a._invoke("__ray_tpu_collective_destroy__", (group_name,), {}, 1))
-        except Exception:  # noqa: BLE001 - a dead member; destroy the rest
+        except Exception:  # lint: swallow-ok(dead member; destroy the rest)
             # A dead member raises at submit time; its membership died
             # with its worker.
             pass
     try:
         api.get(refs, timeout=60)
-    except Exception:  # noqa: BLE001 - members may be dead; keys are guard-deleted
+    except Exception:  # lint: swallow-ok(members may already be dead; keys are guard-deleted)
         pass
     # No blanket key sweep here: each member's destroy() deletes its own
     # key only while it still holds that member's address, so a same-name

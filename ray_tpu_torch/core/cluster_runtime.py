@@ -465,8 +465,8 @@ class ClusterRuntime(Runtime):
         # ObjectRef.__del__ calls this, and a garbage collection can run it on
         # a thread that already holds _ref_lock (the JAX copy deadlocks there,
         # ROADMAP Queue 3): while the lock is taken, the drop waits in a queue
-        # that the free loop drains.
-        if not self._ref_lock.acquire(blocking=False):
+        # that the free loop drains. The try/finally below releases it.
+        if not self._ref_lock.acquire(blocking=False):  # lint: disable=lock-discipline
             self._deferred_drops.append(object_id)
             self._free_wake.set()
             return
@@ -477,7 +477,7 @@ class ClusterRuntime(Runtime):
         if eager is not None and not self._shutdown_done:
             try:
                 self._store.delete(ObjectID.from_hex(eager))
-            except Exception:  # noqa: BLE001 - pinned readers: the GCS free path retries
+            except Exception:  # lint: swallow-ok(pinned readers; async GCS free path retries)
                 pass
         if freed:
             self._free_wake.set()
@@ -854,7 +854,7 @@ class ClusterRuntime(Runtime):
                 want = [h_item] if header_seen else [h_item, h_header]
                 try:
                     self._raylet.call("wait_objects", want, 1, 0.2, True, timeout=10.0)
-                except Exception:  # noqa: BLE001 - advisory
+                except Exception:  # lint: swallow-ok(advisory wait; the loop checks again)
                     pass
                 continue
             with self._fast_seal_cv:
@@ -1015,8 +1015,8 @@ class ClusterRuntime(Runtime):
             if n.get("Alive"):
                 try:
                     self._raylet_for(n["sock"]).call("cancel_task", tid, force)
-                except Exception:  # noqa: BLE001 - a dead node: best effort per node
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(node may be dead; cancel is best-effort per node)
 
     def kill_actor(self, actor_id: ActorID, no_restart: bool = True) -> None:
         try:
@@ -1452,7 +1452,7 @@ class Cluster:
             def stop(nid=nid):
                 try:
                     RpcClient(self._sock_for(nid), connect_timeout=1.0).call("stop", timeout=10.0)
-                except Exception:  # noqa: BLE001 - killed below
+                except Exception:  # lint: swallow-ok(shutdown stop is best-effort; SIGKILL below)
                     pass
             t = threading.Thread(target=stop, daemon=True)
             t.start()
@@ -1463,7 +1463,7 @@ class Cluster:
         if gcs is not None:
             try:
                 gcs.call("stop", timeout=2.0)
-            except Exception:  # noqa: BLE001 - killed below
+            except Exception:  # lint: swallow-ok(shutdown stop is best-effort; SIGKILL below)
                 pass
             gcs.close()
         for p in self._procs.values():
@@ -1542,7 +1542,7 @@ def start_worker_node(gcs_address: str, node_ip: Optional[str] = None,
         done.append(True)
         try:
             RpcClient(sock, connect_timeout=1.0).call("stop", timeout=10.0)
-        except Exception:  # noqa: BLE001 - killed below
+        except Exception:  # lint: swallow-ok(shutdown stop is best-effort; SIGKILL below)
             pass
         try:
             proc.wait(timeout=15.0)

@@ -139,7 +139,7 @@ class DirectConn:
                 self.lessor.notify(
                     "return_worker_lease", self.worker_id, self.lease_token
                 )
-            except Exception:  # raylet gone: it holds no such lease
+            except Exception:  # lint: swallow-ok(raylet gone; its successor holds no such lease)
                 pass
 
     def _reader(self) -> None:
@@ -189,7 +189,7 @@ class DirectConn:
         if pending:
             try:
                 self._on_dead(pending)
-            except Exception:  # failure callback on a dying channel; the callee logs
+            except Exception:  # lint: swallow-ok(failure callback on a dying channel; callee logs)
                 pass
 
 

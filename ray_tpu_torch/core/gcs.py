@@ -1051,8 +1051,11 @@ class GcsService(ChaosPartitionRpc):
             with self._locked(sh):
                 a = sh.actors.get(actor_id)
                 if a is not None:
+                    # Counted once the create has landed: one logical
+                    # restart, however many placement attempts it took.
                     a["num_restarts"] += 1
                     sh.wal_append("_actors", actor_id, a)
+            imet.ACTOR_RESTARTS.inc()
         finally:
             with self._lock:
                 self._actor_restarting.discard(actor_id)
@@ -1436,7 +1439,7 @@ class GcsService(ChaosPartitionRpc):
         for sock, hs in by_sock.items():
             try:
                 self._raylet_call(sock, "delete_objects", hs)
-            except Exception:  # noqa: BLE001 - a node going away frees its pool anyway
+            except Exception:  # lint: swallow-ok(node going away frees its pool anyway)
                 pass
 
     def update_borrows(self, deltas: Dict[str, int]) -> bool:
@@ -1675,7 +1678,7 @@ class GcsService(ChaosPartitionRpc):
             if sock:
                 try:
                     self._raylet_call(sock, "release_bundle", pg_id, i)
-                except Exception:  # noqa: BLE001 - bundle release on a gone node
+                except Exception:  # lint: swallow-ok(bundle release on a dead/gone node)
                     pass
 
     def create_placement_group(self, pg_id: str, bundles: List[dict], strategy: str) -> dict:
@@ -1710,7 +1713,7 @@ class GcsService(ChaosPartitionRpc):
                     if sock:
                         try:
                             _, avail = self._raylet_call(sock, "node_resources")
-                        except Exception:  # noqa: BLE001 - the next heartbeat refreshes it
+                        except Exception:  # lint: swallow-ok(advisory resource-view refresh)
                             continue
                         with self._locked(self._shard_for(nid)) as sh:
                             if nid in sh.nodes:
@@ -1759,7 +1762,7 @@ class GcsService(ChaosPartitionRpc):
                 if sock:
                     try:
                         self._raylet_call(sock, "release_bundle", pg_id, i)
-                    except Exception:  # noqa: BLE001 - bundle release on a gone node
+                    except Exception:  # lint: swallow-ok(bundle release on a dead/gone node)
                         pass
         return True
 
@@ -2125,8 +2128,8 @@ class GcsService(ChaosPartitionRpc):
                 try:
                     logs.extend(self._raylet_call(sock, "tail_logs", {"tail": 300},
                                                   timeout=30.0) or [])
-                except Exception:  # noqa: BLE001 - log tails are enrichment; rings are the contract
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(log tails are enrichment; the rings are the contract)
             _frec.dump(reason=f"incident harvest {incident_id}")
             time.sleep(0.5)  # the signalled workers' rings land
             with self._incident_lock:
@@ -2252,6 +2255,7 @@ def main(sock_path: str, snapshot_path: Optional[str] = None,
     servers = [RpcServer(sock_path, service)]
     if tcp_address:
         servers.append(RpcServer(tcp_address, service))
+        # console-output: bootstrap protocol, read from gcs.out by the head's Cluster
         print(f"GCS_TCP_ADDRESS={servers[-1].address}", flush=True)
     exit_with_parent(service._stop)
     try:

@@ -341,6 +341,7 @@ class RayletService(ChaosPartitionRpc):
         self._buf_wake.set()
 
     def _enqueue(self, entry: dict) -> None:
+        entry["_q_ts"] = time.monotonic()  # queue-to-dispatch latency
         entry["_node_incarnation"] = self._incarnation
         self._pending.put(entry)
         self._sched_wake.set()
@@ -377,6 +378,8 @@ class RayletService(ChaosPartitionRpc):
                 continue
             try:
                 self.gcs.call("node_sync", self.node_id, locs, evts, ep)
+                imet.GCS_SYNC_TOTAL.inc()
+                imet.GCS_SYNC_BATCH.observe(len(locs) + len(evts))
             except exc.StaleNodeEpochError:
                 # This incarnation is fenced: its seals and events are void
                 # (sent again after the rejoin they would advertise dangling
@@ -640,8 +643,8 @@ class RayletService(ChaosPartitionRpc):
                 try:
                     self._remote(info["sock"]).call("submit_task", spec_blob, True)
                     return
-                except Exception:  # noqa: BLE001 - died mid-forward
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(target died mid-forward; retried until deadline)
             elif not soft:
                 self._store_error_for(entry, RuntimeError(
                     f"hard NodeAffinity to {target_id[:12]}: node cannot ever satisfy "
@@ -678,8 +681,8 @@ class RayletService(ChaosPartitionRpc):
                 try:
                     self._remote(target["sock"]).call("submit_task", spec_blob, True)
                     return
-                except Exception:  # noqa: BLE001 - target died mid-forward; retried
-                    pass
+                except Exception:
+                    pass  # lint: swallow-ok(target died mid-forward; retried until deadline)
             time.sleep(0.1)
         self._store_error_for(entry, exc.SchedulingError(
             f"no node can satisfy {entry['resources']}"))
@@ -809,7 +812,7 @@ class RayletService(ChaosPartitionRpc):
                         return True
                 except exc.ObjectStoreFullError:
                     break  # pins may drop; retry within the deadline
-                except Exception:  # noqa: BLE001 - one dead location; try the next
+                except Exception:  # lint: swallow-ok(one dead location; try the next replica)
                     continue
             if self.store.contains(oid):
                 return True
@@ -1085,7 +1088,7 @@ class RayletService(ChaosPartitionRpc):
                 self._local_objects.pop(h, None)
             try:
                 self._gcs_call_fenced("remove_object_location", h, self.node_id)
-            except Exception:  # noqa: BLE001 - the directory heals on the next sync
+            except Exception:  # lint: swallow-ok(directory heals via node_sync batches)
                 pass
             return True
         raw = self.store.get_raw(oid)
@@ -1119,8 +1122,8 @@ class RayletService(ChaosPartitionRpc):
         target = max(0, int(self.store.capacity() * 0.95) - int(nbytes))
         try:
             self.gcs.call("flush_frees")
-        except Exception:  # noqa: BLE001 - advisory; eviction below is the guarantee
-            pass
+        except Exception:
+            pass  # lint: swallow-ok(advisory pre-pressure; eviction below is the guarantee)
         if self.store.bytes_in_use() <= target and self.store.fits(nbytes):
             return True
         return self._spill_to(target, fit=int(nbytes))
@@ -1459,6 +1462,7 @@ class RayletService(ChaosPartitionRpc):
                         _log.warning("could not store scheduling error for %s: %r",
                                      e.get("task_id", "?")[:8], store_err)
             self._waiting = still
+            imet.SCHED_QUEUE_DEPTH.set(len(still) + self._pending.qsize())
 
     def _deps_ready(self, entry: dict) -> bool:
         for dep_hex in entry.get("deps", []):
@@ -1522,6 +1526,7 @@ class RayletService(ChaosPartitionRpc):
                         a["worker_id"] = w.worker_id
                         a["resources_held"] = True
                         w.actor_rec = a
+            self._observe_dispatch(entry)
             if kind == "task":
                 self._schedule_span(entry)
             w.busy_with = entry
@@ -1544,10 +1549,17 @@ class RayletService(ChaosPartitionRpc):
                 return False
             with self._actor_lock:
                 a["inflight"].append(entry)  # the actor mailbox keeps submission order
+            self._observe_dispatch(entry)
             self._task_event(entry["task_id"], "RUNNING")
             w.mailbox.put({"type": "task", "entry": entry})
             return True
         return True
+
+    @staticmethod
+    def _observe_dispatch(entry: dict) -> None:
+        ts = entry.pop("_q_ts", None)
+        if ts is not None:
+            imet.SCHED_DISPATCH_LATENCY.observe((time.monotonic() - ts) * 1e3)
 
     def _schedule_span(self, entry: dict) -> None:
         """The middle rung of the submit -> schedule -> execute flow: a
@@ -1892,6 +1904,7 @@ class RayletService(ChaosPartitionRpc):
                             f"{entry.get('desc', 'task')} was cancelled"))
                     elif mr < 0 or mr - entry.get("attempt", 0) > 0:
                         entry["attempt"] = entry.get("attempt", 0) + 1
+                        imet.TASKS_RETRIED.inc()
                         self._task_event(entry["task_id"], "QUEUED")
                         self._enqueue(entry)
                     else:
@@ -1969,7 +1982,12 @@ class RayletService(ChaosPartitionRpc):
             with self._res_lock:
                 avail = dict(self.available)
             # No workers lock: a spawn holds it while the zygote answers.
-            n_workers = len(self._workers)
+            # list() copies each table in one step under the interpreter lock.
+            workers = list(self._workers.values())
+            n_workers = len(workers)
+            imet.WORKER_POOL_IDLE.set(sum(len(v) for v in list(self._idle.values())))
+            imet.WORKER_POOL_BUSY.set(sum(1 for w in workers if w.busy_with is not None))
+            imet.WORKER_POOL_LEASED.set(len(self._leases))
             with self._objects_lock:
                 n_spilled = len(self._spilled)
             stats = {"bytes_in_use": self.store.bytes_in_use(),

@@ -145,7 +145,8 @@ class RpcServer:
                     if req_id is None:
                         try:
                             getattr(server_self.service, method)(*args, **kwargs)
-                        except BaseException:  # noqa: BLE001 - one-way: no caller to tell
+                        # lint: swallow-ok(one-way submit; errors surface as stored error objects)
+                        except BaseException:
                             pass
                         if observe:
                             observe(method, (time.perf_counter() - t0) * 1e3)

@@ -347,6 +347,14 @@ def pack(value: Any) -> bytes:
     return out.getvalue()
 
 
+def pack_into(value: Any, dst: memoryview) -> int:
+    """Packs directly into a pre-sized writable buffer; returns bytes written."""
+    data = pack(value)
+    n = len(data)
+    dst[:n] = data
+    return n
+
+
 def packed_size(meta: bytes, buffers: List[memoryview]) -> int:
     return 4 + 8 + len(meta) + sum(8 + b.nbytes for b in buffers)
 

@@ -20,6 +20,7 @@ from typing import Any, Optional
 
 from .. import exceptions as exc
 from ..native.build import shm_pool_lib
+from ..utils import internal_metrics as imet
 from . import serialization
 from .ids import ObjectID
 
@@ -93,7 +94,7 @@ class _Pin:
     def __del__(self):
         try:
             self.release()
-        except Exception:  # interpreter teardown: the OS unmaps the pool
+        except Exception:  # lint: swallow-ok(interpreter teardown; the OS unmaps the pool)
             pass
 
 
@@ -197,6 +198,7 @@ class SharedMemoryStore:
             pos += flat.nbytes
         del dst
         self._lib.rtpt_seal(self._handle, oid.binary())
+        imet.STORE_PUTS.inc()
 
     def put_raw(self, oid: ObjectID, data: bytes) -> None:
         """Stores pre-framed bytes (used by the transfer path)."""
@@ -212,6 +214,7 @@ class SharedMemoryStore:
             raise OSError(-rc, "rtpt_create failed")
         self._mv[off.value : off.value + len(data)] = data
         self._lib.rtpt_seal(self._handle, oid.binary())
+        imet.STORE_PUTS.inc()
 
     # --------------------------------------------- chunked transfer path
     def begin_put_raw(self, oid: ObjectID, size: int) -> Optional[int]:
@@ -236,6 +239,7 @@ class SharedMemoryStore:
 
     def finish_put_raw(self, oid: ObjectID) -> None:
         self._lib.rtpt_seal(self._handle, oid.binary())
+        imet.STORE_PUTS.inc()
 
     def raw_size(self, oid: ObjectID) -> Optional[int]:
         off = ctypes.c_uint64()
@@ -350,7 +354,8 @@ class SharedMemoryStore:
                 if pre_pressure is not None:
                     try:
                         pre_pressure()
-                    except Exception:  # advisory pre-pressure; ensure_space below is the guarantee
+                    # lint: swallow-ok(advisory pre-pressure; ensure_space below is the guarantee)
+                    except Exception:
                         pass
                 raylet.call("ensure_space", e.nbytes)
                 try:

@@ -339,8 +339,8 @@ def main(argv: List[str]) -> None:
                     for h in entry["return_ids"]:
                         inline[h] = blob
                     return
-            except Exception:  # noqa: BLE001 - the store path below is the fallback
-                pass
+            except Exception:
+                pass  # lint: swallow-ok(inline pack failed; store path below is the fallback)
         for h in entry["return_ids"]:
             rid = ObjectID.from_hex(h)
             try:
@@ -690,7 +690,7 @@ def main(argv: List[str]) -> None:
                                     sender(("r",))
                                 except OSError:
                                     pass
-                    except Exception:  # noqa: BLE001 - the next check retries
+                    except Exception:  # lint: swallow-ok(lease check; the next check retries)
                         pass
                 continue
             sealed = []

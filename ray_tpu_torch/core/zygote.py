@@ -492,6 +492,7 @@ def main(sock_path: str, parent_pid: Optional[int] = None) -> None:
             f.write((json.dumps(reply) + "\n").encode())
             f.flush()
         except Exception as e:  # noqa: BLE001 - one bad request must not end the daemon
+            # console-output: the zygote logs to its stderr file (no structured logger before fork)
             print(f"zygote: request failed: {e!r}", file=sys.stderr, flush=True)
         finally:
             try:

@@ -47,6 +47,10 @@ class ActorDiedError(ActorError):
         return (ActorDiedError, (self.actor_id_hex, self.reason))
 
 
+class ActorUnavailableError(ActorError):
+    pass
+
+
 class GetTimeoutError(RayTpuError, TimeoutError):
     pass
 
@@ -178,6 +182,10 @@ class StaleNodeEpochError(RayTpuError, ConnectionError):
 
 
 class TaskCancelledError(RayTpuError):
+    pass
+
+
+class RuntimeEnvSetupError(RayTpuError):
     pass
 
 

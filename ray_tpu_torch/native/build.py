@@ -41,7 +41,9 @@ def build_library(name: str, sources: List[str]) -> str:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = (["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp)]
                + [str(NATIVE_DIR / s) for s in sources] + ["-lpthread"])
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # The lock serialises concurrent builders of the one output file;
+        # nothing latency-sensitive contends on it.
+        proc = subprocess.run(cmd, capture_output=True, text=True)  # lint: disable=blocking-in-loop
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"g++ failed on {sources}:\n{proc.stderr}")

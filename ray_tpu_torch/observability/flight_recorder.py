@@ -196,7 +196,7 @@ def install_crash_hooks(role: str = "") -> None:
             # shutdown path raised before doing any work): skip the file.
             if RECORDER.snapshot():
                 RECORDER.dump(reason=f"crash[{role}]: {tp.__name__}: {val}")
-        except Exception:  # noqa: BLE001 - dump must never mask the original crash
+        except Exception:  # lint: swallow-ok(dump must never mask the original crash)
             pass
         prev_except(tp, val, tb)
 
@@ -213,7 +213,7 @@ def install_crash_hooks(role: str = "") -> None:
                         f"{args.exc_type.__name__}: {args.exc_value}"
                     )
                 )
-        except Exception:  # noqa: BLE001 - dump must never mask the original crash
+        except Exception:  # lint: swallow-ok(dump must never mask the original crash)
             pass
         prev_thread(args)
 
@@ -228,7 +228,7 @@ def install_crash_hooks(role: str = "") -> None:
             try:
                 if RECORDER.snapshot():
                     RECORDER.dump(reason=f"signal[{role}]: SIGUSR2")
-            except Exception:  # noqa: BLE001 - signal-handler dump is best-effort
+            except Exception:  # lint: swallow-ok(signal-handler dump is best-effort)
                 pass
             # Chain a pre-existing user handler (e.g. an application's own
             # dump-on-signal); SIG_DFL/SIG_IGN are not callables.

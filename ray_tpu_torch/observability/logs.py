@@ -32,9 +32,10 @@ Env knobs:
 - RAY_TPU_LOG_TO_DRIVER=0   driver stops re-printing captured output
 - RAY_TPU_LOG_MONITOR=0     raylets stop tailing/publishing worker output
 
-The port's loggers live under `ray_tpu_torch`; the retention GC counts no
-eviction metric (the port's `raytpu_*` catalog holds only what its paths
-emit). This module imports only the standard library.
+The port's loggers live under `ray_tpu_torch`; the retention GC counts its
+evictions in `raytpu_logs_evicted_total`. This module imports only the
+standard library and the port's `utils/internal_metrics.py`, which imports
+only the standard library.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from ..utils import internal_metrics as imet
 
 _ROOT = "ray_tpu_torch"  # the logger every port module's logger descends from
 _DEFAULT_ROTATE_BYTES = 16 << 20
@@ -210,7 +213,7 @@ def _ambient_context() -> Dict[str, Optional[str]]:
         if ctx:
             out["task_id"] = ctx.get("task_id")
             out["actor_id"] = ctx.get("actor_id")
-    except Exception:  # noqa: BLE001 - ambient context is optional enrichment
+    except Exception:  # lint: swallow-ok(ambient context is optional enrichment)
         pass
     try:
         from .. import tracing
@@ -218,7 +221,7 @@ def _ambient_context() -> Dict[str, Optional[str]]:
         tctx = tracing.current_context()
         if tctx:
             out["trace_id"] = tctx.get("trace_id")
-    except Exception:  # noqa: BLE001 - trace context is optional enrichment
+    except Exception:  # lint: swallow-ok(trace context is optional enrichment)
         pass
     return out
 
@@ -239,7 +242,7 @@ class _JsonlHandler(logging.Handler):
                     f"[{rec['level']} {rec['component']}] {rec['msg']}\n"
                 )
                 sys.stderr.flush()
-        except Exception:  # noqa: BLE001 - logging must never take the process down
+        except Exception:  # lint: swallow-ok(logging must never take the process down)
             pass
 
 
@@ -375,6 +378,8 @@ def gc_log_dir(
             continue
         total -= size
         evicted += 1
+    if evicted:
+        imet.LOGS_EVICTED.inc(evicted)
     return evicted
 
 
@@ -499,7 +504,7 @@ def query_cluster(
         try:
             cli = RpcClient(n["sock"], connect_timeout=5.0)
             recs = cli.call("tail_logs", dict(filters, tail=tail), timeout=30.0)
-        except Exception:  # noqa: BLE001 - dead node; cluster query merges the live ones
+        except Exception:  # lint: swallow-ok(dead node; cluster query merges the live ones)
             continue
         finally:
             if cli is not None:
@@ -548,6 +553,7 @@ class DedupPrinter:
         window_s: float = 5.0,
         max_lines_per_s: int = 1000,
     ):
+        # console-output: the driver re-print of captured worker output
         self._print = print_fn or (lambda s: print(s, flush=True))
         self.window_s = window_s
         self.max_lines_per_s = max_lines_per_s

@@ -244,7 +244,8 @@ class Watchdog:
         while not self._stop.wait(self.interval_s):
             try:
                 self.poll_once()
-            except Exception:  # noqa: BLE001 - one bad tick must not kill the watchdog
+            # lint: swallow-ok(one bad tick must not kill the watchdog; poll_once logs per rule)
+            except Exception:
                 pass
 
     # -------------------------------------------------------- evaluation
@@ -353,8 +354,8 @@ class Watchdog:
         for rule in self.rules:
             try:
                 value, breached = self._evaluate(rule, now)
-            except Exception:  # noqa: BLE001 - a malformed rule: skipped this round
-                continue
+            except Exception:
+                continue  # lint: swallow-ok(malformed rule/missing series; rule skipped this round)
             with self._lock:
                 firing = rule.name in self._firing
                 if breached and not firing:
@@ -405,7 +406,8 @@ class Watchdog:
                     rule.op,
                     rule.threshold,
                 )
-            except Exception:  # noqa: BLE001 - logging is best effort; the publish is the contract
+            # lint: swallow-ok(alert logging is best-effort; publish below is the contract)
+            except Exception:
                 pass
             # Dump BEFORE publishing: the alert event carries its dump
             # path, and in-process subscribers may read the published
@@ -417,12 +419,12 @@ class Watchdog:
                         reason=f"watchdog: {rule.name} firing "
                         f"(value={value!r} threshold={rule.threshold})"
                     )
-                except Exception:  # noqa: BLE001 - flight dump is best-effort enrichment
+                except Exception:  # lint: swallow-ok(flight dump is best-effort enrichment)
                     pass
             try:
                 self._publish(event)
-            except Exception:  # noqa: BLE001 - no pubsub, no GCS: the event is returned
-                pass
+            except Exception:
+                pass  # lint: swallow-ok(pubsub down means GCS is down; alert kept in return value)
             published.append(event)
         return published
 

@@ -289,6 +289,6 @@ class LearnerGroup:
             for a in self._actors:
                 try:
                     api.kill(a)
-                except Exception:  # noqa: BLE001 - the actor may be dead already
+                except Exception:  # lint: swallow-ok(learner actor may already be dead)
                     pass
             self._actors = None

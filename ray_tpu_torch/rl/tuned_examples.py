@@ -141,7 +141,7 @@ def run_regression(name: str, verbose: bool = False, device=None) -> Dict[str, A
         if callable(stop):
             try:
                 stop()
-            except Exception:  # noqa: BLE001 - best-effort stop after the run completed
+            except Exception:  # lint: swallow-ok(best-effort algo stop after the run completed)
                 pass
     return {
         "passed": best >= spec.target_return,

@@ -145,8 +145,8 @@ def _keep_up(spec, cluster, stop, closers) -> dict:
         while not stop.wait(1.0):
             try:
                 im.reconcile()
-            except Exception:  # noqa: BLE001 - the next round tries again
-                pass
+            except Exception as e:  # noqa: BLE001 - the next round tries again
+                print(f"reconcile round failed: {e!r}", file=sys.stderr, flush=True)
 
     t = threading.Thread(target=reconcile, daemon=True, name="reconcile")
     t.start()

@@ -666,7 +666,7 @@ class ServeController:
                 for r in replacements:
                     try:
                         api.kill(r)
-                    except Exception:  # noqa: BLE001 - may already be dead
+                    except Exception:  # lint: swallow-ok(replica may already be dead)
                         pass
                 handled_all = False
                 continue
@@ -686,7 +686,7 @@ class ServeController:
                 for r in replacements:
                     try:
                         api.kill(r)
-                    except Exception:  # noqa: BLE001 - may already be dead
+                    except Exception:  # lint: swallow-ok(replica may already be dead)
                         pass
                 continue
             # The old replicas finish their in-flight requests, then die.

@@ -87,6 +87,10 @@ class Result:
     path: str
     error: Optional[BaseException] = None
 
+    @property
+    def best_checkpoints(self) -> List[Checkpoint]:
+        return [self.checkpoint] if self.checkpoint else []
+
 
 class TorchTrainer:
     """Data-parallel training over a worker gang.
@@ -193,10 +197,13 @@ class TorchTrainer:
                 _flight_record("train.elastic_growback", (sc.num_workers,))
                 if resume_ckpt is not None:
                     imet.CHECKPOINTS_RESTORED.inc()
-            except exc.PreemptionError as e:
-                # A notice drained the gang: a capacity event, not a training
-                # failure. Restore on replacement capacity on the preemption
-                # budget (bounded, so a flapping cluster still ends).
+            except (exc.PreemptionError, exc.SchedulingError, exc.RpcUnavailableError) as e:
+                # A notice drained the gang, or the gang could not be placed
+                # or reached (its nodes died or are cut off): a capacity
+                # event, not a training failure. Restore on replacement
+                # capacity on the preemption budget (bounded, so a flapping
+                # cluster still ends); a gang no node can host fails with
+                # CapacityTimeoutError once the wait runs out.
                 last_error = e
                 metrics = getattr(self, "_last_metrics", {})
                 preemptions += 1
@@ -218,6 +225,11 @@ class TorchTrainer:
                         err.__cause__ = e
                         last_error = err
                     break
+                if not isinstance(e, exc.PreemptionError):
+                    # A node whose raylet is cut off looks alive until the
+                    # GCS declares it dead, so the wait above can return at
+                    # once: pause 0.5 s, doubling up to 8 s, before relaunching.
+                    time.sleep(min(0.5 * 2 ** (preemptions - 1), 8.0))
             except Exception as e:  # noqa: BLE001 - recorded in the Result
                 last_error = e
                 metrics = getattr(self, "_last_metrics", {})
@@ -481,7 +493,7 @@ class TorchTrainer:
                         for w in group.workers:
                             try:
                                 w.request_drain.remote()
-                            except Exception:  # noqa: BLE001 - a dead worker's drain is moot
+                            except Exception:  # lint: swallow-ok(worker already dead; drain moot)
                                 pass
                 # Bounded rounds on the cluster runtime: a worker mid-step
                 # answers "pending", so the drain check above runs again

@@ -283,6 +283,6 @@ class WorkerGroup:
         for w in self._workers:
             try:
                 api.kill(w)
-            except Exception:  # worker may already be dead
+            except Exception:  # lint: swallow-ok(worker may already be dead)
                 pass
         self._workers = []

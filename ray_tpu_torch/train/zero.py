@@ -152,6 +152,17 @@ class ZeroSharder:
                                  f"({self.padded[int(i)] // self.n},); use from_logical")
         optimizer.load_state_dict(state_dict)
 
+    def opt_specs(self, optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+        """Placement tree of the ZeRO optimizer's state over the sharder's
+        axis, keyed as `to_logical` keys it: each leaf's moments are this
+        rank's slice of a flat vector, sharded along dim 0 ((Shard(0),));
+        the step count is replicated ((Replicate(),)). JAX's `opt_specs`
+        gives P(axis) and P() for the same leaves."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        sharded = {str(i): (Shard(0),) for i in range(len(_optimizer_shards(optimizer)))}
+        return {"count": (Replicate(),), "mu": dict(sharded), "nu": dict(sharded)}
+
     # ------------------------------------------------------------ update
     def _apply(self, params, optimizer: torch.optim.Optimizer,
                grad_shards: List[torch.Tensor]) -> None:

@@ -101,6 +101,13 @@ class ResultGrid:
         key = lambda r: r.metrics[metric]  # noqa: E731
         return max(ok, key=key) if mode == "max" else min(ok, key=key)
 
+    def get_dataframe(self):
+        """One row of final metrics per trial; needs pandas (imported here,
+        so ImportError where it is absent)."""
+        import pandas as pd
+
+        return pd.DataFrame([r.metrics for r in self._results])
+
 
 class Tuner:
     """(reference: python/ray/tune/tuner.py:44)"""
@@ -264,7 +271,7 @@ class _TuneController:
                 # Unblock the training thread (it unwinds with TrialAborted
                 # at its next report) before tearing the actor down.
                 api.get(tracked.handle.stop_training.remote())
-            except Exception:  # the trial actor may already be dead; removed below
+            except Exception:  # lint: swallow-ok(trial actor may already be dead; removed below)
                 pass
             self._mgr.remove_actor(tracked, kill=True)
         trial.status = status

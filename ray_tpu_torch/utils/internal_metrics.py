@@ -1,11 +1,15 @@
 """Runtime-internal metrics (ray_tpu/utils/internal_metrics.py for the
-PyTorch port), trimmed to the catalog entries that the LLM engine, Serve,
-compiled graphs and the feed's channels, Data's executors and operator
-pools, the chaos controller, the cluster
-runtime (its object plane, fast path, GCS and error table included), the
-trainer, the GCS's trigger bus, RPCs and heartbeat lag, the raylet's log
-monitor, the lock-order detector (utils/lock_order.py) and the per-node
-ReporterAgent record into.
+PyTorch port): the catalog entries that the port's paths record into. Those
+are the LLM engine, Serve, compiled graphs and the feed's channels, Data's
+executors and operator pools, the chaos controller, the cluster runtime
+(the raylet's scheduler, worker pool, GCS sync and task retries, the object
+plane and the store's puts, the fast path, the GCS with its actor restarts,
+error table, trigger bus, RPCs and heartbeat lag), the trainer, the log
+monitor and the log retention GC, the lock-order detector
+(utils/lock_order.py) and the per-node ReporterAgent. Every entry is
+recorded somewhere and every `raytpu_*` name the port reads is declared
+here: `python -m ray_tpu_torch.devtools.lint`'s metric-catalog rule holds
+both directions.
 
 The instruments keep the JAX package's surface: `Counter.inc`,
 `Gauge.set`, `Histogram.observe`, and `.labels(**tags)` returning a bound
@@ -569,6 +573,17 @@ RL_SAMPLE_TIME = Histogram(
     component="rl",
     boundaries=[1, 5, 10, 50, 100, 500, 1000, 5000, 10000, 60000],
 )
+# --- recovery: `status`'s recovery line reads these --------------------------
+ACTOR_RESTARTS = Counter(
+    "raytpu_actor_restarts_total",
+    "Actor restarts driven by the GCS restart state machine (max_restarts)",
+    component="gcs",
+)
+TASKS_RETRIED = Counter(
+    "raytpu_tasks_retried_total",
+    "Task attempts re-queued after a worker died mid-execution",
+    component="raylet",
+)
 CHECKPOINTS_RESTORED = Counter(
     "raytpu_checkpoints_restored_total",
     "Training attempts resumed from a checkpoint after a gang failure",
@@ -585,7 +600,34 @@ NODES_FENCED = Counter(
     "(zombies made to register again)",
     component="gcs",
 )
-# --- object transport / shm store (core/raylet.py) ---------------------------
+# --- the raylet's scheduler and its control-plane batching (core/raylet.py) --
+SCHED_QUEUE_DEPTH = Gauge(
+    "raytpu_sched_queue_depth",
+    "Task entries waiting in the raylet local scheduler",
+    component="scheduler",
+)
+SCHED_DISPATCH_LATENCY = Histogram(
+    "raytpu_sched_dispatch_latency_ms",
+    "Queue-to-dispatch latency of raylet-scheduled entries",
+    component="scheduler",
+)
+GCS_SYNC_TOTAL = Counter(
+    "raytpu_raylet_gcs_sync_total",
+    "Batched raylet->GCS location/task-event flushes",
+    component="scheduler",
+)
+GCS_SYNC_BATCH = Histogram(
+    "raytpu_raylet_gcs_sync_batch",
+    "Records per raylet->GCS sync batch",
+    component="scheduler",
+    boundaries=[1, 2, 5, 10, 25, 50, 100, 250, 1000],
+)
+# --- object transport / shm store (core/{raylet,shm_store}.py) ---------------
+STORE_PUTS = Counter(
+    "raytpu_store_puts_total",
+    "Objects written into the shm object store by this process",
+    component="object_transport",
+)
 OBJECT_BYTES_IN = Counter(
     "raytpu_object_bytes_in_total",
     "Bytes pulled into this node's store from remote nodes",
@@ -611,7 +653,22 @@ OBJECT_RESTORE_TOTAL = Counter(
     "Spilled objects restored into the shm pool",
     component="object_transport",
 )
-# --- worker pool and zygote (core/worker_pool.py, core/zygote.py) ----------
+# --- worker pool and zygote (core/{raylet,worker_pool,zygote}.py) ----------
+WORKER_POOL_IDLE = Gauge(
+    "raytpu_worker_pool_idle",
+    "Idle pooled workers on this node",
+    component="worker_pool",
+)
+WORKER_POOL_BUSY = Gauge(
+    "raytpu_worker_pool_busy",
+    "Workers executing an entry on this node",
+    component="worker_pool",
+)
+WORKER_POOL_LEASED = Gauge(
+    "raytpu_worker_pool_leased",
+    "Workers leased to owners for direct pushes",
+    component="worker_pool",
+)
 WORKER_POOL_HITS = Counter(
     "raytpu_worker_pool_hits_total",
     "Worker demand served warm, by tier: idle (a live pooled worker adopted) "
@@ -715,6 +772,11 @@ POSTMORTEM_INCIDENTS = Counter(
     "flight-ring harvest into a bundle)",
     component="gcs",
 )
+LOGS_EVICTED = Counter(
+    "raytpu_logs_evicted_total",
+    "Session log files evicted by the size-capped retention GC",
+    component="raylet",
+)
 LOG_LINES_PUBLISHED = Counter(
     "raytpu_log_lines_published_total",
     "Captured worker output lines published on the logs pubsub channel",
@@ -814,7 +876,7 @@ class ReporterAgent:
         while not self._stop.wait(self.interval_s):
             try:
                 self.collect_once()
-            except Exception:  # noqa: BLE001 - one bad round; the next tick retries
+            except Exception:  # lint: swallow-ok(one bad sample round; reporter retries next tick)
                 pass
 
     def collect_once(self) -> None:

@@ -85,19 +85,19 @@ def _report(kind: str, signature: Tuple, detail: Dict[str, Any]) -> None:
         from ..observability.flight_recorder import record as _flight_record
 
         _flight_record(f"lock.order_{kind}", detail)
-    except Exception:  # noqa: BLE001 - detector reporting must never break the runtime
+    except Exception:  # lint: swallow-ok(detector reporting must never break the runtime)
         pass
     try:
         from . import internal_metrics as imet
 
         imet.LOCK_ORDER_VIOLATIONS.inc(kind=kind)
-    except Exception:  # noqa: BLE001 - detector reporting must never break the runtime
+    except Exception:  # lint: swallow-ok(detector reporting must never break the runtime)
         pass
     try:
         from ..observability.logs import get_logger
 
         get_logger("lock_order").warning("lock-order %s: %s", kind, detail)
-    except Exception:  # noqa: BLE001 - detector reporting must never break the runtime
+    except Exception:  # lint: swallow-ok(detector reporting must never break the runtime)
         pass
 
 

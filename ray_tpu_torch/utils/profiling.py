@@ -65,6 +65,7 @@ def span(name: str) -> Iterator[None]:
     with torch.profiler.record_function(name):
         yield
     dt = time.perf_counter() - t0
+    # console-output: user-invoked timing utility
     print(f"[span] {name}: {dt * 1e3:.2f} ms", flush=True)
 
 

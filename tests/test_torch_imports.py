@@ -20,8 +20,9 @@ def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     # gymnasium and gym: the card's machine has neither (rl/envs.py keeps the
     # port's own copies of the two environments it runs).
+    # tools: the JAX tree's scripts (the port keeps its own copy of the lint).
     return top in ("jax", "jaxlib", "ray_tpu", "optax", "orbax", "flax", "ml_dtypes",
-                   "cloudpickle", "gymnasium", "gym")
+                   "cloudpickle", "gymnasium", "gym", "tools")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -47,7 +48,7 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'ml_dtypes', 'orbax',\n"
-        "                              'cloudpickle', 'gymnasium', 'gym')]\n"
+        "                              'cloudpickle', 'gymnasium', 'gym', 'tools')]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
